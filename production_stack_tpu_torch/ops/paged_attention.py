@@ -1,0 +1,202 @@
+"""Paged causal GQA attention: the CUDA kernels' wrappers, their plain
+PyTorch versions and their launch counts.
+
+Replaces ``production_stack_tpu/ops/pallas_paged.py``:
+
+- ``paged_decode_attention`` <- ``_paged_decode_kernel`` /
+  ``paged_decode_attention`` (pallas_paged.py:325-510), T <= 8;
+- ``paged_attention`` <- ``_paged_kernel`` / ``paged_attention``
+  (pallas_paged.py:75-272), prefill chunks of any T.
+
+Both kernels live in ``csrc/paged_attention.cu``, whose header says what
+bounds them on an H100 (decode: device-memory bytes; prefill:
+arithmetic) and what this first design does about it. A wrapper given
+CPU tensors computes the plain version (gather through the table, then
+the masked f32 softmax of ops/attention.py); given CUDA tensors it
+launches its kernel or raises — there is no fallback between the two.
+
+A row parked at ``start >= MB*Bs`` (an idle slot of the full-batch
+forward, whose output the engine discards) comes back as zeros from both
+the kernels and the plain version, which do no work for it. The Pallas
+kernels attend such a row over all ``nb`` blocks and return a finite
+value nobody reads; live rows agree with them.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from production_stack_tpu_torch import kernels
+from production_stack_tpu_torch.models.kv import gather_view
+from production_stack_tpu_torch.ops.attention import attention_with_cache
+
+# decode windows have T <= this; longer chunks take the prefill kernel
+DECODE_T_MAX = 8
+# prefill query tiles hold at most this many (position, head) rows, so
+# a tile's shared memory stays under the 227 KB a block may use
+PREFILL_TILE_ROWS = 64
+
+# kernel launches per wrapper, counted where the kernel is launched and
+# nowhere else (the plain CPU path does not count)
+launch_counts = {"paged_decode_attention": 0, "paged_attention": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_lib_handle = None
+
+
+def _lib():
+    global _lib_handle
+    if _lib_handle is None:
+        lib = kernels.load("paged_attention")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        common = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i]
+        lib.paged_decode_attention.argtypes = common + [f, p]
+        lib.paged_decode_attention.restype = i
+        lib.paged_prefill_attention.argtypes = common + [i, f, p]
+        lib.paged_prefill_attention.restype = i
+        lib.paged_attention_error_string.argtypes = [i]
+        lib.paged_attention_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _refuse_flags(k_scales, v_scales, window, softcap) -> None:
+    """int8 pools, sliding windows and softcaps arrive with the slices
+    that need them (int8 KV, Mistral v0.1, Gemma-2)."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError("int8 KV pools are not ported yet")
+    if window:
+        raise NotImplementedError("sliding-window attention is not "
+                                  "ported yet")
+    if softcap:
+        raise NotImplementedError("attention softcap is not ported yet")
+
+
+def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, tables: torch.Tensor,
+                          starts: torch.Tensor, nb: int,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of both kernels: gather the first nb blocks of
+    every row through its table, then masked f32-softmax attention;
+    parked rows (start >= MB*Bs) are zeros. Returns [B, T, H, D] in q's
+    dtype."""
+    T = q.shape[1]
+    k_att = gather_view(k_pool, tables, nb)
+    v_att = gather_view(v_pool, tables, nb)
+    positions = starts.long()[:, None] + torch.arange(T, device=q.device)
+    out = attention_with_cache(q, k_att, v_att, positions, scale=scale)
+    live = starts < tables.shape[1] * k_pool.shape[2]
+    return torch.where(live[:, None, None, None], out,
+                       torch.zeros((), dtype=out.dtype,
+                                   device=out.device)).to(q.dtype)
+
+
+def _check_cuda_args(q, k_pool, v_pool, tables, starts, nb):
+    B, T, H, D = q.shape
+    N, Hkv, Bs, Dk = k_pool.shape
+    if not (q.is_cuda and k_pool.device == q.device
+            and v_pool.device == q.device and tables.device == q.device
+            and starts.device == q.device):
+        raise ValueError("paged attention: every tensor must be on the "
+                         "same CUDA device")
+    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise TypeError(f"paged attention kernels take float32 or "
+                        f"bfloat16 q and pools of the same dtype (got "
+                        f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype})")
+    if tables.dtype != torch.int32 or starts.dtype != torch.int32:
+        raise TypeError("tables and starts must be int32")
+    if D not in (64, 128) or Dk != D or v_pool.shape != k_pool.shape:
+        raise ValueError(f"unsupported head dim / pool shape: q {tuple(q.shape)}, "
+                         f"pool {tuple(k_pool.shape)} (D must be 64 or 128)")
+    if H % Hkv or tables.shape[0] != B or starts.shape != (B,):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, Hkv {Hkv}, "
+                         f"tables {tuple(tables.shape)}, starts "
+                         f"{tuple(starts.shape)}")
+    if not 1 <= nb <= tables.shape[1]:
+        raise ValueError(f"nb={nb} must be in [1, MB={tables.shape[1]}]")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("tables", tables), ("starts", starts)):
+        if not t.is_contiguous():
+            raise ValueError(f"paged attention: {name} must be contiguous")
+    return B, T, H, D, N, Hkv, Bs
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _lib().paged_attention_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed ({rc}): {msg}")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, tables: torch.Tensor,
+                           starts: torch.Tensor, *, nb: int,
+                           scale: Optional[float] = None,
+                           k_scales=None, v_scales=None, window: int = 0,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Causal GQA of a short query window (T <= DECODE_T_MAX) over the
+    paged pool. q [B,T,H,D]; k/v pool [N,Hkv,Bs,D]; tables [B,MB] int32;
+    starts [B] int32. See the module doc and csrc/paged_attention.cu."""
+    _refuse_flags(k_scales, v_scales, window, softcap)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return paged_attention_plain(q, k_pool, v_pool, tables, starts, nb,
+                                     scale)
+    B, T, H, D, N, Hkv, Bs = _check_cuda_args(q, k_pool, v_pool, tables,
+                                              starts, nb)
+    if T > DECODE_T_MAX:
+        raise ValueError(f"decode kernel takes T <= {DECODE_T_MAX} "
+                         f"(got {T}); use paged_attention")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        tables.data_ptr(), starts.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, T, H, Hkv, D, Bs, tables.shape[1], nb, N,
+        float(scale), stream)
+    _raise_on(rc, "paged_decode_attention")
+    launch_counts["paged_decode_attention"] += 1
+    return out
+
+
+def prefill_block_q(T: int, groups: int) -> int:
+    """Query positions per prefill tile: as many as keep the tile at
+    PREFILL_TILE_ROWS (position, head) rows, and never more than T."""
+    return max(1, min(T, PREFILL_TILE_ROWS // groups))
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, tables: torch.Tensor,
+                    starts: torch.Tensor, *, nb: int,
+                    scale: Optional[float] = None,
+                    k_scales=None, v_scales=None, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Causal GQA of a query chunk of any length over the paged pool
+    (prefill), tiled over the query axis. Same arguments and result as
+    paged_decode_attention."""
+    _refuse_flags(k_scales, v_scales, window, softcap)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return paged_attention_plain(q, k_pool, v_pool, tables, starts, nb,
+                                     scale)
+    B, T, H, D, N, Hkv, Bs = _check_cuda_args(q, k_pool, v_pool, tables,
+                                              starts, nb)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().paged_prefill_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        tables.data_ptr(), starts.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, T, H, Hkv, D, Bs, tables.shape[1], nb, N,
+        prefill_block_q(T, H // Hkv), float(scale), stream)
+    _raise_on(rc, "paged_attention")
+    launch_counts["paged_attention"] += 1
+    return out

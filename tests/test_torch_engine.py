@@ -1,0 +1,429 @@
+"""The PyTorch port's serving path against the JAX package's on the CPU:
+sampler contracts, the ModelRunner, the LLMEngine, the HTTP server, the
+options the port refuses, and the port's import isolation.
+
+Engines compare in float32 weights and KV (so argmax ties cannot flip
+between two libraries' summation orders) on weights drawn once by the
+JAX package and carried across (weights.params_from_jax). Greedy ids
+must match exactly; logprobs to 1e-4 (float32 log_softmax over logits
+that agree to 1e-4, tests/test_torch_model.py).
+"""
+
+import asyncio
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from aiohttp.test_utils import TestClient, TestServer
+
+from production_stack_tpu.engine import config as jec
+from production_stack_tpu.engine import engine as jengine
+from production_stack_tpu.engine import runner as jrunner
+from production_stack_tpu.engine import sampler as jsampler
+from production_stack_tpu.engine.scheduler import (
+    SamplingOptions as JSamplingOptions)
+from production_stack_tpu.models import config as jconfig
+from production_stack_tpu.models import llama as jllama
+from production_stack_tpu_torch.engine import config as tec
+from production_stack_tpu_torch.engine import engine as tengine
+from production_stack_tpu_torch.engine import runner as trunner
+from production_stack_tpu_torch.engine import sampler as tsampler
+from production_stack_tpu_torch.engine.async_engine import AsyncLLMEngine
+from production_stack_tpu_torch.engine.scheduler import SamplingOptions
+from production_stack_tpu_torch.engine.server import build_app
+from production_stack_tpu_torch.models import config as tconfig
+from production_stack_tpu_torch.models import kv as tkv
+from production_stack_tpu_torch.models import llama as tllama
+from production_stack_tpu_torch.weights import cache_from_jax, params_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# ---------------------------------------------------------------- sampler
+
+def _logits(seed, B=4, V=64):
+    return np.random.default_rng(seed).standard_normal((B, V)).astype(
+        np.float32) * 3
+
+
+def test_sample_greedy_is_exact_argmax_as_in_jax():
+    lg = _logits(0)
+    B = lg.shape[0]
+    got = tsampler.sample(torch.from_numpy(lg),
+                          tsampler.SamplingParams.filled(B, temperature=0.0,
+                                                        device="cpu"),
+                          torch.Generator().manual_seed(0))
+    want = jsampler.sample(jnp.asarray(lg),
+                           jsampler.SamplingParams.filled(B,
+                                                          temperature=0.0),
+                           jax.random.PRNGKey(0))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), lg.argmax(-1))
+
+
+@pytest.mark.parametrize("kw", [dict(top_k=1), dict(temperature=1e-7),
+                                dict(top_p=1e-6), dict(min_p=1.0)])
+def test_sample_degenerate_truncations_equal_greedy(kw):
+    lg = _logits(1)
+    B = lg.shape[0]
+    params = tsampler.SamplingParams.filled(B, **kw, device="cpu")
+    for seed in range(3):
+        got = tsampler.sample(torch.from_numpy(lg), params,
+                              torch.Generator().manual_seed(seed))
+        np.testing.assert_array_equal(got.numpy(), lg.argmax(-1))
+
+
+def test_seeded_rows_reproduce_whatever_the_batch():
+    """The same (seed, position) gives the same token in any batch and
+    whatever the engine generator's state: the contract the JAX
+    package's threefry rows keep, with other noise."""
+    V = 64
+    lg = _logits(2, B=5, V=V)
+    row = lg[3:4]
+
+    def run(logits, seeds, positions, gen_seed):
+        B = logits.shape[0]
+        p = tsampler.SamplingParams.filled(B, temperature=1.0, device="cpu")
+        p.seed = torch.tensor(seeds, dtype=torch.int64)
+        return tsampler.sample(torch.from_numpy(logits), p,
+                               torch.Generator().manual_seed(gen_seed),
+                               positions=torch.tensor(positions))
+
+    alone = [run(row, [7], [11], g).item() for g in range(4)]
+    assert len(set(alone)) == 1
+    batched = run(lg, [0, 3, 0, 7, 9], [5, 6, 7, 11, 2], gen_seed=99)
+    assert batched[3].item() == alone[0]
+    # the noise varies with seed and position
+    draws = {run(row, [s], [p], 0).item() for s in range(1, 9)
+             for p in range(4)}
+    assert len(draws) > 1
+
+
+# ---------------------------------------------------------- runner/engine
+
+def _weights(seed=0):
+    jcfg = dataclasses.replace(jconfig.get_config("debug-tiny"),
+                               dtype=jnp.float32)
+    tcfg = dataclasses.replace(tconfig.get_config("debug-tiny"),
+                               dtype=torch.float32)
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(seed))
+    np_params = jax.tree_util.tree_map(np.asarray, jparams)
+    return jcfg, tcfg, jparams, params_from_jax(np_params, tcfg,
+                                                   device="cpu")
+
+
+_F32 = dict(model="debug-tiny", dtype="float32", kv_dtype="float32")
+
+
+def test_runner_prefill_and_decode_windows_match_jax():
+    jcfg, tcfg, jparams, tparams = _weights(1)
+    common = dict(_F32, max_model_len=64, max_num_seqs=3, prefill_chunk=16,
+                  prefill_buckets=(16,), decode_window=4, kv_block_size=8)
+    jr = jrunner.ModelRunner(jcfg, jec.EngineConfig(**common,
+                                                    window_adapt=False),
+                             params=jparams)
+    tr = trunner.ModelRunner(tcfg, tec.EngineConfig(**common, device="cpu"),
+                             params=tparams)
+    B, S, kv = 3, 64, 64
+    rng = np.random.default_rng(5)
+    tables = (rng.permutation(B * 8) + 1).reshape(B, 8).astype(np.int32)
+    for r in (jr, tr):
+        r.set_block_tables(tables)
+    tokens = rng.integers(0, 512, (B, 16)).astype(np.int32)
+    starts = np.array([0, 0, S], np.int32)            # row 2 parked
+    lengths = np.array([16, 9, 1], np.int32)
+    jids, jlps, _ = jr.prefill(tokens, starts, lengths,
+                            jsampler.SamplingParams.filled(
+                                B, temperature=0.0), kv)
+    tids, tlps = tr.prefill(tokens, starts, lengths,
+                            tsampler.SamplingParams.filled(
+                                B, temperature=0.0, device="cpu"), kv,
+                            greedy=True)
+    np.testing.assert_array_equal(tids.numpy()[:2], np.asarray(jids)[:2])
+    np.testing.assert_allclose(tlps.numpy()[:2], np.asarray(jlps)[:2],
+                               rtol=0, atol=1e-4)
+    first = np.asarray(jids)
+    positions = np.where(starts < S, lengths, S).astype(np.int32)
+    for r in (jr, tr):
+        r.set_decode_state(first, positions)
+    for _ in range(3):
+        jw, jl, _, _ = jr.decode(
+            jsampler.SamplingParams.filled(B, temperature=0.0), steps=4,
+            kv_len=kv, greedy=True)
+        tw, tl = tr.decode(tsampler.SamplingParams.filled(
+            B, temperature=0.0, device="cpu"), steps=4, kv_len=kv,
+            greedy=True)
+        np.testing.assert_array_equal(tw.numpy()[:2], np.asarray(jw)[:2])
+        np.testing.assert_allclose(tl.numpy()[:2], np.asarray(jl)[:2],
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("prefix_caching", [False, True])
+def test_engine_greedy_tokens_equal_jax_engine_mixed_batch(prefix_caching):
+    """Five prompts of mixed lengths (two span several prefill chunks,
+    the last repeats the second's first 33 tokens) through three slots:
+    admission waits, chunked prefill interleaved with decode windows,
+    ragged budgets, and with prefix caching a shared-block admission.
+    Greedy tokens equal the JAX engine's, sequence by sequence."""
+    _, _, jparams, tparams = _weights(2)
+    common = dict(_F32, max_model_len=128, max_num_seqs=3,
+                  prefill_chunk=32, prefill_buckets=(16, 32),
+                  decode_window=4, kv_block_size=8,
+                  enable_prefix_caching=prefix_caching)
+    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
+                           params=jparams)
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+                           params=tparams)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (5, 40, 70, 12)]
+    prompts.append(prompts[1][:33] + [7, 7])
+    budgets = (10, 6, 12, 20, 8)
+
+    def run(engine, opts_cls):
+        ids = [engine.add_request(p, opts_cls(temperature=0.0,
+                                              max_tokens=m,
+                                              ignore_eos=True))
+               for p, m in zip(prompts, budgets)]
+        while engine.has_work:
+            engine.step()
+        return [engine.seqs[i].output_tokens for i in ids]
+
+    want = run(je, JSamplingOptions)
+    got = run(te, SamplingOptions)
+    assert [len(t) for t in got] == list(budgets)
+    assert got == want
+
+
+def test_prefix_keys_and_fingerprint_match_jax():
+    """Prefix-cache keys are the JAX package's, byte for byte, so KV
+    chunks keyed by one package are found by the other."""
+    from production_stack_tpu.engine.block_manager import (
+        BlockManager as JBlockManager)
+    from production_stack_tpu.kvcache.chunks import (
+        model_fingerprint as jfingerprint)
+    from production_stack_tpu_torch.engine.block_manager import (
+        BlockManager, model_fingerprint)
+    for name in ("debug-tiny", "llama-3-8b"):
+        assert model_fingerprint(tconfig.get_config(name), "bfloat16") == \
+            jfingerprint(jconfig.get_config(name), "bfloat16")
+    toks = list(range(100, 170))
+    ns = model_fingerprint(tconfig.get_config("debug-tiny"))
+    assert BlockManager(16, 8, True, ns).prefix_keys(toks) == \
+        JBlockManager(16, 8, True, ns).prefix_keys(toks)
+
+
+def test_engine_refuses_unported_options():
+    te = tengine.LLMEngine(tec.EngineConfig(
+        model="debug-tiny", device="cpu", max_model_len=64, max_num_seqs=1,
+        prefill_chunk=16, prefill_buckets=(16,)))
+    for kw in (dict(presence_penalty=0.5), dict(logit_bias={1: 2.0}),
+               dict(guided_regex="a+"), dict(top_logprobs=2),
+               dict(min_tokens=3), dict(repetition_penalty=1.2)):
+        with pytest.raises(ValueError, match="not implemented"):
+            te.add_request([1, 2, 3], SamplingOptions(**kw))
+    with pytest.raises(ValueError, match="LoRA"):
+        te.add_request([1, 2], SamplingOptions(), model="my-adapter")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(speculative_ngram_tokens=2), dict(quantization="int8"),
+    dict(kv_dtype="int8"), dict(tensor_parallel_size=2),
+    dict(window_adapt=True), dict(pipeline_depth=2),
+    dict(lora_adapters={"a": "random:1"}),
+    dict(kv_transfer_config={"kv_role": "kv_both"})])
+def test_engine_config_pins_unported_options(kw):
+    with pytest.raises(NotImplementedError):
+        tec.EngineConfig(model="debug-tiny", device="cpu", **kw)
+
+
+def test_engine_config_without_device_needs_cuda():
+    """The entry points run on the card unless the caller asks for the
+    CPU: with no CUDA they raise rather than drop to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tec.EngineConfig()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tec.EngineConfig(model="debug-tiny", device="cuda:0")
+
+
+@pytest.mark.parametrize("build", [
+    lambda: tllama.Llama(tconfig.get_config("debug-tiny")),
+    lambda: tllama.init_params(tconfig.get_config("debug-tiny"),
+                               torch.Generator()),
+    lambda: tkv.make_cache(1, 2, 8, 1, 8),
+    lambda: tkv.linear_tables(2, 16, 8),
+    lambda: tkv.make_slot_cache(1, 2, 16, 1, 8),
+    lambda: params_from_jax({}, tconfig.get_config("debug-tiny")),
+    lambda: cache_from_jax(np.zeros((1, 2, 1, 8, 8), np.float32),
+                           np.zeros((1, 2, 1, 8, 8), np.float32)),
+    lambda: tsampler.SamplingParams.filled(2),
+], ids=["Llama", "init_params", "make_cache", "linear_tables",
+        "make_slot_cache", "params_from_jax", "cache_from_jax",
+        "SamplingParams.filled"])
+def test_library_defaults_to_cuda(build):
+    """The library's constructors default to the card as the engine
+    does: with no CUDA they raise rather than build on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
+
+
+# ----------------------------------------------------------------- server
+
+_SERVER_CFG = dict(model="debug-tiny", device="cpu", max_model_len=128,
+                   max_num_seqs=2, prefill_chunk=32,
+                   prefill_buckets=(16, 32), decode_window=4)
+
+
+def _with_client(engine, coro):
+    async def runner():
+        async with TestClient(TestServer(build_app(engine))) as client:
+            return await coro(client)
+    return asyncio.run(runner())
+
+
+@pytest.fixture(scope="module")
+def engine():
+    eng = AsyncLLMEngine(tec.EngineConfig(**_SERVER_CFG))
+    eng.engine.runner.warmup()
+    return eng
+
+
+def test_server_smoke(engine):
+    async def body(client):
+        r = await client.get("/health")
+        assert r.status == 200
+        r = await client.get("/v1/models")
+        assert (await r.json())["data"][0]["id"] == "debug-tiny"
+        # a completion whose prompt spans two prefill chunks
+        prompt = "the quick brown fox jumps over the lazy dog " * 2
+        payload = {"model": "debug-tiny", "prompt": prompt,
+                   "max_tokens": 6, "temperature": 0.0,
+                   "ignore_eos": True, "logprobs": 0}
+        r1, r2 = await asyncio.gather(
+            client.post("/v1/completions", json=payload),
+            client.post("/v1/chat/completions", json={
+                "model": "debug-tiny", "max_tokens": 5, "ignore_eos": True,
+                "messages": [{"role": "user", "content": "hello"}]}))
+        assert (r1.status, r2.status) == (200, 200)
+        d1, d2 = await r1.json(), await r2.json()
+        assert d1["usage"]["completion_tokens"] == 6
+        assert d1["choices"][0]["finish_reason"] == "length"
+        assert len(d1["choices"][0]["logprobs"]["token_logprobs"]) == 6
+        assert d2["object"] == "chat.completion"
+        assert d2["usage"]["completion_tokens"] == 5
+        # greedy twice: the same text
+        r3 = await client.post("/v1/completions", json=payload)
+        assert (await r3.json())["choices"][0]["text"] == \
+            d1["choices"][0]["text"]
+        r = await client.post("/v1/chat/completions", json={
+            "model": "debug-tiny", "max_tokens": 4, "stream": True,
+            "ignore_eos": True, "stream_options": {"include_usage": True},
+            "messages": [{"role": "user", "content": "hi"}]})
+        assert r.status == 200
+        assert r.headers["Content-Type"].startswith("text/event-stream")
+        events = [ln[len("data: "):] for ln in
+                  (await r.read()).decode().splitlines()
+                  if ln.startswith("data: ")]
+        assert events[-1] == "[DONE]"
+        chunks = [json.loads(e) for e in events[:-1]]
+        assert chunks[0]["choices"][0]["delta"]["role"] == "assistant"
+        assert chunks[-2]["choices"][0]["finish_reason"] == "length"
+        assert chunks[-1]["usage"]["completion_tokens"] == 4
+    _with_client(engine, body)
+
+
+@pytest.mark.parametrize("path,extra,field", [
+    ("/v1/chat/completions", {"guided_regex": "a+"}, "guided_regex"),
+    ("/v1/chat/completions", {"guided_choice": ["a", "b"]},
+     "guided_choice"),
+    ("/v1/chat/completions", {"presence_penalty": 0.5}, "presence_penalty"),
+    ("/v1/chat/completions", {"frequency_penalty": 0.5},
+     "frequency_penalty"),
+    ("/v1/chat/completions", {"logit_bias": {"5": 1.0}}, "logit_bias"),
+    ("/v1/chat/completions", {"logprobs": True, "top_logprobs": 2},
+     "top_logprobs"),
+    ("/v1/chat/completions", {"n": 2}, "n"),
+    ("/v1/chat/completions", {"model": "sql-lora"}, "model"),
+    ("/v1/completions", {"logprobs": 3}, "logprobs"),
+    ("/v1/completions", {"echo": True, "logprobs": 0}, "echo"),
+    ("/v1/completions", {"min_tokens": 2}, "min_tokens"),
+    ("/v1/completions", {"prompt": ["a", "b"]}, "prompt"),
+])
+def test_server_unported_fields_answer_400(engine, path, extra, field):
+    async def body(client):
+        payload = {"model": "debug-tiny", "max_tokens": 2}
+        if path == "/v1/chat/completions":
+            payload["messages"] = [{"role": "user", "content": "x"}]
+        else:
+            payload["prompt"] = "x"
+        payload.update(extra)
+        r = await client.post(path, json=payload)
+        assert r.status == 400
+        assert field in (await r.json())["error"]["message"]
+    _with_client(engine, body)
+
+
+def test_failed_step_fails_requests_and_stops_the_loop():
+    """A step that raises is not logged and retried: the in-flight
+    request gets a 500, /health turns 503 and the loop ends."""
+    eng = AsyncLLMEngine(tec.EngineConfig(**_SERVER_CFG))
+
+    def broken(*a, **k):
+        raise RuntimeError("device fault")
+    eng.engine.runner.decode = broken
+
+    async def body(client):
+        payload = {"model": "debug-tiny", "prompt": "hello",
+                   "max_tokens": 4}
+        r = await client.post("/v1/completions", json=payload)
+        assert r.status == 500
+        assert "device fault" in (await r.json())["error"]["message"]
+        assert (await client.get("/health")).status == 503
+        r = await client.post("/v1/completions", json=payload)
+        assert r.status == 500
+        assert not eng._thread.is_alive()
+    _with_client(eng, body)
+
+
+# -------------------------------------------------------- import isolation
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """The port's server imports with jax and production_stack_tpu
+    blocked (a subprocess: this one has both loaded)."""
+    code = textwrap.dedent("""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if (name == "jax" or name.startswith("jax.")
+                        or name == "production_stack_tpu"
+                        or name.startswith("production_stack_tpu.")):
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import production_stack_tpu_torch.engine.server
+        import production_stack_tpu_torch.weights
+        import production_stack_tpu_torch.kernels
+        assert not any(m == "jax" or m.startswith("jax.")
+                       or m == "production_stack_tpu"
+                       or m.startswith("production_stack_tpu.")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")

@@ -1,0 +1,213 @@
+"""Parity of the PyTorch port's ops with the JAX package's on the CPU:
+norms, rope, the paged KV pool, and the plain versions of the two
+paged-attention kernels against the Pallas kernels in interpret mode.
+
+Inputs are drawn with numpy from fixed seeds and handed to both sides.
+Tolerances (float32 throughout):
+- elementwise ops and the pool: exact, or 1e-6 where the two libraries
+  may fuse or reorder float32 arithmetic differently;
+- paged attention: 2e-5, the bound tests/test_pallas_paged.py holds the
+  Pallas kernels to against the dense jnp path (softmax sums in another
+  order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from production_stack_tpu.models import kv as jkv
+from production_stack_tpu.ops import norms as jnorms
+from production_stack_tpu.ops import rope as jrope
+from production_stack_tpu.ops.pallas_paged import (
+    paged_attention as pallas_paged_attention,
+    paged_decode_attention as pallas_paged_decode_attention)
+from production_stack_tpu_torch.models import kv as tkv
+from production_stack_tpu_torch.ops import norms as tnorms
+from production_stack_tpu_torch.ops import paged_attention as tpa
+from production_stack_tpu_torch.ops import rope as trope
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("offset", [0.0, 1.0])
+def test_rms_norm_matches_jax(offset):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    w = rng.standard_normal((64,)).astype(np.float32)
+    want = np.asarray(jnorms.rms_norm(jnp.asarray(x), jnp.asarray(w),
+                                      1e-5, offset=offset))
+    got = tnorms.rms_norm(_t(x), _t(w), 1e-5, offset=offset).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("scaling", [
+    None, ("linear", 4.0), ("llama3", 8.0, 1.0, 4.0, 8192.0)])
+def test_rope_table_and_apply_match_jax(scaling):
+    P, D = 96, 32
+    jc, js = jrope.rope_table(P, D, 5e5, scaling=scaling)
+    tc, ts = trope.rope_table(P, D, 5e5, scaling=scaling)
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_array_equal(ts, js)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 7, 3, D)).astype(np.float32)
+    pos = rng.integers(0, P, size=(2, 7)).astype(np.int32)
+    want = np.asarray(jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                       jc, js))
+    got = trope.apply_rope(_t(x), _t(pos), _t(tc), _t(ts)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_apply_rope_clamps_positions_past_the_table():
+    """Parked rows sit at max_model_len and advance past it inside a
+    decode window: JAX's gather clamps such positions into the table,
+    and the port must clamp the same way (on CUDA an index out of range
+    is a device-side assert)."""
+    P, D = 16, 8
+    c, s = trope.rope_table(P, D)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((1, 4, 2, D)).astype(np.float32)
+    pos = np.array([[P - 1, P, P + 3, 10 * P]], np.int32)
+    want = np.asarray(jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                       c, s))
+    got = trope.apply_rope(_t(x), _t(pos), _t(c), _t(s)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    # every clamped row rotates exactly like the last table position
+    for t in range(1, 4):
+        clamp = trope.apply_rope(_t(x[:, t:t + 1]),
+                                 _t(np.array([[P - 1]], np.int32)),
+                                 _t(c), _t(s)).numpy()
+        np.testing.assert_array_equal(got[:, t:t + 1], clamp)
+
+
+def _shuffled_tables(rng, B, MB, N):
+    perm = rng.permutation(N - 1)[:B * MB] + 1
+    return perm.reshape(B, MB).astype(np.int32)
+
+
+def test_write_chunk_and_gather_view_match_jax():
+    """The same writes land bit for bit in both pools outside trash
+    block 0 (which takes invalid, negative and past-capacity tokens in
+    a collision order neither side promises)."""
+    rng = np.random.default_rng(3)
+    N, Hkv, Bs, D, B, T, MB = 24, 2, 8, 16, 3, 10, 4
+    pool = rng.standard_normal((N, Hkv, Bs, D)).astype(np.float32)
+    tables = _shuffled_tables(rng, B, MB, N)
+    new = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    positions = np.stack([np.arange(T) + s for s in (0, 13, MB * Bs - 4)]
+                         ).astype(np.int32)
+    positions[0, 2] = -3                      # negative -> trash
+    valid = np.ones((B, T), bool)
+    valid[1, 5:] = False                      # padding -> trash
+    want = np.asarray(jkv.write_chunk(jnp.asarray(pool), jnp.asarray(new),
+                                      jnp.asarray(tables),
+                                      jnp.asarray(positions),
+                                      valid=jnp.asarray(valid)))
+    got = tkv.write_chunk(_t(pool), _t(new), _t(tables), _t(positions),
+                          valid=_t(valid)).numpy()
+    np.testing.assert_array_equal(got[1:], want[1:])
+    nb = 3
+    np.testing.assert_array_equal(
+        tkv.gather_view(_t(want), _t(tables), nb).numpy(),
+        np.asarray(jkv.gather_view(jnp.asarray(want), jnp.asarray(tables),
+                                   nb)))
+
+
+def test_linear_tables_and_slot_cache_match_jax():
+    np.testing.assert_array_equal(
+        tkv.linear_tables(3, 50, 16, device="cpu").numpy(),
+        np.asarray(jkv.linear_tables(3, 50, 16)))
+    tc, tt = tkv.make_slot_cache(2, 3, 50, 2, 16, dtype=torch.float32,
+                                 device="cpu")
+    jc, jt = jkv.make_slot_cache(2, 3, 50, 2, 16, dtype=jnp.float32)
+    assert tuple(tc.k.shape) == jc.k.shape
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+def _assert_matches_pallas(got, want, starts, tables, Bs):
+    """Live rows agree with the Pallas kernel; a parked row (start >=
+    MB*Bs, output discarded by the engine) is finite on both sides and
+    zeros in the port, which does no work for it."""
+    live = starts < tables.shape[1] * Bs
+    np.testing.assert_allclose(got[live], want[live], rtol=2e-5, atol=2e-5)
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    assert (got[~live] == 0).all()
+
+
+def _paged_case(seed, T, G, D, Bs, lens, parked=False):
+    """A one-layer pool with shuffled tables, ragged row lengths, the
+    chunk's own K/V written first (write-then-attend), and optionally a
+    last row parked past the virtual capacity MB*Bs."""
+    rng = np.random.default_rng(seed)
+    B, Hkv = len(lens), 2
+    H = Hkv * G
+    MB = -(-(max(lens) + T + 1) // Bs) + 1
+    N = B * MB + 4
+    k = rng.standard_normal((N, Hkv, Bs, D)).astype(np.float32)
+    v = rng.standard_normal((N, Hkv, Bs, D)).astype(np.float32)
+    tables = _shuffled_tables(rng, B, MB, N)
+    starts = np.array(lens, np.int32)
+    if parked:
+        starts[-1] = MB * Bs + 5
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    positions = starts[:, None] + np.arange(T, dtype=np.int32)[None, :]
+    newk = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    newv = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    k = np.asarray(jkv.write_chunk(jnp.asarray(k), jnp.asarray(newk),
+                                   jnp.asarray(tables),
+                                   jnp.asarray(positions)))
+    v = np.asarray(jkv.write_chunk(jnp.asarray(v), jnp.asarray(newv),
+                                   jnp.asarray(tables),
+                                   jnp.asarray(positions)))
+    nb = min(-(-(max(lens) + T) // Bs), MB)
+    return q, k, v, tables, starts, nb
+
+
+@pytest.mark.parametrize("T,G,D,Bs,parked", [
+    (1, 4, 32, 16, False),     # decode step, GQA
+    (5, 2, 32, 16, True),      # speculative-size window, a parked row
+    (8, 4, 64, 16, False),     # DECODE_T_MAX
+])
+def test_plain_decode_matches_pallas_decode_kernel(T, G, D, Bs, parked):
+    q, k, v, tables, starts, nb = _paged_case(T * 7 + G, T, G, D, Bs,
+                                              [37, 5, 50], parked)
+    want = np.asarray(pallas_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(tables), jnp.asarray(starts), nb=nb, interpret=True))
+    before = dict(tpa.launch_counts)
+    got = tpa.paged_decode_attention(_t(q), _t(k), _t(v), _t(tables),
+                                     _t(starts), nb=nb).numpy()
+    _assert_matches_pallas(got, want, starts, tables, Bs)
+    # the plain CPU path launches nothing
+    assert tpa.launch_counts == before
+
+
+@pytest.mark.parametrize("T,G,D,Bs,parked", [
+    (9, 2, 32, 16, False),     # shortest prefill chunk
+    (40, 4, 32, 16, True),     # ragged block boundary, a parked row
+])
+def test_plain_prefill_matches_pallas_paged_kernel(T, G, D, Bs, parked):
+    q, k, v, tables, starts, nb = _paged_case(T * 3 + G, T, G, D, Bs,
+                                              [10, 33, 21], parked)
+    want = np.asarray(pallas_paged_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(tables), jnp.asarray(starts), nb=nb, interpret=True))
+    got = tpa.paged_attention(_t(q), _t(k), _t(v), _t(tables), _t(starts),
+                              nb=nb).numpy()
+    _assert_matches_pallas(got, want, starts, tables, Bs)
+
+
+@pytest.mark.parametrize("flag", [
+    dict(window=16), dict(softcap=30.0),
+    dict(k_scales=torch.ones(1), v_scales=torch.ones(1))])
+@pytest.mark.parametrize("fn", [tpa.paged_attention,
+                                tpa.paged_decode_attention])
+def test_kernel_flags_off_this_path_raise(fn, flag):
+    """int8 scales, sliding windows and softcaps arrive with the slices
+    that need them; until then the wrappers refuse them."""
+    q, k, v, tables, starts, nb = _paged_case(0, 1, 2, 32, 16, [5])
+    with pytest.raises(NotImplementedError):
+        fn(_t(q), _t(k), _t(v), _t(tables), _t(starts), nb=nb, **flag)
