@@ -3,22 +3,33 @@
 
     python3 chip_smoke.py
 
-1. build: compiles the CUDA kernels from csrc/ with nvcc (sm_90a);
+1. build: compiles the CUDA kernels from csrc/ with nvcc (sm_90a), one
+   nvcc per source, all started together;
 2. kernels: holds each kernel against its plain PyTorch version on the
-   card — shuffled block tables, ragged rows, a row parked past the
-   pool's virtual capacity, the chunk's own K/V written first — and
-   times kernel, plain version and one PyTorch library call at the
-   shapes the serving phase gives them;
-3. serve: starts the port's OpenAI server in-process on llama-3-8b at
-   full width and depth (random weights from a seed), sends completion
-   and chat requests (some concurrent, one streamed, one prompt long
-   enough for two prefill chunks), checks status, token counts and
-   greedy repeatability, and that both kernels were launched;
-4. breakdown: device time of a decode step and of a prefill chunk of
-   the served model, and from a torch.profiler trace of each the
-   device's idle share and each kernel class's share;
-5. reference: the served model's logits through the kernels agree with
-   a float32 forward through the plain attention on a small input.
+   card — for the paged kernels shuffled block tables, ragged rows, a
+   row parked past the pool's virtual capacity, the chunk's own K/V
+   written first, D in {64, 128, 256}, a sliding window that is not a
+   multiple of the block size and a softcap on scores that reach it;
+   for the flash kernel T and S that are not multiples of its tiles —
+   and times kernel, plain version and one PyTorch library call at the
+   shapes the serving phases give them (Gemma-2's at both layer kinds,
+   sliding and global), holding each kernel against its plain version on
+   the timed inputs too;
+3. then for each served model, llama-3-8b and gemma-2-9b, at full width
+   and depth with random weights from a seed, one after the other (the
+   first is freed before the second is built):
+   - serve: starts the port's OpenAI server in-process, sends completion
+     and chat requests (some concurrent, one streamed, one prompt long
+     enough for several prefill chunks — past Gemma-2's 4096-token
+     window), checks status, token counts and greedy repeatability, and
+     that both paged kernels were launched (on Gemma-2 with the window
+     and the softcap on) and the flash kernel, which serves no path as in
+     the JAX package, was not;
+   - breakdown: device time of a decode step and of a prefill chunk of
+     the served model, and from a torch.profiler trace of each the
+     device's idle share and each kernel class's share;
+   - reference: the served model's logits through the kernels agree
+     with a float32 forward through the plain attention.
 
 Progress goes to stdout; the line before the last two is the kernels'
 JSON record, then the card's name and power limit, then the result.
@@ -27,6 +38,7 @@ printed. Needs CUDA and this repository's sources beside the script.
 """
 
 import asyncio
+import gc
 import json
 import math
 import os
@@ -37,10 +49,29 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# the serving phase's geometry; the kernel timings use the same shapes
-MODEL = "llama-3-8b"
-SERVE = dict(max_num_seqs=4, max_model_len=1024, prefill_chunk=512,
-             decode_window=8, kv_block_size=64, seed=0)
+# the served models, in the order they are served. serve: the engine's
+# geometry; decode_starts: the rows of the timed decode step; chunk_start:
+# the start of the one live row of the timed prefill chunk; kv_len: the
+# kv bucket both run at; long_tokens: the length of the long prompt;
+# timing_layers: layers' pools the kernel timings rotate over, so the L2
+# holds no layer from the previous launch; ref_prompt: the reference
+# input's length (prefilled in prefill_chunk chunks, then 3 decode
+# steps)
+PATHS = {
+    "llama-3-8b": dict(
+        serve=dict(max_num_seqs=4, max_model_len=1024, prefill_chunk=512,
+                   decode_window=8, kv_block_size=64, seed=0),
+        decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
+        long_tokens=697, timing_layers=32, ref_prompt=40),
+    # Gemma-2-9B: KV 344 KB per token, 11.3 GB for the pool; the long
+    # prompt runs past the 4096-token window of the even layers, so
+    # they skip blocks in its last prefill chunks and its decode
+    "gemma-2-9b": dict(
+        serve=dict(max_num_seqs=4, max_model_len=8192, prefill_chunk=512,
+                   decode_window=8, kv_block_size=64, seed=0),
+        decode_starts=[4600, 1000, 57, 400], chunk_start=4096,
+        kv_len=8192, long_tokens=4600, timing_layers=4, ref_prompt=4600),
+}
 # kernel-phase tolerances, max |kernel - plain|:
 # - float32: 2e-5, the bound the Pallas kernels are held to against the
 #   plain path (tests/test_pallas_paged.py): the online softmax sums in
@@ -52,7 +83,8 @@ SERVE = dict(max_num_seqs=4, max_model_len=1024, prefill_chunk=512,
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # the served model against its float32 plain-attention forward:
 # - float32 through the kernels: 1e-3 of the largest logit (the 2e-5
-#   per-attention difference of the summation order, through 32 layers);
+#   per-attention difference of the summation order, through every
+#   layer);
 # - bf16 through the kernels: at most 2x the distance of the bf16 plain
 #   path from the same reference
 F32_LOGIT_TOL = 1e-3
@@ -89,6 +121,12 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def free_memory():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ kernels
 
 def paged_case(B, T, Hkv, G, D, Bs, lens, dtype, layers=1, parked=0,
@@ -121,13 +159,17 @@ def paged_case(B, T, Hkv, G, D, Bs, lens, dtype, layers=1, parked=0,
     return q, k, v, tables, starts, nb
 
 
-def work(q, starts, nb, MB, Bs, Hkv, D, itemsize):
-    """(bytes, flops) the call needs on this data. Every row: starts
-    once and its output written once. A live row (start < MB*Bs) also
-    reads its q and the K/V blocks and table entries it attends (blocks
-    up to its last query's, within nb), and does 4*D flops per (query
-    head, attended key) for QK and PV. A parked row needs nothing more:
-    its output is zeros the engine discards."""
+def work(q, starts, nb, MB, Bs, Hkv, D, itemsize, window=0):
+    """(bytes, flops) the paged call needs on this data. Every row:
+    starts once and its output written once. A live row (start < MB*Bs)
+    also reads its q and the K/V blocks and table entries it attends
+    (blocks from its first query's window start to its last query's
+    block, within nb), and does 4*D flops per (query head, attended key)
+    for QK and PV, counting only the keys inside each query's window. A
+    parked row needs nothing more: its output is zeros the engine
+    discards. The softcap's tanh (one per score) is not counted: the
+    tensor-core rate does not apply to it and it is 1/(4D) of the
+    dot-product operations."""
     B, T, H, _ = q.shape
     row_q = T * H * D * itemsize
     byts = B * (row_q + 4)
@@ -135,114 +177,309 @@ def work(q, starts, nb, MB, Bs, Hkv, D, itemsize):
     for s in starts.tolist():
         if s >= MB * Bs:
             continue
-        blocks = min((s + T - 1) // Bs, nb - 1) + 1
+        jend = min((s + T - 1) // Bs, nb - 1)
+        jmin = max(s - (window - 1), 0) // Bs if window else 0
+        blocks = max(jend - jmin + 1, 0)
         byts += row_q + 2 * blocks * Hkv * Bs * D * itemsize + 4 * blocks
         for t in range(T):
-            keys = min(s + t + 1, blocks * Bs)
+            lo = max(s + t - window + 1, 0) if window else 0
+            keys = max(min(s + t + 1, (jend + 1) * Bs) - lo, 0)
             flops += 4 * D * H * keys
     return byts, flops
 
 
-def sdpa_over_view(q, k, v, tables, starts, nb):
-    """The library yardstick: SDPA (GQA, boolean causal mask) over the
-    gathered view — the paged gather itself is not timed."""
+def flash_work(q, starts, S, Hkv, D, itemsize):
+    """(bytes, flops) of the flash call on this data: q read and output
+    written once, starts once, and per row the K/V slots up to its last
+    query's position (within S); 4*D flops per (query head, attended
+    slot)."""
+    B, T, H, _ = q.shape
+    byts = B * (2 * T * H * D * itemsize + 4)
+    flops = 0
+    for s in starts.tolist():
+        byts += 2 * min(s + T, S) * Hkv * D * itemsize
+        for t in range(T):
+            flops += 4 * D * H * min(s + t + 1, S)
+    return byts, flops
+
+
+def sdpa_call(q, k, v, qpos, window=0, scale=None):
+    """The library yardstick: SDPA (GQA, boolean causal mask, sliding
+    window where given) over k/v [B, S, Hkv, D] — no softcap, which no
+    single PyTorch call applies."""
     import torch
     import torch.nn.functional as F
-    from production_stack_tpu_torch.models.kv import gather_view
-    B, T, H, D = q.shape
-    kv_k = gather_view(k, tables, nb).transpose(1, 2)   # [B, Hkv, S, D]
-    kv_v = gather_view(v, tables, nb).transpose(1, 2)
-    S = kv_k.shape[2]
-    qpos = starts.long()[:, None] + torch.arange(T, device=q.device)
-    mask = (torch.arange(S, device=q.device)[None, None, :]
-            <= qpos[:, :, None])[:, None]               # [B, 1, T, S]
+    S = k.shape[1]
+    kv_k, kv_v = k.transpose(1, 2), v.transpose(1, 2)   # [B, Hkv, S, D]
+    s_idx = torch.arange(S, device=q.device)[None, None, :]
+    mask = s_idx <= qpos[:, :, None]
+    if window:
+        mask = mask & (s_idx > qpos[:, :, None] - window)
+    mask = mask[:, None]                                 # [B, 1, T, S]
     qt = q.transpose(1, 2)
 
     def call(i=0):
         return F.scaled_dot_product_attention(qt, kv_k, kv_v,
-                                              attn_mask=mask,
+                                              attn_mask=mask, scale=scale,
                                               enable_gqa=True)
     return call
 
 
-def kernel_phase(gpu: str):
+def sdpa_over_view(q, k, v, tables, starts, nb, window=0, scale=None):
+    """SDPA over the gathered view of the paged pool — the paged gather
+    itself is not timed."""
     import torch
-    from production_stack_tpu_torch.ops import paged_attention as pa
-    checks = {"paged_decode_attention": [], "paged_attention": []}
-    fns = {"paged_decode_attention": pa.paged_decode_attention,
-           "paged_attention": pa.paged_attention}
-    cases = []
-    for dt in ("float32", "bfloat16"):
-        for T in (1, 5, 8):
-            cases.append(("paged_decode_attention", T, 8, 4, 128, dt))
-        cases.append(("paged_decode_attention", 8, 2, 8, 64, dt))
-        for T in (9, 512):
-            cases.append(("paged_attention", T, 8, 4, 128, dt))
-        cases.append(("paged_attention", 40, 2, 8, 64, dt))
-    for i, (name, T, Hkv, G, D, dt) in enumerate(cases):
-        dtype = getattr(torch, dt)
-        q, k, v, tables, starts, nb = paged_case(
-            4, T, Hkv, G, D, 64, [70, 5, 300, 0], dtype, parked=1, seed=i)
-        got = fns[name](q, k[0], v[0], tables, starts, nb=nb)
-        torch.cuda.synchronize()
-        want = pa.paged_attention_plain(q, k[0], v[0], tables, starts, nb,
-                                        D ** -0.5)
-        err = (got.float() - want.float()).abs().max().item()
-        ok = bool(torch.isfinite(got).all()) and err <= TOL[dt]
-        log(json.dumps({"check": name, "T": T, "Hkv": Hkv, "G": G, "D": D,
-                        "dtype": dt, "parked_rows": 1, "max_abs_err": err,
-                        "tol": TOL[dt], "ok": ok}))
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"(T={T}, D={D}, {dt}): {err} > "
-                                 f"{TOL[dt]}")
-        checks[name].append(err)
+    from production_stack_tpu_torch.models.kv import gather_view
+    T = q.shape[1]
+    qpos = starts.long()[:, None] + torch.arange(T, device=q.device)
+    return sdpa_call(q, gather_view(k, tables, nb),
+                     gather_view(v, tables, nb), qpos, window, scale)
 
-    # timings at the serving phase's shapes: a decode step of the whole
-    # batch (T=1) and a 512-token prefill chunk with the other rows
-    # parked, kv bucket 512 (nb = 8), over 32 layers' pools so the L2
-    # holds no layer from the previous launch
-    B, L, Bs = SERVE["max_num_seqs"], 32, SERVE["kv_block_size"]
-    timed = {
-        "paged_decode_attention": paged_case(
-            B, 1, 8, 4, 128, Bs, [200, 431, 57, 400], torch.bfloat16,
-            layers=L, seed=101),
-        "paged_attention": paged_case(
-            B, 512, 8, 4, 128, Bs, [0, 0, 0, 0], torch.bfloat16,
-            layers=L, parked=B - 1, seed=102),
-    }
-    records = []
-    for name, (q, k, v, tables, starts, nb) in timed.items():
-        nb = 8
-        fn = fns[name]
-        it = 64 if name == "paged_decode_attention" else 8
-        ms = time_ms(lambda i=0: fn(q, k[i % L], v[i % L], tables, starts,
-                                    nb=nb), it)
-        plain_ms = time_ms(lambda i=0: pa.paged_attention_plain(
-            q, k[i % L], v[i % L], tables, starts, nb, 128 ** -0.5), it)
-        lib = sdpa_over_view(q, k[0], v[0], tables, starts, nb)
-        library_ms = time_ms(lib, it)
-        byts, flops = work(q, starts, nb, tables.shape[1], Bs, 8, 128, 2)
-        t_bytes, t_ops = byts / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
-        rec = {
-            "name": name, "route": "cuda",
-            "source": "production_stack_tpu_torch/csrc/paged_attention.cu",
-            "replaces": ("production_stack_tpu/ops/pallas_paged.py:325"
-                         if name == "paged_decode_attention" else
-                         "production_stack_tpu/ops/pallas_paged.py:75"),
-            "launches": 0, "max_abs_err": max(checks[name]),
-            "ms": ms, "plain_ms": plain_ms,
+
+def paged_checks(pa):
+    """Each paged case against the plain version, at TOL."""
+    import torch
+    fns = {"decode": pa.paged_decode_attention,
+           "prefill": pa.paged_attention}
+    # (kernel, T, Hkv, G, D, Bs, lens, window, softcap, q scale, v scale)
+    llama_rows, long_rows = [70, 5, 300, 0], [300, 170, 517, 45]
+    cases = []
+    for T in (1, 5, 8):
+        cases.append(("decode", T, 8, 4, 128, 64, llama_rows, 0, 0.0, 1.0,
+                      1.0))
+    cases += [
+        ("decode", 8, 2, 8, 64, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 9, 8, 4, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 512, 8, 4, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 40, 2, 8, 64, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        # D = 256 with G = 2 (Gemma-2-9B); T = 100 leaves a ragged tile
+        ("decode", 1, 8, 2, 256, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("decode", 8, 8, 2, 256, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 100, 8, 2, 256, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        # a window of 40 over blocks of 16, rows well past it
+        ("decode", 5, 2, 4, 128, 16, long_rows, 40, 0.0, 1.0, 1.0),
+        ("prefill", 70, 2, 4, 128, 16, long_rows, 40, 0.0, 1.0, 1.0),
+        # q x 30: raw scores reach about +-100, the cap of 50 bites. The
+        # softmax then sits on a few keys and the output is close to one
+        # V row; V at half scale keeps it within the +-4 that the bf16
+        # tolerance assumes (a bf16 ulp is 2^-5 from 4 up)
+        ("decode", 1, 4, 2, 256, 64, llama_rows, 0, 50.0, 30.0, 0.5),
+        ("prefill", 64, 4, 2, 256, 64, llama_rows, 0, 50.0, 30.0, 0.5),
+        # all three together at Gemma's block size, window 100
+        ("decode", 8, 8, 2, 256, 64, long_rows, 100, 50.0, 30.0, 0.5),
+        ("prefill", 96, 8, 2, 256, 64, long_rows, 100, 50.0, 30.0, 0.5),
+    ]
+    i = 0
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for kind, T, Hkv, G, D, Bs, lens, w, cap, qx, vx in cases:
+            i += 1
+            q, k, v, tables, starts, nb = paged_case(
+                4, T, Hkv, G, D, Bs, lens, dtype, parked=1, seed=i)
+            q = (q.float() * qx).to(dtype)
+            v = (v.float() * vx).to(dtype)
+            fn = fns[kind]
+            got = fn(q, k[0], v[0], tables, starts, nb=nb, window=w,
+                     softcap=cap)
+            torch.cuda.synchronize()
+            want = pa.paged_attention_plain(q, k[0], v[0], tables, starts,
+                                            nb, D ** -0.5, w, cap)
+            err = (got.float() - want.float()).abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and err <= TOL[dt]
+            rec = {"check": fn.__name__, "T": T, "Hkv": Hkv, "G": G,
+                   "D": D, "Bs": Bs, "starts": starts.tolist(),
+                   "window": w, "softcap": cap, "q_scale": qx,
+                   "v_scale": vx, "dtype": dt,
+                   "parked_rows": 1, "max_abs_err": err, "tol": TOL[dt],
+                   "ok": ok}
+            if cap:
+                qf = q[0, :, :G].float() * D ** -0.5
+                rec["max_raw_score"] = (qf @ k[0][tables[0, 0].long(), 0]
+                                        .float().T).abs().max().item()
+            log(json.dumps(rec))
+            if not ok:
+                raise AssertionError(f"{fn.__name__} disagrees with its "
+                                     f"plain version: {rec}")
+            del q, k, v
+
+
+def flash_checks(fa):
+    """Flash cases against the plain version: bf16 and f32, D in {64,
+    128, 256}, T not a multiple of the query tile, S not a multiple of
+    the 64-key panel, at TOL."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for D, G, T, S, starts in ((64, 4, 37, 200, [0, 100, 163]),
+                                   (128, 4, 37, 200, [0, 100, 163]),
+                                   (256, 2, 37, 200, [0, 100, 163]),
+                                   (128, 4, 1, 130, [129, 64, 0])):
+            B, Hkv = len(starts), 2
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=g,
+                                   device="cuda").to(dtype)
+            q = rnd(B, T, Hkv * G, D)
+            k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+            st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+            got = fa.flash_attention_with_cache(q, k, v, st)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(q, k, v, st)
+            err = (got.float() - want.float()).abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and err <= TOL[dt]
+            rec = {"check": "flash_attention_with_cache", "T": T, "S": S,
+                   "Hkv": Hkv, "G": G, "D": D, "starts": starts,
+                   "dtype": dt, "max_abs_err": err, "tol": TOL[dt],
+                   "ok": ok}
+            log(json.dumps(rec))
+            if not ok:
+                raise AssertionError(f"flash kernel disagrees with its "
+                                     f"plain version: {rec}")
+
+
+def _record(name, source, replaces, path, err, ms, plain_ms, library_ms,
+            byts, flops, shape):
+    t_bytes, t_ops = byts / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "path": path, "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-            "shape": {"B": B, "T": int(q.shape[1]), "H": 32, "Hkv": 8,
-                      "D": 128, "Bs": Bs, "nb": nb,
-                      "starts": starts.tolist(), "dtype": "bfloat16"},
-        }
-        log(json.dumps({"timing": rec, "gpu": gpu}))
-        records.append(rec)
-    del timed
-    torch.cuda.empty_cache()
+            "library_ms": library_ms, "shape": shape}
+
+
+PAGED_SOURCE = "production_stack_tpu_torch/csrc/paged_attention.cu"
+REPLACES = {
+    "paged_decode_attention": "production_stack_tpu/ops/pallas_paged.py:325",
+    "paged_attention": "production_stack_tpu/ops/pallas_paged.py:75",
+    "flash_attention_with_cache":
+        "production_stack_tpu/ops/pallas_attention.py:120",
+}
+
+
+def paged_timings(pa, model):
+    """Both paged kernels at one served model's shapes: a decode step of
+    the whole batch (T=1) and a 512-token prefill chunk of one row with
+    the others parked, at the model's softcap and scale, bf16; for a
+    model with sliding layers once at each layer kind (its window, then
+    none), else once. Each row holds the kernel against its plain
+    version on the timed inputs (TOL); its `layers` names the kind, whose
+    launches main() takes from the serving run."""
+    import torch
+    from production_stack_tpu_torch.models.config import get_config
+    from production_stack_tpu_torch.models.llama import attn_scale
+    cfg, p = get_config(model), PATHS[model]
+    B, Bs = p["serve"]["max_num_seqs"], p["serve"]["kv_block_size"]
+    Hkv, G, D = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+        cfg.head_dim_
+    L = p["timing_layers"]
+    kinds = ([("sliding", cfg.sliding_window), ("global", 0)]
+             if cfg.sliding_window else [("all", 0)])
+    shapes = {
+        "paged_decode_attention": (1, p["decode_starts"], 0, 64, 101),
+        "paged_attention": (512, [p["chunk_start"]] * B, B - 1, 8, 102),
+    }
+    records = []
+    for name, (T, lens, parked, it, seed) in shapes.items():
+        q, k, v, tables, starts, nb = paged_case(
+            B, T, Hkv, G, D, Bs, lens, torch.bfloat16, layers=L,
+            parked=parked, seed=seed)
+        MB = tables.shape[1]
+        nb = min(p["kv_len"] // Bs, MB)
+        fn = getattr(pa, name)
+        for layers, window in kinds:
+            kw = dict(scale=attn_scale(cfg), window=window,
+                      softcap=cfg.attn_logit_softcap or 0.0)
+            got = fn(q, k[0], v[0], tables, starts, nb=nb, **kw)
+            want = pa.paged_attention_plain(q, k[0], v[0], tables, starts,
+                                            nb, kw["scale"], kw["window"],
+                                            kw["softcap"])
+            err = (got.float() - want.float()).abs().max().item()
+            shape = {"B": B, "T": T, "H": Hkv * G, "Hkv": Hkv, "D": D,
+                     "Bs": Bs, "nb": nb, "starts": starts.tolist(),
+                     "dtype": "bfloat16", **kw}
+            if not (bool(torch.isfinite(got).all())
+                    and err <= TOL["bfloat16"]):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at {model}'s timed shape: "
+                                     f"err {err}, {shape}")
+            del got, want
+            ms = time_ms(lambda i=0: fn(q, k[i % L], v[i % L], tables,
+                                        starts, nb=nb, **kw), it)
+            plain_ms = time_ms(lambda i=0: pa.paged_attention_plain(
+                q, k[i % L], v[i % L], tables, starts, nb, kw["scale"],
+                kw["window"], kw["softcap"]), it)
+            sdpa = sdpa_over_view(q, k[0], v[0], tables, starts, nb,
+                                  kw["window"], kw["scale"])
+            sdpa_ms = time_ms(sdpa, it)
+            del sdpa
+            byts, flops = work(q, starts, nb, MB, Bs, Hkv, D, 2,
+                               kw["window"])
+            # SDPA computes the same function only without a softcap
+            rec = _record(name, PAGED_SOURCE, REPLACES[name], model,
+                          err, ms, plain_ms,
+                          None if kw["softcap"] else sdpa_ms, byts, flops,
+                          shape)
+            rec["layers"] = layers
+            log(json.dumps({"timing": rec, "sdpa_ms": sdpa_ms}))
+            records.append(rec)
+        del q, k, v
+        free_memory()
+    return records
+
+
+def flash_timing(fa):
+    """The flash kernel, its plain version and SDPA with a boolean mask
+    over the same cache at q [4, 512, 32, 128] bf16, S = 1024, starts
+    [0, 128, 256, 512]; the kernel held against its plain version on
+    these inputs (TOL)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(103)
+    B, T, H, Hkv, D, S = 4, 512, 32, 8, 128, 1024
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g,
+                           device="cuda").to(torch.bfloat16)
+    q, k, v = rnd(B, T, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    starts = torch.tensor([0, 128, 256, 512], dtype=torch.int32,
+                          device="cuda")
+    got = fa.flash_attention_with_cache(q, k, v, starts)
+    err = (got.float() - fa.flash_attention_plain(q, k, v, starts)
+           .float()).abs().max().item()
+    if not (bool(torch.isfinite(got).all()) and err <= TOL["bfloat16"]):
+        raise AssertionError(f"flash kernel disagrees with its plain "
+                             f"version at the timed shape: err {err}")
+    del got
+    it = 8
+    ms = time_ms(lambda i=0: fa.flash_attention_with_cache(q, k, v, starts),
+                 it)
+    plain_ms = time_ms(lambda i=0: fa.flash_attention_plain(q, k, v, starts),
+                       it)
+    qpos = starts.long()[:, None] + torch.arange(T, device="cuda")
+    library_ms = time_ms(sdpa_call(q, k, v, qpos), it)
+    byts, flops = flash_work(q, starts, S, Hkv, D, 2)
+    rec = _record("flash_attention_with_cache",
+                  "production_stack_tpu_torch/csrc/flash_attention.cu",
+                  REPLACES["flash_attention_with_cache"], None, err, ms,
+                  plain_ms, library_ms, byts, flops,
+                  {"B": B, "T": T, "H": H, "Hkv": Hkv, "D": D, "S": S,
+                   "starts": starts.tolist(), "dtype": "bfloat16"})
+    log(json.dumps({"timing": rec}))
+    return rec
+
+
+def kernel_phase():
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    paged_checks(pa)
+    flash_checks(fa)
+    free_memory()
+    records = []
+    for model in PATHS:
+        records += paged_timings(pa, model)
+    records.append(flash_timing(fa))
+    free_memory()
     return records
 
 
@@ -254,10 +491,23 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-async def serve_phase(engine):
+def long_prompt_text(tokens: int) -> str:
+    """A prompt of `tokens` tokens for the byte tokenizer (one per
+    UTF-8 byte, after the BOS token)."""
+    text = ("In the beginning the engine read every block of the pool "
+            "once, and the pool was paged. ") * (tokens // 80 + 1)
+    return text[:tokens - 1]
+
+
+async def serve_phase(engine, model: str):
+    """The OpenAI server in-process on `engine`; every kernel launch
+    count is zeroed just before the requests and read just after. Both
+    paged kernels must have launched, the flash kernel never (it serves
+    no path, as in the JAX package)."""
     import aiohttp
     from aiohttp import web
     from production_stack_tpu_torch.engine.server import build_app
+    from production_stack_tpu_torch.ops import flash_attention as fa
     from production_stack_tpu_torch.ops import paged_attention as pa
 
     port = free_port()
@@ -266,8 +516,7 @@ async def serve_phase(engine):
     site = web.TCPSite(runner, "127.0.0.1", port)
     await site.start()
     base = f"http://127.0.0.1:{port}"
-    long_prompt = ("In the beginning the engine read every block of the "
-                   "pool once, and the pool was paged. ") * 8
+    long_tokens = PATHS[model]["long_tokens"]
     try:
         async with aiohttp.ClientSession() as http:
             async def post(path, body):
@@ -283,32 +532,36 @@ async def serve_phase(engine):
 
             async with http.get(base + "/health") as r:
                 assert r.status == 200, r.status
-            greedy = {"model": MODEL, "prompt": long_prompt,
+            greedy = {"model": model, "prompt": long_prompt_text(long_tokens),
                       "max_tokens": 24, "temperature": 0.0,
                       "ignore_eos": True, "logprobs": 0}
             reqs = [
                 ("/v1/completions", greedy),
                 ("/v1/chat/completions", {
-                    "model": MODEL, "max_tokens": 16, "temperature": 0.8,
+                    "model": model, "max_tokens": 16, "temperature": 0.8,
                     "seed": 7, "ignore_eos": True, "logprobs": True,
                     "messages": [{"role": "user",
                                   "content": "Name three rivers."}]}),
                 ("/v1/chat/completions", {
-                    "model": MODEL, "max_tokens": 16, "stream": True,
+                    "model": model, "max_tokens": 16, "stream": True,
                     "ignore_eos": True,
                     "stream_options": {"include_usage": True},
                     "messages": [{"role": "user", "content": "Hello!"}]}),
                 ("/v1/completions", {
-                    "model": MODEL, "prompt": "The capital of France is",
+                    "model": model, "prompt": "The capital of France is",
                     "max_tokens": 20, "top_p": 0.9, "top_k": 50,
                     "ignore_eos": True}),
             ]
             pa.reset_launch_counts()
+            fa.reset_launch_counts()
             t0 = time.monotonic()
             results = await asyncio.gather(*(post(p, b) for p, b in reqs))
             again = await post("/v1/completions", greedy)
             wall = time.monotonic() - t0
-            counts = dict(pa.launch_counts)
+            counts = {"launches": {**pa.launch_counts,
+                                   **fa.launch_counts},
+                      "window_launches": dict(pa.window_launches),
+                      "softcap_launches": dict(pa.softcap_launches)}
     finally:
         await runner.cleanup()
 
@@ -336,29 +589,46 @@ async def serve_phase(engine):
     assert max(abs(a - b) for a, b in zip(again_lp["token_logprobs"],
                                           first_lp["token_logprobs"])) < 1e-3
     prompt_tokens = results[0]["usage"]["prompt_tokens"]
-    assert prompt_tokens > SERVE["prefill_chunk"], prompt_tokens
-    for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {name} was not launched while "
-                                 f"serving: {counts}")
-    log(json.dumps({"serve": {"requests": len(reqs) + 1,
+    assert prompt_tokens == long_tokens, (prompt_tokens, long_tokens)
+    assert prompt_tokens > PATHS[model]["serve"]["prefill_chunk"]
+    cfg = engine.engine.model_cfg
+    need = ["launches"]
+    if cfg.sliding_window:
+        need.append("window_launches")
+        # the long prompt's last prefill chunks and its decode skip blocks
+        assert prompt_tokens > cfg.sliding_window + \
+            PATHS[model]["serve"]["kv_block_size"], prompt_tokens
+    if cfg.attn_logit_softcap:
+        need.append("softcap_launches")
+    for kind in need:
+        for name in pa.launch_counts:
+            if counts[kind][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched "
+                                     f"({kind}) while serving: {counts}")
+    for name in fa.launch_counts:
+        if counts["launches"][name] != 0:
+            raise AssertionError(f"kernel {name} serves no path but was "
+                                 f"launched while serving: {counts}")
+    log(json.dumps({"serve": {"model": model, "requests": len(reqs) + 1,
                               "wall_s": wall,
                               "long_prompt_tokens": prompt_tokens,
-                              "launches": counts}}))
+                              **counts}}))
     return counts
 
 
-def reference_phase(engine):
+def reference_phase(engine, model: str):
     """The served model's logits against a float32 reference on the card:
-    the same weights upcast (exact), the plain attention, a 40-token
-    prefill chunk and 3 decode steps.
+    the same weights upcast (exact), the plain attention, a prompt of
+    ref_prompt tokens prefilled in prefill_chunk chunks, then 3 decode
+    steps; logits compared at each chunk's last position and at each
+    step.
 
     - float32 through the kernels must match the reference to
       F32_LOGIT_TOL of its largest logit;
     - the served bf16 path through the kernels may be at most
       BF16_FLOOR_FACTOR times further from it than the bf16 path through
-      the plain attention is (bf16 rounding over 32 layers is the floor
-      both share)."""
+      the plain attention is (bf16 rounding through every layer is the
+      floor both share)."""
     import dataclasses
 
     import torch
@@ -368,57 +638,75 @@ def reference_phase(engine):
 
     runner = engine.engine.runner
     cfg = runner.model_cfg
+    dev = next(runner.params.parameters()).device
+    P, chunk = PATHS[model]["ref_prompt"], PATHS[model]["serve"][
+        "prefill_chunk"]
+    steps = 3
+    Bs = 64
+    max_len = -(-(P + steps) // Bs) * Bs
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    p32 = llama.Llama(cfg32, device="cuda")
+    p32 = llama.Llama(cfg32, device=dev)
     with torch.no_grad():
         for (_, dst), (_, src) in zip(p32.named_parameters(),
                                       runner.params.named_parameters()):
             dst.copy_(src)
-    g = torch.Generator(device="cuda").manual_seed(3)
-    prompt = torch.randint(0, cfg.vocab_size, (1, 40), generator=g,
-                           device="cuda")
-    steps = torch.randint(0, cfg.vocab_size, (3,), generator=g,
-                          device="cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (1, P), generator=g,
+                           device=dev)
+    step_toks = torch.randint(0, cfg.vocab_size, (steps,), generator=g,
+                              device=dev)
 
-    def plain(q, k, v, tables, starts, *, nb, scale=None):
-        return pa.paged_attention_plain(q, k, v, tables, starts, nb, scale)
+    def plain(q, k, v, tables, starts, *, nb, scale=None, window=0,
+              softcap=0.0):
+        return pa.paged_attention_plain(q, k, v, tables, starts, nb, scale,
+                                        window, softcap)
 
     def run(params, mcfg, use_plain):
         cache, tables = make_slot_cache(
-            mcfg.num_layers, 1, 128, mcfg.num_kv_heads, mcfg.head_dim_,
-            dtype=mcfg.dtype, block_size=64, device="cuda")
+            mcfg.num_layers, 1, max_len, mcfg.num_kv_heads, mcfg.head_dim_,
+            dtype=mcfg.dtype, block_size=Bs, device=dev)
         saved = (pa.paged_attention, pa.paged_decode_attention)
         if use_plain:
             pa.paged_attention = pa.paged_decode_attention = plain
+        out = []
         try:
-            logits, _ = llama.forward(
-                params, mcfg, prompt, torch.arange(40, device="cuda")[None],
-                cache, block_tables=tables, rope=runner.rope, kv_len=64)
-            out = [logits[0, -1]]
-            for i, tok in enumerate(steps):
+            for lo in range(0, P, chunk):
+                hi = min(lo + chunk, P)
+                logits, _ = llama.forward(
+                    params, mcfg, prompt[:, lo:hi],
+                    torch.arange(lo, hi, device=dev)[None], cache,
+                    block_tables=tables, rope=runner.rope, kv_len=max_len,
+                    last_index=torch.tensor([hi - lo - 1], device=dev))
+                out.append(logits[0, 0])
+            for i, tok in enumerate(step_toks):
                 logits, _ = llama.forward(
                     params, mcfg, tok.view(1, 1),
-                    torch.tensor([[40 + i]], device="cuda"), cache,
-                    block_tables=tables, rope=runner.rope, kv_len=64)
+                    torch.tensor([[P + i]], device=dev), cache,
+                    block_tables=tables, rope=runner.rope, kv_len=max_len)
                 out.append(logits[0, 0])
         finally:
             pa.paged_attention, pa.paged_decode_attention = saved
+        del cache
         return torch.stack(out)
 
+    t0 = time.monotonic()
     ref = run(p32, cfg32, True)
     err32 = (run(p32, cfg32, False) - ref).abs().max().item()
     del p32
-    torch.cuda.empty_cache()
+    free_memory()
     err16 = (run(runner.params, cfg, False) - ref).abs().max().item()
     floor16 = (run(runner.params, cfg, True) - ref).abs().max().item()
     scale = ref.abs().max().item()
     ok = (bool(torch.isfinite(ref).all()) and err32 <= F32_LOGIT_TOL * scale
           and err16 <= BF16_FLOOR_FACTOR * floor16)
     log(json.dumps({"reference": {
-        "positions": 4, "max_abs_logit": scale,
+        "model": model, "layers": cfg.num_layers, "prompt_tokens": P,
+        "decode_steps": steps, "positions": ref.shape[0],
+        "max_abs_logit": scale,
         "f32_kernels_err": err32, "f32_tol": F32_LOGIT_TOL * scale,
         "bf16_kernels_err": err16, "bf16_plain_err": floor16,
-        "bf16_tol": BF16_FLOOR_FACTOR * floor16, "ok": ok}}))
+        "bf16_tol": BF16_FLOOR_FACTOR * floor16,
+        "seconds": time.monotonic() - t0, "ok": ok}}))
     if not ok:
         raise AssertionError("served logits disagree with the float32 "
                              "reference beyond the stated bounds")
@@ -507,46 +795,83 @@ def profile_summary(prof, divide: int, event_ms: float):
                              "count": c / divide} for n, (t, c) in top]}
 
 
-def breakdown_phase(engine):
+def breakdown_phase(engine, model: str):
     """Device time of one decode step of the whole batch (a window of
-    decode_window steps, divided) and of one 512-token prefill chunk
-    with the other rows parked, through the served model at the shapes
-    the kernel timings used (CUDA events); then one window and one
-    chunk under torch.profiler: the device's idle share and each kernel
-    class's share of the span, read from the trace."""
+    decode_window steps, divided) at the rows decode_starts, and of one
+    512-token prefill chunk of one row at chunk_start with the other
+    rows parked, through the served model at the shapes the kernel
+    timings used (CUDA events); then one window and one chunk under
+    torch.profiler: the device's idle share and each kernel class's
+    share of the span, read from the trace."""
     import numpy as np
     import torch
     from production_stack_tpu_torch.engine.sampler import SamplingParams
 
     runner = engine.engine.runner
-    B, W, S = SERVE["max_num_seqs"], SERVE["decode_window"], \
-        SERVE["max_model_len"]
-    MB = S // SERVE["kv_block_size"]
+    dev = next(runner.params.parameters()).device
+    p = PATHS[model]
+    serve, kv_len = p["serve"], p["kv_len"]
+    B, W, S = serve["max_num_seqs"], serve["decode_window"], \
+        serve["max_model_len"]
+    MB = S // serve["kv_block_size"]
     runner.set_block_tables(
         (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB))
-    sp = SamplingParams.filled(B, temperature=0.0, device="cuda")
-    starts = np.array([200, 431, 57, 400], np.int32)
+    sp = SamplingParams.filled(B, temperature=0.0, device=dev)
+    starts = np.array(p["decode_starts"], np.int32)
 
     def window(i=0):
         runner.set_decode_state(np.zeros((B,), np.int32), starts)
-        return runner.decode(sp, steps=W, kv_len=512, greedy=True)
+        return runner.decode(sp, steps=W, kv_len=kv_len, greedy=True)
 
     def chunk(i=0):
         return runner.prefill(
             np.zeros((B, 512), np.int32),
-            np.array([0] + [S] * (B - 1), np.int32),
-            np.array([512] + [1] * (B - 1), np.int32), sp, 512,
+            np.array([p["chunk_start"]] + [S] * (B - 1), np.int32),
+            np.array([512] + [1] * (B - 1), np.int32), sp, kv_len,
             greedy=True)
 
     step_ms = time_ms(window, 3) / W
     chunk_ms = time_ms(chunk, 3)
-    out = {"decode_step_ms": step_ms, "prefill_chunk_ms": chunk_ms,
-           "batch": B, "kv_len": 512,
+    out = {"model": model, "decode_step_ms": step_ms,
+           "prefill_chunk_ms": chunk_ms, "batch": B, "kv_len": kv_len,
+           "decode_starts": p["decode_starts"],
+           "chunk_start": p["chunk_start"],
            "decode_profile_per_step": profile_summary(
                device_profile(window), W, step_ms),
            "prefill_profile_per_chunk": profile_summary(
                device_profile(chunk), 1, chunk_ms)}
     log(json.dumps({"breakdown": out}))
+
+
+def model_phase(model: str):
+    """Serve one model at full width and depth, then its breakdown and
+    its reference; returns the kernels' launch counts of the serving run
+    (serve_phase). The engine is freed before returning."""
+    import torch
+    from production_stack_tpu_torch.engine.async_engine import \
+        AsyncLLMEngine
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    t0 = time.monotonic()
+    engine = AsyncLLMEngine(EngineConfig(model=model, device="cuda",
+                                         **PATHS[model]["serve"]))
+    engine.engine.runner.warmup()
+    cfg = engine.engine.model_cfg
+    log(json.dumps({"engine_ready_s": time.monotonic() - t0,
+                    "model": model, "layers": cfg.num_layers,
+                    "hidden": cfg.hidden_size, "params": cfg.num_params,
+                    "mem_gib": torch.cuda.memory_allocated() / 2**30}))
+    t0 = time.monotonic()
+    counts = asyncio.run(serve_phase(engine, model))
+    breakdown_phase(engine, model)
+    # serving is over: the pool goes before the float32 copy arrives
+    engine.engine.runner.cache = None
+    free_memory()
+    reference_phase(engine, model)
+    del engine
+    free_memory()
+    log(json.dumps({"model_phase_s": time.monotonic() - t0,
+                    "model": model}))
+    return counts
 
 
 # ------------------------------------------------------------ main
@@ -567,6 +892,7 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     gpu = gpu_line()
+    t_start = time.monotonic()
 
     t0 = time.monotonic()
     report = kernels.build()
@@ -574,27 +900,27 @@ def main() -> int:
                               "sources": sorted(report) or "cached"}}))
 
     t0 = time.monotonic()
-    records = kernel_phase(gpu)
+    records = kernel_phase()
     log(json.dumps({"kernel_phase_s": time.monotonic() - t0}))
 
-    from production_stack_tpu_torch.engine.async_engine import \
-        AsyncLLMEngine
-    from production_stack_tpu_torch.engine.config import EngineConfig
-    t0 = time.monotonic()
-    engine = AsyncLLMEngine(EngineConfig(model=MODEL, device="cuda",
-                                         **SERVE))
-    engine.engine.runner.warmup()
-    log(json.dumps({"engine_ready_s": time.monotonic() - t0,
-                    "model": MODEL,
-                    "params": engine.engine.model_cfg.num_params,
-                    "mem_gib": torch.cuda.memory_allocated() / 2**30}))
-    counts = asyncio.run(serve_phase(engine))
-    breakdown_phase(engine)
-    reference_phase(engine)
+    counts = {model: model_phase(model) for model in PATHS}
 
     for rec in records:
-        rec["launches"] = counts[rec["name"]]
+        name = rec["name"]
+        if rec["path"] is None:
+            # the flash kernel serves no path, as in the JAX package: its
+            # launches over every serving run (serve_phase holds it to 0)
+            rec["launches"] = sum(c["launches"][name]
+                                  for c in counts.values())
+        else:
+            c = counts[rec["path"]]
+            windowed = c["window_launches"][name]
+            rec["launches"] = {"all": c["launches"][name],
+                               "sliding": windowed,
+                               "global": c["launches"][name] - windowed,
+                               }[rec["layers"]]
         del rec["shape"]
+    log(json.dumps({"total_s": time.monotonic() - t_start}))
     log(json.dumps({"kernels": records}))
     log(gpu)
     print(json.dumps({"ok": True, "device": {

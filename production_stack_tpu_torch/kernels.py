@@ -2,10 +2,12 @@
 
 Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface and loaded with
-``ctypes`` — no PyTorch headers, so a build takes seconds. Libraries go
+``ctypes`` — no PyTorch headers, so a build takes seconds. The sources
+share the attention tile of ``csrc/attention_tile.cuh``. Libraries go
 to ``build/torch_kernels/`` at the repository root (listed in
-``.gitignore``), named by a digest of the source and flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing is built when
+``.gitignore``), named by a digest of the source, the shared headers and
+the flags, so an edited source or header is rebuilt and an unchanged one
+is reused. Nothing is built when
 this module is imported: the first call that needs a kernel builds it.
 """
 
@@ -20,7 +22,8 @@ from typing import Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = {"paged_attention": _PKG / "csrc" / "paged_attention.cu"}
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
+           for name in ("paged_attention", "flash_attention")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -40,9 +43,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """Where the library of one source goes: named by a digest of the
+    source, the headers of ``csrc/`` it may include, and the flags."""
+    h = hashlib.sha1(SOURCES[name].read_bytes())
+    for header in sorted(SOURCES[name].parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

@@ -1,4 +1,4 @@
-"""Dense Llama decoder over stacked per-layer weights
+"""Dense Llama-family decoder over stacked per-layer weights
 (``production_stack_tpu/models/llama.py:38-370,419-450``).
 
 The weights keep the JAX layout: every layer's matrices are stacked on a
@@ -9,17 +9,24 @@ over the layers in Python where JAX scans.
 
 Per layer: RMSNorm -> QKV -> RoPE -> write the chunk's K/V into the
 paged pool (models/kv.write_chunk, in place) -> paged attention ->
-O-proj -> SwiGLU MLP. Attention dispatches exactly as the JAX forward
+O-proj -> gated MLP. Attention dispatches exactly as the JAX forward
 does (llama.py:188-223): ``nb = min(ceil(kv_len/Bs), MB)`` blocks, and
 windows of T <= DECODE_T_MAX tokens take the decode kernel, longer
 chunks the prefill kernel. On CUDA tensors both are the hand-written
 kernels; on the CPU their plain versions.
 
-The slice serves the dense Llama family only: MoE, biases, Gemma's
-norm/embedding conventions, sliding windows and softcaps raise
+Gemma-2's deviations are those of the JAX forward: norm gains stored
+around an implicit 1 (``rms_norm_offset``, initialised to zeros),
+embeddings scaled by sqrt(hidden) in f32, the attention scale from
+``query_pre_attn_scalar``, a tanh softcap on the attention scores and
+on the f32 logits, sandwich norms after attention and MLP, gelu_tanh,
+and a sliding window on the even layers (``alternating_sliding``).
+MoE, attention biases and a sliding window on every layer (Mistral
+v0.1, whose engine frees blocks behind the window) raise
 (check_supported) instead of being ignored.
 """
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -35,38 +42,53 @@ from production_stack_tpu_torch.ops.norms import rms_norm
 from production_stack_tpu_torch.ops.rope import rope_rows, rope_table, rotate
 from production_stack_tpu_torch.utils import resolve_device
 
+# per-layer weights, stacked on axis 0; the post norms exist only with
+# sandwich_norms (Gemma-2)
 LAYER_KEYS = ("attn_norm", "q", "k", "v", "o", "mlp_norm", "gate", "up",
-              "down")
+              "down", "post_attn_norm", "post_mlp_norm")
+NORM_KEYS = ("attn_norm", "mlp_norm", "post_attn_norm", "post_mlp_norm",
+             "final_norm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse the family variations this slice does not implement."""
+    """Refuse the family variations this port does not implement."""
     unsupported = {
         "num_experts": cfg.num_experts,
         "attention_bias": cfg.attention_bias,
-        "sliding_window": cfg.sliding_window,
-        "attn_logit_softcap": cfg.attn_logit_softcap,
-        "final_logit_softcap": cfg.final_logit_softcap,
-        "query_pre_attn_scalar": cfg.query_pre_attn_scalar,
-        "sandwich_norms": cfg.sandwich_norms,
-        "rms_norm_offset": cfg.rms_norm_offset,
-        "embed_scale": cfg.embed_scale,
-        "activation": cfg.activation != "silu",
+        "sliding_window": (cfg.sliding_window
+                           and not cfg.alternating_sliding),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
             f"model {cfg.name!r} needs {', '.join(bad)}, which the port "
-            f"does not implement yet (dense Llama family only)")
+            f"does not implement yet (dense models; a sliding window only "
+            f"on alternating layers)")
+
+
+def layer_window(cfg: ModelConfig, layer: int) -> int:
+    """Sliding window of one layer, 0 = full causal: Gemma-2's even
+    layers slide, its odd layers are global (JAX llama.py:361-363)."""
+    if cfg.sliding_window and layer % 2 == 0:
+        return cfg.sliding_window
+    return 0
+
+
+def attn_scale(cfg: ModelConfig) -> float:
+    """query_pre_attn_scalar**-0.5 where set (Gemma-2), else D**-0.5."""
+    if cfg.query_pre_attn_scalar:
+        return float(cfg.query_pre_attn_scalar) ** -0.5
+    return cfg.head_dim_ ** -0.5
 
 
 class Llama(nn.Module):
-    """Parameters of one dense Llama model, JAX layout, no gradients;
-    the module-level ``forward`` runs them.
+    """Parameters of one dense Llama-family model, JAX layout, no
+    gradients; the module-level ``forward`` runs them.
 
     embed [V, H]; per layer (stacked on axis 0): attn_norm/mlp_norm
     [L, H], q [L, H, NH*D], k/v [L, H, NKV*D], o [L, NH*D, H],
-    gate/up [L, H, I], down [L, I, H]; final_norm [H]; lm_head [H, V]
+    gate/up [L, H, I], down [L, I, H], and with sandwich norms
+    post_attn_norm/post_mlp_norm [L, H]; final_norm [H]; lm_head [H, V]
     unless the embeddings are tied."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
@@ -83,6 +105,8 @@ class Llama(nn.Module):
             "o": (L, nh * hd, h), "mlp_norm": (L, h), "gate": (L, h, i),
             "up": (L, h, i), "down": (L, i, h), "final_norm": (h,),
         }
+        if cfg.sandwich_norms:
+            shapes["post_attn_norm"] = shapes["post_mlp_norm"] = (L, h)
         if not cfg.tie_word_embeddings:
             shapes["lm_head"] = (h, v)
         for name, shape in shapes.items():
@@ -96,11 +120,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Llama:
     """Random init (normal 0.02) in cfg.dtype, drawn from `generator`
     (which must live on `device`) one layer at a time so the f32 draw
-    never holds more than one layer's matrix. Norm gains are ones."""
+    never holds more than one layer's matrix. Norm gains are ones, or
+    zeros where they are stored around an implicit 1 (rms_norm_offset),
+    as in the JAX init."""
     model = Llama(cfg, device=device)
     for name, p in model.named_parameters():
-        if name in ("attn_norm", "mlp_norm", "final_norm"):
-            p.fill_(1.0)
+        if name in NORM_KEYS:
+            p.fill_(0.0 if cfg.rms_norm_offset else 1.0)
             continue
         rows = p if name in LAYER_KEYS else p.unsqueeze(0)
         for row in rows:
@@ -119,7 +145,8 @@ def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
     B, T, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     eps = cfg.rms_norm_eps
-    hidden = rms_norm(x, model.attn_norm[l], eps)
+    off = 1.0 if cfg.rms_norm_offset else 0.0
+    hidden = rms_norm(x, model.attn_norm[l], eps, off)
     q = rotate((hidden @ model.q[l]).reshape(B, T, nh, hd), *rows)
     k = rotate((hidden @ model.k[l]).reshape(B, T, nkv, hd), *rows)
     v = (hidden @ model.v[l]).reshape(B, T, nkv, hd)
@@ -128,11 +155,20 @@ def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
     attn_fn = (pa.paged_decode_attention if T <= pa.DECODE_T_MAX
                else pa.paged_attention)
     attn = attn_fn(q, k_pool, v_pool, block_tables, starts, nb=nb,
-                   scale=hd ** -0.5)
-    x = x + attn.reshape(B, T, nh * hd) @ model.o[l]
-    hidden = rms_norm(x, model.mlp_norm[l], eps)
-    gated = F.silu(hidden @ model.gate[l]) * (hidden @ model.up[l])
-    return x + gated @ model.down[l]
+                   scale=attn_scale(cfg), window=layer_window(cfg, l),
+                   softcap=cfg.attn_logit_softcap or 0.0)
+    o_out = attn.reshape(B, T, nh * hd) @ model.o[l]
+    if cfg.sandwich_norms:
+        o_out = rms_norm(o_out, model.post_attn_norm[l], eps, off)
+    x = x + o_out
+    hidden = rms_norm(x, model.mlp_norm[l], eps, off)
+    gate = hidden @ model.gate[l]
+    act = (F.silu(gate) if cfg.activation == "silu"
+           else F.gelu(gate, approximate="tanh"))
+    mlp_out = (act * (hidden @ model.up[l])) @ model.down[l]
+    if cfg.sandwich_norms:
+        mlp_out = rms_norm(mlp_out, model.post_mlp_norm[l], eps, off)
+    return x + mlp_out
 
 
 def forward(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
@@ -176,20 +212,27 @@ def forward(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
     if last_index is not None:
         x = torch.gather(x, 1, last_index.long()[:, None, None].expand(
             -1, 1, x.shape[-1]))
-    x = rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+    x = rms_norm(x, model.final_norm, cfg.rms_norm_eps,
+                 1.0 if cfg.rms_norm_offset else 0.0)
     return _lm_head(model, cfg, x), cache
 
 
 def _embed(model: Llama, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
-    return model.embed[tokens.long()].to(cfg.dtype)
+    x = model.embed[tokens.long()]
+    if cfg.embed_scale:
+        # Gemma: sqrt(hidden) in f32, then cast, as the JAX forward does
+        # (HF multiplies in bf16)
+        x = x.float() * math.sqrt(cfg.hidden_size)
+    return x.to(cfg.dtype)
 
 
 def _lm_head(model: Llama, cfg: ModelConfig,
              x: torch.Tensor) -> torch.Tensor:
     """f32 logits [B,T,V] from bf16 or f32 activations: the product
     accumulates in f32 and is not rounded to bf16 (the JAX einsum's
-    preferred_element_type=f32)."""
+    preferred_element_type=f32); Gemma-2's final softcap applies to
+    the f32 logits."""
     head = (model.embed.t() if cfg.tie_word_embeddings
             else model.lm_head)
     B, T, H = x.shape
@@ -201,6 +244,9 @@ def _lm_head(model: Llama, cfg: ModelConfig,
     else:
         # CPU has no mixed-precision mm: bf16 products are exact in f32
         logits = x2.float() @ head.float()
+    if cfg.final_logit_softcap:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
     return logits.reshape(B, T, -1)
 
 

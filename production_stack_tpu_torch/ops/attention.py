@@ -1,11 +1,11 @@
 """Grouped-query attention over a contiguous cache view
-(``production_stack_tpu/ops/attention.py:89-127``).
+(``production_stack_tpu/ops/attention.py:38-44,89-127``).
 
-``attention_with_cache`` is the body of the paged kernels' plain
-versions (ops/paged_attention.py): q is viewed as [B, T, Hkv, G, D] so
-K/V are never repeated to H query heads; scores and softmax are f32 and
-masked with -1e30, and the probabilities are cast to V's dtype before
-the value product, as the JAX function does."""
+``attention_with_cache`` is the body of the kernels' plain versions
+(ops/paged_attention.py, ops/flash_attention.py): q is viewed as
+[B, T, Hkv, G, D] so K/V are never repeated to H query heads; scores and
+softmax are f32 and masked with -1e30, and the probabilities are cast to
+V's dtype before the value product, as the JAX function does."""
 
 from typing import Optional
 
@@ -14,12 +14,25 @@ import torch
 _NEG_INF = -1e30
 
 
+def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-2 logit softcap, s -> cap * tanh(s / cap), on RAW scores:
+    applied before the -1e30 mask, since capping a masked score would
+    bring it back at -cap."""
+    if not cap:
+        return scores
+    return cap * torch.tanh(scores / cap)
+
+
 def attention_with_cache(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, q_positions: torch.Tensor,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         sliding_window: Optional[int] = None,
+                         logit_softcap: Optional[float] = None
+                         ) -> torch.Tensor:
     """q [B,T,H,D]; k/v [B,S,Hkv,D] already holding the chunk's own K/V;
-    q_positions [B,T]. A query at position p attends cache slots s <= p.
-    Returns [B,T,H,D] in v's dtype."""
+    q_positions [B,T]. A query at position p attends cache slots s <= p,
+    and s > p - sliding_window when windowed. Returns [B,T,H,D] in v's
+    dtype."""
     B, T, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
@@ -28,10 +41,13 @@ def attention_with_cache(q: torch.Tensor, k_cache: torch.Tensor,
     q5 = q.reshape(B, T, Hkv, G, D)
     # products of bf16 values are exact in f32: upcasting first matches
     # the JAX einsum's preferred_element_type=f32
-    scores = torch.einsum("btkgd,bskd->bkgts", q5.float(),
-                          k_cache.float()) * scale
-    s_idx = torch.arange(S, device=q.device)
-    mask = s_idx[None, None, :] <= q_positions[:, :, None]     # [B,T,S]
+    scores = _softcap(torch.einsum("btkgd,bskd->bkgts", q5.float(),
+                                   k_cache.float()) * scale, logit_softcap)
+    s_idx = torch.arange(S, device=q.device)[None, None, :]
+    qp = q_positions[:, :, None]
+    mask = s_idx <= qp                                          # [B,T,S]
+    if sliding_window:
+        mask = mask & (s_idx > qp - sliding_window)
     scores = torch.where(mask[:, None, None], scores,
                          torch.full((), _NEG_INF, device=q.device))
     probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))

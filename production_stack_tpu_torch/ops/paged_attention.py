@@ -10,10 +10,14 @@ Replaces ``production_stack_tpu/ops/pallas_paged.py``:
 
 Both kernels live in ``csrc/paged_attention.cu``, whose header says what
 bounds them on an H100 (decode: device-memory bytes; prefill:
-arithmetic) and what this first design does about it. A wrapper given
-CPU tensors computes the plain version (gather through the table, then
-the masked f32 softmax of ops/attention.py); given CUDA tensors it
-launches its kernel or raises — there is no fallback between the two.
+arithmetic) and what this first design does about it. Both take the
+Pallas kernels' ``window`` (sliding window, 0 = off), ``softcap`` (tanh
+cap on the raw scores, 0 = off) and ``scale`` (default D**-0.5), at
+D in {64, 128, 256}. A wrapper given CPU tensors computes the plain
+version (gather through the table, then the masked f32 softmax of
+ops/attention.py); given CUDA tensors it launches its kernel or raises —
+there is no fallback between the two. The int8 pool (``k_scales``,
+``v_scales``) is not ported yet and raises.
 
 A row parked at ``start >= MB*Bs`` (an idle slot of the full-batch
 forward, whose output the engine discards) comes back as zeros from both
@@ -33,18 +37,20 @@ from production_stack_tpu_torch.ops.attention import attention_with_cache
 
 # decode windows have T <= this; longer chunks take the prefill kernel
 DECODE_T_MAX = 8
-# prefill query tiles hold at most this many (position, head) rows, so
-# a tile's shared memory stays under the 227 KB a block may use
-PREFILL_TILE_ROWS = 64
+HEAD_DIMS = (64, 128, 256)
 
 # kernel launches per wrapper, counted where the kernel is launched and
-# nowhere else (the plain CPU path does not count)
+# nowhere else (the plain CPU path does not count); window_launches and
+# softcap_launches count those of them made with the branch on
 launch_counts = {"paged_decode_attention": 0, "paged_attention": 0}
+window_launches = dict(launch_counts)
+softcap_launches = dict(launch_counts)
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, window_launches, softcap_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,42 +62,39 @@ def _lib():
     if _lib_handle is None:
         lib = kernels.load("paged_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        common = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i]
-        lib.paged_decode_attention.argtypes = common + [f, p]
-        lib.paged_decode_attention.restype = i
-        lib.paged_prefill_attention.argtypes = common + [i, f, p]
-        lib.paged_prefill_attention.restype = i
+        args = [p, p, p, p, p, p] + [i] * 11 + [f, i, f, p]
+        for fn in (lib.paged_decode_attention, lib.paged_prefill_attention):
+            fn.argtypes = args
+            fn.restype = i
         lib.paged_attention_error_string.argtypes = [i]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
 
 
-def _refuse_flags(k_scales, v_scales, window, softcap) -> None:
-    """int8 pools, sliding windows and softcaps arrive with the slices
-    that need them (int8 KV, Mistral v0.1, Gemma-2)."""
+def _refuse_flags(k_scales, v_scales) -> None:
+    """int8 pools arrive with the quantization slice."""
     if k_scales is not None or v_scales is not None:
         raise NotImplementedError("int8 KV pools are not ported yet")
-    if window:
-        raise NotImplementedError("sliding-window attention is not "
-                                  "ported yet")
-    if softcap:
-        raise NotImplementedError("attention softcap is not ported yet")
 
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, tables: torch.Tensor,
                           starts: torch.Tensor, nb: int,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None, window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
     """Plain version of both kernels: gather the first nb blocks of
-    every row through its table, then masked f32-softmax attention;
+    every row through its table, then masked f32-softmax attention
+    (sliding window and softcap as in ops/attention.py, 0 = off);
     parked rows (start >= MB*Bs) are zeros. Returns [B, T, H, D] in q's
     dtype."""
     T = q.shape[1]
     k_att = gather_view(k_pool, tables, nb)
     v_att = gather_view(v_pool, tables, nb)
     positions = starts.long()[:, None] + torch.arange(T, device=q.device)
-    out = attention_with_cache(q, k_att, v_att, positions, scale=scale)
+    out = attention_with_cache(q, k_att, v_att, positions, scale=scale,
+                               sliding_window=window,
+                               logit_softcap=softcap)
     live = starts < tables.shape[1] * k_pool.shape[2]
     return torch.where(live[:, None, None, None], out,
                        torch.zeros((), dtype=out.dtype,
@@ -113,9 +116,10 @@ def _check_cuda_args(q, k_pool, v_pool, tables, starts, nb):
                         f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype})")
     if tables.dtype != torch.int32 or starts.dtype != torch.int32:
         raise TypeError("tables and starts must be int32")
-    if D not in (64, 128) or Dk != D or v_pool.shape != k_pool.shape:
-        raise ValueError(f"unsupported head dim / pool shape: q {tuple(q.shape)}, "
-                         f"pool {tuple(k_pool.shape)} (D must be 64 or 128)")
+    if D not in HEAD_DIMS or Dk != D or v_pool.shape != k_pool.shape:
+        raise ValueError(f"unsupported head dim / pool shape: q "
+                         f"{tuple(q.shape)}, pool {tuple(k_pool.shape)} "
+                         f"(D must be 64, 128 or 256)")
     if H % Hkv or tables.shape[0] != B or starts.shape != (B,):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, Hkv {Hkv}, "
                          f"tables {tuple(tables.shape)}, starts "
@@ -135,6 +139,40 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed ({rc}): {msg}")
 
 
+def tile_block_q(T: int, groups: int, D: int) -> int:
+    """Query positions per tile, never more than T: as many as keep the
+    tile at 64 (position, head) rows, 32 at D = 256, so its shared
+    memory (csrc smem_floats, at Bs = 64) stays under the 227 KB a block
+    may use — 148,480 bytes at D = 128, 205,440 at D = 256."""
+    rows = 64 if D <= 128 else 32
+    return max(1, min(T, rows // groups))
+
+
+def _launch(name: str, q, k_pool, v_pool, tables, starts, nb, scale,
+            window, softcap) -> torch.Tensor:
+    B, T, H, D, N, Hkv, Bs = _check_cuda_args(q, k_pool, v_pool, tables,
+                                              starts, nb)
+    if window < 0 or softcap < 0:
+        raise ValueError(f"window={window} and softcap={softcap} must be "
+                         f">= 0 (0 turns either off)")
+    fn = (_lib().paged_decode_attention if name == "paged_decode_attention"
+          else _lib().paged_prefill_attention)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), starts.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, T, H, Hkv, D, Bs, tables.shape[1], nb,
+            N, tile_block_q(T, H // Hkv, D), float(scale), int(window),
+            float(softcap), stream)
+    _raise_on(rc, name)
+    launch_counts[name] += 1
+    if window:
+        window_launches[name] += 1
+    if softcap:
+        softcap_launches[name] += 1
+    return out
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
                            starts: torch.Tensor, *, nb: int,
@@ -143,34 +181,19 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            softcap: float = 0.0) -> torch.Tensor:
     """Causal GQA of a short query window (T <= DECODE_T_MAX) over the
     paged pool. q [B,T,H,D]; k/v pool [N,Hkv,Bs,D]; tables [B,MB] int32;
-    starts [B] int32. See the module doc and csrc/paged_attention.cu."""
-    _refuse_flags(k_scales, v_scales, window, softcap)
+    starts [B] int32; window/softcap 0 = off. See the module doc and
+    csrc/paged_attention.cu."""
+    _refuse_flags(k_scales, v_scales)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
         return paged_attention_plain(q, k_pool, v_pool, tables, starts, nb,
-                                     scale)
-    B, T, H, D, N, Hkv, Bs = _check_cuda_args(q, k_pool, v_pool, tables,
-                                              starts, nb)
-    if T > DECODE_T_MAX:
+                                     scale, window, softcap)
+    if q.shape[1] > DECODE_T_MAX:
         raise ValueError(f"decode kernel takes T <= {DECODE_T_MAX} "
-                         f"(got {T}); use paged_attention")
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib().paged_decode_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), starts.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, T, H, Hkv, D, Bs, tables.shape[1], nb, N,
-        float(scale), stream)
-    _raise_on(rc, "paged_decode_attention")
-    launch_counts["paged_decode_attention"] += 1
-    return out
-
-
-def prefill_block_q(T: int, groups: int) -> int:
-    """Query positions per prefill tile: as many as keep the tile at
-    PREFILL_TILE_ROWS (position, head) rows, and never more than T."""
-    return max(1, min(T, PREFILL_TILE_ROWS // groups))
+                         f"(got {q.shape[1]}); use paged_attention")
+    return _launch("paged_decode_attention", q, k_pool, v_pool, tables,
+                   starts, nb, scale, window, softcap)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -182,21 +205,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Causal GQA of a query chunk of any length over the paged pool
     (prefill), tiled over the query axis. Same arguments and result as
     paged_decode_attention."""
-    _refuse_flags(k_scales, v_scales, window, softcap)
+    _refuse_flags(k_scales, v_scales)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
         return paged_attention_plain(q, k_pool, v_pool, tables, starts, nb,
-                                     scale)
-    B, T, H, D, N, Hkv, Bs = _check_cuda_args(q, k_pool, v_pool, tables,
-                                              starts, nb)
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib().paged_prefill_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), starts.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, T, H, Hkv, D, Bs, tables.shape[1], nb, N,
-        prefill_block_q(T, H // Hkv), float(scale), stream)
-    _raise_on(rc, "paged_attention")
-    launch_counts["paged_attention"] += 1
-    return out
+                                     scale, window, softcap)
+    return _launch("paged_attention", q, k_pool, v_pool, tables, starts,
+                   nb, scale, window, softcap)

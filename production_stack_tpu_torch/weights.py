@@ -31,7 +31,8 @@ def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_jax(np_params: Mapping, cfg: ModelConfig,
                     device="cuda") -> Llama:
     """The JAX params pytree ({"embed", "layers": {...}, "final_norm",
-    ["lm_head"]}, numpy leaves) as the port's Llama module in
+    ["lm_head"]}, numpy leaves; the layers carry post_attn_norm and
+    post_mlp_norm with sandwich norms) as the port's Llama module in
     cfg.dtype on `device`."""
     model = Llama(cfg, device=device)
     with torch.no_grad():

@@ -5,15 +5,16 @@ no NVIDIA GPU; on a machine with one:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Tolerances as in chip_smoke.py: float32 2e-5 (softmax summed in another
-order); bfloat16 3e-2 (bf16 outputs, and the plain version rounds the
-probabilities to bf16 before the value product where the kernel keeps
-them in float32).
+order); bfloat16 3e-2 (bf16 outputs up to ~4, and the plain version
+rounds the probabilities to bf16 before the value product where the
+kernel keeps them in float32).
 """
 
 import pytest
 import torch
 
 from production_stack_tpu_torch.models.kv import write_chunk
+from production_stack_tpu_torch.ops import flash_attention as fa
 from production_stack_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -28,9 +29,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dev, T, G, D, dtype, lens=(70, 5, 300), seed=0):
+def _case(dev, T, G, D, dtype, lens=(70, 5, 300), seed=0, Bs=64):
     g = torch.Generator(device=dev).manual_seed(seed)
-    Bs, Hkv, B = 64, 2, len(lens) + 1
+    Hkv, B = 2, len(lens) + 1
     MB = -(-(max(lens) + T + 1) // Bs) + 1
     N = B * MB + 2
 
@@ -50,26 +51,67 @@ def _case(dev, T, G, D, dtype, lens=(70, 5, 300), seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("fn,T,G,D", [
-    (pa.paged_decode_attention, 1, 4, 128),
-    (pa.paged_decode_attention, 8, 8, 64),
-    (pa.paged_attention, 9, 4, 128),
-    (pa.paged_attention, 130, 8, 64),
+@pytest.mark.parametrize("fn,T,G,D,Bs,window,softcap", [
+    (pa.paged_decode_attention, 1, 4, 128, 64, 0, 0.0),
+    (pa.paged_decode_attention, 8, 8, 64, 64, 0, 0.0),
+    (pa.paged_attention, 9, 4, 128, 64, 0, 0.0),
+    (pa.paged_attention, 130, 8, 64, 64, 0, 0.0),
+    # Gemma-2-9B: D = 256 with G = 2
+    (pa.paged_decode_attention, 8, 2, 256, 64, 0, 0.0),
+    (pa.paged_attention, 100, 2, 256, 64, 0, 0.0),
+    # a window of 40 over blocks of 16, rows well past it
+    (pa.paged_decode_attention, 5, 4, 128, 16, 40, 0.0),
+    (pa.paged_attention, 70, 4, 128, 16, 40, 0.0),
+    # a softcap of 50 on raw scores of about +-100 (q x 30)
+    (pa.paged_decode_attention, 1, 2, 256, 64, 0, 50.0),
+    (pa.paged_attention, 64, 2, 256, 64, 100, 50.0),
 ])
-def test_kernel_matches_plain_version(cuda, fn, T, G, D, dtype):
-    q, k, v, tables, starts, nb = _case(cuda, T, G, D, dtype)
+def test_kernel_matches_plain_version(cuda, fn, T, G, D, Bs, window,
+                                      softcap, dtype):
+    q, k, v, tables, starts, nb = _case(cuda, T, G, D, dtype, Bs=Bs)
+    if softcap:
+        # the softmax sits on a few keys: V at half scale keeps the
+        # output within the +-4 the bf16 tolerance assumes
+        q, v = (q.float() * 30).to(dtype), (v.float() * 0.5).to(dtype)
     name = fn.__name__
     before = pa.launch_counts[name]
-    got = fn(q, k, v, tables, starts, nb=nb)
+    got = fn(q, k, v, tables, starts, nb=nb, window=window,
+             softcap=softcap)
     torch.cuda.synchronize()
     assert pa.launch_counts[name] == before + 1
-    want = pa.paged_attention_plain(q, k, v, tables, starts, nb, D ** -0.5)
+    want = pa.paged_attention_plain(q, k, v, tables, starts, nb, D ** -0.5,
+                                    window, softcap)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,S,G,D", [(37, 200, 4, 64), (37, 200, 4, 128),
+                                     (37, 200, 2, 256), (1, 130, 4, 128)])
+def test_flash_kernel_matches_plain_version(cuda, T, S, G, D, dtype):
+    """T and S not multiples of the query tile and the 64-key panel."""
+    g = torch.Generator(device=cuda).manual_seed(T + S + D)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+    B, Hkv = 3, 2
+    q, k, v = rnd(B, T, Hkv * G, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    starts = torch.tensor([0, S // 2, S - T], dtype=torch.int32,
+                          device=cuda)
+    before = fa.launch_counts["flash_attention_with_cache"]
+    got = fa.flash_attention_with_cache(q, k, v, starts)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_attention_with_cache"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, starts)
     assert got.dtype == dtype and torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, tables, starts, nb = _case(cuda, 1, 4, 128, torch.float32)
+    with pytest.raises(NotImplementedError, match="int8"):
+        pa.paged_attention(q, k, v, tables, starts, nb=nb,
+                           k_scales=torch.ones(1), v_scales=torch.ones(1))
     with pytest.raises(ValueError, match="head dim"):
         pa.paged_decode_attention(q[..., :96].contiguous(),
                                   k[..., :96].contiguous(),

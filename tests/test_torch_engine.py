@@ -110,10 +110,10 @@ def test_seeded_rows_reproduce_whatever_the_batch():
 
 # ---------------------------------------------------------- runner/engine
 
-def _weights(seed=0):
-    jcfg = dataclasses.replace(jconfig.get_config("debug-tiny"),
+def _weights(seed=0, model="debug-tiny"):
+    jcfg = dataclasses.replace(jconfig.get_config(model),
                                dtype=jnp.float32)
-    tcfg = dataclasses.replace(tconfig.get_config("debug-tiny"),
+    tcfg = dataclasses.replace(tconfig.get_config(model),
                                dtype=torch.float32)
     jparams = jllama.init_params(jcfg, jax.random.PRNGKey(seed))
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
@@ -200,6 +200,37 @@ def test_engine_greedy_tokens_equal_jax_engine_mixed_batch(prefix_caching):
     want = run(je, JSamplingOptions)
     got = run(te, SamplingOptions)
     assert [len(t) for t in got] == list(budgets)
+    assert got == want
+
+
+def test_engine_greedy_tokens_equal_jax_engine_gemma2():
+    """debug-gemma2 through both engines with the configuration of
+    tests/test_gemma2.py::test_engine_e2e_gemma2 (in float32): a
+    100-token prompt past the 64-token window on the sliding layer, then
+    24 greedy tokens, next to a short prompt. The tokens equal the JAX
+    engine's."""
+    _, _, jparams, tparams = _weights(4, model="debug-gemma2")
+    common = dict(model="debug-gemma2", dtype="float32", kv_dtype="float32",
+                  max_model_len=256, max_num_seqs=2, prefill_chunk=32,
+                  prefill_buckets=(32,), decode_window=4)
+    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
+                           params=jparams)
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+                           params=tparams)
+    prompts = [list(range(3, 103)), list(range(7, 20))]
+
+    def run(engine, opts_cls):
+        ids = [engine.add_request(p, opts_cls(temperature=0.0,
+                                              max_tokens=24,
+                                              ignore_eos=True))
+               for p in prompts]
+        while engine.has_work:
+            engine.step()
+        return [engine.seqs[i].output_tokens for i in ids]
+
+    want = run(je, JSamplingOptions)
+    got = run(te, SamplingOptions)
+    assert [len(t) for t in got] == [24, 24]
     assert got == want
 
 
@@ -393,6 +424,8 @@ def test_failed_step_fails_requests_and_stops_the_loop():
         assert (await client.get("/health")).status == 503
         r = await client.post("/v1/completions", json=payload)
         assert r.status == 500
+        # the loop hands the failure to the event loop, then returns
+        eng._thread.join(timeout=30)
         assert not eng._thread.is_alive()
     _with_client(eng, body)
 
@@ -417,6 +450,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import production_stack_tpu_torch.engine.server
         import production_stack_tpu_torch.weights
         import production_stack_tpu_torch.kernels
+        import production_stack_tpu_torch.ops.flash_attention
         assert not any(m == "jax" or m.startswith("jax.")
                        or m == "production_stack_tpu"
                        or m.startswith("production_stack_tpu.")
@@ -427,3 +461,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+# ----------------------------------------------------------- kernel build
+
+def test_kernel_library_name_covers_source_and_shared_header(tmp_path,
+                                                             monkeypatch):
+    """A library is named by a digest of its source and of the headers of
+    csrc/ it may include, so editing either rebuilds it and an unchanged
+    pair is reused (nothing is compiled here)."""
+    from production_stack_tpu_torch import kernels
+    src, header = tmp_path / "attn.cu", tmp_path / "tile.cuh"
+    src.write_text('#include "tile.cuh"\n')
+    header.write_text("// tile v1\n")
+    monkeypatch.setattr(kernels, "SOURCES", {"attn": src})
+    first = kernels.library_path("attn")
+    assert first == kernels.library_path("attn")
+    assert first.parent == kernels.BUILD_DIR
+    header.write_text("// tile v2\n")
+    after_header = kernels.library_path("attn")
+    src.write_text('#include "tile.cuh"\n// edited\n')
+    after_source = kernels.library_path("attn")
+    assert len({first, after_header, after_source}) == 3
+    # the port's own sources both include the shared tile
+    monkeypatch.undo()
+    for name in ("paged_attention", "flash_attention"):
+        text = kernels.SOURCES[name].read_text()
+        assert '#include "attention_tile.cuh"' in text

@@ -1,6 +1,7 @@
 """Parity of the PyTorch port's model with the JAX package's on the CPU:
-the configuration table, carrying weights across, and the Llama forward
-through the paged pool (a prefill chunk, then decode steps).
+the configuration table, carrying weights across, and the forward
+through the paged pool (a prefill chunk, then decode steps) of the Llama
+baseline and of Gemma-2 past its sliding window.
 
 Weights are drawn once by the JAX package and carried across
 (weights.params_from_jax), never re-drawn. Tolerances:
@@ -48,10 +49,11 @@ def test_presets_match_jax_field_by_field():
         assert tc.num_params == jc.num_params
 
 
-def _jax_model(dtype: str, seed: int = 0, tie: bool = False):
-    jcfg = dataclasses.replace(jconfig.get_config("debug-tiny"),
+def _jax_model(dtype: str, seed: int = 0, tie: bool = False,
+               model: str = "debug-tiny"):
+    jcfg = dataclasses.replace(jconfig.get_config(model),
                                dtype=_DT[dtype][0], tie_word_embeddings=tie)
-    tcfg = dataclasses.replace(tconfig.get_config("debug-tiny"),
+    tcfg = dataclasses.replace(tconfig.get_config(model),
                                dtype=_DT[dtype][1], tie_word_embeddings=tie)
     params = jllama.init_params(jcfg, jax.random.PRNGKey(seed))
     return jcfg, tcfg, params, jax.tree_util.tree_map(np.asarray, params)
@@ -71,11 +73,45 @@ def test_params_from_jax_round_trip(tie):
                                       np.asarray(src, np.float32))
 
 
+def test_gemma2_params_from_jax_round_trip():
+    """Gemma-2's sandwich norms come across with the rest, bit for bit,
+    and its norm gains start at zeros on both sides (rms_norm_offset)."""
+    _, tcfg, _, np_params = _jax_model("bfloat16", seed=1, tie=True,
+                                       model="debug-gemma2")
+    model = params_from_jax(np_params, tcfg, device="cpu")
+    names = dict(model.named_parameters())
+    assert {"post_attn_norm", "post_mlp_norm"} <= set(names)
+    for name, p in names.items():
+        src = (np_params["layers"][name] if name in tllama.LAYER_KEYS
+               else np_params[name])
+        np.testing.assert_array_equal(p.float().numpy(),
+                                      np.asarray(src, np.float32))
+    fresh = tllama.init_params(tcfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    for name in ("attn_norm", "post_attn_norm", "mlp_norm",
+                 "post_mlp_norm", "final_norm"):
+        assert not getattr(fresh, name).any()
+        assert not np.asarray(np_params["layers"].get(
+            name, np_params.get(name)), np.float32).any()
+
+
 def test_unsupported_families_raise():
     with pytest.raises(NotImplementedError, match="sliding_window"):
         tllama.Llama(tconfig.get_config("debug-sliding"))
     with pytest.raises(NotImplementedError, match="num_experts"):
         tllama.Llama(tconfig.get_config("debug-moe"))
+
+
+def test_gemma2_served_and_every_layer_window_refused():
+    """Gemma-2 (a window on alternating layers) builds; the same model
+    with a window on every layer (Mistral v0.1's pattern, whose engine
+    frees blocks behind the window) is refused by name."""
+    cfg = tconfig.get_config("debug-gemma2")
+    tllama.Llama(cfg, device="cpu")
+    assert [tllama.layer_window(cfg, l) for l in range(4)] == [64, 0, 64, 0]
+    with pytest.raises(NotImplementedError, match="sliding_window"):
+        tllama.Llama(dataclasses.replace(cfg, alternating_sliding=False),
+                     device="cpu")
 
 
 @pytest.mark.parametrize("dtype,tie", [("float32", False),
@@ -127,6 +163,89 @@ def test_forward_prefill_then_decode_matches_jax(dtype, tie):
         np.testing.assert_allclose(tcache.k.numpy()[:, 1:],
                                    np.asarray(jcache.k)[:, 1:],
                                    rtol=0, atol=1e-5)
+
+
+def test_gemma2_forward_past_the_window_matches_jax():
+    """debug-gemma2 in float32 (window 64 on layer 0, softcaps, sandwich
+    norms, query_pre_attn_scalar, embedding scale, gelu_tanh): two
+    prefill chunks to position 80, then decode steps to 86, so the
+    sliding layer drops keys the global layer keeps. Logits to 1e-4."""
+    jcfg, tcfg, jparams, np_params = _jax_model("float32", seed=5,
+                                                tie=True,
+                                                model="debug-gemma2")
+    model = params_from_jax(np_params, tcfg, device="cpu")
+    rng = np.random.default_rng(8)
+    L, Hkv, D = jcfg.num_layers, jcfg.num_kv_heads, jcfg.head_dim_
+    B, Bs, MB, N = 2, 16, 8, 20
+    tables = (rng.permutation(N - 1)[:B * MB] + 1).reshape(B, MB).astype(
+        np.int32)
+    jcache = jkv.make_cache(L, N, Bs, Hkv, D, dtype=jnp.float32)
+    tcache, ttables = cache_from_jax(np.asarray(jcache.k),
+                                     np.asarray(jcache.v), tables,
+                                     dtype=torch.float32, device="cpu")
+
+    def check(tokens, positions, kv_len):
+        nonlocal jcache
+        jl, jcache = jllama.forward(
+            jparams, jcfg, jnp.asarray(tokens), jnp.asarray(positions),
+            jcache, block_tables=jnp.asarray(tables), kv_len=kv_len)
+        tl, _ = tllama.forward(
+            model, tcfg, torch.from_numpy(tokens),
+            torch.from_numpy(positions), tcache, block_tables=ttables,
+            kv_len=kv_len)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=1e-4)
+
+    for lo, hi in ((0, 40), (40, 80)):
+        tokens = rng.integers(0, jcfg.vocab_size, (B, hi - lo)).astype(
+            np.int32)
+        positions = np.broadcast_to(np.arange(lo, hi, dtype=np.int32),
+                                    (B, hi - lo)).copy()
+        check(tokens, positions, kv_len=hi)
+    for pos in range(80, 86):
+        tok = rng.integers(0, jcfg.vocab_size, (B, 1)).astype(np.int32)
+        check(tok, np.full((B, 1), pos, np.int32), kv_len=96)
+
+
+def test_gemma1_conventions_match_jax():
+    """Gemma-1's conventions (embedding scale, RMS offset with zero-init
+    gains, gelu_tanh, tied head; no window, softcap or sandwich norms)
+    on debug-gemma2's shapes, in float32: a prefill chunk, then decode
+    steps; logits to 1e-4."""
+    gemma1 = dict(sliding_window=None, alternating_sliding=False,
+                  attn_logit_softcap=None, final_logit_softcap=None,
+                  query_pre_attn_scalar=None, sandwich_norms=False)
+    jcfg = dataclasses.replace(jconfig.get_config("debug-gemma2"),
+                               dtype=jnp.float32, **gemma1)
+    tcfg = dataclasses.replace(tconfig.get_config("debug-gemma2"),
+                               dtype=torch.float32, **gemma1)
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(6))
+    model = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                            tcfg, device="cpu")
+    assert not hasattr(model, "post_attn_norm")
+    rng = np.random.default_rng(9)
+    B, Bs, MB, N = 2, 8, 4, 12
+    tables = (rng.permutation(N - 1)[:B * MB] + 1).reshape(B, MB).astype(
+        np.int32)
+    jcache = jkv.make_cache(jcfg.num_layers, N, Bs, jcfg.num_kv_heads,
+                            jcfg.head_dim_, dtype=jnp.float32)
+    tcache, ttables = cache_from_jax(np.asarray(jcache.k),
+                                     np.asarray(jcache.v), tables,
+                                     dtype=torch.float32, device="cpu")
+    for lo, hi in ((0, 12), (12, 13), (13, 14)):
+        tokens = rng.integers(0, jcfg.vocab_size, (B, hi - lo)).astype(
+            np.int32)
+        positions = np.broadcast_to(np.arange(lo, hi, dtype=np.int32),
+                                    (B, hi - lo)).copy()
+        jl, jcache = jllama.forward(
+            jparams, jcfg, jnp.asarray(tokens), jnp.asarray(positions),
+            jcache, block_tables=jnp.asarray(tables), kv_len=16)
+        tl, _ = tllama.forward(
+            model, tcfg, torch.from_numpy(tokens),
+            torch.from_numpy(positions), tcache, block_tables=ttables,
+            kv_len=16)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=1e-4)
 
 
 def test_forward_last_index_equals_full_logits_row():

@@ -1,14 +1,16 @@
 """Parity of the PyTorch port's ops with the JAX package's on the CPU:
-norms, rope, the paged KV pool, and the plain versions of the two
-paged-attention kernels against the Pallas kernels in interpret mode.
+norms, rope, the paged KV pool, the plain cache attention with a sliding
+window and a softcap, and the plain versions of the three attention
+kernels (paged decode, paged prefill, flash over a contiguous cache)
+against the Pallas kernels in interpret mode.
 
 Inputs are drawn with numpy from fixed seeds and handed to both sides.
 Tolerances (float32 throughout):
 - elementwise ops and the pool: exact, or 1e-6 where the two libraries
   may fuse or reorder float32 arithmetic differently;
-- paged attention: 2e-5, the bound tests/test_pallas_paged.py holds the
-  Pallas kernels to against the dense jnp path (softmax sums in another
-  order).
+- cache attention and the kernels: 2e-5, the bound
+  tests/test_pallas_paged.py holds the Pallas kernels to against the
+  dense jnp path (softmax sums in another order).
 """
 
 import numpy as np
@@ -18,12 +20,17 @@ import torch
 import jax.numpy as jnp
 
 from production_stack_tpu.models import kv as jkv
+from production_stack_tpu.ops import attention as jattention
 from production_stack_tpu.ops import norms as jnorms
 from production_stack_tpu.ops import rope as jrope
+from production_stack_tpu.ops.pallas_attention import (
+    flash_attention_with_cache as pallas_flash_attention)
 from production_stack_tpu.ops.pallas_paged import (
     paged_attention as pallas_paged_attention,
     paged_decode_attention as pallas_paged_decode_attention)
 from production_stack_tpu_torch.models import kv as tkv
+from production_stack_tpu_torch.ops import attention as tattention
+from production_stack_tpu_torch.ops import flash_attention as tfa
 from production_stack_tpu_torch.ops import norms as tnorms
 from production_stack_tpu_torch.ops import paged_attention as tpa
 from production_stack_tpu_torch.ops import rope as trope
@@ -200,14 +207,92 @@ def test_plain_prefill_matches_pallas_paged_kernel(T, G, D, Bs, parked):
     _assert_matches_pallas(got, want, starts, tables, Bs)
 
 
+@pytest.mark.parametrize("window,softcap", [
+    (None, None), (24, None), (None, 5.0), (24, 5.0)])
+def test_attention_with_cache_window_softcap_matches_jax(window, softcap):
+    """The plain cache attention with Gemma-2's sliding window and
+    softcap against the JAX function; q scaled so that the raw scores
+    reach the cap."""
+    rng = np.random.default_rng(7)
+    B, T, Hkv, G, D, S = 2, 6, 2, 2, 16, 64
+    q = rng.standard_normal((B, T, Hkv * G, D)).astype(np.float32) * 3
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    pos = (np.array([[40], [57]]) + np.arange(T)).astype(np.int32)
+    want = np.asarray(jattention.attention_with_cache(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        scale=0.31, sliding_window=window, logit_softcap=softcap))
+    got = tattention.attention_with_cache(
+        _t(q), _t(k), _t(v), _t(pos), scale=0.31, sliding_window=window,
+        logit_softcap=softcap).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+# window 40 is not a multiple of Bs = 16, and rows 0 and 2 sit well past
+# it, so the Pallas kernels skip blocks before the window; q is scaled
+# by 0.31 with a softcap of 5 as in tests/test_gemma2.py, where the raw
+# scores reach the cap
+@pytest.mark.parametrize("fn,T,G,D,window,softcap,parked", [
+    ("decode", 1, 2, 32, 40, 0.0, False),
+    ("decode", 5, 2, 32, 40, 5.0, True),
+    ("decode", 8, 4, 64, 0, 5.0, False),
+    ("prefill", 40, 2, 32, 40, 0.0, True),
+    ("prefill", 24, 2, 32, 40, 5.0, False),
+])
+def test_plain_window_softcap_matches_pallas_kernels(fn, T, G, D, window,
+                                                     softcap, parked):
+    q, k, v, tables, starts, nb = _paged_case(T * 11 + window, T, G, D, 16,
+                                              [90, 5, 130], parked)
+    pallas = (pallas_paged_decode_attention if fn == "decode"
+              else pallas_paged_attention)
+    port = (tpa.paged_decode_attention if fn == "decode"
+            else tpa.paged_attention)
+    want = np.asarray(pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(starts), nb=nb, interpret=True, window=window,
+        scale=0.31, softcap=softcap))
+    got = port(_t(q), _t(k), _t(v), _t(tables), _t(starts), nb=nb,
+               scale=0.31, window=window, softcap=softcap).numpy()
+    _assert_matches_pallas(got, want, starts, tables, 16)
+    # the window changes the answer: the rows past it see fewer keys
+    if window:
+        full = port(_t(q), _t(k), _t(v), _t(tables), _t(starts), nb=nb,
+                    scale=0.31, softcap=softcap).numpy()
+        assert np.abs(full[0] - got[0]).max() > 1e-3
+
+
+# T and S are not multiples of the port's tiles (positions per tile,
+# 64-key panels) nor of the Pallas blocks (block_q 8, block_k 32 halved
+# to 16 for S = 48)
+@pytest.mark.parametrize("T,S,G,D,starts", [
+    (20, 48, 2, 32, [0, 10, 28]),
+    (1, 100, 4, 32, [99, 37, 0]),
+    (13, 100, 1, 64, [87, 50, 3]),
+])
+def test_plain_flash_matches_pallas_flash_kernel(T, S, G, D, starts):
+    rng = np.random.default_rng(T + S)
+    B, Hkv = len(starts), 2
+    q = rng.standard_normal((B, T, Hkv * G, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    st = np.array(starts, np.int32)
+    want = np.asarray(pallas_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(st),
+        block_q=8, block_k=32, interpret=True))
+    before = dict(tfa.launch_counts)
+    got = tfa.flash_attention_with_cache(_t(q), _t(k), _t(v),
+                                         _t(st)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    assert tfa.launch_counts == before
+
+
 @pytest.mark.parametrize("flag", [
-    dict(window=16), dict(softcap=30.0),
     dict(k_scales=torch.ones(1), v_scales=torch.ones(1))])
 @pytest.mark.parametrize("fn", [tpa.paged_attention,
                                 tpa.paged_decode_attention])
 def test_kernel_flags_off_this_path_raise(fn, flag):
-    """int8 scales, sliding windows and softcaps arrive with the slices
-    that need them; until then the wrappers refuse them."""
+    """int8 scales arrive with the quantization slice; until then the
+    wrappers refuse them."""
     q, k, v, tables, starts, nb = _paged_case(0, 1, 2, 32, 16, [5])
     with pytest.raises(NotImplementedError):
         fn(_t(q), _t(k), _t(v), _t(tables), _t(starts), nb=nb, **flag)
