@@ -4,14 +4,19 @@
     python3 chip_smoke.py
 
 1. build: compiles the CUDA kernels from csrc/ with nvcc (sm_90a), one
-   nvcc per source, all started together;
+   nvcc per source, all started together, and reports each kernel's
+   registers, shared memory and spills (ptxas -v) and the HGMMA (wgmma)
+   instructions of the bf16 prefill kernel, which must not be 0;
 2. kernels: holds each kernel against its plain PyTorch version on the
    card — for the paged kernels shuffled block tables, ragged rows, a
    row parked past the pool's virtual capacity, the chunk's own K/V
    written first, D in {64, 128, 256}, a sliding window that is not a
    multiple of the block size and a softcap on scores that reach it;
-   for the flash kernel T and S that are not multiples of its tiles —
-   and times kernel, plain version and one PyTorch library call at the
+   the split decode over a 72-block row beside a 1-block row, the wgmma
+   prefill at G = 2, 4, 8 with T off its 64-row tile; for the flash
+   kernel T and S that are not multiples of its tiles — and times kernel
+   (a whole wrapper call: the decode's split and merge launches),
+   plain version and one PyTorch library call at the
    shapes the serving phases give them (Gemma-2's at both layer kinds,
    sliding and global), holding each kernel against its plain version on
    the timed inputs too;
@@ -107,7 +112,8 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters calls (CUDA events)."""
+    """Mean time of fn() over iters calls back to back (CUDA events),
+    the host's dispatch included where it outlasts the device work."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -119,6 +125,40 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, repeats: int = 3) -> float:
+    """Device time of one fn() call: iters calls captured in one CUDA
+    graph, replayed between CUDA events, the least of `repeats` replays.
+    A kernel row's time is the card's work, not the host's dispatch: a
+    decode-sized call takes ~0.01-0.05 ms on the card and ~0.05-0.1 ms to
+    dispatch from Python, and timed eagerly it measured the host (which
+    other processes share)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(2):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    del graph
+    free_memory()
+    return best
 
 
 def free_memory():
@@ -243,6 +283,7 @@ def paged_checks(pa):
            "prefill": pa.paged_attention}
     # (kernel, T, Hkv, G, D, Bs, lens, window, softcap, q scale, v scale)
     llama_rows, long_rows = [70, 5, 300, 0], [300, 170, 517, 45]
+    gemma_rows = [4600, 10, 2000, 0]
     cases = []
     for T in (1, 5, 8):
         cases.append(("decode", T, 8, 4, 128, 64, llama_rows, 0, 0.0, 1.0,
@@ -268,6 +309,18 @@ def paged_checks(pa):
         # all three together at Gemma's block size, window 100
         ("decode", 8, 8, 2, 256, 64, long_rows, 100, 50.0, 30.0, 0.5),
         ("prefill", 96, 8, 2, 256, 64, long_rows, 100, 50.0, 30.0, 0.5),
+        # the split decode: rows of 72 blocks and of 1 block in one batch
+        # (24 splits of 3 blocks); T = 8 with split boundaries (every 2
+        # blocks of 16) inside a window of 100; Gemma-2's window of 4096
+        ("decode", 1, 8, 2, 256, 64, gemma_rows, 0, 0.0, 1.0, 1.0),
+        ("decode", 8, 2, 4, 128, 16, long_rows, 100, 0.0, 1.0, 1.0),
+        ("decode", 1, 8, 2, 256, 64, gemma_rows, 4096, 50.0, 30.0, 0.5),
+        # the wgmma prefill at G = 2, 4, 8 with T not a multiple of its
+        # 64-row tile, and past a window of 4096
+        ("prefill", 100, 2, 4, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 37, 2, 8, 64, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 96, 8, 2, 256, 64, [4550, 4100, 300, 0], 4096, 50.0,
+         30.0, 0.5),
     ]
     i = 0
     for dt in ("float32", "bfloat16"):
@@ -341,12 +394,14 @@ def flash_checks(fa):
 def _record(name, source, replaces, path, err, ms, plain_ms, library_ms,
             byts, flops, shape):
     t_bytes, t_ops = byts / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "path": path, "launches": 0,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
+            "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "shape": shape}
+            "bound_share": bound / ms, "library_ms": library_ms,
+            "shape": shape}
 
 
 PAGED_SOURCE = "production_stack_tpu_torch/csrc/paged_attention.cu"
@@ -405,14 +460,14 @@ def paged_timings(pa, model):
                                      f"version at {model}'s timed shape: "
                                      f"err {err}, {shape}")
             del got, want
-            ms = time_ms(lambda i=0: fn(q, k[i % L], v[i % L], tables,
-                                        starts, nb=nb, **kw), it)
-            plain_ms = time_ms(lambda i=0: pa.paged_attention_plain(
+            ms = device_ms(lambda i=0: fn(q, k[i % L], v[i % L], tables,
+                                          starts, nb=nb, **kw), it)
+            plain_ms = device_ms(lambda i=0: pa.paged_attention_plain(
                 q, k[i % L], v[i % L], tables, starts, nb, kw["scale"],
                 kw["window"], kw["softcap"]), it)
             sdpa = sdpa_over_view(q, k[0], v[0], tables, starts, nb,
                                   kw["window"], kw["scale"])
-            sdpa_ms = time_ms(sdpa, it)
+            sdpa_ms = device_ms(sdpa, it)
             del sdpa
             byts, flops = work(q, starts, nb, MB, Bs, Hkv, D, 2,
                                kw["window"])
@@ -452,12 +507,12 @@ def flash_timing(fa):
                              f"version at the timed shape: err {err}")
     del got
     it = 8
-    ms = time_ms(lambda i=0: fa.flash_attention_with_cache(q, k, v, starts),
-                 it)
-    plain_ms = time_ms(lambda i=0: fa.flash_attention_plain(q, k, v, starts),
-                       it)
+    ms = device_ms(lambda i=0: fa.flash_attention_with_cache(q, k, v,
+                                                             starts), it)
+    plain_ms = device_ms(lambda i=0: fa.flash_attention_plain(q, k, v,
+                                                              starts), it)
     qpos = starts.long()[:, None] + torch.arange(T, device="cuda")
-    library_ms = time_ms(sdpa_call(q, k, v, qpos), it)
+    library_ms = device_ms(sdpa_call(q, k, v, qpos), it)
     byts, flops = flash_work(q, starts, S, Hkv, D, 2)
     rec = _record("flash_attention_with_cache",
                   "production_stack_tpu_torch/csrc/flash_attention.cu",
@@ -757,7 +812,7 @@ def device_profile(fn):
 
 
 def kernel_class(name: str) -> str:
-    if "paged_decode_kernel" in name or "paged_prefill_kernel" in name:
+    if "paged_decode" in name or "paged_prefill" in name:
         return "paged_attention"
     low = name.lower()
     if any(k in low for k in ("gemm", "cutlass", "xmma", "sm90_", "gemv",
@@ -876,6 +931,28 @@ def model_phase(model: str):
 
 # ------------------------------------------------------------ main
 
+def build_phase(kernels) -> dict:
+    """Build every source (in parallel) and report, per kernel, what
+    ptxas gave it: registers, static shared memory, spill bytes; and the
+    HGMMA (wgmma) instructions of the bfloat16 prefill kernel in the
+    built library, which must not be 0."""
+    report = kernels.build()
+    out = {"sources": sorted(report) or "cached", "kernels": {}}
+    for name in kernels.SOURCES:
+        if name in report:
+            out["seconds_" + name] = report[name]["seconds"]
+        out["kernels"].update(
+            kernels.resource_report(kernels.build_log(name)))
+    hgmma = {k: n for k, n in kernels.sass_count("paged_attention",
+                                                 "HGMMA").items()
+             if "paged_prefill_kernel" in k}
+    out["hgmma"] = hgmma
+    if not hgmma or min(hgmma.values()) == 0:
+        raise AssertionError(f"the bf16 prefill kernel has no HGMMA "
+                             f"instruction: {hgmma}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -895,9 +972,8 @@ def main() -> int:
     t_start = time.monotonic()
 
     t0 = time.monotonic()
-    report = kernels.build()
-    log(json.dumps({"build": {"seconds": time.monotonic() - t0,
-                              "sources": sorted(report) or "cached"}}))
+    log(json.dumps({"build": build_phase(kernels),
+                    "seconds": time.monotonic() - t0}))
 
     t0 = time.monotonic()
     records = kernel_phase()

@@ -1,5 +1,7 @@
-// The attention tile both CUDA attention sources share (paged_attention.cu,
-// flash_attention.cu): one thread block attends the G query heads of one
+// The f32 FMA attention tile that the float32 paged prefill kernel
+// (paged_attention.cu) and the flash kernel (flash_attention.cu) run, with
+// the dtype helpers, error codes and launch helper every kernel of both
+// sources uses: one thread block attends the G query heads of one
 // kv head over block_q query positions of one batch row, streaming K/V
 // panels of `keys` rows through shared memory (as f32) with an f32 online
 // softmax, and keeping the tile's (m, l, acc) in shared memory. The dots
@@ -8,7 +10,7 @@
 // Where a panel comes from is the caller's: a Panel type stages panel j
 // (keys j*keys .. j*keys + keys - 1) into shared memory, K padded to
 // D + 1 floats a row (conflict-free column reads), V dense. The paged
-// kernels read a [Bs, D] panel through a block table; the flash kernel a
+// prefill reads a [Bs, D] panel through a block table; the flash kernel a
 // strided, bounds-checked one from a contiguous cache.
 //
 // A Panel provides:

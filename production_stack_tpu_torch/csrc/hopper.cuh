@@ -1,0 +1,175 @@
+// Hopper (sm_90a) primitives the paged attention kernels share: 16-byte
+// asynchronous copies into shared memory (cp.async), the 128-byte
+// swizzled shared-memory layout that wgmma reads, its matrix descriptor,
+// and the two bf16 m64n64k16 wgmma forms the prefill kernel issues.
+//
+// Include inside an anonymous namespace's translation unit only: every
+// definition here is internal to the including source.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; `valid` false zero-fills the
+// destination and reads nothing (src must still be a mapped address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers in shared memory (8 bytes each): a phase completes when
+// `count` arrivals have been made; waits name the parity of the phase
+// they wait to complete (0 first, then 1, 0, ...)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// make the initialised barriers visible before any thread uses them
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// one arrival on `bar` once every cp.async this thread issued so far
+// has landed (the arrival counts toward the barrier's count)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// make shared-memory writes of the generic proxy (cp.async, st.shared)
+// visible to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a [64, W] bf16 tile
+// stored for wgmma with the 128-byte swizzle: W/64 column blocks of
+// [64 rows, 64 values] one after another (8 KB each), each row 128 bytes,
+// its 16-byte chunk index XORed with row % 8 (Swizzle<3,4,3>). The tile
+// base must be 1024-byte aligned.
+__device__ __forceinline__ uint32_t sw128(int row, int chunk) {
+  return (chunk >> 3) * 8192 + row * 128 + (((chunk & 7) ^ (row & 7)) << 4);
+}
+
+// Shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor Format"):
+// start address, leading and stride byte offsets in 16-byte units, layout
+// 128-byte swizzle. K-major operand: sbo = 1024 (8 rows of 128 bytes),
+// lbo unused. MN-major operand: sbo = 1024 (8 K-rows), lbo = the stride
+// between 64-wide MN blocks.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Tie registers that an asynchronous wgmma writes (or reads) to this
+// point of the program, so the compiler moves no access across it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define PSTPU_D32(d)                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),    \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
+      "+f"(d[31])
+#define PSTPU_D32_SLOTS                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], bf16 in, f32 accumulate; A and
+// B from shared memory, both K-major. scale_d 0 overwrites d.
+// Accumulator layout: warp w of the warpgroup holds rows 16w..16w+15;
+// thread lane holds d[i] at row 16w + lane/4 + 8*((i/2)%2), column
+// 8*(i/4) + 2*(lane%4) + i%2.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PSTPU_D32_SLOTS
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : PSTPU_D32(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64]; A from registers (four bf16x2 a
+// thread, the m16n8k16 A-fragment layout per warp), B from shared memory
+// MN-major (transposed).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PSTPU_D32_SLOTS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : PSTPU_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef PSTPU_D32
+#undef PSTPU_D32_SLOTS
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+}  // namespace

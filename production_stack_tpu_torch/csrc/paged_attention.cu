@@ -14,36 +14,70 @@
 // Query t of row b sits at starts[b] + t and attends virtual positions
 // <= its own through tables[b], reading only blocks j <= jmax =
 // (start + last query) / Bs and j < nb. f32 online softmax and f32
-// accumulation; output acc / max(l, 1e-30) in q's dtype; q is multiplied
-// by `scale` before the dot, as the Pallas kernels do.
+// accumulation; output acc / max(l, 1e-30) in q's dtype; the scores are
+// scaled by `scale` in f32, as the Pallas kernels scale q in f32.
 //
 // Two optional branches, off at 0 as in Pallas (Gemma-2 runs both):
 // - `window` W > 0 (sliding-window layers): a query at p attends keys in
-//   (p - W, p]. A tile starts its block loop at jmin = (first query's
-//   position - (W - 1)) / Bs (pallas_paged.py:113-119, :359-366), so the
-//   blocks before the window are skipped, not read and masked; the -1e30
-//   sentinel wipes a block wholly masked for some rows of a tile, as in
-//   Pallas (attention_tile.cuh).
+//   (p - W, p]. Blocks before the earliest query's window, jmin =
+//   (first query's position - (W - 1)) / Bs (pallas_paged.py:113-119,
+//   :359-366), are skipped, not read and masked. The -1e30 sentinel,
+//   never -inf, marks a masked score.
 // - `softcap` c > 0: s = c * tanh(s / c) on the scaled raw score,
 //   before the mask (pallas_paged.py:135-137, :387-388).
-//
-// What bounds them on an H100: decode reads every live KV byte once and
-// does ~2 flops per byte per query row, so it is bound by device-memory
-// bandwidth (3.35 TB/s); prefill at a 512-token chunk does ~T/2 times more
-// work per byte and is bound by arithmetic. This first version is the
-// simple, right one: one thread block per (row, kv head[, query tile])
-// runs the tile of attention_tile.cuh over the row's [Bs, D] K and V
-// panels, read through its block table. It reads each KV byte a tile needs
-// once per tile. Tensor cores (wgmma), TMA/cp.async double buffering and a
-// split-KV reduction for small batches are later work.
 //
 // Hazards the TPU hid, handled here: a TPU DMA clamps, a GPU read past the
 // end faults — every block index is clamped to [0, MB-1] and every block
 // id read from the table to [0, N-1]; blocks past nb are never read; fully
 // masked rows return acc / max(l, 1e-30). A row parked at start >= MB*Bs
 // (an idle slot, whose output the engine discards) reads nothing and
-// returns zeros: the Pallas kernels attend such a row over all nb blocks,
-// which in a prefill chunk with idle slots was most of the launch's work.
+// returns zeros: the Pallas kernels attend such a row over all nb blocks.
+//
+// DECODE (both dtypes). What bounds it on an H100: it reads every live
+// K/V byte once and does ~2 operations per byte at G = 2..4 query rows per
+// kv head, so device-memory bytes bound it (3.35 TB/s); tensor cores buy
+// nothing. A grid of one block per (row, kv head), as the first design
+// had, is 32 blocks at batch 4 on 132 SMs, each walking its row's blocks
+// one after another. So the KV axis is split over thread blocks: grid
+// (B, Hkv, splits), split s attending blocks [s*bps, (s+1)*bps) of its
+// row. The plan (bps, splits) depends on nb alone (ops/paged_attention.py
+// decode_split_plan: at most 32 splits), since the host never reads
+// `starts` during a decode window; 32 splits put a 4,600-token row (72
+// blocks of 64) on 18 splits x 8 kv heads = 144 blocks, more than the
+// card has SMs, and a 512-token bucket (nb = 8) on one block per split. A
+// split wholly past its row's last block, or wholly before its window,
+// writes an empty partial (m = -1e30, l = 0) and returns. Each split
+// streams K/V panels (16 KB of K and 16 KB of V: 32 keys at D = 256 in
+// bf16) in their own dtype through a 3-stage cp.async ring, two panels in
+// flight while one is used; the dots run in f32 on the CUDA cores, each
+// warp on a quarter of the panel's keys with the key rows in registers
+// (each lane D/32 values) and the dots of a query row as independent
+// warp sums, so all four warps work even at G = 2. It writes its f32
+// partial (m, l, acc)
+// for its T*G query rows. A second kernel merges a row's splits, one
+// output value a thread: weights exp(m_s - m) / l with l = sum
+// exp(m_s - m) * l_s, a split whose m is the sentinel weighing 0. One
+// wrapper call is two launches.
+//
+// PREFILL, bf16. What bounds it: a 512-token chunk does ~T/2 operations
+// per K/V byte, so arithmetic bounds it. One consumer warpgroup (128
+// threads) owns a 64-row query tile, 64/G positions of the G query heads
+// of one kv head (rows r = t*G + g), and runs S = Q.K^T and O += P.V as
+// bf16 wgmma (m64n64k16) with f32 accumulators in registers. Q is staged
+// once in shared memory; K and V panels of 64 keys come through a
+// 3-stage ring that a producer warpgroup fills with 16-byte cp.async
+// copies straight into the 128-byte swizzled layout wgmma reads, each
+// stage's arrival and release signalled on mbarriers, so the consumer
+// spends no instruction on loads and the next panels land while it works
+// on this one. V is read MN-major (the transpose bit); P goes to bf16 in
+// registers as the A operand of P.V. Scale, softcap, masks and the online
+// softmax work on the accumulator registers. 64-row tiles keep every
+// live tile of a chunk with three rows parked on its own SM (128 tiles
+// at Gemma-2's shapes on 132 SMs).
+//
+// PREFILL, float32: wgmma has no full-f32 form (TF32 would not hold the
+// f32 checks), so f32 chunks run the f32 FMA tile of attention_tile.cuh,
+// chosen by dtype.
 //
 // Plain C interface (built with nvcc -shared, loaded with ctypes). Each
 // entry point launches on the given stream, allocates nothing, never
@@ -51,11 +85,16 @@
 // arguments it refuses).
 
 #include "attention_tile.cuh"
+#include "hopper.cuh"
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kDecodeThreads = 128;
-constexpr int kPrefillThreads = 256;
+constexpr int kThreads = 128;          // decode, merge, wgmma prefill
+constexpr int kTileThreads = 256;      // float32 prefill tile
+constexpr int kMaxSplits = 32;         // one lane per split in the merge
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   TileArgs tile;
@@ -66,14 +105,585 @@ struct Args {
   int B, Bs, MB, nb, N;
 };
 
-// Panel j of one (batch row, kv head): pool block tables[b, j], a
-// contiguous [Bs, D] tile. The block index is clamped to [0, MB-1] and the
-// block id to [0, N-1].
+struct DecodeArgs {
+  Args a;
+  float* part_ml;    // [B, Hkv, splits, T*G, 2] f32: (m, l)
+  float* part_acc;   // [B, Hkv, splits, T*G, D] f32
+  int bps, splits;
+};
+
+// Element offset of key `key` (virtual position in row b) of kv head h in
+// the pool: through the table, block index and id clamped.
+__device__ __forceinline__ size_t key_offset(const Args& a, const int* table,
+                                             int h, int key, int D) {
+  const int j = key / a.Bs;
+  const int blk = min(max(table[min(max(j, 0), a.MB - 1)], 0), a.N - 1);
+  return (((size_t)blk * a.tile.Hkv + h) * a.Bs + (key - j * a.Bs)) * D;
+}
+
+// ------------------------------------------------------------ decode
+
 template <typename T, int D>
+struct DecodeGeometry {
+  static constexpr int kVec = 16 / sizeof(T);      // values per 16 bytes
+  // keys per panel: 16 KB of K and 16 KB of V, at most 32 (one lane per
+  // key in the softmax)
+  static constexpr int kKeys =
+      16384 / (D * (int)sizeof(T)) > 32 ? 32 : 16384 / (D * (int)sizeof(T));
+  static constexpr int kRowStep = kThreads / (D / kVec);   // loader rows
+  static constexpr int kStages = 3;
+  static int smem_bytes(int R) {
+    return kStages * kKeys * 2 * D * (int)sizeof(T)   // K, V ring
+           + R * D * 4           // q (pre-scaled)
+           + R * D * 4           // acc
+           + 2 * R * kKeys * 4   // scores, probabilities of one panel
+           + 3 * R * 4;          // m, l, correction
+  }
+};
+
+// N values of type T (N * sizeof(T) in 4, 8, 16 or 32 bytes) from shared
+// memory as f32, in 16-byte or narrower vector loads
+template <typename T, int N>
+__device__ __forceinline__ void load_f32(const T* src, float (&dst)[N]) {
+  constexpr int kBytes = N * (int)sizeof(T);
+  constexpr int kUnit = kBytes >= 16 ? 16 : kBytes;
+  using U = typename std::conditional<
+      kUnit == 16, uint4,
+      typename std::conditional<kUnit == 8, uint2, unsigned>::type>::type;
+  U buf[kBytes / kUnit];
+#pragma unroll
+  for (int u = 0; u < kBytes / kUnit; ++u)
+    buf[u] = reinterpret_cast<const U*>(src)[u];
+  const T* v = reinterpret_cast<const T*>(buf);
+#pragma unroll
+  for (int e = 0; e < N; ++e) dst[e] = to_f32(v[e]);
+}
+
+// One (batch row, kv head, split): attends the split's blocks for all
+// T*G query rows and writes the f32 partial (m, l, acc).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(DecodeArgs da) {
+  using Geo = DecodeGeometry<T, D>;
+  constexpr int kVec = Geo::kVec, kKeys = Geo::kKeys;
+  constexpr int kStages = Geo::kStages;
+  constexpr int kSlice = D / 32;   // values of a key row a lane holds
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kPerWarp = kKeys / kWarps;   // keys of a warp in a panel
+  extern __shared__ __align__(16) unsigned char raw_smem[];
+  const Args& a = da.a;
+  const int b = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T_ = a.tile.T, H = a.tile.H, Hkv = a.tile.Hkv;
+  const int G = H / Hkv, R = T_ * G;
+  const int start = a.starts[b];
+  const int Bs = a.Bs;
+  const size_t part = ((size_t)b * Hkv + h) * da.splits + s;
+  float* pml = da.part_ml + part * R * 2;
+  float* pacc = da.part_acc + part * R * D;
+
+  const int jend = min((start + T_ - 1) / Bs, a.nb - 1);
+  const int jmin = a.tile.window > 0
+                       ? max(start - (a.tile.window - 1), 0) / Bs : 0;
+  const int jlo = max(s * da.bps, jmin);
+  const int jhi = min((s + 1) * da.bps - 1, jend);
+  if (start >= a.MB * Bs || jlo > jhi) {   // uniform across the block
+    for (int r = tid; r < R; r += kThreads) {
+      pml[2 * r] = kNegInf;
+      pml[2 * r + 1] = 0.f;
+    }
+    return;
+  }
+  const int k_lo = jlo * Bs, k_hi = (jhi + 1) * Bs;
+  const int n_panels = (k_hi - k_lo + kKeys - 1) / kKeys;
+
+  T* kst = reinterpret_cast<T*>(raw_smem);
+  T* vst = kst + kStages * kKeys * D;
+  float* qs = reinterpret_cast<float*>(vst + kStages * kKeys * D);
+  float* acc = qs + R * D;
+  float* sc = acc + R * D;
+  float* ps = sc + R * kKeys;
+  float* m = ps + R * kKeys;
+  float* l = m + R;
+  float* corr = l + R;
+
+  const T* kp = static_cast<const T*>(a.k_pool);
+  const T* vp = static_cast<const T*>(a.v_pool);
+  const int* table = a.tables + (size_t)b * a.MB;
+  // a thread copies 16-byte chunk lc of rows lr, lr + kRowStep, ...; the
+  // rows' table lookups are all issued before the copies, so their
+  // latencies overlap
+  constexpr int kRowStep = Geo::kRowStep;
+  const int lc = tid % (D / kVec), lr = tid / (D / kVec);
+  auto load_panel = [&](int i, int st) {
+    T* K = kst + st * kKeys * D;
+    T* V = vst + st * kKeys * D;
+    size_t off[kKeys / kRowStep];
+#pragma unroll
+    for (int it = 0; it < kKeys / kRowStep; ++it) {
+      const int key = k_lo + i * kKeys + lr + it * kRowStep;
+      off[it] = key < k_hi ? key_offset(a, table, h, key, D) + lc * kVec : 0;
+    }
+#pragma unroll
+    for (int it = 0; it < kKeys / kRowStep; ++it) {
+      const int r = lr + it * kRowStep;
+      const bool ok = k_lo + i * kKeys + r < k_hi;
+      cp_async16(smem_u32(K + r * D + lc * kVec), kp + off[it], ok);
+      cp_async16(smem_u32(V + r * D + lc * kVec), vp + off[it], ok);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_panels) load_panel(st, st);
+    cp_async_commit();
+  }
+
+  // rows ordered r = t * G + g; head of row r is h * G + g
+  const T* q = static_cast<const T*>(a.tile.q);
+  for (int idx = tid; idx < R * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    const int t = r / G, g = r % G;
+    qs[idx] = to_f32(q[(((size_t)b * T_ + t) * H + h * G + g) * D + d]) *
+              a.tile.scale;
+    acc[idx] = 0.f;
+  }
+  for (int r = tid; r < R; r += kThreads) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+  }
+
+  const int limit = a.nb * Bs;
+  for (int i = 0; i < n_panels; ++i) {
+    const int nxt = i + kStages - 1;
+    if (nxt < n_panels) load_panel(nxt, nxt % kStages);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int st = i % kStages;
+    const T* K = kst + st * kKeys * D;
+    const T* V = vst + st * kKeys * D;
+    const int kbase = k_lo + i * kKeys;
+
+    // scores: warp w takes keys w, w + 4, ... (kPerWarp of them), a lane
+    // kSlice values of each key row and of the query row; the kPerWarp
+    // dots of a row are independent warp sums, and lane kk caps and
+    // masks the dot of the warp's kk-th key
+    {
+      float kv[kPerWarp][kSlice];
+#pragma unroll
+      for (int kk = 0; kk < kPerWarp; ++kk)
+        load_f32<T, kSlice>(K + (warp + kk * kWarps) * D + lane * kSlice,
+                            kv[kk]);
+      const int c = warp + lane * kWarps;   // the key lane kk < kPerWarp caps
+      const int k_pos = kbase + c;
+      for (int r = 0; r < R; ++r) {
+        float qv[kSlice];
+        load_f32<float, kSlice>(qs + r * D + lane * kSlice, qv);
+        float dot[kPerWarp];
+#pragma unroll
+        for (int kk = 0; kk < kPerWarp; ++kk) {
+          dot[kk] = 0.f;
+#pragma unroll
+          for (int e = 0; e < kSlice; ++e)
+            dot[kk] = fmaf(qv[e], kv[kk][e], dot[kk]);
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+          for (int kk = 0; kk < kPerWarp; ++kk)
+            dot[kk] += __shfl_xor_sync(0xffffffffu, dot[kk], o);
+        float x = dot[0];
+#pragma unroll
+        for (int kk = 1; kk < kPerWarp; ++kk)
+          if (lane == kk) x = dot[kk];
+        if (lane < kPerWarp) {
+          if (a.tile.softcap != 0.f)
+            x = a.tile.softcap * tanhf(x / a.tile.softcap);
+          const int q_pos = start + r / G;
+          const bool live = k_pos < k_hi && k_pos < limit &&
+                            k_pos <= q_pos &&
+                            (a.tile.window <= 0 ||
+                             k_pos > q_pos - a.tile.window);
+          sc[r * kKeys + c] = live ? x : kNegInf;
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax: a warp per row, a lane per key; a masked key has
+    // p = 0, so a row with no live key keeps m = -1e30, l = 0
+    for (int r = warp; r < R; r += kWarps) {
+      const float x = lane < kKeys ? sc[r * kKeys + lane] : kNegInf;
+      const bool live = x != kNegInf;
+      float mx = x;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_prev = m[r];
+      const float m_new = fmaxf(m_prev, mx);
+      const float p = live ? expf(x - m_new) : 0.f;
+      float sum = p;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane < kKeys) ps[r * kKeys + lane] = p;
+      if (lane == 0) {
+        const float cr = expf(m_prev - m_new);
+        corr[r] = cr;
+        l[r] = l[r] * cr + sum;
+        m[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * corr + P V: a thread owns 4 neighbouring values of a
+    // row. Keys past the range have p = 0 and zero-filled V rows, so the
+    // loop runs over the whole panel and unrolls.
+    for (int idx = tid; idx < R * (D / 4); idx += kThreads) {
+      const int r = idx / (D / 4), d = (idx % (D / 4)) * 4;
+      const float cr = corr[r];
+      float4 x = *reinterpret_cast<float4*>(acc + r * D + d);
+      x.x *= cr; x.y *= cr; x.z *= cr; x.w *= cr;
+      const float* pr = ps + r * kKeys;
+#pragma unroll
+      for (int cc = 0; cc < kKeys; ++cc) {
+        const float p = pr[cc];
+        float v4[4];
+        load_f32<T, 4>(V + cc * D + d, v4);
+        x.x = fmaf(p, v4[0], x.x);
+        x.y = fmaf(p, v4[1], x.y);
+        x.z = fmaf(p, v4[2], x.z);
+        x.w = fmaf(p, v4[3], x.w);
+      }
+      *reinterpret_cast<float4*>(acc + r * D + d) = x;
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  for (int r = tid; r < R; r += kThreads) {
+    pml[2 * r] = m[r];
+    pml[2 * r + 1] = l[r];
+  }
+  for (int idx = tid; idx < R * D; idx += kThreads) pacc[idx] = acc[idx];
+}
+
+// Merges the splits' partials of one (batch row, kv head) into kThreads
+// output values of its [T*G, D] rows (grid z), one value a thread.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_merge_kernel(DecodeArgs da) {
+  // the block's rows: D divides kThreads or kThreads divides D
+  constexpr int kRows = kThreads >= D ? kThreads / D : 1;
+  __shared__ float wts[kRows * kMaxSplits];   // their splits' weights
+  const Args& a = da.a;
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T_ = a.tile.T, H = a.tile.H, Hkv = a.tile.Hkv;
+  const int G = H / Hkv, R = T_ * G, S = da.splits;
+  const size_t part0 = ((size_t)b * Hkv + h) * S;
+  const int idx0 = blockIdx.z * kThreads;
+  const int r_lo = idx0 / D, r_hi = min((idx0 + kThreads - 1) / D, R - 1);
+  for (int r = r_lo + warp; r <= r_hi; r += kThreads / 32) {
+    float ms = kNegInf, ls = 0.f;
+    if (lane < S) {
+      ms = da.part_ml[((part0 + lane) * R + r) * 2];
+      ls = da.part_ml[((part0 + lane) * R + r) * 2 + 1];
+    }
+    float mx = ms;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    // a split with no live key for this row carries the sentinel: 0
+    const float w = ms == kNegInf ? 0.f : expf(ms - mx);
+    float lsum = w * ls;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
+    wts[(r - r_lo) * kMaxSplits + lane] = w / fmaxf(lsum, 1e-30f);
+  }
+  __syncthreads();
+  const int idx = idx0 + tid;
+  if (idx >= R * D) return;
+  const int r = idx / D, d = idx % D;
+  const float* wr = wts + (r - r_lo) * kMaxSplits;
+  float x = 0.f;
+  // the splits' values are loaded 8 at a time, independent of each
+  // other; an empty split's acc was never written, its weight selects 0
+#pragma unroll 8
+  for (int s = 0; s < S; ++s) {
+    const float v = da.part_acc[((part0 + s) * R + r) * D + d];
+    x += wr[s] != 0.f ? wr[s] * v : 0.f;
+  }
+  const int t = r / G, g = r % G;
+  T* out = static_cast<T*>(a.tile.out);
+  out[(((size_t)b * T_ + t) * H + h * G + g) * D + d] = from_f32<T>(x);
+}
+
+// ------------------------------------------------------------ prefill
+
+constexpr int kTileRows = 64;   // query rows of a wgmma tile (its M)
+constexpr int kPanelKeys = 64;  // keys of a K/V panel (N of S = Q K^T)
+
+template <int D>
+struct PrefillGeometry {
+  static constexpr int kStages = 3;
+  static constexpr int kTileBytes = kTileRows * D * 2;   // [64, D] bf16
+  // the ring's 2 * kStages mbarriers (128 bytes), 1 KB of slack for the
+  // alignment the 128-byte swizzle needs, Q, then kStages (K, V) panels
+  static constexpr int kSmemBytes =
+      128 + 1024 + kTileBytes * (1 + 2 * kStages);
+  static_assert(kSmemBytes <= kMaxSmemBytes, "prefill tile too large");
+};
+
+// grid (B, Hkv, ceil(T / block_q)), block_q = 64 / G query positions;
+// 256 threads: warpgroup 0 consumes (wgmma, softmax, output), warpgroup
+// 1 produces (cp.async copies of Q and the K/V panels into the ring).
+// Stage st of the ring has two mbarriers: full[st] completes when the
+// producer's 128 threads' copies into it have landed, empty[st] when the
+// consumer's 128 threads are done reading it.
+template <int D>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+paged_prefill_kernel(Args a) {
+  using Geo = PrefillGeometry<D>;
+  constexpr int kStages = Geo::kStages, kTile = Geo::kTileBytes;
+  constexpr int kChunks = D / 8;   // 16-byte chunks of a row
+  extern __shared__ __align__(16) unsigned char raw_smem[];
+  const uint32_t bars = smem_u32(raw_smem);
+  const uint32_t base = (bars + 128u + 1023u) & ~1023u;
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int T_ = a.tile.T, H = a.tile.H, Hkv = a.tile.Hkv;
+  const int G = H / Hkv, bq = a.tile.block_q;
+  const int rows = bq * G;   // live rows of the tile, <= 64
+  const int t0 = blockIdx.z * bq;
+  const int last_t = min(t0 + bq, T_) - 1;
+  const int start = a.starts[b];
+  const int Bs = a.Bs;
+  const int jend = min((start + last_t) / Bs, a.nb - 1);
+  const int jmin = a.tile.window > 0
+                       ? max(start + t0 - (a.tile.window - 1), 0) / Bs : 0;
+  const int k_lo = jmin * Bs;
+  const int k_hi = start >= a.MB * Bs ? k_lo : (jend + 1) * Bs;
+  const int n_panels = k_hi > k_lo ? (k_hi - k_lo + kPanelKeys - 1) / kPanelKeys
+                                   : 0;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.tile.q);
+
+  if (tid == 0) {
+    for (int st = 0; st < 2 * kStages; ++st) mbar_init(bars + 8 * st, kThreads);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kThreads) {
+    // producer: a thread copies 16-byte chunk `lc` of every kRowStep-th
+    // row; Q goes with panel 0, so full[0] covers it
+    constexpr int kRowStep = kThreads / kChunks;
+    const int lc = (tid - kThreads) % kChunks, lr = (tid - kThreads) / kChunks;
+    const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k_pool);
+    const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v_pool);
+    const int* table = a.tables + (size_t)b * a.MB;
+    if (n_panels > 0) {
+#pragma unroll
+      for (int it = 0; it < kTileRows / kRowStep; ++it) {
+        const int r = lr + it * kRowStep;
+        const int t = t0 + r / G, g = r % G;
+        const bool ok = r < rows && t < T_;
+        const size_t off =
+            ok ? (((size_t)b * T_ + t) * H + h * G + g) * D + lc * 8 : 0;
+        cp_async16(base + sw128(r, lc), q + off, ok);
+      }
+    }
+    for (int i = 0; i < n_panels; ++i) {
+      const int st = i % kStages;
+      if (i >= kStages)   // the consumer is done with panel i - kStages
+        mbar_wait(bars + 8 * (kStages + st), (i / kStages - 1) & 1);
+      const uint32_t ks = base + kTile * (1 + 2 * st), vs = ks + kTile;
+      // the rows' table lookups first, so their latencies overlap
+      size_t off[kPanelKeys / kRowStep];
+#pragma unroll
+      for (int it = 0; it < kPanelKeys / kRowStep; ++it) {
+        const int key = k_lo + i * kPanelKeys + lr + it * kRowStep;
+        off[it] = key < k_hi ? key_offset(a, table, h, key, D) + lc * 8 : 0;
+      }
+#pragma unroll
+      for (int it = 0; it < kPanelKeys / kRowStep; ++it) {
+        const int r = lr + it * kRowStep;
+        const bool ok = k_lo + i * kPanelKeys + r < k_hi;
+        cp_async16(ks + sw128(r, lc), kp + off[it], ok);
+        cp_async16(vs + sw128(r, lc), vp + off[it], ok);
+      }
+      cp_async_mbar_arrive(bars + 8 * st);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // consumer warpgroup
+  const int lane = tid & 31, warp = tid >> 5;
+  // accumulator rows of this thread: ra and ra + 8
+  const int ra = warp * 16 + lane / 4, rb = ra + 8;
+  const int qpos_a = start + t0 + ra / G, qpos_b = start + t0 + rb / G;
+  float o[D / 64][32];
+#pragma unroll
+  for (int n = 0; n < D / 64; ++n)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) o[n][j] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  {
+    const int limit = a.nb * Bs;
+    const float scale = a.tile.scale, cap = a.tile.softcap;
+    const float cap_k = cap != 0.f ? 2.f * kLog2e / cap : 0.f;
+    const int window = a.tile.window;
+    // S = Q K^T of panel i over D in steps of 16, issued, not waited for
+    auto issue_scores = [&](int i, float (&acc)[32]) {
+      const int st = i % kStages;
+      mbar_wait(bars + 8 * st, (i / kStages) & 1);
+      fence_proxy_async();
+      const uint32_t ks = base + kTile * (1 + 2 * st);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * 8192 + (kk & 3) * 32;
+        wgmma_m64n64k16_ss(acc, wgmma_desc(base + off, 16, 1024),
+                           wgmma_desc(ks + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    float s[32];
+    if (n_panels > 0) {
+      issue_scores(0, s);
+      wgmma_wait_all();
+      fence_regs(s);
+    }
+    for (int i = 0; i < n_panels; ++i) {
+      const int st = i % kStages;
+      const uint32_t vs = base + kTile * (2 + 2 * st);
+      // the next panel's scores run on the tensor cores while this
+      // panel's softmax runs on the CUDA cores
+      float s_next[32];
+      const bool more = i + 1 < n_panels;
+      if (more) issue_scores(i + 1, s_next);
+
+      // scale, cap, mask; column of s[j]: 8*(j/4) + 2*(lane%4) + j%2,
+      // row ra for (j/2)%2 == 0, else rb
+      const int kbase = k_lo + i * kPanelKeys;
+      float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int k_pos = kbase + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const int qp = (j & 2) ? qpos_b : qpos_a;
+        float x = s[j] * scale;
+        if (cap != 0.f) {
+          // cap * tanh(x / cap) as cap * (1 - 2 / (e^(2x/cap) + 1)):
+          // absolute error ~1e-7 of the tanh, a few instructions
+          const float e = exp2f(x * cap_k);
+          x = cap * (1.f - __fdividef(2.f, e + 1.f));
+        }
+        const bool live = k_pos <= qp && k_pos < limit &&
+                          (window <= 0 || k_pos > qp - window);
+        x = live ? x : kNegInf;
+        s[j] = x;
+        if (j & 2) mx_b = fmaxf(mx_b, x); else mx_a = fmaxf(mx_a, x);
+      }
+#pragma unroll
+      for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      // a panel wholly masked for a row so far gives p = 1 over it; the
+      // correction exp(-1e30 - m) = 0 at the row's first live key wipes it
+      const float c_a = exp2f((m_a - mn_a) * kLog2e);
+      const float c_b = exp2f((m_b - mn_b) * kLog2e);
+      m_a = mn_a;
+      m_b = mn_b;
+      // P in bf16 as the A operand of P V: the accumulator's columns
+      // 16kk..16kk+15 are exactly A's registers for k-step kk
+      uint32_t p[4][4];
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * kk + 2 * e;
+          const float mn = (e & 1) ? mn_b : mn_a;
+          const float p0 = exp2f((s[j] - mn) * kLog2e);
+          const float p1 = exp2f((s[j + 1] - mn) * kLog2e);
+          if (e & 1) sum_b += p0 + p1; else sum_a += p0 + p1;
+          p[kk][e] = pack_bf16x2(p0, p1);
+        }
+      l_a = l_a * c_a + sum_a;
+      l_b = l_b * c_b + sum_b;
+#pragma unroll
+      for (int n = 0; n < D / 64; ++n)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) o[n][j] *= (j & 2) ? c_b : c_a;
+
+      // O += P V: 16 keys a step, V MN-major, 64 output columns a call
+#pragma unroll
+      for (int n = 0; n < D / 64; ++n) fence_regs(o[n]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(p[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int n = 0; n < D / 64; ++n)
+          wgmma_m64n64k16_rs_tb(
+              o[n], p[kk], wgmma_desc(vs + n * 8192 + kk * 2048, 8192, 1024));
+      wgmma_commit();
+      wgmma_wait_all();   // this panel's P V and the next panel's S
+#pragma unroll
+      for (int n = 0; n < D / 64; ++n) fence_regs(o[n]);
+      mbar_arrive(bars + 8 * (kStages + st));   // the stage may refill
+      if (more) {
+        fence_regs(s_next);
+#pragma unroll
+        for (int j = 0; j < 32; ++j) s[j] = s_next[j];
+      }
+    }
+  }
+
+  // row sums over the 4 lanes that share a row
+#pragma unroll
+  for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, o2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, o2);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.tile.out);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    const int t = t0 + r / G, g = r % G;
+    if (r >= rows || t >= T_) continue;
+    const float inv = half ? inv_b : inv_a;
+    __nv_bfloat16* orow = out + (((size_t)b * T_ + t) * H + h * G + g) * D;
+#pragma unroll
+    for (int n = 0; n < D / 64; ++n)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int d = n * 64 + 8 * jj + 2 * (lane & 3);
+        const int j = 4 * jj + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            __floats2bfloat162_rn(o[n][j] * inv, o[n][j + 1] * inv);
+      }
+  }
+}
+
+// float32 prefill: the f32 FMA tile over the row's [Bs, D] panels.
+// Panel j of one (batch row, kv head): pool block tables[b, j], a
+// contiguous [Bs, D] tile, block index and id clamped.
+template <int D>
 struct PagedPanel {
   static constexpr int kKeys = 0;   // Bs, a runtime value
-  const T* k_pool;
-  const T* v_pool;
+  const float* k_pool;
+  const float* v_pool;
   const int* table;   // row b of the block tables
   int h, Hkv, MB, N;
   int keys;           // Bs
@@ -84,80 +694,79 @@ struct PagedPanel {
     const int jj = min(max(j, 0), MB - 1);
     const int blk = min(max(table[jj], 0), N - 1);
     const size_t off = ((size_t)blk * Hkv + h) * (size_t)keys * D;
-    const T* kb = k_pool + off;
-    const T* vb = v_pool + off;
+    const float* kb = k_pool + off;
+    const float* vb = v_pool + off;
     for (int idx = tid; idx < keys * D; idx += kThreads) {
       const int c = idx / D, d = idx - (idx / D) * D;
-      ks[c * (D + 1) + d] = to_f32(kb[idx]);
-      vs[idx] = to_f32(vb[idx]);
+      ks[c * (D + 1) + d] = kb[idx];
+      vs[idx] = vb[idx];
     }
   }
 };
 
-// grid (B, Hkv, ceil(T / block_q)): kv head blockIdx.y of batch row
-// blockIdx.x, query tile blockIdx.z. A parked row has no panel to read.
-template <typename T, int D, int kThreads>
-__device__ __forceinline__ void paged_tile(const Args& a) {
+// grid (B, Hkv, ceil(T / block_q)); a parked row has no panel to read
+template <int D>
+__global__ void __launch_bounds__(kTileThreads)
+paged_prefill_tile_kernel(Args a) {
   const int b = blockIdx.x, h = blockIdx.y;
   const int start = a.starts[b];
-  const PagedPanel<T, D> panel{
-      static_cast<const T*>(a.k_pool), static_cast<const T*>(a.v_pool),
+  const PagedPanel<D> panel{
+      static_cast<const float*>(a.k_pool), static_cast<const float*>(a.v_pool),
       a.tables + (size_t)b * a.MB, h, a.tile.Hkv, a.MB, a.N, a.Bs,
       a.nb * a.Bs};
-  attend_tile<T, D, kThreads>(a.tile, panel, b, h, blockIdx.z, start,
-                              start >= a.MB * a.Bs ? 0 : a.nb);
-}
-
-// a decode window is one tile unless its T * G rows outgrow the tile
-// (wide GQA at D = 256)
-template <typename T, int D>
-__global__ void __launch_bounds__(kDecodeThreads)
-paged_decode_kernel(Args a) {
-  paged_tile<T, D, kDecodeThreads>(a);
+  attend_tile<float, D, kTileThreads>(a.tile, panel, b, h, blockIdx.z, start,
+                                      start >= a.MB * a.Bs ? 0 : a.nb);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kPrefillThreads)
-paged_prefill_kernel(Args a) {
-  paged_tile<T, D, kPrefillThreads>(a);
+int launch_decode(const DecodeArgs& da, cudaStream_t stream) {
+  const Args& a = da.a;
+  const int R = a.tile.T * (a.tile.H / a.tile.Hkv);
+  int rc = launch_tile_kernel<paged_decode_kernel<T, D>>(
+      dim3(a.B, a.tile.Hkv, da.splits), kThreads,
+      DecodeGeometry<T, D>::smem_bytes(R), da, stream);
+  if (rc != 0) return rc;
+  return launch_tile_kernel<paged_decode_merge_kernel<T, D>>(
+      dim3(a.B, a.tile.Hkv, (R * D + kThreads - 1) / kThreads), kThreads, 0,
+      da, stream);
 }
 
 template <typename T, int D>
-int launch(bool decode, const Args& a, cudaStream_t stream) {
-  const int rows = a.tile.block_q * (a.tile.H / a.tile.Hkv);
-  const int smem = tile_smem_floats(rows, D, a.Bs) * (int)sizeof(float);
+int launch_prefill(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.B, a.tile.Hkv,
                   (a.tile.T + a.tile.block_q - 1) / a.tile.block_q);
-  if (decode)
-    return launch_tile_kernel<paged_decode_kernel<T, D>>(
-        grid, kDecodeThreads, smem, a, stream);
-  return launch_tile_kernel<paged_prefill_kernel<T, D>>(
-      grid, kPrefillThreads, smem, a, stream);
+  if constexpr (sizeof(T) == 2) {
+    if (a.tile.block_q * (a.tile.H / a.tile.Hkv) > kTileRows)
+      return kBadShape;
+    return launch_tile_kernel<paged_prefill_kernel<D>>(
+        grid, 2 * kThreads, PrefillGeometry<D>::kSmemBytes, a, stream);
+  } else {
+    const int rows = a.tile.block_q * (a.tile.H / a.tile.Hkv);
+    return launch_tile_kernel<paged_prefill_tile_kernel<D>>(
+        grid, kTileThreads, tile_smem_floats(rows, D, a.Bs) * 4, a, stream);
+  }
 }
 
 template <typename T>
-int dispatch(bool decode, int D, const Args& a, cudaStream_t stream) {
-  if (D == 64) return launch<T, 64>(decode, a, stream);
-  if (D == 128) return launch<T, 128>(decode, a, stream);
-  if (D == 256) return launch<T, 256>(decode, a, stream);
+int dispatch_decode(int D, const DecodeArgs& da, cudaStream_t stream) {
+  if (D == 64) return launch_decode<T, 64>(da, stream);
+  if (D == 128) return launch_decode<T, 128>(da, stream);
+  if (D == 256) return launch_decode<T, 256>(da, stream);
   return kBadHeadDim;
 }
 
-int run(bool decode, const void* q, const void* k_pool, const void* v_pool,
-        const int* tables, const int* starts, void* out, int dtype, int B,
-        int T, int H, int Hkv, int D, int Bs, int MB, int nb, int N,
-        int block_q, float scale, int window, float softcap,
-        void* stream) {
-  if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv || Bs <= 0 || MB <= 0 ||
-      nb <= 0 || nb > MB || N <= 0 || block_q <= 0 || window < 0 ||
-      softcap < 0.f)
-    return kBadShape;
-  const Args a{{q, out, T, H, Hkv, block_q, scale, window, softcap},
-               k_pool, v_pool, tables, starts, B, Bs, MB, nb, N};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(decode, D, a, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(decode, D, a, s);
-  return kBadDtype;
+template <typename T>
+int dispatch_prefill(int D, const Args& a, cudaStream_t stream) {
+  if (D == 64) return launch_prefill<T, 64>(a, stream);
+  if (D == 128) return launch_prefill<T, 128>(a, stream);
+  if (D == 256) return launch_prefill<T, 256>(a, stream);
+  return kBadHeadDim;
+}
+
+bool bad_shape(int B, int T, int H, int Hkv, int Bs, int MB, int nb, int N,
+               int window, float softcap) {
+  return B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv || Bs <= 0 || MB <= 0 ||
+         nb <= 0 || nb > MB || N <= 0 || window < 0 || softcap < 0.f;
 }
 
 }  // namespace
@@ -165,27 +774,47 @@ int run(bool decode, const void* q, const void* k_pool, const void* v_pool,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it);
-// window 0 and softcap 0 turn those branches off
+// window 0 and softcap 0 turn those branches off. part_ml / part_acc:
+// f32 scratch of [B, Hkv, splits, T*H/Hkv, 2] and [.., D] values; the
+// plan (bps, splits) must cover blocks 0..nb-1 with at most 32 splits.
+// Launches the split kernel, then the merge kernel.
 int paged_decode_attention(const void* q, const void* k_pool,
                            const void* v_pool, const int* tables,
-                           const int* starts, void* out, int dtype, int B,
-                           int T, int H, int Hkv, int D, int Bs, int MB,
-                           int nb, int N, int block_q, float scale,
-                           int window, float softcap, void* stream) {
-  return run(true, q, k_pool, v_pool, tables, starts, out, dtype, B, T, H,
-             Hkv, D, Bs, MB, nb, N, block_q, scale, window, softcap,
-             stream);
+                           const int* starts, void* out, float* part_ml,
+                           float* part_acc, int dtype, int B, int T, int H,
+                           int Hkv, int D, int Bs, int MB, int nb, int N,
+                           int bps, int splits, float scale, int window,
+                           float softcap, void* stream) {
+  if (bad_shape(B, T, H, Hkv, Bs, MB, nb, N, window, softcap) || bps <= 0 ||
+      splits <= 0 || splits > kMaxSplits || splits * bps < nb ||
+      (splits - 1) * bps >= nb)
+    return kBadShape;
+  const DecodeArgs da{{{q, out, T, H, Hkv, T, scale, window, softcap},
+                       k_pool, v_pool, tables, starts, B, Bs, MB, nb, N},
+                      part_ml, part_acc, bps, splits};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_decode<float>(D, da, s);
+  if (dtype == 1) return dispatch_decode<__nv_bfloat16>(D, da, s);
+  return kBadDtype;
 }
 
+// block_q: query positions per tile (bf16: 64 / G, the wgmma tile; f32:
+// the f32 tile's, ops/paged_attention.py tile_block_q)
 int paged_prefill_attention(const void* q, const void* k_pool,
                             const void* v_pool, const int* tables,
                             const int* starts, void* out, int dtype, int B,
                             int T, int H, int Hkv, int D, int Bs, int MB,
                             int nb, int N, int block_q, float scale,
                             int window, float softcap, void* stream) {
-  return run(false, q, k_pool, v_pool, tables, starts, out, dtype, B, T, H,
-             Hkv, D, Bs, MB, nb, N, block_q, scale, window, softcap,
-             stream);
+  if (bad_shape(B, T, H, Hkv, Bs, MB, nb, N, window, softcap) ||
+      block_q <= 0)
+    return kBadShape;
+  const Args a{{q, out, T, H, Hkv, block_q, scale, window, softcap},
+               k_pool, v_pool, tables, starts, B, Bs, MB, nb, N};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_prefill<float>(D, a, s);
+  if (dtype == 1) return dispatch_prefill<__nv_bfloat16>(D, a, s);
+  return kBadDtype;
 }
 
 const char* paged_attention_error_string(int code) {

@@ -10,14 +10,18 @@ Replaces ``production_stack_tpu/ops/pallas_paged.py``:
 
 Both kernels live in ``csrc/paged_attention.cu``, whose header says what
 bounds them on an H100 (decode: device-memory bytes; prefill:
-arithmetic) and what this first design does about it. Both take the
-Pallas kernels' ``window`` (sliding window, 0 = off), ``softcap`` (tanh
-cap on the raw scores, 0 = off) and ``scale`` (default D**-0.5), at
-D in {64, 128, 256}. A wrapper given CPU tensors computes the plain
-version (gather through the table, then the masked f32 softmax of
-ops/attention.py); given CUDA tensors it launches its kernel or raises —
-there is no fallback between the two. The int8 pool (``k_scales``,
-``v_scales``) is not ported yet and raises.
+arithmetic) and what their designs do about it: decode splits the KV
+axis over thread blocks (``decode_split_plan``) and merges the splits'
+partials in a second launch, so one wrapper call is two launches;
+bfloat16 prefill runs 64-row wgmma tiles (``prefill_tile``), float32
+prefill the f32 tile of ``csrc/attention_tile.cuh`` (``tile_block_q``).
+Both take the Pallas kernels' ``window`` (sliding window, 0 = off),
+``softcap`` (tanh cap on the raw scores, 0 = off) and ``scale``
+(default D**-0.5), at D in {64, 128, 256}. A wrapper given CPU tensors
+computes the plain version (gather through the table, then the masked
+f32 softmax of ops/attention.py); given CUDA tensors it launches its
+kernel or raises — there is no fallback between the two. The int8 pool
+(``k_scales``, ``v_scales``) is not ported yet and raises.
 
 A row parked at ``start >= MB*Bs`` (an idle slot of the full-batch
 forward, whose output the engine discards) comes back as zeros from both
@@ -62,9 +66,11 @@ def _lib():
     if _lib_handle is None:
         lib = kernels.load("paged_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        args = [p, p, p, p, p, p] + [i] * 11 + [f, i, f, p]
+        lib.paged_decode_attention.argtypes = \
+            [p] * 8 + [i] * 12 + [f, i, f, p]
+        lib.paged_prefill_attention.argtypes = \
+            [p] * 6 + [i] * 11 + [f, i, f, p]
         for fn in (lib.paged_decode_attention, lib.paged_prefill_attention):
-            fn.argtypes = args
             fn.restype = i
         lib.paged_attention_error_string.argtypes = [i]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -139,11 +145,41 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed ({rc}): {msg}")
 
 
+# the decode kernel's grid splits a row's nb blocks over at most this
+# many thread blocks per (row, kv head); the merge gives each split a lane
+MAX_SPLITS = 32
+
+
+def decode_split_plan(nb: int) -> tuple:
+    """(blocks per split, splits) of the decode kernel for nb blocks: at
+    most MAX_SPLITS splits, the blocks shared out evenly, every block
+    0..nb-1 in exactly one split. It depends on nb alone — the host never
+    reads ``starts`` inside a decode window — so a captured decode step
+    keeps it. At nb = 128 (Gemma-2's 8192-token bucket, Bs = 64) a split
+    holds 4 blocks, and a 4,600-token row spreads over 18 splits per kv
+    head: 144 thread blocks at 8 kv heads, more than an H100's 132 SMs."""
+    bps = -(-nb // MAX_SPLITS)
+    return bps, -(-nb // bps)
+
+
+def prefill_tile(D: int) -> dict:
+    """Geometry of the bfloat16 prefill kernel's tile at head dim D (as
+    csrc/paged_attention.cu PrefillGeometry): 64 query rows (one wgmma M),
+    K/V panels of 64 keys, a ring of 3 stages, and the shared memory it
+    takes — Q and each stage's K and V panel, [64, D] bf16 each, plus the
+    ring's mbarriers (128 bytes) and 1 KB to align the swizzled layout."""
+    stages = 3
+    return {"rows": 64, "keys": 64, "stages": stages,
+            "smem_bytes": 128 + 1024 + 64 * D * 2 * (1 + 2 * stages)}
+
+
 def tile_block_q(T: int, groups: int, D: int) -> int:
-    """Query positions per tile, never more than T: as many as keep the
-    tile at 64 (position, head) rows, 32 at D = 256, so its shared
-    memory (csrc smem_floats, at Bs = 64) stays under the 227 KB a block
-    may use — 148,480 bytes at D = 128, 205,440 at D = 256."""
+    """Query positions per tile of the f32 FMA tile of
+    csrc/attention_tile.cuh (the float32 prefill kernel and the flash
+    kernel), never more than T: as many as keep
+    the tile at 64 (position, head) rows, 32 at D = 256, so its shared
+    memory (csrc tile_smem_floats, at Bs = 64) stays under the 227 KB a
+    block may use — 148,480 bytes at D = 128, 205,440 at D = 256."""
     rows = 64 if D <= 128 else 32
     return max(1, min(T, rows // groups))
 
@@ -155,15 +191,27 @@ def _launch(name: str, q, k_pool, v_pool, tables, starts, nb, scale,
     if window < 0 or softcap < 0:
         raise ValueError(f"window={window} and softcap={softcap} must be "
                          f">= 0 (0 turns either off)")
-    fn = (_lib().paged_decode_attention if name == "paged_decode_attention"
-          else _lib().paged_prefill_attention)
+    G = H // Hkv
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), starts.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, T, H, Hkv, D, Bs, tables.shape[1], nb,
-            N, tile_block_q(T, H // Hkv, D), float(scale), int(window),
-            float(softcap), stream)
+    head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), starts.data_ptr(), out.data_ptr())
+    shape = (B, T, H, Hkv, D, Bs, tables.shape[1], nb, N)
+    tail = (float(scale), int(window), float(softcap), stream)
+    if name == "paged_decode_attention":
+        bps, splits = decode_split_plan(nb)
+        # the splits' partials, f32: (m, l) then acc of every split row
+        n_rows = B * Hkv * splits * T * G
+        part = torch.empty(n_rows * (2 + D), dtype=torch.float32,
+                           device=q.device)
+        rc = _lib().paged_decode_attention(
+            *head, part.data_ptr(), part.data_ptr() + n_rows * 2 * 4,
+            _DTYPE_CODE[q.dtype], *shape, bps, splits, *tail)
+    else:
+        block_q = (prefill_tile(D)["rows"] // G if q.dtype == torch.bfloat16
+                   else tile_block_q(T, G, D))
+        rc = _lib().paged_prefill_attention(
+            *head, _DTYPE_CODE[q.dtype], *shape, block_q, *tail)
     _raise_on(rc, name)
     launch_counts[name] += 1
     if window:

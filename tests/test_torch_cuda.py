@@ -85,6 +85,41 @@ def test_kernel_matches_plain_version(cuda, fn, T, G, D, Bs, window,
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
 
 
+# The redesigned kernels' edges: decode splits the KV axis (many splits
+# when a row of 72 blocks and one of 1 block share a batch; T = 8 with a
+# split boundary inside the window; Gemma-2's window of 4096 at Bs = 64);
+# bf16 prefill runs 64-row wgmma tiles (G in {2, 4, 8}, T not a multiple
+# of the tile), f32 prefill the f32 tile.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn,T,G,D,Bs,lens,window,softcap", [
+    (pa.paged_decode_attention, 1, 2, 256, 64, (4600, 10, 2000), 0, 0.0),
+    (pa.paged_decode_attention, 8, 4, 128, 16, (517, 300, 45), 100, 0.0),
+    (pa.paged_decode_attention, 1, 2, 256, 64, (4600, 1000, 57), 4096,
+     50.0),
+    (pa.paged_attention, 96, 2, 256, 64, (4550, 4100, 300), 4096, 50.0),
+    (pa.paged_attention, 100, 2, 256, 64, (70, 5, 300), 0, 0.0),
+    (pa.paged_attention, 70, 4, 128, 64, (70, 5, 300), 0, 0.0),
+    (pa.paged_attention, 37, 8, 64, 64, (70, 5, 300), 0, 0.0),
+    (pa.paged_attention, 70, 4, 128, 16, (517, 300, 45), 40, 0.0),
+])
+def test_redesigned_kernels_match_plain_version(cuda, fn, T, G, D, Bs, lens,
+                                                window, softcap, dtype):
+    q, k, v, tables, starts, nb = _case(cuda, T, G, D, dtype, lens=lens,
+                                        Bs=Bs)
+    if softcap:
+        q, v = (q.float() * 30).to(dtype), (v.float() * 0.5).to(dtype)
+    name = fn.__name__
+    before = pa.launch_counts[name]
+    got = fn(q, k, v, tables, starts, nb=nb, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert pa.launch_counts[name] == before + 1
+    want = pa.paged_attention_plain(q, k, v, tables, starts, nb, D ** -0.5,
+                                    window, softcap)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got[-1] == 0).all()   # the parked row
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,S,G,D", [(37, 200, 4, 64), (37, 200, 4, 128),
                                      (37, 200, 2, 256), (1, 130, 4, 128)])

@@ -488,3 +488,29 @@ def test_kernel_library_name_covers_source_and_shared_header(tmp_path,
     for name in ("paged_attention", "flash_attention"):
         text = kernels.SOURCES[name].read_text()
         assert '#include "attention_tile.cuh"' in text
+
+
+def test_kernel_resource_report_reads_ptxas_lines():
+    """The build log's -Xptxas -v lines become per-kernel registers,
+    static shared memory and spills (nothing is compiled here)."""
+    from production_stack_tpu_torch import kernels
+    assert kernels.NVCC_FLAGS[-2:] == ["-Xptxas", "-v"]
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z4fooILi64EEvv' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _Z4fooILi64EEvv",
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill "
+        "loads",
+        "ptxas info    : Used 168 registers, 1024 bytes smem, 400 bytes "
+        "cmem[0]",
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z3barv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, 380 bytes cmem[0]",
+    ])
+    report = kernels.resource_report(log)
+    assert list(report.values()) == [
+        {"spill_stores": 8, "spill_loads": 12, "registers": 168,
+         "smem_bytes": 1024},
+        {"spill_stores": 0, "spill_loads": 0, "registers": 40,
+         "smem_bytes": 0}]

@@ -296,3 +296,117 @@ def test_kernel_flags_off_this_path_raise(fn, flag):
     q, k, v, tables, starts, nb = _paged_case(0, 1, 2, 32, 16, [5])
     with pytest.raises(NotImplementedError):
         fn(_t(q), _t(k), _t(v), _t(tables), _t(starts), nb=nb, **flag)
+
+
+# ------------------------------------------------ decode split and merge
+
+@pytest.mark.parametrize("nb", range(1, 131))
+def test_decode_split_plan_covers_every_block_once(nb):
+    """The decode kernel's plan: at most MAX_SPLITS splits of bps blocks,
+    together covering blocks 0..nb-1, each block in exactly one split and
+    no split empty of blocks."""
+    bps, splits = tpa.decode_split_plan(nb)
+    assert 1 <= splits <= tpa.MAX_SPLITS and bps >= 1
+    covered = [j for s in range(splits)
+               for j in range(s * bps, min((s + 1) * bps, nb))]
+    assert covered == list(range(nb))
+    assert (splits - 1) * bps < nb
+
+
+def _split_merge_plain(q, k_pool, v_pool, tables, starts, nb, scale, window,
+                       softcap, bps):
+    """The decode kernel's arithmetic in plain PyTorch (float32): each
+    split of bps blocks attends its key range of the gathered view and
+    keeps a partial (m, l, acc) — a split wholly past its row's last block
+    or wholly before its window, and every split of a parked row, keeps
+    the empty partial (m = -1e30, l = 0, acc = 0); then the merge weighs
+    each split by exp(m_s - m) (0 for a split carrying the sentinel) and
+    divides by the merged l."""
+    B, T, H, D = q.shape
+    Hkv, Bs = k_pool.shape[1], k_pool.shape[2]
+    G, MB = H // Hkv, tables.shape[1]
+    k_att = tkv.gather_view(k_pool, tables, nb).float()   # [B, S, Hkv, D]
+    v_att = tkv.gather_view(v_pool, tables, nb).float()
+    splits = -(-nb // bps)
+    neg = -1e30
+    out = torch.zeros(B, T, H, D)
+    for b in range(B):
+        start = int(starts[b])
+        jend = min((start + T - 1) // Bs, nb - 1)
+        jmin = max(start - (window - 1), 0) // Bs if window else 0
+        qb = q[b].float().reshape(T, Hkv, G, D) * scale
+        qpos = start + torch.arange(T)
+        ms, ls, accs = [], [], []
+        for s in range(splits):
+            jlo, jhi = max(s * bps, jmin), min((s + 1) * bps - 1, jend)
+            if start >= MB * Bs or jlo > jhi:
+                ms.append(torch.full((Hkv, G, T), neg))
+                ls.append(torch.zeros(Hkv, G, T))
+                accs.append(torch.zeros(Hkv, G, T, D))
+                continue
+            kpos = torch.arange(jlo * Bs, (jhi + 1) * Bs)
+            sc = torch.einsum("tkgd,skd->kgts", qb, k_att[b, kpos])
+            if softcap:
+                sc = softcap * torch.tanh(sc / softcap)
+            live = kpos[None, :] <= qpos[:, None]
+            if window:
+                live = live & (kpos[None, :] > qpos[:, None] - window)
+            sc = torch.where(live, sc, torch.full((), neg))
+            m = sc.amax(-1)
+            p = torch.where(live, torch.exp(sc - m[..., None]),
+                            torch.zeros(()))
+            ms.append(m)
+            ls.append(p.sum(-1))
+            accs.append(torch.einsum("kgts,skd->kgtd", p, v_att[b, kpos]))
+        m_s, l_s, acc_s = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+        M = m_s.amax(0)
+        w = torch.where(m_s == neg, torch.zeros(()), torch.exp(m_s - M))
+        L = (w * l_s).sum(0)
+        o = (w[..., None] * acc_s).sum(0) / L.clamp_min(1e-30)[..., None]
+        out[b] = o.permute(2, 0, 1, 3).reshape(T, H, D)
+    return out
+
+
+# T = 8; a window of 40 over blocks of 16 that begins mid-split (bps 2:
+# the row at 130 sees blocks 5..8, its window from position 91) with
+# the splits before it wholly before the window; rows of 1 block (5) whose
+# later splits lie wholly past their end; a parked row
+@pytest.mark.parametrize("T,G,D,window,softcap,bps,parked", [
+    (8, 4, 32, 0, 0.0, 1, False),
+    (8, 2, 32, 40, 5.0, 2, True),
+    (1, 2, 32, 40, 0.0, 3, True),
+    (5, 4, 64, 24, 5.0, 2, False),
+])
+def test_split_merge_equals_unsplit_plain_and_pallas_decode(
+        T, G, D, window, softcap, bps, parked):
+    q, k, v, tables, starts, nb = _paged_case(T * 13 + bps, T, G, D, 16,
+                                              [90, 5, 130], parked)
+    scale = 0.31
+    want = np.asarray(pallas_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(starts), nb=nb, interpret=True, window=window,
+        scale=scale, softcap=softcap))
+    plain = tpa.paged_attention_plain(_t(q), _t(k), _t(v), _t(tables),
+                                      _t(starts), nb, scale, window,
+                                      softcap).numpy()
+    got = _split_merge_plain(_t(q), _t(k), _t(v), _t(tables), _t(starts),
+                             nb, scale, window, softcap, bps).numpy()
+    assert -(-nb // bps) > 2   # several splits
+    np.testing.assert_allclose(got, plain, rtol=2e-5, atol=2e-5)
+    _assert_matches_pallas(got, want, starts, tables, 16)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_prefill_tile_geometry_fits_a_block(D):
+    """The bfloat16 prefill tile: 64 query rows (one wgmma M), 64-key
+    panels, a ring of at least two K/V stages, and Q plus the ring within
+    the 232,448 bytes of shared memory a block may use."""
+    tile = tpa.prefill_tile(D)
+    assert tile["rows"] == 64 and tile["keys"] == 64
+    assert tile["stages"] >= 2
+    panel = 64 * D * 2                          # [64, D] bf16
+    assert tile["smem_bytes"] >= panel * (1 + 2 * tile["stages"])
+    assert tile["smem_bytes"] <= 232448
+    # G query heads of one kv head fill the tile's rows
+    for G in (1, 2, 4, 8):
+        assert (tile["rows"] // G) * G == tile["rows"]
