@@ -356,18 +356,35 @@ def paged_checks(pa):
             del q, k, v
 
 
+# flash cases (D, G, T, S, starts) over B = 3 rows and 2 kv heads: G in
+# {1, 2, 3, 4, 8} (3 does not divide the 128-row tile), T*G off that
+# tile, S off the K/V panel (64 or 128 keys), rows whose positions pass
+# S - 1, S < 64 (a single ragged panel), and 192 tiles, more than an H100
+# has SMs
+FLASH_CASES = (
+    (64, 2, 37, 200, [0, 100, 180]),
+    (128, 1, 300, 700, [0, 250, 400]),
+    (128, 4, 1000, 1100, [0, 50, 100]),
+    (128, 3, 50, 200, [0, 100, 163]),
+    (128, 4, 37, 200, [0, 100, 180]),
+    (128, 8, 37, 200, [0, 100, 163]),
+    (128, 4, 1, 130, [129, 64, 0]),
+    (128, 4, 20, 40, [0, 10, 30]),
+    (256, 2, 37, 200, [0, 100, 180]),
+    (256, 2, 300, 700, [0, 250, 400]),
+)
+
+
 def flash_checks(fa):
-    """Flash cases against the plain version: bf16 and f32, D in {64,
-    128, 256}, T not a multiple of the query tile, S not a multiple of
-    the 64-key panel, at TOL."""
+    """Each of FLASH_CASES against the plain version, float32 and
+    bfloat16, at TOL; raises after logging every case if any
+    disagrees."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(7)
+    bad = []
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
-        for D, G, T, S, starts in ((64, 4, 37, 200, [0, 100, 163]),
-                                   (128, 4, 37, 200, [0, 100, 163]),
-                                   (256, 2, 37, 200, [0, 100, 163]),
-                                   (128, 4, 1, 130, [129, 64, 0])):
+        for D, G, T, S, starts in FLASH_CASES:
             B, Hkv = len(starts), 2
 
             def rnd(*shape):
@@ -387,8 +404,10 @@ def flash_checks(fa):
                    "ok": ok}
             log(json.dumps(rec))
             if not ok:
-                raise AssertionError(f"flash kernel disagrees with its "
-                                     f"plain version: {rec}")
+                bad.append(rec)
+    if bad:
+        raise AssertionError(f"flash kernel disagrees with its plain "
+                             f"version: {bad}")
 
 
 def _record(name, source, replaces, path, err, ms, plain_ms, library_ms,
@@ -486,42 +505,49 @@ def paged_timings(pa, model):
 
 def flash_timing(fa):
     """The flash kernel, its plain version and SDPA with a boolean mask
-    over the same cache at q [4, 512, 32, 128] bf16, S = 1024, starts
-    [0, 128, 256, 512]; the kernel held against its plain version on
-    these inputs (TOL)."""
+    over the same cache, bf16, starts [0, 128, 256, 512], S = 1024, at
+    q [4, 512, 32, 128] (cache [4, 1024, 8, 128]) and q [4, 512, 16, 256]
+    (cache [4, 1024, 8, 256]); the kernel held against its plain version
+    on these inputs (TOL)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(103)
-    B, T, H, Hkv, D, S = 4, 512, 32, 8, 128, 1024
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=g,
-                           device="cuda").to(torch.bfloat16)
-    q, k, v = rnd(B, T, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
-    starts = torch.tensor([0, 128, 256, 512], dtype=torch.int32,
-                          device="cuda")
-    got = fa.flash_attention_with_cache(q, k, v, starts)
-    err = (got.float() - fa.flash_attention_plain(q, k, v, starts)
-           .float()).abs().max().item()
-    if not (bool(torch.isfinite(got).all()) and err <= TOL["bfloat16"]):
-        raise AssertionError(f"flash kernel disagrees with its plain "
-                             f"version at the timed shape: err {err}")
-    del got
-    it = 8
-    ms = device_ms(lambda i=0: fa.flash_attention_with_cache(q, k, v,
-                                                             starts), it)
-    plain_ms = device_ms(lambda i=0: fa.flash_attention_plain(q, k, v,
-                                                              starts), it)
-    qpos = starts.long()[:, None] + torch.arange(T, device="cuda")
-    library_ms = device_ms(sdpa_call(q, k, v, qpos), it)
-    byts, flops = flash_work(q, starts, S, Hkv, D, 2)
-    rec = _record("flash_attention_with_cache",
-                  "production_stack_tpu_torch/csrc/flash_attention.cu",
-                  REPLACES["flash_attention_with_cache"], None, err, ms,
-                  plain_ms, library_ms, byts, flops,
-                  {"B": B, "T": T, "H": H, "Hkv": Hkv, "D": D, "S": S,
-                   "starts": starts.tolist(), "dtype": "bfloat16"})
-    log(json.dumps({"timing": rec}))
-    return rec
+    B, T, Hkv, S = 4, 512, 8, 1024
+    records = []
+    for H, D in ((32, 128), (16, 256)):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g,
+                               device="cuda").to(torch.bfloat16)
+        q, k, v = rnd(B, T, H, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        starts = torch.tensor([0, 128, 256, 512], dtype=torch.int32,
+                              device="cuda")
+        got = fa.flash_attention_with_cache(q, k, v, starts)
+        err = (got.float() - fa.flash_attention_plain(q, k, v, starts)
+               .float()).abs().max().item()
+        if not (bool(torch.isfinite(got).all())
+                and err <= TOL["bfloat16"]):
+            raise AssertionError(f"flash kernel disagrees with its plain "
+                                 f"version at the timed shape D = {D}: "
+                                 f"err {err}")
+        del got
+        it = 8
+        ms = device_ms(lambda i=0: fa.flash_attention_with_cache(
+            q, k, v, starts), it)
+        plain_ms = device_ms(lambda i=0: fa.flash_attention_plain(
+            q, k, v, starts), it)
+        qpos = starts.long()[:, None] + torch.arange(T, device="cuda")
+        library_ms = device_ms(sdpa_call(q, k, v, qpos), it)
+        byts, flops = flash_work(q, starts, S, Hkv, D, 2)
+        rec = _record("flash_attention_with_cache",
+                      "production_stack_tpu_torch/csrc/flash_attention.cu",
+                      REPLACES["flash_attention_with_cache"], None, err, ms,
+                      plain_ms, library_ms, byts, flops,
+                      {"B": B, "T": T, "H": H, "Hkv": Hkv, "D": D, "S": S,
+                       "starts": starts.tolist(), "dtype": "bfloat16"})
+        log(json.dumps({"timing": rec}))
+        records.append(rec)
+        del q, k, v
+        free_memory()
+    return records
 
 
 def kernel_phase():
@@ -533,7 +559,7 @@ def kernel_phase():
     records = []
     for model in PATHS:
         records += paged_timings(pa, model)
-    records.append(flash_timing(fa))
+    records += flash_timing(fa)
     free_memory()
     return records
 
@@ -933,9 +959,10 @@ def model_phase(model: str):
 
 def build_phase(kernels) -> dict:
     """Build every source (in parallel) and report, per kernel, what
-    ptxas gave it: registers, static shared memory, spill bytes; and the
-    HGMMA (wgmma) instructions of the bfloat16 prefill kernel in the
-    built library, which must not be 0."""
+    ptxas gave it: registers, static shared memory, spill bytes; the
+    HGMMA (wgmma) instructions of the bfloat16 prefill kernel, and the
+    HGMMA and UTMALDG (TMA load) instructions of each bfloat16 flash
+    kernel in the built library, none of which may be 0."""
     report = kernels.build()
     out = {"sources": sorted(report) or "cached", "kernels": {}}
     for name in kernels.SOURCES:
@@ -950,6 +977,16 @@ def build_phase(kernels) -> dict:
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"the bf16 prefill kernel has no HGMMA "
                              f"instruction: {hgmma}")
+    flash = {}
+    for op in ("HGMMA", "UTMALDG"):
+        for k, n in kernels.sass_count("flash_attention", op).items():
+            if "flash_kernel<" in k:
+                flash.setdefault(k, dict(out["kernels"].get(k, {})))[op] = n
+    out["flash"] = flash
+    if not flash or min(min(f["HGMMA"], f["UTMALDG"])
+                        for f in flash.values()) == 0:
+        raise AssertionError(f"a bf16 flash kernel has no HGMMA or no "
+                             f"UTMALDG instruction: {flash}")
     return out
 
 

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) primitives the paged attention kernels share: 16-byte
-// asynchronous copies into shared memory (cp.async), the 128-byte
-// swizzled shared-memory layout that wgmma reads, its matrix descriptor,
-// and the two bf16 m64n64k16 wgmma forms the prefill kernel issues.
+// Hopper (sm_90a) primitives the attention kernels share: 16-byte
+// asynchronous copies into shared memory (cp.async), mbarriers, tensor
+// copies by the TMA, named barriers and register-budget controls, the
+// 128-byte swizzled shared-memory layout that wgmma reads, its matrix
+// descriptor, and the bf16 wgmma forms the prefill and flash kernels
+// issue.
 //
 // Include inside an anonymous namespace's translation unit only: every
 // definition here is internal to the including source.
@@ -71,6 +73,51 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
       : "memory");
 }
 
+// one arrival on `bar` that also raises the bytes the current phase
+// waits for by `bytes` (the TMA copies that complete it count them down)
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box of a 4-D tensor map at coordinates (c0, c1, c2, c3),
+// innermost first, into shared memory at `dst`; its bytes complete_tx on
+// `bar`. Elements outside the tensor arrive as zeros. `map` is the
+// address of a __grid_constant__ CUtensorMap kernel parameter.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) of `threads` threads:
+// sync waits for them all, arrive counts this thread and goes on
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a warpgroup's per-thread register budget, lowered (a producer) or
+// raised (a consumer) from the launch's; all its 128 threads execute it
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // make shared-memory writes of the generic proxy (cp.async, st.shared)
 // visible to the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_proxy_async() {
@@ -106,6 +153,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Tie registers that an asynchronous wgmma writes (or reads) to this
@@ -164,8 +216,45 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#define PSTPU_D64(d)  \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+    "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+    "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+    "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+    "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+    "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+    "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+    "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+    "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+    "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PSTPU_D64_SLOTS \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+    "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+    "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+    "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+    "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], bf16 in, f32 accumulate;
+// A and B from shared memory, both K-major; the accumulator layout of
+// the m64n64k16 form, continued along N (d[i] at column 8*(i/4) + ...).
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PSTPU_D64_SLOTS
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : PSTPU_D64(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 #undef PSTPU_D32
 #undef PSTPU_D32_SLOTS
+#undef PSTPU_D64
+#undef PSTPU_D64_SLOTS
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

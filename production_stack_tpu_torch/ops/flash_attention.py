@@ -4,10 +4,18 @@ plain PyTorch version and its launch count.
 Replaces ``_flash_kernel`` / ``flash_attention_with_cache``
 (``production_stack_tpu/ops/pallas_attention.py:120-246``), with the
 same contract: q [B, T, H, D]; k/v cache [B, S, Hkv, D]; starts [B] =
-absolute position of q[:, 0]; scale D**-0.5. The kernel is
-``csrc/flash_attention.cu``, whose header says how it differs from the
-Pallas one (native cache layout, ragged last key block) and what bounds
-it. The Pallas module's runtime gates (``flash_enabled``, ``force_jnp``,
+absolute position of q[:, 0]; scale D**-0.5. The kernels are in
+``csrc/flash_attention.cu``, whose header says what bounds them:
+
+- bfloat16: ``flash_kernel``, tiles of 128 flattened query rows
+  (``flash_tile``) on two consumer warpgroups that take turns running
+  ``wgmma``, fed K/V panels by the TMA from the cache's native layout
+  (keys past S arrive as zeros) through a ring of mbarrier stages that
+  one producer thread fills;
+- float32: the f32 FMA tile of ``csrc/attention_tile.cuh``
+  (``tile_block_q``), chosen by dtype, since wgmma has no full-f32 form.
+
+The Pallas module's runtime gates (``flash_enabled``, ``force_jnp``,
 ``PSTPU_FLASH``, ``flash_viable``) choose between it and the jnp path on
 a TPU and have no counterpart here.
 
@@ -50,6 +58,24 @@ def _lib():
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
+
+
+def flash_tile(D: int) -> dict:
+    """Geometry of the bfloat16 flash kernel's tile at head dim D (as
+    csrc/flash_attention.cu FlashGeometry): two consumer warpgroups of 64
+    query rows each (one wgmma M) share every K/V panel, of 128 keys (64
+    at D = 256, where a thread's registers hold no larger score tile), a
+    ring of 4 / 3 / 2 stages at D = 64 / 128 / 256, and the shared memory
+    it takes — each warpgroup's Q ([64, D] bf16) and each stage's K and V
+    panel ([keys, D] bf16), plus the ring's mbarriers (128 bytes) and 1 KB
+    to align the swizzled layout."""
+    consumers = 2
+    keys = 64 if D == 256 else 128
+    stages = {64: 4, 128: 3, 256: 2}[D]
+    return {"rows": 64 * consumers, "keys": keys, "stages": stages,
+            "consumers": consumers,
+            "smem_bytes": (128 + 1024 + consumers * 64 * D * 2
+                           + 2 * stages * keys * D * 2)}
 
 
 def flash_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -102,10 +128,12 @@ def flash_attention_with_cache(q: torch.Tensor, k_cache: torch.Tensor,
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    block_q = (flash_tile(D)["rows"] if q.dtype == torch.bfloat16
+               else tile_block_q(T, H // Hkv, D))
     rc = _lib().flash_attention_with_cache(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         starts.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], B, T, H,
-        Hkv, D, S, tile_block_q(T, H // Hkv, D), float(D ** -0.5), stream)
+        Hkv, D, S, block_q, float(D ** -0.5), stream)
     if rc != 0:
         msg = _lib().flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention_with_cache kernel launch "

@@ -175,11 +175,11 @@ def prefill_tile(D: int) -> dict:
 
 def tile_block_q(T: int, groups: int, D: int) -> int:
     """Query positions per tile of the f32 FMA tile of
-    csrc/attention_tile.cuh (the float32 prefill kernel and the flash
-    kernel), never more than T: as many as keep
-    the tile at 64 (position, head) rows, 32 at D = 256, so its shared
-    memory (csrc tile_smem_floats, at Bs = 64) stays under the 227 KB a
-    block may use — 148,480 bytes at D = 128, 205,440 at D = 256."""
+    csrc/attention_tile.cuh, which every float32 kernel runs (prefill
+    here, flash over a contiguous cache), never more than T: as many as
+    keep the tile at 64 (position, head) rows, 32 at D = 256, so its
+    shared memory (csrc tile_smem_floats, at Bs = 64) stays under the 227
+    KB a block may use — 148,480 bytes at D = 128, 205,440 at D = 256."""
     rows = 64 if D <= 128 else 32
     return max(1, min(T, rows // groups))
 

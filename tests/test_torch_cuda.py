@@ -120,19 +120,35 @@ def test_redesigned_kernels_match_plain_version(cuda, fn, T, G, D, Bs, lens,
     assert (got[-1] == 0).all()   # the parked row
 
 
+# bfloat16 runs the wgmma kernel on 128-row tiles, float32 the f32 tile
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,S,G,D", [(37, 200, 4, 64), (37, 200, 4, 128),
-                                     (37, 200, 2, 256), (1, 130, 4, 128)])
-def test_flash_kernel_matches_plain_version(cuda, T, S, G, D, dtype):
-    """T and S not multiples of the query tile and the 64-key panel."""
+@pytest.mark.parametrize("T,S,G,D,starts", [
+    # G in {1, 3, 4, 8} at D = 128 and D in {64, 256} at G = 2, T * G off
+    # the 128-row tile, S off the K/V panel; (0, 100, 180) has a row
+    # whose positions pass S - 1; 1000 x 4 rows make 192 tiles, more than
+    # an H100 has SMs
+    (300, 700, 1, 128, (0, 250, 400)),
+    (1000, 1100, 4, 128, (0, 50, 100)),
+    (50, 200, 3, 128, (0, 100, 163)),
+    (37, 200, 4, 128, (0, 100, 180)),
+    (37, 200, 8, 128, (0, 100, 163)),
+    (37, 200, 2, 64, (0, 100, 180)),
+    (300, 700, 2, 256, (0, 250, 400)),
+    (37, 200, 2, 256, (0, 100, 180)),
+    (1, 130, 4, 128, (129, 64, 0)),
+    # S < 64: a single ragged panel
+    (20, 40, 4, 128, (0, 10, 30)),
+])
+def test_flash_kernel_matches_plain_version(cuda, T, S, G, D, starts,
+                                            dtype):
+    """T and S not multiples of the query tile and the K/V panel."""
     g = torch.Generator(device=cuda).manual_seed(T + S + D)
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=cuda).to(dtype)
-    B, Hkv = 3, 2
+    B, Hkv = len(starts), 2
     q, k, v = rnd(B, T, Hkv * G, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
-    starts = torch.tensor([0, S // 2, S - T], dtype=torch.int32,
-                          device=cuda)
+    starts = torch.tensor(starts, dtype=torch.int32, device=cuda)
     before = fa.launch_counts["flash_attention_with_cache"]
     got = fa.flash_attention_with_cache(q, k, v, starts)
     torch.cuda.synchronize()

@@ -268,6 +268,8 @@ def test_plain_window_softcap_matches_pallas_kernels(fn, T, G, D, window,
     (20, 48, 2, 32, [0, 10, 28]),
     (1, 100, 4, 32, [99, 37, 0]),
     (13, 100, 1, 64, [87, 50, 3]),
+    # G = 3 does not divide the bf16 kernel's 128-row tile
+    (10, 48, 3, 32, [0, 20, 38]),
 ])
 def test_plain_flash_matches_pallas_flash_kernel(T, S, G, D, starts):
     rng = np.random.default_rng(T + S)
@@ -410,3 +412,35 @@ def test_prefill_tile_geometry_fits_a_block(D):
     # G query heads of one kv head fill the tile's rows
     for G in (1, 2, 4, 8):
         assert (tile["rows"] // G) * G == tile["rows"]
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_tile_geometry_fits_a_block(D):
+    """The bfloat16 flash tile: rows a multiple of 64 (one wgmma M per
+    consumer warpgroup), panels of 64 or 128 keys (a wgmma N), a ring of
+    at least two K/V stages, and Q plus the ring within the 232,448 bytes
+    of shared memory a block may use."""
+    tile = tfa.flash_tile(D)
+    assert tile["rows"] % 64 == 0 and tile["rows"] == 64 * tile["consumers"]
+    assert tile["keys"] in (64, 128) and tile["stages"] >= 2
+    q, panel = 64 * D * 2, tile["keys"] * D * 2     # bf16
+    assert tile["smem_bytes"] >= (q * tile["consumers"]
+                                  + panel * 2 * tile["stages"])
+    assert tile["smem_bytes"] <= 232448
+
+
+def test_flash_profile_timer_sites_are_in_the_kernel():
+    """tools/flash_profile.py attaches its timers to statements of
+    csrc/flash_attention.cu: each must be there exactly once."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "flash_profile", os.path.join(root, "tools", "flash_profile.py"))
+    profile = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profile)
+    with open(os.path.join(root, "production_stack_tpu_torch", "csrc",
+                           "flash_attention.cu")) as f:
+        src = f.read()
+    for site, _ in profile.PATCHES:
+        assert src.count(site) == 1, site[:60]
