@@ -13,28 +13,31 @@
    written first, D in {64, 128, 256}, a sliding window that is not a
    multiple of the block size and a softcap on scores that reach it;
    the split decode over a 72-block row beside a 1-block row, the wgmma
-   prefill at G = 2, 4, 8 with T off its 64-row tile; for the flash
-   kernel T and S that are not multiples of its tiles — and times kernel
-   (a whole wrapper call: the decode's split and merge launches),
-   plain version and one PyTorch library call at the
-   shapes the serving phases give them (Gemma-2's at both layer kinds,
-   sliding and global), holding each kernel against its plain version on
-   the timed inputs too;
-3. then for each served model, llama-3-8b and gemma-2-9b, at full width
-   and depth with random weights from a seed, one after the other (the
-   first is freed before the second is built):
+   prefill at G = 2, 4, 8 with T off its 64-row tile; every paged case
+   once more over an int8 pool with its scales; for the flash kernel T
+   and S that are not multiples of its tiles — and times kernel (a whole
+   wrapper call: the decode's split and merge launches), plain version
+   and one PyTorch library call at the shapes the serving phases give
+   them (Gemma-2's at both layer kinds, sliding and global; the paged
+   kernels over a bf16 and over an int8 pool), holding each kernel
+   against its plain version on the timed inputs too;
+3. then for each served path — llama-3-8b, gemma-2-9b, and llama-3-8b
+   with int8 weights and an int8 KV pool (llama-3-8b-int8) — at full
+   width and depth with random weights from a seed, one after the other
+   (each engine is freed before the next is built):
    - serve: starts the port's OpenAI server in-process, sends completion
      and chat requests (some concurrent, one streamed, one prompt long
      enough for several prefill chunks — past Gemma-2's 4096-token
      window), checks status, token counts and greedy repeatability, and
      that both paged kernels were launched (on Gemma-2 with the window
-     and the softcap on) and the flash kernel, which serves no path as in
-     the JAX package, was not;
+     and the softcap on, on the int8 path with the int8 pool) and the
+     flash kernel, which serves no path as in the JAX package, was not;
    - breakdown: device time of a decode step and of a prefill chunk of
      the served model, and from a torch.profiler trace of each the
      device's idle share and each kernel class's share;
    - reference: the served model's logits through the kernels agree
-     with a float32 forward through the plain attention.
+     with a float32 forward through the plain attention (on the int8
+     path over the same int8 weights and an int8 pool).
 
 Progress goes to stdout; the line before the last two is the kernels'
 JSON record, then the card's name and power limit, then the result.
@@ -54,7 +57,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# the served models, in the order they are served. serve: the engine's
+# the served paths, in the order they are served. model: the preset (the
+# path's name where not given); serve: the engine's
 # geometry; decode_starts: the rows of the timed decode step; chunk_start:
 # the start of the one live row of the timed prefill chunk; kv_len: the
 # kv bucket both run at; long_tokens: the length of the long prompt;
@@ -76,7 +80,24 @@ PATHS = {
                    decode_window=8, kv_block_size=64, seed=0),
         decode_starts=[4600, 1000, 57, 400], chunk_start=4096,
         kv_len=8192, long_tokens=4600, timing_layers=4, ref_prompt=4600),
+    # Llama-3-8B with weight-only int8 (quantized on the card) and the
+    # int8 KV pool, at the llama path's geometry
+    "llama-3-8b-int8": dict(
+        model="llama-3-8b",
+        serve=dict(max_num_seqs=4, max_model_len=1024, prefill_chunk=512,
+                   decode_window=8, kv_block_size=64, seed=0,
+                   quantization="int8", kv_dtype="int8"),
+        decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
+        long_tokens=697, timing_layers=32, ref_prompt=40),
 }
+
+
+def path_model(path: str) -> str:
+    return PATHS[path].get("model", path)
+
+
+def path_kv(path: str) -> str:
+    return PATHS[path]["serve"].get("kv_dtype", "bfloat16")
 # kernel-phase tolerances, max |kernel - plain|:
 # - float32: 2e-5, the bound the Pallas kernels are held to against the
 #   plain path (tests/test_pallas_paged.py): the online softmax sums in
@@ -85,6 +106,10 @@ PATHS = {
 #   values up to ~4) and the plain version, like the JAX one, rounds the
 #   probabilities to bf16 before the value product where the kernel
 #   keeps them f32.
+# Over an int8 pool each kernel is held, at the same tolerances, against
+# the plain version in float32 on the same q (upcast exactly): the
+# kernels dequantize in f32 as the Pallas int8 branch does, where the
+# plain version at bf16 q rounds the dequantized K/V to bf16.
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # the served model against its float32 plain-attention forward:
 # - float32 through the kernels: 1e-3 of the largest logit (the 2e-5
@@ -199,18 +224,42 @@ def paged_case(B, T, Hkv, G, D, Bs, lens, dtype, layers=1, parked=0,
     return q, k, v, tables, starts, nb
 
 
-def work(q, starts, nb, MB, Bs, Hkv, D, itemsize, window=0):
+def int8_pools(k, v, tables, starts, T, seed):
+    """paged_case's pools as an int8 pool: quantized per (token, head),
+    then the chunk's own K/V (fresh values) written by write_chunk_q.
+    Returns (k8, v8, ks, vs), [layers, N, Hkv, Bs(, D)]."""
+    import torch
+    from production_stack_tpu_torch.models.kv import (quantize_chunk,
+                                                      write_chunk_q)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    (k8, ks), (v8, vs) = quantize_chunk(k), quantize_chunk(v)
+    pos = starts[:, None].long() + torch.arange(T, device="cuda")
+    B, Hkv, D = tables.shape[0], k.shape[2], k.shape[-1]
+    for layer in range(k.shape[0]):
+        for pool, scales in ((k8, ks), (v8, vs)):
+            write_chunk_q(pool[layer], scales[layer],
+                          torch.randn((B, T, Hkv, D), generator=g,
+                                      device="cuda"), tables, pos)
+    return k8, v8, ks, vs
+
+
+def work(q, starts, nb, MB, Bs, Hkv, D, itemsize, window=0,
+         kv_itemsize=None):
     """(bytes, flops) the paged call needs on this data. Every row:
     starts once and its output written once. A live row (start < MB*Bs)
     also reads its q and the K/V blocks and table entries it attends
     (blocks from its first query's window start to its last query's
-    block, within nb), and does 4*D flops per (query head, attended key)
-    for QK and PV, counting only the keys inside each query's window. A
-    parked row needs nothing more: its output is zeros the engine
-    discards. The softcap's tanh (one per score) is not counted: the
-    tensor-core rate does not apply to it and it is 1/(4D) of the
-    dot-product operations."""
+    block, within nb) — an int8 pool (kv_itemsize 1) also a 4-byte K and
+    V scale per attended (key, head) — and does 4*D flops per (query
+    head, attended key) for QK and PV, counting only the keys inside each
+    query's window. A parked row needs nothing more: its output is zeros
+    the engine discards. The softcap's tanh (one per score) is not
+    counted: the tensor-core rate does not apply to it and it is 1/(4D)
+    of the dot-product operations; nor is the int8 dequantization, one
+    multiply per K/V value."""
     B, T, H, _ = q.shape
+    kv_itemsize = kv_itemsize or itemsize
+    kv_row = D * kv_itemsize + (4 if kv_itemsize == 1 else 0)
     row_q = T * H * D * itemsize
     byts = B * (row_q + 4)
     flops = 0
@@ -220,7 +269,7 @@ def work(q, starts, nb, MB, Bs, Hkv, D, itemsize, window=0):
         jend = min((s + T - 1) // Bs, nb - 1)
         jmin = max(s - (window - 1), 0) // Bs if window else 0
         blocks = max(jend - jmin + 1, 0)
-        byts += row_q + 2 * blocks * Hkv * Bs * D * itemsize + 4 * blocks
+        byts += row_q + 2 * blocks * Hkv * Bs * kv_row + 4 * blocks
         for t in range(T):
             lo = max(s + t - window + 1, 0) if window else 0
             keys = max(min(s + t + 1, (jend + 1) * Bs) - lo, 0)
@@ -265,15 +314,21 @@ def sdpa_call(q, k, v, qpos, window=0, scale=None):
     return call
 
 
-def sdpa_over_view(q, k, v, tables, starts, nb, window=0, scale=None):
-    """SDPA over the gathered view of the paged pool — the paged gather
-    itself is not timed."""
+def sdpa_over_view(q, k, v, tables, starts, nb, window=0, scale=None,
+                   k_scales=None, v_scales=None):
+    """SDPA over the gathered view of the paged pool (an int8 pool
+    dequantized to q's dtype) — the paged gather itself is not timed."""
     import torch
-    from production_stack_tpu_torch.models.kv import gather_view
+    from production_stack_tpu_torch.models.kv import gather_view, \
+        gather_view_q
     T = q.shape[1]
     qpos = starts.long()[:, None] + torch.arange(T, device=q.device)
-    return sdpa_call(q, gather_view(k, tables, nb),
-                     gather_view(v, tables, nb), qpos, window, scale)
+    if k_scales is not None:
+        kv = (gather_view_q(k, k_scales, tables, nb, q.dtype),
+              gather_view_q(v, v_scales, tables, nb, q.dtype))
+    else:
+        kv = gather_view(k, tables, nb), gather_view(v, tables, nb)
+    return sdpa_call(q, *kv, qpos, window, scale)
 
 
 def paged_checks(pa):
@@ -322,38 +377,50 @@ def paged_checks(pa):
         ("prefill", 96, 8, 2, 256, 64, [4550, 4100, 300, 0], 4096, 50.0,
          30.0, 0.5),
     ]
+    # every case over a pool of q's dtype, then over an int8 pool with its
+    # scales (V's scales times the case's V scale)
     i = 0
-    for dt in ("float32", "bfloat16"):
-        dtype = getattr(torch, dt)
-        for kind, T, Hkv, G, D, Bs, lens, w, cap, qx, vx in cases:
-            i += 1
-            q, k, v, tables, starts, nb = paged_case(
-                4, T, Hkv, G, D, Bs, lens, dtype, parked=1, seed=i)
-            q = (q.float() * qx).to(dtype)
-            v = (v.float() * vx).to(dtype)
-            fn = fns[kind]
-            got = fn(q, k[0], v[0], tables, starts, nb=nb, window=w,
-                     softcap=cap)
-            torch.cuda.synchronize()
-            want = pa.paged_attention_plain(q, k[0], v[0], tables, starts,
-                                            nb, D ** -0.5, w, cap)
-            err = (got.float() - want.float()).abs().max().item()
-            ok = bool(torch.isfinite(got).all()) and err <= TOL[dt]
-            rec = {"check": fn.__name__, "T": T, "Hkv": Hkv, "G": G,
-                   "D": D, "Bs": Bs, "starts": starts.tolist(),
-                   "window": w, "softcap": cap, "q_scale": qx,
-                   "v_scale": vx, "dtype": dt,
-                   "parked_rows": 1, "max_abs_err": err, "tol": TOL[dt],
-                   "ok": ok}
-            if cap:
-                qf = q[0, :, :G].float() * D ** -0.5
-                rec["max_raw_score"] = (qf @ k[0][tables[0, 0].long(), 0]
-                                        .float().T).abs().max().item()
-            log(json.dumps(rec))
-            if not ok:
-                raise AssertionError(f"{fn.__name__} disagrees with its "
-                                     f"plain version: {rec}")
-            del q, k, v
+    for kv in ("native", "int8"):
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            for kind, T, Hkv, G, D, Bs, lens, w, cap, qx, vx in cases:
+                i += 1
+                q, k, v, tables, starts, nb = paged_case(
+                    4, T, Hkv, G, D, Bs, lens, dtype, parked=1, seed=i)
+                q = (q.float() * qx).to(dtype)
+                sc = {}
+                if kv == "int8":
+                    k, v, ks, vs = int8_pools(k, v, tables, starts, T, i)
+                    sc = dict(k_scales=ks[0], v_scales=vs[0] * vx)
+                else:
+                    v = (v.float() * vx).to(dtype)
+                fn = fns[kind]
+                got = fn(q, k[0], v[0], tables, starts, nb=nb, window=w,
+                         softcap=cap, **sc)
+                torch.cuda.synchronize()
+                want = pa.paged_attention_plain(
+                    q.float() if sc else q, k[0], v[0], tables, starts, nb,
+                    D ** -0.5, w, cap, **sc)
+                err = (got.float() - want.float()).abs().max().item()
+                ok = bool(torch.isfinite(got).all()) and err <= TOL[dt]
+                rec = {"check": fn.__name__, "kv": kv, "T": T, "Hkv": Hkv,
+                       "G": G, "D": D, "Bs": Bs, "starts": starts.tolist(),
+                       "window": w, "softcap": cap, "q_scale": qx,
+                       "v_scale": vx, "dtype": dt,
+                       "parked_rows": 1, "max_abs_err": err, "tol": TOL[dt],
+                       "ok": ok}
+                if cap:
+                    kb = k[0][tables[0, 0].long(), 0].float()
+                    if sc:
+                        kb = kb * sc["k_scales"][tables[0, 0].long(), 0,
+                                                 :, None]
+                    qf = q[0, :, :G].float() * D ** -0.5
+                    rec["max_raw_score"] = (qf @ kb.T).abs().max().item()
+                log(json.dumps(rec))
+                if not ok:
+                    raise AssertionError(f"{fn.__name__} disagrees with its "
+                                         f"plain version: {rec}")
+                del q, k, v, sc
 
 
 # flash cases (D, G, T, S, starts) over B = 3 rows and 2 kv heads: G in
@@ -432,14 +499,18 @@ REPLACES = {
 }
 
 
-def paged_timings(pa, model):
+def paged_timings(pa, model, kv, path):
     """Both paged kernels at one served model's shapes: a decode step of
     the whole batch (T=1) and a 512-token prefill chunk of one row with
-    the others parked, at the model's softcap and scale, bf16; for a
-    model with sliding layers once at each layer kind (its window, then
-    none), else once. Each row holds the kernel against its plain
-    version on the timed inputs (TOL); its `layers` names the kind, whose
-    launches main() takes from the serving run."""
+    the others parked, at the model's softcap and scale, bf16 q over a
+    bf16 pool or (kv "int8") an int8 pool with its scales; for a model
+    with sliding layers once at each layer kind (its window, then none),
+    else once. Each row holds the kernel against its plain version on the
+    timed inputs (TOL; over an int8 pool the plain version in f32), and
+    names in `path` the serving path whose launches main() reports (None:
+    no path serves these shapes with this pool) and in `layers` the layer
+    kind. Over an int8 pool no PyTorch call attends, so library_ms is
+    null and SDPA over the dequantized bf16 view is logged beside it."""
     import torch
     from production_stack_tpu_torch.models.config import get_config
     from production_stack_tpu_torch.models.llama import attn_scale
@@ -459,20 +530,24 @@ def paged_timings(pa, model):
         q, k, v, tables, starts, nb = paged_case(
             B, T, Hkv, G, D, Bs, lens, torch.bfloat16, layers=L,
             parked=parked, seed=seed)
+        sc = [{}] * L
+        if kv == "int8":
+            k, v, ks, vs = int8_pools(k, v, tables, starts, T, seed)
+            sc = [dict(k_scales=ks[i], v_scales=vs[i]) for i in range(L)]
         MB = tables.shape[1]
         nb = min(p["kv_len"] // Bs, MB)
         fn = getattr(pa, name)
         for layers, window in kinds:
             kw = dict(scale=attn_scale(cfg), window=window,
                       softcap=cfg.attn_logit_softcap or 0.0)
-            got = fn(q, k[0], v[0], tables, starts, nb=nb, **kw)
-            want = pa.paged_attention_plain(q, k[0], v[0], tables, starts,
-                                            nb, kw["scale"], kw["window"],
-                                            kw["softcap"])
+            got = fn(q, k[0], v[0], tables, starts, nb=nb, **kw, **sc[0])
+            want = pa.paged_attention_plain(
+                q.float() if sc[0] else q, k[0], v[0], tables, starts, nb,
+                kw["scale"], kw["window"], kw["softcap"], **sc[0])
             err = (got.float() - want.float()).abs().max().item()
             shape = {"B": B, "T": T, "H": Hkv * G, "Hkv": Hkv, "D": D,
                      "Bs": Bs, "nb": nb, "starts": starts.tolist(),
-                     "dtype": "bfloat16", **kw}
+                     "dtype": "bfloat16", "kv_dtype": kv, **kw}
             if not (bool(torch.isfinite(got).all())
                     and err <= TOL["bfloat16"]):
                 raise AssertionError(f"{name} disagrees with its plain "
@@ -480,25 +555,32 @@ def paged_timings(pa, model):
                                      f"err {err}, {shape}")
             del got, want
             ms = device_ms(lambda i=0: fn(q, k[i % L], v[i % L], tables,
-                                          starts, nb=nb, **kw), it)
+                                          starts, nb=nb, **kw, **sc[i % L]),
+                           it)
             plain_ms = device_ms(lambda i=0: pa.paged_attention_plain(
                 q, k[i % L], v[i % L], tables, starts, nb, kw["scale"],
-                kw["window"], kw["softcap"]), it)
+                kw["window"], kw["softcap"], **sc[i % L]), it)
             sdpa = sdpa_over_view(q, k[0], v[0], tables, starts, nb,
-                                  kw["window"], kw["scale"])
+                                  kw["window"], kw["scale"], **sc[0])
             sdpa_ms = device_ms(sdpa, it)
             del sdpa
             byts, flops = work(q, starts, nb, MB, Bs, Hkv, D, 2,
-                               kw["window"])
-            # SDPA computes the same function only without a softcap
-            rec = _record(name, PAGED_SOURCE, REPLACES[name], model,
-                          err, ms, plain_ms,
-                          None if kw["softcap"] else sdpa_ms, byts, flops,
-                          shape)
+                               kw["window"], kv_itemsize=k.element_size())
+            # SDPA computes the same function only without a softcap and
+            # over a bf16 pool
+            rec = _record(name, PAGED_SOURCE, REPLACES[name], path, err,
+                          ms, plain_ms,
+                          None if kw["softcap"] or sc[0] else sdpa_ms, byts,
+                          flops, shape)
             rec["layers"] = layers
-            log(json.dumps({"timing": rec, "sdpa_ms": sdpa_ms}))
+            rec["kv_dtype"] = kv
+            rec["shapes_of"] = model
+            # the yardstick where library_ms is null: SDPA without the
+            # softcap, over the bf16 pool or the dequantized bf16 view
+            rec["sdpa_ms"] = sdpa_ms
+            log(json.dumps({"timing": rec}))
             records.append(rec)
-        del q, k, v
+        del q, k, v, sc
         free_memory()
     return records
 
@@ -557,8 +639,12 @@ def kernel_phase():
     flash_checks(fa)
     free_memory()
     records = []
-    for model in PATHS:
-        records += paged_timings(pa, model)
+    for model in ("llama-3-8b", "gemma-2-9b"):
+        records += paged_timings(pa, model, "bfloat16", model)
+    # the int8 branches at both models' shapes; only Llama-3-8B is served
+    # with an int8 pool, so the Gemma-2 rows name no path (no launches)
+    records += paged_timings(pa, "llama-3-8b", "int8", "llama-3-8b-int8")
+    records += paged_timings(pa, "gemma-2-9b", "int8", None)
     records += flash_timing(fa)
     free_memory()
     return records
@@ -580,11 +666,12 @@ def long_prompt_text(tokens: int) -> str:
     return text[:tokens - 1]
 
 
-async def serve_phase(engine, model: str):
-    """The OpenAI server in-process on `engine`; every kernel launch
-    count is zeroed just before the requests and read just after. Both
-    paged kernels must have launched, the flash kernel never (it serves
-    no path, as in the JAX package)."""
+async def serve_phase(engine, path: str):
+    """The OpenAI server in-process on `engine`, serving PATHS[path];
+    every kernel launch count is zeroed just before the requests and read
+    just after. Both paged kernels must have launched (with the window,
+    the softcap and the int8 pool where the path has them), the flash
+    kernel never (it serves no path, as in the JAX package)."""
     import aiohttp
     from aiohttp import web
     from production_stack_tpu_torch.engine.server import build_app
@@ -597,14 +684,15 @@ async def serve_phase(engine, model: str):
     site = web.TCPSite(runner, "127.0.0.1", port)
     await site.start()
     base = f"http://127.0.0.1:{port}"
-    long_tokens = PATHS[model]["long_tokens"]
+    model = path_model(path)
+    long_tokens = PATHS[path]["long_tokens"]
     try:
         async with aiohttp.ClientSession() as http:
-            async def post(path, body):
-                async with http.post(base + path, json=body) as r:
+            async def post(url, body):
+                async with http.post(base + url, json=body) as r:
                     if r.status != 200:
                         raise AssertionError(
-                            f"{path} -> {r.status}: {await r.text()}")
+                            f"{url} -> {r.status}: {await r.text()}")
                     if body.get("stream"):
                         return [ln[6:] for ln in
                                 (await r.text()).splitlines()
@@ -636,18 +724,19 @@ async def serve_phase(engine, model: str):
             pa.reset_launch_counts()
             fa.reset_launch_counts()
             t0 = time.monotonic()
-            results = await asyncio.gather(*(post(p, b) for p, b in reqs))
+            results = await asyncio.gather(*(post(u, b) for u, b in reqs))
             again = await post("/v1/completions", greedy)
             wall = time.monotonic() - t0
             counts = {"launches": {**pa.launch_counts,
                                    **fa.launch_counts},
                       "window_launches": dict(pa.window_launches),
-                      "softcap_launches": dict(pa.softcap_launches)}
+                      "softcap_launches": dict(pa.softcap_launches),
+                      "int8_launches": dict(pa.int8_launches)}
     finally:
         await runner.cleanup()
 
     want = [24, 16, 16, 20]
-    for (path, body), res, n in zip(reqs, results, want):
+    for (url, body), res, n in zip(reqs, results, want):
         if body.get("stream"):
             assert res[-1] == "[DONE]", res[-3:]
             chunks = [json.loads(x) for x in res[:-1]]
@@ -656,7 +745,7 @@ async def serve_phase(engine, model: str):
         else:
             got = res["usage"]["completion_tokens"]
             assert res["choices"][0]["finish_reason"] == "length"
-        assert got == n, (path, got, n)
+        assert got == n, (url, got, n)
     lps = results[0]["choices"][0]["logprobs"]["token_logprobs"]
     assert len(lps) == 24 and all(math.isfinite(x) and x <= 0 for x in lps)
     chat_lps = [e["logprob"] for e in
@@ -671,16 +760,21 @@ async def serve_phase(engine, model: str):
                                           first_lp["token_logprobs"])) < 1e-3
     prompt_tokens = results[0]["usage"]["prompt_tokens"]
     assert prompt_tokens == long_tokens, (prompt_tokens, long_tokens)
-    assert prompt_tokens > PATHS[model]["serve"]["prefill_chunk"]
+    assert prompt_tokens > PATHS[path]["serve"]["prefill_chunk"]
     cfg = engine.engine.model_cfg
     need = ["launches"]
     if cfg.sliding_window:
         need.append("window_launches")
         # the long prompt's last prefill chunks and its decode skip blocks
         assert prompt_tokens > cfg.sliding_window + \
-            PATHS[model]["serve"]["kv_block_size"], prompt_tokens
+            PATHS[path]["serve"]["kv_block_size"], prompt_tokens
     if cfg.attn_logit_softcap:
         need.append("softcap_launches")
+    if engine.engine.cfg.kv_dtype == "int8":
+        need.append("int8_launches")
+    elif any(counts["int8_launches"].values()):
+        raise AssertionError(f"int8 launches on a path without an int8 "
+                             f"pool: {counts}")
     for kind in need:
         for name in pa.launch_counts:
             if counts[kind][name] <= 0:
@@ -690,22 +784,34 @@ async def serve_phase(engine, model: str):
         if counts["launches"][name] != 0:
             raise AssertionError(f"kernel {name} serves no path but was "
                                  f"launched while serving: {counts}")
-    log(json.dumps({"serve": {"model": model, "requests": len(reqs) + 1,
+    log(json.dumps({"serve": {"path": path, "model": model,
+                              "requests": len(reqs) + 1,
                               "wall_s": wall,
                               "long_prompt_tokens": prompt_tokens,
                               **counts}}))
     return counts
 
 
-def reference_phase(engine, model: str):
+def reference_phase(engine, path: str):
     """The served model's logits against a float32 reference on the card:
-    the same weights upcast (exact), the plain attention, a prompt of
-    ref_prompt tokens prefilled in prefill_chunk chunks, then 3 decode
-    steps; logits compared at each chunk's last position and at each
-    step.
+    the same weights upcast (exact; int8 weights shared as they are, and
+    dequantized in f32 by the f32 forward), the plain attention, a pool of
+    the served path's KV dtype (an int8 pool read through its scales), a
+    prompt of ref_prompt tokens prefilled in prefill_chunk chunks, then 3
+    decode steps; logits compared at each chunk's last position and at
+    each step.
 
     - float32 through the kernels must match the reference to
-      F32_LOGIT_TOL of its largest logit;
+      F32_LOGIT_TOL of its largest logit. Over an int8 pool that is not
+      a bound: rounding to int8 is discontinuous, so K/V values that lie
+      at a rounding tie quantize differently once the layers below
+      differ by the kernels' f32 summation order (~1e-7), and each such
+      value moves by one int8 step (llama-3-8b-int8 on an H100 80GB
+      HBM3: 0.023 of a largest logit of 5.9). There each kernel call of the f32 run
+      is held instead against the plain attention on the same inputs
+      (the model's own activations and pool), at TOL of the larger of 1
+      and its largest output; the logits' distance and the count of
+      int8 values that differ from the reference's pool are logged;
     - the served bf16 path through the kernels may be at most
       BF16_FLOOR_FACTOR times further from it than the bf16 path through
       the plain attention is (bf16 rounding through every layer is the
@@ -715,22 +821,27 @@ def reference_phase(engine, model: str):
     import torch
     from production_stack_tpu_torch.models import llama
     from production_stack_tpu_torch.models.kv import make_slot_cache
+    from production_stack_tpu_torch.models.quant import is_quantized
     from production_stack_tpu_torch.ops import paged_attention as pa
 
     runner = engine.engine.runner
     cfg = runner.model_cfg
     dev = next(runner.params.parameters()).device
-    P, chunk = PATHS[model]["ref_prompt"], PATHS[model]["serve"][
+    P, chunk = PATHS[path]["ref_prompt"], PATHS[path]["serve"][
         "prefill_chunk"]
+    kv_dtype = getattr(torch, path_kv(path))
     steps = 3
     Bs = 64
     max_len = -(-(P + steps) // Bs) * Bs
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     p32 = llama.Llama(cfg32, device=dev)
     with torch.no_grad():
-        for (_, dst), (_, src) in zip(p32.named_parameters(),
-                                      runner.params.named_parameters()):
-            dst.copy_(src)
+        for name, src in list(runner.params.named_children()):
+            if is_quantized(src):
+                delattr(p32, name)
+                setattr(p32, name, src)
+        for name, dst in p32.named_parameters():
+            dst.copy_(getattr(runner.params, name))
     g = torch.Generator(device=dev).manual_seed(3)
     prompt = torch.randint(0, cfg.vocab_size, (1, P), generator=g,
                            device=dev)
@@ -738,17 +849,41 @@ def reference_phase(engine, model: str):
                               device=dev)
 
     def plain(q, k, v, tables, starts, *, nb, scale=None, window=0,
-              softcap=0.0):
+              softcap=0.0, k_scales=None, v_scales=None):
         return pa.paged_attention_plain(q, k, v, tables, starts, nb, scale,
-                                        window, softcap)
+                                        window, softcap, k_scales, v_scales)
 
-    def run(params, mcfg, use_plain):
+    # per kernel call of a "checked" run: (max |kernel - plain|, its bound)
+    call_errs = []
+
+    def checked(kernel):
+        def call(q, k, v, tables, starts, *, nb, scale=None, window=0,
+                 softcap=0.0, k_scales=None, v_scales=None):
+            out = kernel(q, k, v, tables, starts, nb=nb, scale=scale,
+                         window=window, softcap=softcap, k_scales=k_scales,
+                         v_scales=v_scales)
+            want = plain(q, k, v, tables, starts, nb=nb, scale=scale,
+                         window=window, softcap=softcap, k_scales=k_scales,
+                         v_scales=v_scales)
+            call_errs.append(((out - want).abs().max().item(),
+                              TOL["float32"] * max(
+                                  1.0, want.abs().max().item())))
+            return out
+        return call
+
+    def run(params, mcfg, mode):
+        """Logits at the compared positions, and the pool's int8 K/V
+        (None over a float pool); mode "plain", "kernels" or "checked"."""
         cache, tables = make_slot_cache(
             mcfg.num_layers, 1, max_len, mcfg.num_kv_heads, mcfg.head_dim_,
-            dtype=mcfg.dtype, block_size=Bs, device=dev)
+            dtype=kv_dtype if kv_dtype == torch.int8 else mcfg.dtype,
+            block_size=Bs, device=dev)
         saved = (pa.paged_attention, pa.paged_decode_attention)
-        if use_plain:
+        if mode == "plain":
             pa.paged_attention = pa.paged_decode_attention = plain
+        elif mode == "checked":
+            pa.paged_attention = checked(saved[0])
+            pa.paged_decode_attention = checked(saved[1])
         out = []
         try:
             for lo in range(0, P, chunk):
@@ -767,24 +902,43 @@ def reference_phase(engine, model: str):
                 out.append(logits[0, 0])
         finally:
             pa.paged_attention, pa.paged_decode_attention = saved
+        pool = (torch.stack([cache.k, cache.v])
+                if kv_dtype == torch.int8 else None)
         del cache
-        return torch.stack(out)
+        return torch.stack(out), pool
 
     t0 = time.monotonic()
-    ref = run(p32, cfg32, True)
-    err32 = (run(p32, cfg32, False) - ref).abs().max().item()
+    ref, ref_pool = run(p32, cfg32, "plain")
+    int8 = ref_pool is not None
+    got32, pool32 = run(p32, cfg32, "checked" if int8 else "kernels")
+    err32 = (got32 - ref).abs().max().item()
     del p32
     free_memory()
-    err16 = (run(runner.params, cfg, False) - ref).abs().max().item()
-    floor16 = (run(runner.params, cfg, True) - ref).abs().max().item()
+    err16 = (run(runner.params, cfg, "kernels")[0] - ref).abs().max().item()
+    floor16 = (run(runner.params, cfg, "plain")[0] - ref).abs().max().item()
     scale = ref.abs().max().item()
-    ok = (bool(torch.isfinite(ref).all()) and err32 <= F32_LOGIT_TOL * scale
+    extra = {}
+    if int8:
+        # the pools [2, L, N, Hkv, Bs, D] outside trash block 0
+        step = (pool32[:, :, 1:].int() - ref_pool[:, :, 1:].int()).abs()
+        extra = {"f32_kernel_calls": len(call_errs),
+                 "f32_call_err_max": max(e for e, _ in call_errs),
+                 "f32_call_tol_min": min(t for _, t in call_errs),
+                 "int8_values_differing": int((step != 0).sum().item()),
+                 "int8_values_in_pool": step.numel(),
+                 "int8_max_step": int(step.max().item())}
+        f32_ok = bool(call_errs) and all(e <= t for e, t in call_errs)
+    else:
+        f32_ok = err32 <= F32_LOGIT_TOL * scale
+    ok = (bool(torch.isfinite(ref).all()) and f32_ok
           and err16 <= BF16_FLOOR_FACTOR * floor16)
     log(json.dumps({"reference": {
-        "model": model, "layers": cfg.num_layers, "prompt_tokens": P,
+        "path": path, "layers": cfg.num_layers, "kv_dtype": str(kv_dtype),
+        "int8_weights": is_quantized(runner.params.q), "prompt_tokens": P,
         "decode_steps": steps, "positions": ref.shape[0],
         "max_abs_logit": scale,
-        "f32_kernels_err": err32, "f32_tol": F32_LOGIT_TOL * scale,
+        "f32_kernels_err": err32,
+        "f32_tol": None if int8 else F32_LOGIT_TOL * scale, **extra,
         "bf16_kernels_err": err16, "bf16_plain_err": floor16,
         "bf16_tol": BF16_FLOOR_FACTOR * floor16,
         "seconds": time.monotonic() - t0, "ok": ok}}))
@@ -876,7 +1030,7 @@ def profile_summary(prof, divide: int, event_ms: float):
                              "count": c / divide} for n, (t, c) in top]}
 
 
-def breakdown_phase(engine, model: str):
+def breakdown_phase(engine, path: str):
     """Device time of one decode step of the whole batch (a window of
     decode_window steps, divided) at the rows decode_starts, and of one
     512-token prefill chunk of one row at chunk_start with the other
@@ -890,7 +1044,7 @@ def breakdown_phase(engine, model: str):
 
     runner = engine.engine.runner
     dev = next(runner.params.parameters()).device
-    p = PATHS[model]
+    p = PATHS[path]
     serve, kv_len = p["serve"], p["kv_len"]
     B, W, S = serve["max_num_seqs"], serve["decode_window"], \
         serve["max_model_len"]
@@ -913,7 +1067,7 @@ def breakdown_phase(engine, model: str):
 
     step_ms = time_ms(window, 3) / W
     chunk_ms = time_ms(chunk, 3)
-    out = {"model": model, "decode_step_ms": step_ms,
+    out = {"path": path, "decode_step_ms": step_ms,
            "prefill_chunk_ms": chunk_ms, "batch": B, "kv_len": kv_len,
            "decode_starts": p["decode_starts"],
            "chunk_start": p["chunk_start"],
@@ -924,34 +1078,46 @@ def breakdown_phase(engine, model: str):
     log(json.dumps({"breakdown": out}))
 
 
-def model_phase(model: str):
-    """Serve one model at full width and depth, then its breakdown and
-    its reference; returns the kernels' launch counts of the serving run
-    (serve_phase). The engine is freed before returning."""
+def model_phase(path: str):
+    """Serve one path's model at full width and depth, then its breakdown
+    and its reference; returns the kernels' launch counts of the serving
+    run (serve_phase). The engine is freed before returning."""
     import torch
     from production_stack_tpu_torch.engine.async_engine import \
         AsyncLLMEngine
     from production_stack_tpu_torch.engine.config import EngineConfig
     t0 = time.monotonic()
-    engine = AsyncLLMEngine(EngineConfig(model=model, device="cuda",
-                                         **PATHS[model]["serve"]))
+    engine = AsyncLLMEngine(EngineConfig(model=path_model(path),
+                                         device="cuda",
+                                         **PATHS[path]["serve"]))
     engine.engine.runner.warmup()
+    runner = engine.engine.runner
     cfg = engine.engine.model_cfg
+    pool = runner.cache
     log(json.dumps({"engine_ready_s": time.monotonic() - t0,
-                    "model": model, "layers": cfg.num_layers,
-                    "hidden": cfg.hidden_size, "params": cfg.num_params,
+                    "path": path, "model": cfg.name,
+                    "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+                    "params": cfg.num_params,
+                    "quantization": engine.engine.cfg.quantization,
+                    "kv_dtype": engine.engine.cfg.kv_dtype,
+                    "weight_bytes": sum(
+                        t.nbytes for t in (*runner.params.parameters(),
+                                           *runner.params.buffers())),
+                    "pool_bytes": sum(t.nbytes for t in (
+                        pool.k, pool.v, pool.ks, pool.vs) if t is not None),
                     "mem_gib": torch.cuda.memory_allocated() / 2**30}))
     t0 = time.monotonic()
-    counts = asyncio.run(serve_phase(engine, model))
-    breakdown_phase(engine, model)
+    counts = asyncio.run(serve_phase(engine, path))
+    breakdown_phase(engine, path)
     # serving is over: the pool goes before the float32 copy arrives
     engine.engine.runner.cache = None
+    del runner, pool
     free_memory()
-    reference_phase(engine, model)
+    reference_phase(engine, path)
     del engine
     free_memory()
     log(json.dumps({"model_phase_s": time.monotonic() - t0,
-                    "model": model}))
+                    "path": path}))
     return counts
 
 
@@ -960,9 +1126,12 @@ def model_phase(model: str):
 def build_phase(kernels) -> dict:
     """Build every source (in parallel) and report, per kernel, what
     ptxas gave it: registers, static shared memory, spill bytes; the
-    HGMMA (wgmma) instructions of the bfloat16 prefill kernel, and the
-    HGMMA and UTMALDG (TMA load) instructions of each bfloat16 flash
-    kernel in the built library, none of which may be 0."""
+    HGMMA (wgmma) instructions of the bfloat16 prefill kernel (over a
+    bf16 and over an int8 pool), and the HGMMA and UTMALDG (TMA load)
+    instructions of each bfloat16 flash kernel in the built library, none
+    of which may be 0; `int8` lists the instantiations over an int8 pool
+    (paged decode and both prefill kernels, at D 64/128/256) with their
+    registers, spills and the bf16 prefill's HGMMA count."""
     report = kernels.build()
     out = {"sources": sorted(report) or "cached", "kernels": {}}
     for name in kernels.SOURCES:
@@ -977,6 +1146,15 @@ def build_phase(kernels) -> dict:
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"the bf16 prefill kernel has no HGMMA "
                              f"instruction: {hgmma}")
+    int8 = {k: dict(r, **({"HGMMA": hgmma[k]} if k in hgmma else {}))
+            for k, r in out["kernels"].items() if "signed char" in k}
+    out["int8"] = int8
+    wgmma8 = [r["HGMMA"] for k, r in int8.items()
+              if "paged_prefill_kernel<" in k]
+    if len(int8) != 12 or len(wgmma8) != 3 or min(wgmma8) == 0:
+        raise AssertionError(f"the int8 instantiations are not all built, "
+                             f"or the bf16 prefill over an int8 pool has no "
+                             f"HGMMA instruction: {int8}")
     flash = {}
     for op in ("HGMMA", "UTMALDG"):
         for k, n in kernels.sass_count("flash_attention", op).items():
@@ -1016,21 +1194,26 @@ def main() -> int:
     records = kernel_phase()
     log(json.dumps({"kernel_phase_s": time.monotonic() - t0}))
 
-    counts = {model: model_phase(model) for model in PATHS}
+    counts = {path: model_phase(path) for path in PATHS}
 
     for rec in records:
         name = rec["name"]
-        if rec["path"] is None:
+        if name == "flash_attention_with_cache":
             # the flash kernel serves no path, as in the JAX package: its
             # launches over every serving run (serve_phase holds it to 0)
             rec["launches"] = sum(c["launches"][name]
                                   for c in counts.values())
+        elif rec["path"] is None:
+            # an int8 row at the shapes of a model served with a bf16 pool
+            rec["launches"] = 0
         else:
             c = counts[rec["path"]]
+            key = ("int8_launches" if rec["kv_dtype"] == "int8"
+                   else "launches")
             windowed = c["window_launches"][name]
-            rec["launches"] = {"all": c["launches"][name],
+            rec["launches"] = {"all": c[key][name],
                                "sliding": windowed,
-                               "global": c["launches"][name] - windowed,
+                               "global": c[key][name] - windowed,
                                }[rec["layers"]]
         del rec["shape"]
     log(json.dumps({"total_s": time.monotonic() - t_start}))

@@ -44,6 +44,7 @@ enum ErrorCode {
   kBadShape = -3,
   kSmemTooLarge = -4,
   kBadDevice = -5,
+  kBadScales = -6,
 };
 
 const char* error_string(int code) {
@@ -53,6 +54,8 @@ const char* error_string(int code) {
     case kBadShape: return "invalid shape arguments";
     case kSmemTooLarge: return "tile needs more than 227 KB shared memory";
     case kBadDevice: return "device ordinal past the kernels' table";
+    case kBadScales:
+      return "an int8 pool needs both scales, and scales an int8 pool";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }
@@ -60,6 +63,9 @@ const char* error_string(int code) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {

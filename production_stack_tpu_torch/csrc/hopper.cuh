@@ -1,5 +1,6 @@
-// Hopper (sm_90a) primitives the attention kernels share: 16-byte
-// asynchronous copies into shared memory (cp.async), mbarriers, tensor
+// Hopper (sm_90a) primitives the attention kernels share: 16- and 4-byte
+// asynchronous copies into shared memory (cp.async), plain 16-byte
+// shared stores, mbarriers, tensor
 // copies by the TMA, named barriers and register-budget controls, the
 // 128-byte swizzled shared-memory layout that wgmma reads, its matrix
 // descriptor, and the bf16 wgmma forms the prefill and flash kernels
@@ -25,6 +26,23 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronous (through L1); `valid` false
+// zero-fills as cp_async16 does
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// 16 bytes into shared memory by a plain store (generic proxy: fence it
+// with fence_proxy_async before wgmma reads it)
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
 }
 
@@ -259,6 +277,33 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// byte k (0..3) of w, an int8, as f32, without I2F (a quarter-rate
+// instruction): the byte with its sign bit flipped (b + 128 as unsigned)
+// becomes the low mantissa byte of 2^23 by a byte permute, and
+// subtracting 2^23 + 128 is exact
+__device__ __forceinline__ float int8_byte_to_f32(uint32_t w, int k) {
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
+                                     0x7650 + k)) -
+         8388736.f;
+}
+
+// 16 int8 values as 16 bf16 (exact: |v| <= 127 needs 7 bits), in order:
+// values 0..7 to `lo`, 8..15 to `hi`
+__device__ __forceinline__ void int8x16_to_bf16(uint4 in, uint4& lo,
+                                                uint4& hi) {
+  const uint32_t w[4] = {in.x, in.y, in.z, in.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = pack_bf16x2(int8_byte_to_f32(w[i], 0),
+                           int8_byte_to_f32(w[i], 1));
+    o[2 * i + 1] = pack_bf16x2(int8_byte_to_f32(w[i], 2),
+                               int8_byte_to_f32(w[i], 3));
+  }
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
 }  // namespace

@@ -26,6 +26,13 @@
 // - `softcap` c > 0: s = c * tanh(s / c) on the scaled raw score,
 //   before the mask (pallas_paged.py:135-137, :387-388).
 //
+// int8 pools (pallas_paged.py:91-93,128-131 and :343-346,381-383): K/V
+// int8 [N, Hkv, Bs, D] with f32 scales [N, Hkv, Bs], one per (token,
+// head), value = float(int8) * scale, for q in bf16 or f32. Every kernel
+// reads a key's scale through the same clamped table lookup as its
+// payload (key_index) and dequantizes in f32; the int8 panel is half the
+// bf16 panel's bytes. How each kernel does it is at the kernel.
+//
 // Hazards the TPU hid, handled here: a TPU DMA clamps, a GPU read past the
 // end faults — every block index is clamped to [0, MB-1] and every block
 // id read from the table to [0, N-1]; blocks past nb are never read; fully
@@ -100,6 +107,8 @@ struct Args {
   TileArgs tile;
   const void* k_pool;
   const void* v_pool;
+  const float* k_scales;   // [N, Hkv, Bs] f32 with an int8 pool, else null
+  const float* v_scales;
   const int* tables;
   const int* starts;
   int B, Bs, MB, nb, N;
@@ -112,28 +121,39 @@ struct DecodeArgs {
   int bps, splits;
 };
 
-// Element offset of key `key` (virtual position in row b) of kv head h in
-// the pool: through the table, block index and id clamped.
-__device__ __forceinline__ size_t key_offset(const Args& a, const int* table,
-                                             int h, int key, int D) {
+// Index of key `key` (virtual position in row b) of kv head h in the
+// [N, Hkv, Bs] scales of an int8 pool: through the table, block index and
+// id clamped. key_offset is its element offset in the [N, Hkv, Bs, D]
+// pool, so payload and scale go through the one clamped lookup.
+__device__ __forceinline__ size_t key_index(const Args& a, const int* table,
+                                            int h, int key) {
   const int j = key / a.Bs;
   const int blk = min(max(table[min(max(j, 0), a.MB - 1)], 0), a.N - 1);
-  return (((size_t)blk * a.tile.Hkv + h) * a.Bs + (key - j * a.Bs)) * D;
+  return ((size_t)blk * a.tile.Hkv + h) * a.Bs + (key - j * a.Bs);
+}
+__device__ __forceinline__ size_t key_offset(const Args& a, const int* table,
+                                             int h, int key, int D) {
+  return key_index(a, table, h, key) * D;
 }
 
 // ------------------------------------------------------------ decode
 
-template <typename T, int D>
+// KV: the pool's element type (q's type, or int8_t with scales)
+template <typename KV, int D>
 struct DecodeGeometry {
-  static constexpr int kVec = 16 / sizeof(T);      // values per 16 bytes
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr int kVec = 16 / sizeof(KV);     // values per 16 bytes
   // keys per panel: 16 KB of K and 16 KB of V, at most 32 (one lane per
   // key in the softmax)
   static constexpr int kKeys =
-      16384 / (D * (int)sizeof(T)) > 32 ? 32 : 16384 / (D * (int)sizeof(T));
+      16384 / (D * (int)sizeof(KV)) > 32 ? 32 : 16384 / (D * (int)sizeof(KV));
   static constexpr int kRowStep = kThreads / (D / kVec);   // loader rows
   static constexpr int kStages = 3;
+  // each stage's K and V scales (int8 pool only)
+  static constexpr int kScaleFloats = kQuant ? kStages * kKeys : 0;
   static int smem_bytes(int R) {
-    return kStages * kKeys * 2 * D * (int)sizeof(T)   // K, V ring
+    return kStages * kKeys * 2 * D * (int)sizeof(KV)   // K, V ring
+           + 2 * kScaleFloats * 4                       // their scales
            + R * D * 4           // q (pre-scaled)
            + R * D * 4           // acc
            + 2 * R * kKeys * 4   // scores, probabilities of one panel
@@ -141,30 +161,49 @@ struct DecodeGeometry {
   }
 };
 
-// N values of type T (N * sizeof(T) in 4, 8, 16 or 32 bytes) from shared
-// memory as f32, in 16-byte or narrower vector loads
+// N values of type T (N * sizeof(T) in 2, 4, 8, 16 or 32 bytes) from
+// shared memory as f32, in 16-byte or narrower vector loads
 template <typename T, int N>
 __device__ __forceinline__ void load_f32(const T* src, float (&dst)[N]) {
   constexpr int kBytes = N * (int)sizeof(T);
   constexpr int kUnit = kBytes >= 16 ? 16 : kBytes;
   using U = typename std::conditional<
       kUnit == 16, uint4,
-      typename std::conditional<kUnit == 8, uint2, unsigned>::type>::type;
+      typename std::conditional<
+          kUnit == 8, uint2,
+          typename std::conditional<kUnit == 4, unsigned,
+                                    unsigned short>::type>::type>::type;
   U buf[kBytes / kUnit];
 #pragma unroll
   for (int u = 0; u < kBytes / kUnit; ++u)
     buf[u] = reinterpret_cast<const U*>(src)[u];
-  const T* v = reinterpret_cast<const T*>(buf);
+  if constexpr (std::is_same<T, int8_t>::value) {
+    unsigned w[(kBytes + 3) / 4];
+    if constexpr (kBytes >= 4) {
 #pragma unroll
-  for (int e = 0; e < N; ++e) dst[e] = to_f32(v[e]);
+      for (int i = 0; i < kBytes / 4; ++i)
+        w[i] = reinterpret_cast<const unsigned*>(buf)[i];
+    } else {
+      w[0] = buf[0];
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) dst[e] = int8_byte_to_f32(w[e / 4], e % 4);
+  } else {
+    const T* v = reinterpret_cast<const T*>(buf);
+#pragma unroll
+    for (int e = 0; e < N; ++e) dst[e] = to_f32(v[e]);
+  }
 }
 
 // One (batch row, kv head, split): attends the split's blocks for all
-// T*G query rows and writes the f32 partial (m, l, acc).
-template <typename T, int D>
+// T*G query rows and writes the f32 partial (m, l, acc). T: q's type; KV:
+// the pool's, T or int8_t (then each panel brings its keys' f32 scales
+// too, and a value is float(int8) * scale, as pallas_paged.py:381-383).
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(DecodeArgs da) {
-  using Geo = DecodeGeometry<T, D>;
+  using Geo = DecodeGeometry<KV, D>;
+  constexpr bool kQuant = Geo::kQuant;
   constexpr int kVec = Geo::kVec, kKeys = Geo::kKeys;
   constexpr int kStages = Geo::kStages;
   constexpr int kSlice = D / 32;   // values of a key row a lane holds
@@ -197,9 +236,11 @@ paged_decode_kernel(DecodeArgs da) {
   const int k_lo = jlo * Bs, k_hi = (jhi + 1) * Bs;
   const int n_panels = (k_hi - k_lo + kKeys - 1) / kKeys;
 
-  T* kst = reinterpret_cast<T*>(raw_smem);
-  T* vst = kst + kStages * kKeys * D;
-  float* qs = reinterpret_cast<float*>(vst + kStages * kKeys * D);
+  KV* kst = reinterpret_cast<KV*>(raw_smem);
+  KV* vst = kst + kStages * kKeys * D;
+  float* kss = reinterpret_cast<float*>(vst + kStages * kKeys * D);
+  float* vss = kss + Geo::kScaleFloats;   // (both empty without int8)
+  float* qs = vss + Geo::kScaleFloats;
   float* acc = qs + R * D;
   float* sc = acc + R * D;
   float* ps = sc + R * kKeys;
@@ -207,17 +248,29 @@ paged_decode_kernel(DecodeArgs da) {
   float* l = m + R;
   float* corr = l + R;
 
-  const T* kp = static_cast<const T*>(a.k_pool);
-  const T* vp = static_cast<const T*>(a.v_pool);
+  const KV* kp = static_cast<const KV*>(a.k_pool);
+  const KV* vp = static_cast<const KV*>(a.v_pool);
   const int* table = a.tables + (size_t)b * a.MB;
   // a thread copies 16-byte chunk lc of rows lr, lr + kRowStep, ...; the
   // rows' table lookups are all issued before the copies, so their
-  // latencies overlap
+  // latencies overlap. With an int8 pool threads 0..kKeys-1 also copy the
+  // panel's K scales, kKeys..2*kKeys-1 its V scales, in the same group.
   constexpr int kRowStep = Geo::kRowStep;
   const int lc = tid % (D / kVec), lr = tid / (D / kVec);
   auto load_panel = [&](int i, int st) {
-    T* K = kst + st * kKeys * D;
-    T* V = vst + st * kKeys * D;
+    KV* K = kst + st * kKeys * D;
+    KV* V = vst + st * kKeys * D;
+    if constexpr (kQuant) {
+      if (tid < 2 * kKeys) {
+        const int c = tid % kKeys;
+        const int key = k_lo + i * kKeys + c;
+        const bool ok = key < k_hi;
+        const size_t idx = ok ? key_index(a, table, h, key) : 0;
+        float* dst = (tid < kKeys ? kss : vss) + st * kKeys + c;
+        cp_async4(smem_u32(dst), (tid < kKeys ? a.k_scales : a.v_scales) + idx,
+                  ok);
+      }
+    }
     size_t off[kKeys / kRowStep];
 #pragma unroll
     for (int it = 0; it < kKeys / kRowStep; ++it) {
@@ -260,22 +313,28 @@ paged_decode_kernel(DecodeArgs da) {
     cp_async_wait<kStages - 1>();
     __syncthreads();
     const int st = i % kStages;
-    const T* K = kst + st * kKeys * D;
-    const T* V = vst + st * kKeys * D;
+    const KV* K = kst + st * kKeys * D;
+    const KV* V = vst + st * kKeys * D;
+    const float* ksc = kss + st * kKeys;
+    const float* vsc = vss + st * kKeys;
     const int kbase = k_lo + i * kKeys;
 
     // scores: warp w takes keys w, w + 4, ... (kPerWarp of them), a lane
     // kSlice values of each key row and of the query row; the kPerWarp
     // dots of a row are independent warp sums, and lane kk caps and
-    // masks the dot of the warp's kk-th key
+    // masks the dot of the warp's kk-th key. Over an int8 pool a key's
+    // scale multiplies its f32 dot once, and a value's scale its
+    // probability once (ps), not every element: the Pallas f32 dequant
+    // (q . (k8 * ks), p . (v8 * vs)) up to the order of f32 products.
     {
       float kv[kPerWarp][kSlice];
 #pragma unroll
       for (int kk = 0; kk < kPerWarp; ++kk)
-        load_f32<T, kSlice>(K + (warp + kk * kWarps) * D + lane * kSlice,
-                            kv[kk]);
+        load_f32<KV, kSlice>(K + (warp + kk * kWarps) * D + lane * kSlice,
+                             kv[kk]);
       const int c = warp + lane * kWarps;   // the key lane kk < kPerWarp caps
       const int k_pos = kbase + c;
+      const float k_scale = kQuant && lane < kPerWarp ? ksc[c] : 1.f;
       for (int r = 0; r < R; ++r) {
         float qv[kSlice];
         load_f32<float, kSlice>(qs + r * D + lane * kSlice, qv);
@@ -297,6 +356,7 @@ paged_decode_kernel(DecodeArgs da) {
         for (int kk = 1; kk < kPerWarp; ++kk)
           if (lane == kk) x = dot[kk];
         if (lane < kPerWarp) {
+          if constexpr (kQuant) x *= k_scale;
           if (a.tile.softcap != 0.f)
             x = a.tile.softcap * tanhf(x / a.tile.softcap);
           const int q_pos = start + r / G;
@@ -312,6 +372,7 @@ paged_decode_kernel(DecodeArgs da) {
 
     // online softmax: a warp per row, a lane per key; a masked key has
     // p = 0, so a row with no live key keeps m = -1e30, l = 0
+    const float v_scale = kQuant && lane < kKeys ? vsc[lane] : 1.f;
     for (int r = warp; r < R; r += kWarps) {
       const float x = lane < kKeys ? sc[r * kKeys + lane] : kNegInf;
       const bool live = x != kNegInf;
@@ -326,7 +387,7 @@ paged_decode_kernel(DecodeArgs da) {
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane < kKeys) ps[r * kKeys + lane] = p;
+      if (lane < kKeys) ps[r * kKeys + lane] = p * v_scale;
       if (lane == 0) {
         const float cr = expf(m_prev - m_new);
         corr[r] = cr;
@@ -349,7 +410,7 @@ paged_decode_kernel(DecodeArgs da) {
       for (int cc = 0; cc < kKeys; ++cc) {
         const float p = pr[cc];
         float v4[4];
-        load_f32<T, 4>(V + cc * D + d, v4);
+        load_f32<KV, 4>(V + cc * D + d, v4);
         x.x = fmaf(p, v4[0], x.x);
         x.y = fmaf(p, v4[1], x.y);
         x.z = fmaf(p, v4[2], x.z);
@@ -425,14 +486,19 @@ paged_decode_merge_kernel(DecodeArgs da) {
 constexpr int kTileRows = 64;   // query rows of a wgmma tile (its M)
 constexpr int kPanelKeys = 64;  // keys of a K/V panel (N of S = Q K^T)
 
-template <int D>
+// KV: the pool's element type, bf16 or int8_t
+template <typename KV, int D>
 struct PrefillGeometry {
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   static constexpr int kStages = 3;
   static constexpr int kTileBytes = kTileRows * D * 2;   // [64, D] bf16
+  // each stage's 64 K and 64 V scales (int8 pool only)
+  static constexpr int kScaleBytes = kQuant ? kStages * 2 * kPanelKeys * 4 : 0;
   // the ring's 2 * kStages mbarriers (128 bytes), 1 KB of slack for the
-  // alignment the 128-byte swizzle needs, Q, then kStages (K, V) panels
+  // alignment the 128-byte swizzle needs, Q, kStages (K, V) panels, then
+  // the scales
   static constexpr int kSmemBytes =
-      128 + 1024 + kTileBytes * (1 + 2 * kStages);
+      128 + 1024 + kTileBytes * (1 + 2 * kStages) + kScaleBytes;
   static_assert(kSmemBytes <= kMaxSmemBytes, "prefill tile too large");
 };
 
@@ -442,10 +508,24 @@ struct PrefillGeometry {
 // Stage st of the ring has two mbarriers: full[st] completes when the
 // producer's 128 threads' copies into it have landed, empty[st] when the
 // consumer's 128 threads are done reading it.
-template <int D>
+//
+// Over an int8 pool (KV = int8_t) wgmma still multiplies bf16: int8 ->
+// bf16 is exact for -127..127, so the producer loads each 16-byte int8
+// chunk into registers, casts it to two bf16 chunks and stores them into
+// the same swizzled tile, with the panel's 64 K and 64 V scales beside
+// the ring; its stores are generic-proxy writes, so each thread fences
+// them to the async proxy and arrives on full[st] with an ordinary
+// (release) arrive. The consumer applies the scales in f32 on its
+// registers: score column j times ks[j] before the softcap and the mask
+// (the cap acts on the dequantized raw score, pallas_paged.py:128-137),
+// P column j times vs[j] just before P is rounded to bf16 for P.V (l
+// sums the unscaled P). That is the Pallas f32 dequant up to the order of
+// the f32 products, where rounding k8 * ks to bf16 would not be.
+template <typename KV, int D>
 __global__ void __launch_bounds__(2 * kThreads, 1)
 paged_prefill_kernel(Args a) {
-  using Geo = PrefillGeometry<D>;
+  using Geo = PrefillGeometry<KV, D>;
+  constexpr bool kQuant = Geo::kQuant;
   constexpr int kStages = Geo::kStages, kTile = Geo::kTileBytes;
   constexpr int kChunks = D / 8;   // 16-byte chunks of a row
   extern __shared__ __align__(16) unsigned char raw_smem[];
@@ -468,6 +548,9 @@ paged_prefill_kernel(Args a) {
   const int n_panels = k_hi > k_lo ? (k_hi - k_lo + kPanelKeys - 1) / kPanelKeys
                                    : 0;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.tile.q);
+  // the scales of stage st: K at [st * 128, + 64), V at [st * 128 + 64, + 64)
+  float* scl = reinterpret_cast<float*>(raw_smem + (base - bars) +
+                                        kTile * (1 + 2 * kStages));
 
   if (tid == 0) {
     for (int st = 0; st < 2 * kStages; ++st) mbar_init(bars + 8 * st, kThreads);
@@ -493,27 +576,71 @@ paged_prefill_kernel(Args a) {
             ok ? (((size_t)b * T_ + t) * H + h * G + g) * D + lc * 8 : 0;
         cp_async16(base + sw128(r, lc), q + off, ok);
       }
+      // the int8 panels arrive by plain stores: Q must have landed first
+      if constexpr (kQuant) cp_async_wait<0>();
     }
     for (int i = 0; i < n_panels; ++i) {
       const int st = i % kStages;
       if (i >= kStages)   // the consumer is done with panel i - kStages
         mbar_wait(bars + 8 * (kStages + st), (i / kStages - 1) & 1);
       const uint32_t ks = base + kTile * (1 + 2 * st), vs = ks + kTile;
-      // the rows' table lookups first, so their latencies overlap
-      size_t off[kPanelKeys / kRowStep];
+      if constexpr (kQuant) {
+        const int ptid = tid - kThreads;
+        {   // thread ptid brings K (ptid < 64) or V scale of key ptid % 64
+          const int key = k_lo + i * kPanelKeys + (ptid & 63);
+          const float* src = ptid < kPanelKeys ? a.k_scales : a.v_scales;
+          scl[st * 2 * kPanelKeys + ptid] =
+              key < k_hi ? src[key_index(a, table, h, key)] : 0.f;
+        }
+        // a thread takes 16-byte int8 chunk c8 (16 values) of every
+        // kRowStep8-th row: loaded into registers, all issued first
+        constexpr int kChunks8 = D / 16;
+        constexpr int kRowStep8 = kThreads / kChunks8;
+        constexpr int kRows8 = kPanelKeys / kRowStep8;
+        const int c8 = ptid % kChunks8, r8 = ptid / kChunks8;
+        const int8_t* kp8 = static_cast<const int8_t*>(a.k_pool);
+        const int8_t* vp8 = static_cast<const int8_t*>(a.v_pool);
+        uint4 kr[kRows8], vr[kRows8];
 #pragma unroll
-      for (int it = 0; it < kPanelKeys / kRowStep; ++it) {
-        const int key = k_lo + i * kPanelKeys + lr + it * kRowStep;
-        off[it] = key < k_hi ? key_offset(a, table, h, key, D) + lc * 8 : 0;
-      }
+        for (int it = 0; it < kRows8; ++it) {
+          const int key = k_lo + i * kPanelKeys + r8 + it * kRowStep8;
+          kr[it] = vr[it] = make_uint4(0, 0, 0, 0);
+          if (key < k_hi) {
+            const size_t off = key_offset(a, table, h, key, D) + c8 * 16;
+            kr[it] = __ldg(reinterpret_cast<const uint4*>(kp8 + off));
+            vr[it] = __ldg(reinterpret_cast<const uint4*>(vp8 + off));
+          }
+        }
 #pragma unroll
-      for (int it = 0; it < kPanelKeys / kRowStep; ++it) {
-        const int r = lr + it * kRowStep;
-        const bool ok = k_lo + i * kPanelKeys + r < k_hi;
-        cp_async16(ks + sw128(r, lc), kp + off[it], ok);
-        cp_async16(vs + sw128(r, lc), vp + off[it], ok);
+        for (int it = 0; it < kRows8; ++it) {
+          const int r = r8 + it * kRowStep8;
+          uint4 lo, hi;
+          int8x16_to_bf16(kr[it], lo, hi);
+          st_shared16(ks + sw128(r, 2 * c8), lo);
+          st_shared16(ks + sw128(r, 2 * c8 + 1), hi);
+          int8x16_to_bf16(vr[it], lo, hi);
+          st_shared16(vs + sw128(r, 2 * c8), lo);
+          st_shared16(vs + sw128(r, 2 * c8 + 1), hi);
+        }
+        fence_proxy_async();
+        mbar_arrive(bars + 8 * st);
+      } else {
+        // the rows' table lookups first, so their latencies overlap
+        size_t off[kPanelKeys / kRowStep];
+#pragma unroll
+        for (int it = 0; it < kPanelKeys / kRowStep; ++it) {
+          const int key = k_lo + i * kPanelKeys + lr + it * kRowStep;
+          off[it] = key < k_hi ? key_offset(a, table, h, key, D) + lc * 8 : 0;
+        }
+#pragma unroll
+        for (int it = 0; it < kPanelKeys / kRowStep; ++it) {
+          const int r = lr + it * kRowStep;
+          const bool ok = k_lo + i * kPanelKeys + r < k_hi;
+          cp_async16(ks + sw128(r, lc), kp + off[it], ok);
+          cp_async16(vs + sw128(r, lc), vp + off[it], ok);
+        }
+        cp_async_mbar_arrive(bars + 8 * st);
       }
-      cp_async_mbar_arrive(bars + 8 * st);
     }
     cp_async_wait<0>();
     return;
@@ -568,15 +695,19 @@ paged_prefill_kernel(Args a) {
       const bool more = i + 1 < n_panels;
       if (more) issue_scores(i + 1, s_next);
 
-      // scale, cap, mask; column of s[j]: 8*(j/4) + 2*(lane%4) + j%2,
-      // row ra for (j/2)%2 == 0, else rb
+      // scale (and the int8 pool's K scale), cap, mask; column of s[j]:
+      // 8*(j/4) + 2*(lane%4) + j%2, row ra for (j/2)%2 == 0, else rb
       const int kbase = k_lo + i * kPanelKeys;
+      const float* ksm = scl + st * 2 * kPanelKeys;   // int8 pool only
+      const float* vsm = ksm + kPanelKeys;
       float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
-        const int k_pos = kbase + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const int col = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const int k_pos = kbase + col;
         const int qp = (j & 2) ? qpos_b : qpos_a;
         float x = s[j] * scale;
+        if constexpr (kQuant) x *= ksm[col];
         if (cap != 0.f) {
           // cap * tanh(x / cap) as cap * (1 - 2 / (e^(2x/cap) + 1)):
           // absolute error ~1e-7 of the tanh, a few instructions
@@ -614,7 +745,12 @@ paged_prefill_kernel(Args a) {
           const float p0 = exp2f((s[j] - mn) * kLog2e);
           const float p1 = exp2f((s[j + 1] - mn) * kLog2e);
           if (e & 1) sum_b += p0 + p1; else sum_a += p0 + p1;
-          p[kk][e] = pack_bf16x2(p0, p1);
+          if constexpr (kQuant) {   // V's scales on P's columns
+            const int c0 = 16 * kk + 8 * (e >> 1) + 2 * (lane & 3);
+            p[kk][e] = pack_bf16x2(p0 * vsm[c0], p1 * vsm[c0 + 1]);
+          } else {
+            p[kk][e] = pack_bf16x2(p0, p1);
+          }
         }
       l_a = l_a * c_a + sum_a;
       l_b = l_b * c_b + sum_b;
@@ -678,12 +814,17 @@ paged_prefill_kernel(Args a) {
 
 // float32 prefill: the f32 FMA tile over the row's [Bs, D] panels.
 // Panel j of one (batch row, kv head): pool block tables[b, j], a
-// contiguous [Bs, D] tile, block index and id clamped.
-template <int D>
+// contiguous [Bs, D] tile, block index and id clamped. KV: the pool's
+// element type, float or int8_t; an int8 panel is staged as float(k8) *
+// ks, its f32 scales read through the same clamped block id
+// (pallas_paged.py:125-131 dequantizes every panel in f32).
+template <typename KV, int D>
 struct PagedPanel {
   static constexpr int kKeys = 0;   // Bs, a runtime value
-  const float* k_pool;
-  const float* v_pool;
+  const KV* k_pool;
+  const KV* v_pool;
+  const float* k_scales;   // int8 pool only
+  const float* v_scales;
   const int* table;   // row b of the block tables
   int h, Hkv, MB, N;
   int keys;           // Bs
@@ -693,74 +834,91 @@ struct PagedPanel {
   __device__ void load(int j, float* ks, float* vs, int tid) const {
     const int jj = min(max(j, 0), MB - 1);
     const int blk = min(max(table[jj], 0), N - 1);
-    const size_t off = ((size_t)blk * Hkv + h) * (size_t)keys * D;
-    const float* kb = k_pool + off;
-    const float* vb = v_pool + off;
+    const size_t row0 = ((size_t)blk * Hkv + h) * (size_t)keys;
+    const KV* kb = k_pool + row0 * D;
+    const KV* vb = v_pool + row0 * D;
     for (int idx = tid; idx < keys * D; idx += kThreads) {
       const int c = idx / D, d = idx - (idx / D) * D;
-      ks[c * (D + 1) + d] = kb[idx];
-      vs[idx] = vb[idx];
+      if constexpr (std::is_same<KV, int8_t>::value) {
+        ks[c * (D + 1) + d] = to_f32(kb[idx]) * k_scales[row0 + c];
+        vs[idx] = to_f32(vb[idx]) * v_scales[row0 + c];
+      } else {
+        ks[c * (D + 1) + d] = kb[idx];
+        vs[idx] = vb[idx];
+      }
     }
   }
 };
 
 // grid (B, Hkv, ceil(T / block_q)); a parked row has no panel to read
-template <int D>
+template <typename KV, int D>
 __global__ void __launch_bounds__(kTileThreads)
 paged_prefill_tile_kernel(Args a) {
   const int b = blockIdx.x, h = blockIdx.y;
   const int start = a.starts[b];
-  const PagedPanel<D> panel{
-      static_cast<const float*>(a.k_pool), static_cast<const float*>(a.v_pool),
-      a.tables + (size_t)b * a.MB, h, a.tile.Hkv, a.MB, a.N, a.Bs,
-      a.nb * a.Bs};
+  const PagedPanel<KV, D> panel{
+      static_cast<const KV*>(a.k_pool), static_cast<const KV*>(a.v_pool),
+      a.k_scales, a.v_scales, a.tables + (size_t)b * a.MB, h, a.tile.Hkv,
+      a.MB, a.N, a.Bs, a.nb * a.Bs};
   attend_tile<float, D, kTileThreads>(a.tile, panel, b, h, blockIdx.z, start,
                                       start >= a.MB * a.Bs ? 0 : a.nb);
 }
 
-template <typename T, int D>
+// T: q's type; KV: the pool's (T or int8_t)
+template <typename T, typename KV, int D>
 int launch_decode(const DecodeArgs& da, cudaStream_t stream) {
   const Args& a = da.a;
   const int R = a.tile.T * (a.tile.H / a.tile.Hkv);
-  int rc = launch_tile_kernel<paged_decode_kernel<T, D>>(
+  int rc = launch_tile_kernel<paged_decode_kernel<T, KV, D>>(
       dim3(a.B, a.tile.Hkv, da.splits), kThreads,
-      DecodeGeometry<T, D>::smem_bytes(R), da, stream);
+      DecodeGeometry<KV, D>::smem_bytes(R), da, stream);
   if (rc != 0) return rc;
   return launch_tile_kernel<paged_decode_merge_kernel<T, D>>(
       dim3(a.B, a.tile.Hkv, (R * D + kThreads - 1) / kThreads), kThreads, 0,
       da, stream);
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 int launch_prefill(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.B, a.tile.Hkv,
                   (a.tile.T + a.tile.block_q - 1) / a.tile.block_q);
   if constexpr (sizeof(T) == 2) {
     if (a.tile.block_q * (a.tile.H / a.tile.Hkv) > kTileRows)
       return kBadShape;
-    return launch_tile_kernel<paged_prefill_kernel<D>>(
-        grid, 2 * kThreads, PrefillGeometry<D>::kSmemBytes, a, stream);
+    return launch_tile_kernel<paged_prefill_kernel<KV, D>>(
+        grid, 2 * kThreads, PrefillGeometry<KV, D>::kSmemBytes, a, stream);
   } else {
     const int rows = a.tile.block_q * (a.tile.H / a.tile.Hkv);
-    return launch_tile_kernel<paged_prefill_tile_kernel<D>>(
+    return launch_tile_kernel<paged_prefill_tile_kernel<KV, D>>(
         grid, kTileThreads, tile_smem_floats(rows, D, a.Bs) * 4, a, stream);
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 int dispatch_decode(int D, const DecodeArgs& da, cudaStream_t stream) {
-  if (D == 64) return launch_decode<T, 64>(da, stream);
-  if (D == 128) return launch_decode<T, 128>(da, stream);
-  if (D == 256) return launch_decode<T, 256>(da, stream);
+  if (D == 64) return launch_decode<T, KV, 64>(da, stream);
+  if (D == 128) return launch_decode<T, KV, 128>(da, stream);
+  if (D == 256) return launch_decode<T, KV, 256>(da, stream);
   return kBadHeadDim;
 }
 
-template <typename T>
+template <typename T, typename KV>
 int dispatch_prefill(int D, const Args& a, cudaStream_t stream) {
-  if (D == 64) return launch_prefill<T, 64>(a, stream);
-  if (D == 128) return launch_prefill<T, 128>(a, stream);
-  if (D == 256) return launch_prefill<T, 256>(a, stream);
+  if (D == 64) return launch_prefill<T, KV, 64>(a, stream);
+  if (D == 128) return launch_prefill<T, KV, 128>(a, stream);
+  if (D == 256) return launch_prefill<T, KV, 256>(a, stream);
   return kBadHeadDim;
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16 (q and out), kv_dtype the
+// pool's: q's own, or 2 = int8 with both scales. 0 if the pair is
+// taken, else the error code.
+int check_dtypes(int dtype, int kv_dtype, const float* k_scales,
+                 const float* v_scales) {
+  if (dtype != 0 && dtype != 1) return kBadDtype;
+  if (kv_dtype == 2) return k_scales && v_scales ? 0 : kBadScales;
+  if (kv_dtype != dtype) return kBadDtype;
+  return k_scales || v_scales ? kBadScales : 0;
 }
 
 bool bad_shape(int B, int T, int H, int Hkv, int Bs, int MB, int nb, int N,
@@ -773,48 +931,65 @@ bool bad_shape(int B, int T, int H, int Hkv, int Bs, int MB, int nb, int N,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it);
-// window 0 and softcap 0 turn those branches off. part_ml / part_acc:
+// dtype: 0 = float32, 1 = bfloat16 (q and out); kv_dtype: the pools',
+// the same as dtype (k_scales, v_scales null) or 2 = int8 with k_scales
+// and v_scales [N, Hkv, Bs] f32; window 0 and softcap 0 turn those
+// branches off. part_ml / part_acc:
 // f32 scratch of [B, Hkv, splits, T*H/Hkv, 2] and [.., D] values; the
 // plan (bps, splits) must cover blocks 0..nb-1 with at most 32 splits.
 // Launches the split kernel, then the merge kernel.
 int paged_decode_attention(const void* q, const void* k_pool,
-                           const void* v_pool, const int* tables,
+                           const void* v_pool, const float* k_scales,
+                           const float* v_scales, const int* tables,
                            const int* starts, void* out, float* part_ml,
-                           float* part_acc, int dtype, int B, int T, int H,
-                           int Hkv, int D, int Bs, int MB, int nb, int N,
-                           int bps, int splits, float scale, int window,
-                           float softcap, void* stream) {
+                           float* part_acc, int dtype, int kv_dtype, int B,
+                           int T, int H, int Hkv, int D, int Bs, int MB,
+                           int nb, int N, int bps, int splits, float scale,
+                           int window, float softcap, void* stream) {
   if (bad_shape(B, T, H, Hkv, Bs, MB, nb, N, window, softcap) || bps <= 0 ||
       splits <= 0 || splits > kMaxSplits || splits * bps < nb ||
       (splits - 1) * bps >= nb)
     return kBadShape;
+  const int rc = check_dtypes(dtype, kv_dtype, k_scales, v_scales);
+  if (rc != 0) return rc;
   const DecodeArgs da{{{q, out, T, H, Hkv, T, scale, window, softcap},
-                       k_pool, v_pool, tables, starts, B, Bs, MB, nb, N},
+                       k_pool, v_pool, k_scales, v_scales, tables, starts, B,
+                       Bs, MB, nb, N},
                       part_ml, part_acc, bps, splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_decode<float>(D, da, s);
-  if (dtype == 1) return dispatch_decode<__nv_bfloat16>(D, da, s);
-  return kBadDtype;
+  const bool q8 = kv_dtype == 2;
+  if (dtype == 0)
+    return q8 ? dispatch_decode<float, int8_t>(D, da, s)
+              : dispatch_decode<float, float>(D, da, s);
+  return q8 ? dispatch_decode<__nv_bfloat16, int8_t>(D, da, s)
+            : dispatch_decode<__nv_bfloat16, __nv_bfloat16>(D, da, s);
 }
 
 // block_q: query positions per tile (bf16: 64 / G, the wgmma tile; f32:
 // the f32 tile's, ops/paged_attention.py tile_block_q)
 int paged_prefill_attention(const void* q, const void* k_pool,
-                            const void* v_pool, const int* tables,
-                            const int* starts, void* out, int dtype, int B,
-                            int T, int H, int Hkv, int D, int Bs, int MB,
-                            int nb, int N, int block_q, float scale,
-                            int window, float softcap, void* stream) {
+                            const void* v_pool, const float* k_scales,
+                            const float* v_scales, const int* tables,
+                            const int* starts, void* out, int dtype,
+                            int kv_dtype, int B, int T, int H, int Hkv, int D,
+                            int Bs, int MB, int nb, int N, int block_q,
+                            float scale, int window, float softcap,
+                            void* stream) {
   if (bad_shape(B, T, H, Hkv, Bs, MB, nb, N, window, softcap) ||
       block_q <= 0)
     return kBadShape;
+  const int rc = check_dtypes(dtype, kv_dtype, k_scales, v_scales);
+  if (rc != 0) return rc;
   const Args a{{q, out, T, H, Hkv, block_q, scale, window, softcap},
-               k_pool, v_pool, tables, starts, B, Bs, MB, nb, N};
+               k_pool, v_pool, k_scales, v_scales, tables, starts, B, Bs, MB,
+               nb, N};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_prefill<float>(D, a, s);
-  if (dtype == 1) return dispatch_prefill<__nv_bfloat16>(D, a, s);
-  return kBadDtype;
+  const bool q8 = kv_dtype == 2;
+  if (dtype == 0)
+    return q8 ? dispatch_prefill<float, int8_t>(D, a, s)
+              : dispatch_prefill<float, float>(D, a, s);
+  return q8 ? dispatch_prefill<__nv_bfloat16, int8_t>(D, a, s)
+            : dispatch_prefill<__nv_bfloat16, __nv_bfloat16>(D, a, s);
 }
 
 const char* paged_attention_error_string(int code) {

@@ -2,12 +2,14 @@
 plus ``device``.
 
 The fields keep their names and meaning, so a JAX-package config maps
-onto this one field by field. Options the port does not implement yet
-raise here instead of being ignored: speculation, LoRA, int8 weights or
-KV, KV tiering, checkpoints, embeddings, multi-device parallelism,
-adaptive decode windows and pipelined windows (the last two default to
-off here, where the JAX engine turns them on). They arrive with the
-slices that need them (ROADMAP.md, Queue A).
+onto this one field by field. Weight-only int8 (``quantization="int8"``)
+and the int8 KV pool (``kv_dtype="int8"``) are validated as the JAX
+config does. Options the port does not implement yet raise here instead
+of being ignored: speculation, LoRA, KV tiering, checkpoints,
+embeddings, multi-device parallelism, adaptive decode windows and
+pipelined windows (the last two default to off here, where the JAX
+engine turns them on). They arrive with the slices that need them
+(ROADMAP.md, Queue A).
 """
 
 import dataclasses
@@ -64,15 +66,19 @@ class EngineConfig:
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype={self.dtype!r} unsupported: bfloat16 "
                              f"or float32")
-        if self.kv_dtype not in ("bfloat16", "float32"):
-            raise NotImplementedError(
-                f"kv_dtype={self.kv_dtype!r} is not implemented in the "
-                f"port (bfloat16 or float32; the int8 pool comes later)")
+        if self.kv_dtype not in ("bfloat16", "float32", "int8"):
+            raise ValueError(
+                f"kv_dtype={self.kv_dtype!r} unsupported: bfloat16, "
+                f"float32, or int8 (quantized cache — halves "
+                f"long-context decode KV traffic, models/kv.py)")
+        if self.quantization not in (None, "int8"):
+            raise ValueError(
+                f"quantization={self.quantization!r} unsupported: only "
+                f"weight-only 'int8' (models/quant.py) is implemented")
         not_ported = {
             "tensor_parallel_size": self.tensor_parallel_size != 1,
             "pipeline_parallel_size": self.pipeline_parallel_size != 1,
             "expert_parallel_size": self.expert_parallel_size != 1,
-            "quantization": self.quantization is not None,
             "speculative_ngram_tokens": self.speculative_ngram_tokens != 0,
             "checkpoint": self.checkpoint is not None,
             "embedding_model": self.embedding_model is not None,

@@ -16,6 +16,11 @@ PyTorch runs eagerly, so there is no executable cache and nothing to
 fall back from: on CUDA tensors attention runs the hand-written kernels
 (ops/paged_attention.py) or raises. CUDA graphs of the decode step are
 later work. The pool is updated in place (models/kv.write_chunk).
+
+``quantization="int8"`` quantizes the weights on their device right
+after they are made or handed in (the given module is quantized in
+place, as JAX consumes its donated params); ``kv_dtype="int8"``
+allocates the int8 pool with its scales.
 """
 
 import time
@@ -29,11 +34,13 @@ from production_stack_tpu_torch.engine.sampler import SamplingParams, sample
 from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.kv import KVCache, make_cache
+from production_stack_tpu_torch.models.quant import quantize_params
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
 
-_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+              "int8": torch.int8}
 
 
 def _pick(logits: torch.Tensor, sampling: SamplingParams,
@@ -70,6 +77,11 @@ class ModelRunner:
             params = llama.init_params(model_cfg, gen, device=self.device)
             logger.info("random-initialized %s on %s (%.2fs)",
                         model_cfg.name, self.device, time.time() - t0)
+        if engine_cfg.quantization == "int8":
+            t0 = time.time()
+            params = quantize_params(params)
+            logger.info("quantized %s to int8 weights (%.2fs)",
+                        model_cfg.name, time.time() - t0)
         self.params = params
         self.cache: KVCache = make_cache(
             model_cfg.num_layers, engine_cfg.num_kv_blocks,

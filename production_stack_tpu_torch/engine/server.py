@@ -391,8 +391,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--dtype", choices=["bfloat16", "float32"],
                    default="bfloat16")
-    p.add_argument("--kv-cache-dtype", choices=["bfloat16", "float32"],
-                   default="bfloat16")
+    p.add_argument("--kv-cache-dtype", choices=["bfloat16", "float32",
+                                                "int8"],
+                   default="bfloat16",
+                   help="KV cache precision; int8 stores per-(token, "
+                        "head)-scaled int8 blocks, read by the paged "
+                        "kernels' int8 branches (models/kv.py)")
+    p.add_argument("--quantization", choices=["int8"], default=None,
+                   help="weight-only int8: projections, embedding and LM "
+                        "head stored int8 with per-channel scales; norms "
+                        "stay in --dtype (models/quant.py)")
     p.add_argument("--max-num-seqs", type=int, default=8)
     p.add_argument("--prefill-chunk", type=int, default=512)
     p.add_argument("--decode-window", type=int, default=8,
@@ -413,7 +421,8 @@ def main(argv=None) -> None:
         model=args.model, tokenizer=args.tokenizer,
         chat_template=args.chat_template, device=args.device,
         max_model_len=args.max_model_len, dtype=args.dtype,
-        kv_dtype=args.kv_cache_dtype, max_num_seqs=args.max_num_seqs,
+        kv_dtype=args.kv_cache_dtype, quantization=args.quantization,
+        max_num_seqs=args.max_num_seqs,
         prefill_chunk=args.prefill_chunk, decode_window=args.decode_window,
         kv_len_buckets=tuple(int(x) for x in args.kv_len_buckets.split(","))
         if args.kv_len_buckets else (),

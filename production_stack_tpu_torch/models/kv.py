@@ -10,6 +10,14 @@ positions past the virtual capacity.
 Where the JAX module returns a new pool from ``.at[].set`` (donated, so
 XLA updates in place), ``write_chunk`` here writes the pool in place
 with ``index_put_`` and returns it.
+
+The int8 pool (``make_cache(dtype=torch.int8)``, ``kv.py:45-90,158-224``)
+holds int8 K/V plus one f32 scale per (token, head), ``ks``/``vs``
+``[L, N, Hkv, Bs]``: value = int8 * scale (``quantize_chunk``, the
+weight recipe over the head dim). ``write_chunk_q`` / ``write_at_q``
+quantize and scatter payload and scales through the same addresses;
+``gather_view_q`` dequantizes in f32 and casts the product, as the
+kernels dequantize in f32.
 """
 
 from dataclasses import dataclass
@@ -24,6 +32,10 @@ from production_stack_tpu_torch.utils import resolve_device
 class KVCache:
     k: torch.Tensor  # [L, N, Hkv, Bs, D]
     v: torch.Tensor  # [L, N, Hkv, Bs, D]
+    # int8 pool only: per-(token, head) dequant scales, value = int8 *
+    # scale; None = full-precision pool
+    ks: Optional[torch.Tensor] = None  # [L, N, Hkv, Bs] f32
+    vs: Optional[torch.Tensor] = None
 
     @property
     def num_blocks(self) -> int:
@@ -33,24 +45,33 @@ class KVCache:
     def block_size(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
 
-_KV_DTYPES = (torch.bfloat16, torch.float32)
+
+_KV_DTYPES = (torch.bfloat16, torch.float32, torch.int8)
 
 
 def make_cache(num_layers: int, num_blocks: int, block_size: int,
                num_kv_heads: int, head_dim: int,
                dtype=torch.bfloat16, device="cuda") -> KVCache:
     """Block pool. num_blocks INCLUDES the reserved trash block 0.
-    bf16 and f32 pools only: the int8 pool arrives with its own slice.
-    Raises without CUDA unless device="cpu" is asked for."""
+    dtype torch.int8 allocates the quantized pool: int8 payload plus
+    per-(token, head) f32 scales, zeros. Raises without CUDA unless
+    device="cpu" is asked for."""
     device = resolve_device(device)
     if dtype not in _KV_DTYPES:
         raise NotImplementedError(
             f"kv dtype {dtype} is not implemented in the port "
-            f"(bfloat16 or float32)")
+            f"(bfloat16, float32 or int8)")
     shape = (num_layers, num_blocks, num_kv_heads, block_size, head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+    cache = KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                    v=torch.zeros(shape, dtype=dtype, device=device))
+    if dtype == torch.int8:
+        cache.ks = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        cache.vs = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return cache
 
 
 def linear_tables(num_slots: int, max_len: int, block_size: int,
@@ -117,6 +138,43 @@ def write_chunk(cache_layer: torch.Tensor, new: torch.Tensor,
     return write_at(cache_layer, new, blk, off)
 
 
+def quantize_chunk(new: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(token, head) int8 over the head dim: new
+    [B,T,Hkv,D] -> (int8 same shape, f32 scale [B,T,Hkv]), value = int8 *
+    scale (models/quant.quantize_tensor's recipe, one scale per cached
+    vector)."""
+    f = new.float()
+    scale = torch.clamp(f.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(f / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def write_at_q(cache_layer: torch.Tensor, scale_layer: torch.Tensor,
+               new: torch.Tensor, blk: torch.Tensor, off: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """write_at for the int8 pool: quantize new [B,T,Hkv,D] and scatter
+    payload and scales ([N,Hkv,Bs,D] int8, [N,Hkv,Bs] f32) IN PLACE at
+    the same (block, offset) pairs; returns both."""
+    q, scale = quantize_chunk(new)
+    n = blk.shape[0]
+    cache_layer[blk, :, off, :] = q.reshape((n,) + tuple(q.shape[2:]))
+    scale_layer[blk, :, off] = scale.reshape(n, -1)
+    return cache_layer, scale_layer
+
+
+def write_chunk_q(cache_layer: torch.Tensor, scale_layer: torch.Tensor,
+                  new: torch.Tensor, tables: torch.Tensor,
+                  positions: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """write_chunk for the int8 pool (in place; returns pool and
+    scales)."""
+    blk, off = chunk_addresses(tables, positions, cache_layer.shape[2],
+                               valid)
+    return write_at_q(cache_layer, scale_layer, new, blk, off)
+
+
 def gather_view(cache_layer: torch.Tensor, tables: torch.Tensor,
                 nb: int) -> torch.Tensor:
     """The first nb blocks of every slot as a contiguous
@@ -125,4 +183,18 @@ def gather_view(cache_layer: torch.Tensor, tables: torch.Tensor,
     t = tables[:, :nb].long()
     g = cache_layer[t]                                 # [B,nb,Hkv,Bs,D]
     g = g.permute(0, 1, 3, 2, 4)                       # [B,nb,Bs,Hkv,D]
+    return g.reshape(t.shape[0], nb * Bs, Hkv, cache_layer.shape[-1])
+
+
+def gather_view_q(cache_layer: torch.Tensor, scale_layer: torch.Tensor,
+                  tables: torch.Tensor, nb: int,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """gather_view for the int8 pool: dequantized [B, nb*Bs, Hkv, D] in
+    `dtype`. Dequantized in f32 and the PRODUCT cast, as the JAX function
+    does and as the kernels dequantize in f32."""
+    Hkv, Bs = cache_layer.shape[1], cache_layer.shape[2]
+    t = tables[:, :nb].long()
+    g = cache_layer[t].float()                          # [B,nb,Hkv,Bs,D]
+    s = scale_layer[t].float()                          # [B,nb,Hkv,Bs]
+    g = (g * s[..., None]).to(dtype).permute(0, 1, 3, 2, 4)
     return g.reshape(t.shape[0], nb * Bs, Hkv, cache_layer.shape[-1])

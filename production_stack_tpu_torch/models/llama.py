@@ -15,6 +15,13 @@ windows of T <= DECODE_T_MAX tokens take the decode kernel, longer
 chunks the prefill kernel. On CUDA tensors both are the hand-written
 kernels; on the CPU their plain versions.
 
+Weight-only int8 (models/quant.py, JAX ``llama.py:130-140,419-450``):
+after ``quant.quantize_params`` the projections run through
+``dequant_matmul``, the embedding through ``dequant_rows`` and the LM
+head applies the per-vocab scale to its f32 product. On an int8 pool
+(``KVCache.quantized``) K/V are quantized as they are written
+(``write_at_q``) and both kernels read the pool with its scales.
+
 Gemma-2's deviations are those of the JAX forward: norm gains stored
 around an implicit 1 (``rms_norm_offset``, initialised to zeros),
 embeddings scaled by sqrt(hidden) in f32, the attention scale from
@@ -36,7 +43,11 @@ from torch import nn
 
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.kv import (KVCache, chunk_addresses,
-                                                  linear_tables, write_at)
+                                                  linear_tables, write_at,
+                                                  write_at_q)
+from production_stack_tpu_torch.models.quant import (dequant_matmul,
+                                                     dequant_rows,
+                                                     is_quantized)
 from production_stack_tpu_torch.ops import paged_attention as pa
 from production_stack_tpu_torch.ops.norms import rms_norm
 from production_stack_tpu_torch.ops.rope import rope_rows, rope_table, rotate
@@ -147,25 +158,34 @@ def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
     eps = cfg.rms_norm_eps
     off = 1.0 if cfg.rms_norm_offset else 0.0
     hidden = rms_norm(x, model.attn_norm[l], eps, off)
-    q = rotate((hidden @ model.q[l]).reshape(B, T, nh, hd), *rows)
-    k = rotate((hidden @ model.k[l]).reshape(B, T, nkv, hd), *rows)
-    v = (hidden @ model.v[l]).reshape(B, T, nkv, hd)
-    k_pool = write_at(cache.k[l], k, *addresses)
-    v_pool = write_at(cache.v[l], v, *addresses)
+    q = rotate(dequant_matmul(hidden, model.q[l]).reshape(B, T, nh, hd),
+               *rows)
+    k = rotate(dequant_matmul(hidden, model.k[l]).reshape(B, T, nkv, hd),
+               *rows)
+    v = dequant_matmul(hidden, model.v[l]).reshape(B, T, nkv, hd)
+    if cache.quantized:
+        k_pool, k_scales = write_at_q(cache.k[l], cache.ks[l], k, *addresses)
+        v_pool, v_scales = write_at_q(cache.v[l], cache.vs[l], v, *addresses)
+        scales = dict(k_scales=k_scales, v_scales=v_scales)
+    else:
+        k_pool = write_at(cache.k[l], k, *addresses)
+        v_pool = write_at(cache.v[l], v, *addresses)
+        scales = {}
     attn_fn = (pa.paged_decode_attention if T <= pa.DECODE_T_MAX
                else pa.paged_attention)
     attn = attn_fn(q, k_pool, v_pool, block_tables, starts, nb=nb,
                    scale=attn_scale(cfg), window=layer_window(cfg, l),
-                   softcap=cfg.attn_logit_softcap or 0.0)
-    o_out = attn.reshape(B, T, nh * hd) @ model.o[l]
+                   softcap=cfg.attn_logit_softcap or 0.0, **scales)
+    o_out = dequant_matmul(attn.reshape(B, T, nh * hd), model.o[l])
     if cfg.sandwich_norms:
         o_out = rms_norm(o_out, model.post_attn_norm[l], eps, off)
     x = x + o_out
     hidden = rms_norm(x, model.mlp_norm[l], eps, off)
-    gate = hidden @ model.gate[l]
+    gate = dequant_matmul(hidden, model.gate[l])
     act = (F.silu(gate) if cfg.activation == "silu"
            else F.gelu(gate, approximate="tanh"))
-    mlp_out = (act * (hidden @ model.up[l])) @ model.down[l]
+    mlp_out = dequant_matmul(act * dequant_matmul(hidden, model.up[l]),
+                             model.down[l])
     if cfg.sandwich_norms:
         mlp_out = rms_norm(mlp_out, model.post_mlp_norm[l], eps, off)
     return x + mlp_out
@@ -219,7 +239,7 @@ def forward(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _embed(model: Llama, cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
-    x = model.embed[tokens.long()]
+    x = dequant_rows(model.embed, tokens.long(), cfg.dtype)
     if cfg.embed_scale:
         # Gemma: sqrt(hidden) in f32, then cast, as the JAX forward does
         # (HF multiplies in bf16)
@@ -231,10 +251,15 @@ def _lm_head(model: Llama, cfg: ModelConfig,
              x: torch.Tensor) -> torch.Tensor:
     """f32 logits [B,T,V] from bf16 or f32 activations: the product
     accumulates in f32 and is not rounded to bf16 (the JAX einsum's
-    preferred_element_type=f32); Gemma-2's final softcap applies to
-    the f32 logits."""
-    head = (model.embed.t() if cfg.tie_word_embeddings
-            else model.lm_head)
+    preferred_element_type=f32); an int8 head is converted to x's dtype
+    for the product and its per-vocab scale multiplies the f32 logits
+    (tied or untied, JAX llama.py:427-450); Gemma-2's final softcap
+    applies to the f32 logits last."""
+    w = model.embed if cfg.tie_word_embeddings else model.lm_head
+    vocab_scale = None
+    if is_quantized(w):
+        w, vocab_scale = w.w8.to(x.dtype), w.scale
+    head = w.t() if cfg.tie_word_embeddings else w
     B, T, H = x.shape
     x2 = x.reshape(B * T, H)
     if x.dtype == torch.float32:
@@ -244,6 +269,8 @@ def _lm_head(model: Llama, cfg: ModelConfig,
     else:
         # CPU has no mixed-precision mm: bf16 products are exact in f32
         logits = x2.float() @ head.float()
+    if vocab_scale is not None:
+        logits = logits * vocab_scale
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)

@@ -1,0 +1,133 @@
+"""Weight-only int8 quantization of the decoder's projection matmuls
+(``production_stack_tpu/models/quant.py:36-97``).
+
+- Symmetric per-output-channel int8 on every large matrix: q/k/v/o,
+  gate/up/down, lm_head, and the embedding per row (``quantize_embed``:
+  one scale per vocab entry serves both the token gather and the tied
+  lm_head, where it lands on the logit axis). Norm gains stay in the
+  model dtype (``_SKIP_LAYER``, the JAX set).
+- Weight-only: activations stay in the model dtype. A projection
+  computes ``(x @ w8.to(dtype)) * scale.to(dtype)``, which equals
+  ``x @ (w8 * scale)``. XLA fuses the convert into the dot; here the
+  convert is an eager pass over the layer's int8 weight before
+  ``torch.matmul`` (a fused int8-weight product is later work).
+- A quantized leaf keeps its name: the ``Llama`` module's parameter is
+  replaced by a ``QuantizedWeight`` holding the buffers ``w8`` int8
+  ``[..., in, out]`` and ``scale`` f32 ``[..., out]``, so ``model.q[l]``
+  still indexes a layer (giving an ``Int8Weight``).
+
+``torch.round`` rounds half to even as ``jnp.round`` does, so on the
+same float32 inputs ``w8`` and ``scale`` are bit-identical to the JAX
+package's.
+"""
+
+from typing import NamedTuple, Union
+
+import torch
+from torch import nn
+
+# layer weights that stay in the model dtype (small or accuracy-critical)
+_SKIP_LAYER = ("attn_norm", "mlp_norm", "post_attn_norm", "post_mlp_norm",
+               "q_bias", "k_bias", "v_bias", "router", "s_gate_w")
+
+
+class Int8Weight(NamedTuple):
+    """One quantized matrix (or a layer of a stack): value = w8 * scale,
+    the scale broadcast over the `in` axis."""
+    w8: torch.Tensor      # int8 [..., in, out]
+    scale: torch.Tensor   # f32 [..., out]
+
+
+class QuantizedWeight(nn.Module):
+    """A quantized leaf of the ``Llama`` module under the weight's own
+    name: buffers ``w8`` and ``scale``; indexing gives a layer's
+    ``Int8Weight``."""
+
+    def __init__(self, w8: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("w8", w8)
+        self.register_buffer("scale", scale)
+
+    def __getitem__(self, i) -> Int8Weight:
+        return Int8Weight(self.w8[i], self.scale[i])
+
+
+Weight = Union[torch.Tensor, Int8Weight, QuantizedWeight]
+
+
+def quantize_tensor(w: torch.Tensor) -> Int8Weight:
+    """Symmetric per-output-channel int8 over the last axis: w [..., in,
+    out] -> (int8 same shape, f32 scale [..., out]), scale = max|w| / 127
+    reduced over the `in` axis (leading axes keep their own channels)."""
+    wf = w.float()
+    scale = torch.clamp(wf.abs().amax(dim=-2), min=1e-8) / 127.0
+    w8 = torch.clamp(torch.round(wf / scale[..., None, :]), -127, 127)
+    return Int8Weight(w8.to(torch.int8), scale)
+
+
+def quantize_embed(w: torch.Tensor) -> Int8Weight:
+    """Per-ROW int8 for the [V, H] embedding table: scale [V]."""
+    wf = w.float()
+    scale = torch.clamp(wf.abs().amax(dim=-1), min=1e-8) / 127.0
+    w8 = torch.clamp(torch.round(wf / scale[:, None]), -127, 127)
+    return Int8Weight(w8.to(torch.int8), scale)
+
+
+def is_quantized(w) -> bool:
+    return isinstance(w, (Int8Weight, QuantizedWeight))
+
+
+def dequant_matmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
+    """x @ w for a raw or quantized w, in x.dtype."""
+    if not is_quantized(w):
+        return x @ w
+    return (x @ w.w8.to(x.dtype)) * w.scale.to(x.dtype)
+
+
+def dequant_rows(w: Weight, rows: torch.Tensor, dtype) -> torch.Tensor:
+    """Rows of a raw or quantized [V, H] table in `dtype`: the embedding
+    lookup (per-row scale from quantize_embed)."""
+    if not is_quantized(w):
+        return w[rows].to(dtype)
+    return w.w8[rows].to(dtype) * w.scale[rows].to(dtype)[..., None]
+
+
+# vocabulary entries quantized at a time: the embedding and lm_head are
+# the largest matrices, and their f32 copy is made a slice at a time
+_VOCAB_SLICE = 16384
+
+
+@torch.no_grad()
+def quantize_params(model: nn.Module) -> nn.Module:
+    """Quantize a ``Llama`` module in place with the JAX package's recipe
+    and return it: the embedding per row, lm_head and every layer weight
+    outside _SKIP_LAYER per output channel; norms unchanged. Each weight
+    is quantized a slice at a time (a layer of a stack, _VOCAB_SLICE
+    vocabulary entries of the embedding or lm_head) on its own device,
+    and its full-precision parameter is dropped as soon as its int8 copy
+    is done, so the transient memory is one slice's f32 copy (JAX
+    donates the buffers to the same end). The reductions run within a
+    slice, so the result is that of the whole weight at once."""
+    names = [n for n, _ in model.named_parameters()
+             if n not in _SKIP_LAYER and n != "final_norm"]
+    for name in names:
+        p = getattr(model, name)
+        w8 = torch.empty(p.shape, dtype=torch.int8, device=p.device)
+        scale = torch.empty(p.shape[:-2] + p.shape[-1:] if name != "embed"
+                            else p.shape[:1], dtype=torch.float32,
+                            device=p.device)
+        if name == "embed":
+            for lo in range(0, p.shape[0], _VOCAB_SLICE):
+                sl = slice(lo, lo + _VOCAB_SLICE)
+                w8[sl], scale[sl] = quantize_embed(p[sl])
+        elif name == "lm_head":
+            for lo in range(0, p.shape[1], _VOCAB_SLICE):
+                sl = slice(lo, lo + _VOCAB_SLICE)
+                w8[:, sl], scale[sl] = quantize_tensor(p[:, sl])
+        else:
+            for l in range(p.shape[0]):
+                w8[l], scale[l] = quantize_tensor(p[l])
+        delattr(model, name)
+        del p
+        setattr(model, name, QuantizedWeight(w8, scale))
+    return model

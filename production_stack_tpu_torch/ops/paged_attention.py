@@ -20,8 +20,16 @@ Both take the Pallas kernels' ``window`` (sliding window, 0 = off),
 (default D**-0.5), at D in {64, 128, 256}. A wrapper given CPU tensors
 computes the plain version (gather through the table, then the masked
 f32 softmax of ops/attention.py); given CUDA tensors it launches its
-kernel or raises — there is no fallback between the two. The int8 pool
-(``k_scales``, ``v_scales``) is not ported yet and raises.
+kernel or raises — there is no fallback between the two.
+
+int8 pools (pallas_paged.py:91-93,128-131 and :343-346,381-383): int8
+K/V with f32 ``k_scales``/``v_scales`` [N, Hkv, Bs], one per (token,
+head), value = int8 * scale, for q in bf16 or f32. The kernels read the
+int8 payload (half the bf16 pool's bytes) and its scales through the
+same clamped table lookup, and dequantize in f32; the plain version
+gathers through ``gather_view_q`` (f32 dequant, the product cast to q's
+dtype). Scales go with an int8 pool and only with one: any other mix
+raises, on both devices.
 
 A row parked at ``start >= MB*Bs`` (an idle slot of the full-batch
 forward, whose output the engine discards) comes back as zeros from both
@@ -36,7 +44,7 @@ from typing import Optional
 import torch
 
 from production_stack_tpu_torch import kernels
-from production_stack_tpu_torch.models.kv import gather_view
+from production_stack_tpu_torch.models.kv import gather_view, gather_view_q
 from production_stack_tpu_torch.ops.attention import attention_with_cache
 
 # decode windows have T <= this; longer chunks take the prefill kernel
@@ -44,20 +52,24 @@ DECODE_T_MAX = 8
 HEAD_DIMS = (64, 128, 256)
 
 # kernel launches per wrapper, counted where the kernel is launched and
-# nowhere else (the plain CPU path does not count); window_launches and
-# softcap_launches count those of them made with the branch on
+# nowhere else (the plain CPU path does not count); window_launches,
+# softcap_launches and int8_launches count those of them made with the
+# window, the softcap or an int8 pool
 launch_counts = {"paged_decode_attention": 0, "paged_attention": 0}
 window_launches = dict(launch_counts)
 softcap_launches = dict(launch_counts)
+int8_launches = dict(launch_counts)
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, window_launches, softcap_launches):
+    for counts in (launch_counts, window_launches, softcap_launches,
+                   int8_launches):
         for name in counts:
             counts[name] = 0
 
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# element types of q / out (0, 1) and of the pool (0, 1, or 2 = int8)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _lib_handle = None
 
 
@@ -67,9 +79,9 @@ def _lib():
         lib = kernels.load("paged_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_decode_attention.argtypes = \
-            [p] * 8 + [i] * 12 + [f, i, f, p]
+            [p] * 10 + [i] * 13 + [f, i, f, p]
         lib.paged_prefill_attention.argtypes = \
-            [p] * 6 + [i] * 11 + [f, i, f, p]
+            [p] * 8 + [i] * 12 + [f, i, f, p]
         for fn in (lib.paged_decode_attention, lib.paged_prefill_attention):
             fn.restype = i
         lib.paged_attention_error_string.argtypes = [i]
@@ -78,25 +90,46 @@ def _lib():
     return _lib_handle
 
 
-def _refuse_flags(k_scales, v_scales) -> None:
-    """int8 pools arrive with the quantization slice."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("int8 KV pools are not ported yet")
+def _check_scales(k_pool, v_pool, k_scales, v_scales) -> bool:
+    """Whether the pool is int8 (then with both scales [N, Hkv, Bs] f32);
+    raises on scales without an int8 pool and an int8 pool without
+    them."""
+    quant = k_pool.dtype == torch.int8 or v_pool.dtype == torch.int8
+    given = (k_scales is not None, v_scales is not None)
+    if not quant:
+        if any(given):
+            raise ValueError("k_scales/v_scales go with an int8 pool only "
+                             f"(got a {k_pool.dtype} pool)")
+        return False
+    if not all(given) or k_pool.dtype != v_pool.dtype:
+        raise ValueError("an int8 pool needs int8 K and V and both "
+                         "k_scales and v_scales")
+    want = tuple(k_pool.shape[:3])
+    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if t.dtype != torch.float32 or tuple(t.shape) != want:
+            raise ValueError(f"{name} must be float32 {want} (got "
+                             f"{t.dtype} {tuple(t.shape)})")
+    return True
 
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, tables: torch.Tensor,
                           starts: torch.Tensor, nb: int,
                           scale: Optional[float] = None, window: int = 0,
-                          softcap: float = 0.0) -> torch.Tensor:
+                          softcap: float = 0.0, k_scales=None,
+                          v_scales=None) -> torch.Tensor:
     """Plain version of both kernels: gather the first nb blocks of
-    every row through its table, then masked f32-softmax attention
-    (sliding window and softcap as in ops/attention.py, 0 = off);
-    parked rows (start >= MB*Bs) are zeros. Returns [B, T, H, D] in q's
-    dtype."""
+    every row through its table (an int8 pool dequantized in f32 and
+    cast to q's dtype), then masked f32-softmax attention (sliding
+    window and softcap as in ops/attention.py, 0 = off); parked rows
+    (start >= MB*Bs) are zeros. Returns [B, T, H, D] in q's dtype."""
     T = q.shape[1]
-    k_att = gather_view(k_pool, tables, nb)
-    v_att = gather_view(v_pool, tables, nb)
+    if _check_scales(k_pool, v_pool, k_scales, v_scales):
+        k_att = gather_view_q(k_pool, k_scales, tables, nb, dtype=q.dtype)
+        v_att = gather_view_q(v_pool, v_scales, tables, nb, dtype=q.dtype)
+    else:
+        k_att = gather_view(k_pool, tables, nb)
+        v_att = gather_view(v_pool, tables, nb)
     positions = starts.long()[:, None] + torch.arange(T, device=q.device)
     out = attention_with_cache(q, k_att, v_att, positions, scale=scale,
                                sliding_window=window,
@@ -107,19 +140,22 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                    device=out.device)).to(q.dtype)
 
 
-def _check_cuda_args(q, k_pool, v_pool, tables, starts, nb):
+def _check_cuda_args(q, k_pool, v_pool, tables, starts, nb, scales):
     B, T, H, D = q.shape
     N, Hkv, Bs, Dk = k_pool.shape
-    if not (q.is_cuda and k_pool.device == q.device
-            and v_pool.device == q.device and tables.device == q.device
-            and starts.device == q.device):
+    tensors = (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+               ("tables", tables), ("starts", starts))
+    tensors += tuple((n, t) for n, t in zip(("k_scales", "v_scales"),
+                                            scales) if t is not None)
+    if not (q.is_cuda and all(t.device == q.device for _, t in tensors)):
         raise ValueError("paged attention: every tensor must be on the "
                          "same CUDA device")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k_pool.dtype not in (q.dtype, torch.int8) \
+            or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"paged attention kernels take float32 or "
-                        f"bfloat16 q and pools of the same dtype (got "
-                        f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype})")
+                        f"bfloat16 q and pools of the same dtype or int8 "
+                        f"(got {q.dtype}, {k_pool.dtype}, {v_pool.dtype})")
     if tables.dtype != torch.int32 or starts.dtype != torch.int32:
         raise TypeError("tables and starts must be int32")
     if D not in HEAD_DIMS or Dk != D or v_pool.shape != k_pool.shape:
@@ -132,8 +168,7 @@ def _check_cuda_args(q, k_pool, v_pool, tables, starts, nb):
                          f"{tuple(starts.shape)}")
     if not 1 <= nb <= tables.shape[1]:
         raise ValueError(f"nb={nb} must be in [1, MB={tables.shape[1]}]")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("tables", tables), ("starts", starts)):
+    for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"paged attention: {name} must be contiguous")
     return B, T, H, D, N, Hkv, Bs
@@ -162,15 +197,18 @@ def decode_split_plan(nb: int) -> tuple:
     return bps, -(-nb // bps)
 
 
-def prefill_tile(D: int) -> dict:
+def prefill_tile(D: int, int8: bool = False) -> dict:
     """Geometry of the bfloat16 prefill kernel's tile at head dim D (as
     csrc/paged_attention.cu PrefillGeometry): 64 query rows (one wgmma M),
     K/V panels of 64 keys, a ring of 3 stages, and the shared memory it
     takes — Q and each stage's K and V panel, [64, D] bf16 each, plus the
-    ring's mbarriers (128 bytes) and 1 KB to align the swizzled layout."""
+    ring's mbarriers (128 bytes) and 1 KB to align the swizzled layout;
+    over an int8 pool (panels cast to bf16 as they land) also each
+    stage's 64 K and 64 V scales, f32."""
     stages = 3
     return {"rows": 64, "keys": 64, "stages": stages,
-            "smem_bytes": 128 + 1024 + 64 * D * 2 * (1 + 2 * stages)}
+            "smem_bytes": 128 + 1024 + 64 * D * 2 * (1 + 2 * stages)
+            + (stages * 2 * 64 * 4 if int8 else 0)}
 
 
 def tile_block_q(T: int, groups: int, D: int) -> int:
@@ -185,17 +223,22 @@ def tile_block_q(T: int, groups: int, D: int) -> int:
 
 
 def _launch(name: str, q, k_pool, v_pool, tables, starts, nb, scale,
-            window, softcap) -> torch.Tensor:
+            window, softcap, k_scales, v_scales) -> torch.Tensor:
     B, T, H, D, N, Hkv, Bs = _check_cuda_args(q, k_pool, v_pool, tables,
-                                              starts, nb)
+                                              starts, nb,
+                                              (k_scales, v_scales))
     if window < 0 or softcap < 0:
         raise ValueError(f"window={window} and softcap={softcap} must be "
                          f">= 0 (0 turns either off)")
     G = H // Hkv
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    quant = k_scales is not None
     head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scales.data_ptr() if quant else None,
+            v_scales.data_ptr() if quant else None,
             tables.data_ptr(), starts.data_ptr(), out.data_ptr())
+    dtypes = (_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype])
     shape = (B, T, H, Hkv, D, Bs, tables.shape[1], nb, N)
     tail = (float(scale), int(window), float(softcap), stream)
     if name == "paged_decode_attention":
@@ -206,18 +249,20 @@ def _launch(name: str, q, k_pool, v_pool, tables, starts, nb, scale,
                            device=q.device)
         rc = _lib().paged_decode_attention(
             *head, part.data_ptr(), part.data_ptr() + n_rows * 2 * 4,
-            _DTYPE_CODE[q.dtype], *shape, bps, splits, *tail)
+            *dtypes, *shape, bps, splits, *tail)
     else:
         block_q = (prefill_tile(D)["rows"] // G if q.dtype == torch.bfloat16
                    else tile_block_q(T, G, D))
         rc = _lib().paged_prefill_attention(
-            *head, _DTYPE_CODE[q.dtype], *shape, block_q, *tail)
+            *head, *dtypes, *shape, block_q, *tail)
     _raise_on(rc, name)
     launch_counts[name] += 1
     if window:
         window_launches[name] += 1
     if softcap:
         softcap_launches[name] += 1
+    if quant:
+        int8_launches[name] += 1
     return out
 
 
@@ -229,19 +274,21 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            softcap: float = 0.0) -> torch.Tensor:
     """Causal GQA of a short query window (T <= DECODE_T_MAX) over the
     paged pool. q [B,T,H,D]; k/v pool [N,Hkv,Bs,D]; tables [B,MB] int32;
-    starts [B] int32; window/softcap 0 = off. See the module doc and
+    starts [B] int32; window/softcap 0 = off; k_scales/v_scales [N,
+    Hkv, Bs] f32 with an int8 pool. See the module doc and
     csrc/paged_attention.cu."""
-    _refuse_flags(k_scales, v_scales)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
         return paged_attention_plain(q, k_pool, v_pool, tables, starts, nb,
-                                     scale, window, softcap)
+                                     scale, window, softcap, k_scales,
+                                     v_scales)
     if q.shape[1] > DECODE_T_MAX:
         raise ValueError(f"decode kernel takes T <= {DECODE_T_MAX} "
                          f"(got {q.shape[1]}); use paged_attention")
+    _check_scales(k_pool, v_pool, k_scales, v_scales)
     return _launch("paged_decode_attention", q, k_pool, v_pool, tables,
-                   starts, nb, scale, window, softcap)
+                   starts, nb, scale, window, softcap, k_scales, v_scales)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -253,11 +300,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Causal GQA of a query chunk of any length over the paged pool
     (prefill), tiled over the query axis. Same arguments and result as
     paged_decode_attention."""
-    _refuse_flags(k_scales, v_scales)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
         return paged_attention_plain(q, k_pool, v_pool, tables, starts, nb,
-                                     scale, window, softcap)
+                                     scale, window, softcap, k_scales,
+                                     v_scales)
+    _check_scales(k_pool, v_pool, k_scales, v_scales)
     return _launch("paged_attention", q, k_pool, v_pool, tables, starts,
-                   nb, scale, window, softcap)
+                   nb, scale, window, softcap, k_scales, v_scales)

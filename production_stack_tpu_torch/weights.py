@@ -5,7 +5,9 @@ every leaf), so this module imports neither JAX nor the JAX package.
 bfloat16 leaves (``ml_dtypes.bfloat16`` in numpy) go through float32,
 which is lossless both ways. The layouts are the same on both sides
 (``[L, in, out]`` stacked weights, ``[L, N, Hkv, Bs, D]`` pools), so
-carrying them is a copy, never a transpose.
+carrying them is a copy, never a transpose. Leaves the JAX package
+quantized (``{"w8": int8, "scale": f32}``, models/quant.py) and an int8
+pool with its ``ks``/``vs`` scales come across bit for bit.
 """
 
 from typing import Mapping, Optional, Tuple
@@ -16,6 +18,7 @@ import torch
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.kv import KVCache
 from production_stack_tpu_torch.models.llama import LAYER_KEYS, Llama
+from production_stack_tpu_torch.models.quant import QuantizedWeight
 from production_stack_tpu_torch.utils import resolve_device
 
 
@@ -33,29 +36,50 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig,
     """The JAX params pytree ({"embed", "layers": {...}, "final_norm",
     ["lm_head"]}, numpy leaves; the layers carry post_attn_norm and
     post_mlp_norm with sandwich norms) as the port's Llama module in
-    cfg.dtype on `device`."""
+    cfg.dtype on `device`. A quantized leaf ({"w8", "scale"}) replaces
+    its parameter with a QuantizedWeight of the same int8 and f32
+    values."""
     model = Llama(cfg, device=device)
     with torch.no_grad():
-        for name, p in model.named_parameters():
+        for name, p in list(model.named_parameters()):
             src = (np_params["layers"][name] if name in LAYER_KEYS
                    else np_params[name])
-            if tuple(np.shape(src)) != tuple(p.shape):
-                raise ValueError(f"{name}: JAX shape {np.shape(src)} != "
+            quant = isinstance(src, Mapping) and "w8" in src
+            shape = np.shape(src["w8"] if quant else src)
+            if tuple(shape) != tuple(p.shape):
+                raise ValueError(f"{name}: JAX shape {shape} != "
                                  f"port shape {tuple(p.shape)}")
-            p.copy_(_tensor(src, cfg.dtype, device))
+            if quant:
+                delattr(model, name)
+                setattr(model, name, QuantizedWeight(
+                    _tensor(src["w8"], torch.int8, device),
+                    _tensor(src["scale"], torch.float32, device)))
+            else:
+                p.copy_(_tensor(src, cfg.dtype, device))
     return model
 
 
 def cache_from_jax(k, v, tables=None, dtype: Optional[torch.dtype] = None,
-                   device="cuda") -> Tuple[KVCache, Optional[torch.Tensor]]:
+                   device="cuda", ks=None, vs=None
+                   ) -> Tuple[KVCache, Optional[torch.Tensor]]:
     """A JAX KVCache's k/v pools ([L, N, Hkv, Bs, D], numpy) and,
     optionally, its block tables ([B, MB]) as (KVCache, int32 tables)
-    on `device`. dtype defaults to the pool's own (bf16 or f32)."""
+    on `device`. dtype defaults to the pool's own (bf16 or f32); an int8
+    pool comes with its scales ks/vs ([L, N, Hkv, Bs] f32)."""
     device = resolve_device(device)
-    if dtype is None:
-        dtype = (torch.float32 if np.asarray(k).dtype == np.float32
-                 else torch.bfloat16)
-    cache = KVCache(k=_tensor(k, dtype, device), v=_tensor(v, dtype, device))
+    if np.asarray(k).dtype == np.int8:
+        if ks is None or vs is None:
+            raise ValueError("an int8 pool comes with its ks/vs scales")
+        cache = KVCache(k=_tensor(k, torch.int8, device),
+                        v=_tensor(v, torch.int8, device),
+                        ks=_tensor(ks, torch.float32, device),
+                        vs=_tensor(vs, torch.float32, device))
+    else:
+        if dtype is None:
+            dtype = (torch.float32 if np.asarray(k).dtype == np.float32
+                     else torch.bfloat16)
+        cache = KVCache(k=_tensor(k, dtype, device),
+                        v=_tensor(v, dtype, device))
     t = None
     if tables is not None:
         t = torch.from_numpy(np.asarray(tables, np.int32).copy()).to(device)

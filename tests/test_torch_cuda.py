@@ -7,13 +7,16 @@ no NVIDIA GPU; on a machine with one:
 Tolerances as in chip_smoke.py: float32 2e-5 (softmax summed in another
 order); bfloat16 3e-2 (bf16 outputs up to ~4, and the plain version
 rounds the probabilities to bf16 before the value product where the
-kernel keeps them in float32).
+kernel keeps them in float32). Over an int8 pool the kernels are held
+against the plain version in float32 (q upcast exactly), whose f32
+dequantization is the kernels' and the Pallas int8 branch's.
 """
 
 import pytest
 import torch
 
-from production_stack_tpu_torch.models.kv import write_chunk
+from production_stack_tpu_torch.models.kv import (quantize_chunk, write_chunk,
+                                                  write_chunk_q)
 from production_stack_tpu_torch.ops import flash_attention as fa
 from production_stack_tpu_torch.ops import paged_attention as pa
 
@@ -158,11 +161,72 @@ def test_flash_kernel_matches_plain_version(cuda, T, S, G, D, starts,
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
 
 
+def _case8(dev, T, G, D, lens, seed, Bs, dtype):
+    """_case over an int8 pool: random f32 K/V quantized per (token,
+    head) and the chunk's own K/V written by write_chunk_q; q in
+    `dtype`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, tables, starts, nb = _case(dev, T, G, D, torch.float32,
+                                        lens=lens, seed=seed, Bs=Bs)
+    (k8, ks), (v8, vs) = quantize_chunk(k), quantize_chunk(v)
+    pos = starts[:, None].long() + torch.arange(T, device=dev)
+    for pool, scales in ((k8, ks), (v8, vs)):
+        new = torch.randn((len(lens) + 1, T, k.shape[1], D), generator=g,
+                          device=dev)
+        write_chunk_q(pool, scales, new, tables, pos)
+    return q.to(dtype), k8, v8, ks, vs, tables, starts, nb
+
+
+# the int8 pool's branches of both kernels, q in bf16 and f32: the split
+# decode, the wgmma prefill (bf16 q: panels cast to bf16 as they land,
+# scales on the accumulators) and the f32 tile (f32 q), with a window,
+# a softcap and D = 256 (Bs = 16: panels cross blocks)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn,T,G,D,Bs,lens,window,softcap", [
+    (pa.paged_decode_attention, 1, 4, 128, 64, (70, 5, 300), 0, 0.0),
+    (pa.paged_decode_attention, 8, 8, 64, 16, (517, 300, 45), 0, 0.0),
+    (pa.paged_decode_attention, 5, 4, 128, 16, (517, 300, 45), 40, 0.0),
+    (pa.paged_decode_attention, 1, 2, 256, 64, (4600, 10, 2000), 0, 0.0),
+    (pa.paged_decode_attention, 8, 2, 256, 64, (70, 5, 300), 0, 50.0),
+    (pa.paged_attention, 9, 4, 128, 64, (70, 5, 300), 0, 0.0),
+    (pa.paged_attention, 100, 2, 256, 64, (70, 5, 300), 0, 0.0),
+    (pa.paged_attention, 70, 4, 128, 16, (517, 300, 45), 40, 0.0),
+    (pa.paged_attention, 37, 8, 64, 64, (70, 5, 300), 0, 0.0),
+    (pa.paged_attention, 64, 2, 256, 64, (70, 5, 300), 100, 50.0),
+])
+def test_int8_kernel_matches_plain_version(cuda, fn, T, G, D, Bs, lens,
+                                           window, softcap, dtype):
+    q, k8, v8, ks, vs, tables, starts, nb = _case8(
+        cuda, T, G, D, lens, T + D + Bs, Bs, dtype)
+    if softcap:
+        q, vs = (q.float() * 30).to(dtype), vs * 0.5
+    name = fn.__name__
+    before = (pa.launch_counts[name], pa.int8_launches[name])
+    got = fn(q, k8, v8, tables, starts, nb=nb, window=window,
+             softcap=softcap, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert (pa.launch_counts[name], pa.int8_launches[name]) == (
+        before[0] + 1, before[1] + 1)
+    # the plain version in f32 on the same (exactly upcast) q: the kernels
+    # dequantize in f32 as the Pallas int8 branch does, where the plain
+    # version at bf16 q rounds the dequantized K/V to bf16 (which at the
+    # softcap case's scores of ~+-100 alone moves outputs by ~3e-2)
+    want = pa.paged_attention_plain(q.float(), k8, v8, tables, starts, nb,
+                                    D ** -0.5, window, softcap, ks, vs)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got[-1] == 0).all()   # the parked row
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, tables, starts, nb = _case(cuda, 1, 4, 128, torch.float32)
-    with pytest.raises(NotImplementedError, match="int8"):
+    scales = torch.ones(k.shape[:3], device=cuda)
+    with pytest.raises(ValueError, match="int8"):
         pa.paged_attention(q, k, v, tables, starts, nb=nb,
-                           k_scales=torch.ones(1), v_scales=torch.ones(1))
+                           k_scales=scales, v_scales=scales)
+    with pytest.raises(ValueError, match="int8"):
+        pa.paged_decode_attention(q, k.to(torch.int8), v.to(torch.int8),
+                                  tables, starts, nb=nb)
     with pytest.raises(ValueError, match="head dim"):
         pa.paged_decode_attention(q[..., :96].contiguous(),
                                   k[..., :96].contiguous(),

@@ -43,6 +43,7 @@ from production_stack_tpu_torch.engine.server import build_app
 from production_stack_tpu_torch.models import config as tconfig
 from production_stack_tpu_torch.models import kv as tkv
 from production_stack_tpu_torch.models import llama as tllama
+from production_stack_tpu_torch.models import quant as tquant
 from production_stack_tpu_torch.weights import cache_from_jax, params_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -266,14 +267,26 @@ def test_engine_refuses_unported_options():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(speculative_ngram_tokens=2), dict(quantization="int8"),
-    dict(kv_dtype="int8"), dict(tensor_parallel_size=2),
+    dict(speculative_ngram_tokens=2), dict(tensor_parallel_size=2),
     dict(window_adapt=True), dict(pipeline_depth=2),
     dict(lora_adapters={"a": "random:1"}),
     dict(kv_transfer_config={"kv_role": "kv_both"})])
 def test_engine_config_pins_unported_options(kw):
     with pytest.raises(NotImplementedError):
         tec.EngineConfig(model="debug-tiny", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(quantization="int8"),
+                                dict(kv_dtype="int8")])
+def test_engine_config_accepts_int8_options(kw):
+    """Weight-only int8 and the int8 KV pool are ported: the config takes
+    them, and the runner quantizes the weights or allocates the int8
+    pool with its scales."""
+    cfg = tec.EngineConfig(model="debug-tiny", device="cpu",
+                           max_model_len=64, max_num_seqs=1, **kw)
+    runner = trunner.ModelRunner(tconfig.get_config("debug-tiny"), cfg)
+    assert tquant.is_quantized(runner.params.q) == ("quantization" in kw)
+    assert runner.cache.quantized == ("kv_dtype" in kw)
 
 
 def test_engine_config_without_device_needs_cuda():
@@ -292,15 +305,16 @@ def test_engine_config_without_device_needs_cuda():
     lambda: tllama.init_params(tconfig.get_config("debug-tiny"),
                                torch.Generator()),
     lambda: tkv.make_cache(1, 2, 8, 1, 8),
+    lambda: tkv.make_cache(1, 2, 8, 1, 8, dtype=torch.int8),
     lambda: tkv.linear_tables(2, 16, 8),
     lambda: tkv.make_slot_cache(1, 2, 16, 1, 8),
     lambda: params_from_jax({}, tconfig.get_config("debug-tiny")),
     lambda: cache_from_jax(np.zeros((1, 2, 1, 8, 8), np.float32),
                            np.zeros((1, 2, 1, 8, 8), np.float32)),
     lambda: tsampler.SamplingParams.filled(2),
-], ids=["Llama", "init_params", "make_cache", "linear_tables",
-        "make_slot_cache", "params_from_jax", "cache_from_jax",
-        "SamplingParams.filled"])
+], ids=["Llama", "init_params", "make_cache", "make_cache_int8",
+        "linear_tables", "make_slot_cache", "params_from_jax",
+        "cache_from_jax", "SamplingParams.filled"])
 def test_library_defaults_to_cuda(build):
     """The library's constructors default to the card as the engine
     does: with no CUDA they raise rather than build on the CPU."""
@@ -451,6 +465,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import production_stack_tpu_torch.weights
         import production_stack_tpu_torch.kernels
         import production_stack_tpu_torch.ops.flash_attention
+        import production_stack_tpu_torch.models.quant
         assert not any(m == "jax" or m.startswith("jax.")
                        or m == "production_stack_tpu"
                        or m.startswith("production_stack_tpu.")

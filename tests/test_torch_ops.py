@@ -293,10 +293,11 @@ def test_plain_flash_matches_pallas_flash_kernel(T, S, G, D, starts):
 @pytest.mark.parametrize("fn", [tpa.paged_attention,
                                 tpa.paged_decode_attention])
 def test_kernel_flags_off_this_path_raise(fn, flag):
-    """int8 scales arrive with the quantization slice; until then the
-    wrappers refuse them."""
+    """int8 scales go with an int8 pool only (tests/test_torch_quant.py
+    runs the int8 pool): over a float pool the wrappers refuse them, on
+    the CPU as on the card."""
     q, k, v, tables, starts, nb = _paged_case(0, 1, 2, 32, 16, [5])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="int8 pool"):
         fn(_t(q), _t(k), _t(v), _t(tables), _t(starts), nb=nb, **flag)
 
 
