@@ -32,9 +32,20 @@
      that both paged kernels were launched (on Gemma-2 with the window
      and the softcap on, on the int8 path with the int8 pool) and the
      flash kernel, which serves no path as in the JAX package, was not;
+   - surface (its own kernel counts): on llama-3-8b, /load against the
+     engine while a request is in flight, /metrics with the router's
+     gauges, the x-engine-* headers on every reply, a 504 for an elapsed
+     deadline, /tokenize and /detokenize, logit_bias, min_tokens, a
+     penalized greedy request (held in the reference phase against the
+     plain adjust_logits over f32 logits), n = 3 and two prompts; on
+     llama-3-8b and gemma-2-9b, top_logprobs and echo with prompt
+     logprobs; on every path last, prompt ids outside the vocabulary
+     answer 200 and so does the next request;
    - breakdown: device time of a decode step and of a prefill chunk of
      the served model, and from a torch.profiler trace of each the
-     device's idle share and each kernel class's share;
+     device's idle share and each kernel class's share; on llama-3-8b
+     the decode step with one shaped row and top-5 beside it, and the
+     plain step's launches held to their count before shaping existed;
    - reference: the served model's logits through the kernels agree
      with a float32 forward through the plain attention (on the int8
      path over the same int8 weights and an int8 pool).
@@ -122,6 +133,11 @@ BF16_FLOOR_FACTOR = 2.0
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+# device launches of one plain decode step of the breakdown (a window of
+# decode_window steps, divided), as this script counted them on an H100
+# before logit shaping existed: a batch with no shaped row and no top-K
+# must launch exactly these
+PLAIN_DECODE_LAUNCHES = {"llama-3-8b": 1836.5}
 
 
 def log(*args):
@@ -732,6 +748,10 @@ async def serve_phase(engine, path: str):
                       "window_launches": dict(pa.window_launches),
                       "softcap_launches": dict(pa.softcap_launches),
                       "int8_launches": dict(pa.int8_launches)}
+            surface = await surface_phase(http, base, engine, path)
+            # last: a wrong index rule is a device-side assert that ends
+            # the process
+            await fault_probe(http, base, engine, path)
     finally:
         await runner.cleanup()
 
@@ -789,10 +809,234 @@ async def serve_phase(engine, path: str):
                               "wall_s": wall,
                               "long_prompt_tokens": prompt_tokens,
                               **counts}}))
-    return counts
+    return counts, surface
 
 
-def reference_phase(engine, path: str):
+# the /load fields signals.parse_load_report reads (the router, the
+# autoscaler and the kvplane), and the gauges router/stats.py
+# parse_engine_metrics reads
+LOAD_FIELDS = ("queue_depth", "running", "capacity", "max_num_seqs",
+               "est_queue_delay_ms", "kv_usage", "free_kv_blocks", "models",
+               "perf", "kv_pool")
+PERF_FIELDS = ("mbu_perc", "effective_bytes_per_s", "live_fraction",
+               "decode_tokens_per_s", "token_steps", "compiles_total",
+               "compile_in_flight")
+ROUTER_GAUGES = ("vllm:num_requests_running", "vllm:num_requests_waiting",
+                 "vllm:gpu_cache_usage_perc", "tpu:hbm_kv_usage_perc",
+                 "vllm:gpu_prefix_cache_hit_rate",
+                 "tpu:engine_capacity_seqs", "tpu:est_queue_delay_ms")
+LOAD_HEADERS = ("x-engine-queue-depth", "x-engine-running",
+                "x-engine-free-kv-blocks", "x-engine-est-queue-delay-ms")
+# the shaped request: OpenAI penalties at the top of their ranges
+SHAPED = {"presence_penalty": 1.5, "frequency_penalty": 1.0,
+          "repetition_penalty": 1.3}
+# prompts of the shaping and echo checks: token ids below 256 from a seed
+SURFACE_PROMPT = 40
+
+
+def surface_prompt(seed: int):
+    import random
+    rnd = random.Random(seed)
+    return [256] + [rnd.randrange(32, 256) for _ in range(SURFACE_PROMPT - 1)]
+
+
+async def surface_phase(http, base, engine, path: str) -> dict:
+    """The engine surface the stack reads, on the served model, with the
+    kernel counts zeroed before and read after (both paged kernels must
+    launch, the flash kernel not):
+
+    - llama-3-8b: /load while a request is in flight, its fields against
+      the engine's own state (the engine lock held so both read one
+      moment); /metrics parsed by prometheus_client's parser, with the
+      router's seven gauges; an
+      elapsed x-request-deadline-ms answers 504; /tokenize and
+      /detokenize round-trip; logit_bias {65: 100} emits only 65;
+      min_tokens 16 with EOS biased +100 emits 16 tokens, then EOS; the
+      penalized greedy request (SHAPED) is kept for reference_phase;
+      n = 3 with a seed (streamed and not) and two prompts give their
+      choice indices;
+    - llama-3-8b and gemma-2-9b: top_logprobs 5 in descending order
+      with the greedy choice first, and echo with logprobs (one value
+      per prompt token after the first), kept for reference_phase.
+
+    Every reply must carry the four x-engine-* headers."""
+    from prometheus_client.parser import text_string_to_metric_families
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    model = path_model(path)
+    eng = engine.engine
+    out = {}
+    if path not in ("llama-3-8b", "gemma-2-9b"):
+        return out
+
+    async def call(method, url, body=None, status=200, headers=None):
+        async with http.request(method, base + url, json=body,
+                                headers=headers) as r:
+            text = await r.text()
+            if r.status != status:
+                raise AssertionError(f"{url} -> {r.status} (want "
+                                     f"{status}): {text[:500]}")
+            missing = [h for h in LOAD_HEADERS if h not in r.headers]
+            if missing:
+                raise AssertionError(f"{url}: no {missing} header")
+            return r, text
+
+    async def completion(body):
+        _, text = await call("POST", "/v1/completions",
+                             {"model": model, "temperature": 0.0, **body})
+        return json.loads(text)
+
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    if path == "llama-3-8b":
+        # /load and /metrics with a request in flight
+        async with http.post(base + "/v1/completions", json={
+                "model": model, "prompt": "hold", "max_tokens": 400,
+                "ignore_eos": True, "stream": True}) as hold:
+            assert hold.status == 200
+            await hold.content.readany()
+            with eng._lock:
+                _, text = await call("GET", "/load")
+                load = json.loads(text)
+                want = {"running": len(eng.scheduler.running)
+                        + len(eng.scheduler._prefilling),
+                        "queue_depth": len(eng.scheduler.waiting),
+                        "kv_usage": round(eng.block_mgr.usage, 4),
+                        "free_kv_blocks": eng.block_mgr.available}
+                _, metrics = await call("GET", "/metrics")
+            missing = [k for k in LOAD_FIELDS if k not in load] + [
+                k for k in PERF_FIELDS if k not in load["perf"]]
+            got = {k: load[k] for k in want}
+            if missing or got != want or want["running"] < 1 \
+                    or want["kv_usage"] <= 0:
+                raise AssertionError(f"/load {got} against the engine "
+                                     f"{want}; missing {missing}")
+            samples = {s.name: s.value for f in
+                       text_string_to_metric_families(metrics)
+                       for s in f.samples}
+            absent = [g for g in ROUTER_GAUGES if g not in samples]
+            if absent:
+                raise AssertionError(f"/metrics lacks {absent}")
+            if samples["vllm:num_requests_running"] < 1:
+                raise AssertionError("/metrics shows no running request")
+        out["load"] = {**got, "perf_mbu_perc": load["perf"]["mbu_perc"],
+                       "metric_names": len(samples)}
+        r, _ = await call("POST", "/v1/completions",
+                          {"model": model, "prompt": "late",
+                           "max_tokens": 4}, status=504,
+                          headers={"x-request-deadline-ms": "0"})
+        assert r.headers.get("x-deadline-expired") == "1"
+        _, text = await call("POST", "/tokenize",
+                             {"prompt": "Hello, paged world"})
+        ids = json.loads(text)["tokens"]
+        _, text = await call("POST", "/detokenize", {"tokens": ids})
+        assert json.loads(text)["prompt"] == "Hello, paged world", text
+        # shaping
+        prompt = surface_prompt(1)
+        res = await completion({"prompt": prompt, "max_tokens": 12,
+                                "logit_bias": {"65": 100}, "logprobs": 0})
+        toks = res["choices"][0]["logprobs"]["tokens"]
+        assert toks == ["A"] * 12, toks
+        eos = eng.tokenizer.eos_token_id
+        res = await completion({"prompt": prompt, "max_tokens": 40,
+                                "min_tokens": 16, "logprobs": 0,
+                                "logit_bias": {str(eos): 100}})
+        ch = res["choices"][0]
+        assert ch["finish_reason"] == "stop", ch
+        assert len(ch["logprobs"]["tokens"]) == 16, ch
+        assert res["usage"]["completion_tokens"] == 17, res["usage"]
+        res = await completion({"prompt": prompt, "max_tokens": 24,
+                                "ignore_eos": True, **SHAPED})
+        assert res["usage"]["completion_tokens"] == 24
+        seq = next(s for s in eng.seqs.values()
+                   if s.prompt_tokens == prompt
+                   and s.options.presence_penalty == SHAPED[
+                       "presence_penalty"])
+        out["shaped"] = {"prompt": prompt,
+                         "tokens": list(seq.output_tokens)}
+        # n and several prompts
+        res = await completion({"prompt": "The river", "n": 3, "seed": 9,
+                                "temperature": 0.8, "max_tokens": 8})
+        assert [c["index"] for c in res["choices"]] == [0, 1, 2], res
+        _, text = await call("POST", "/v1/completions", {
+            "model": model, "prompt": "The river", "n": 3, "seed": 9,
+            "temperature": 0.8, "max_tokens": 8, "stream": True})
+        chunks = [json.loads(ln[6:]) for ln in text.splitlines()
+                  if ln.startswith("data: ") and ln != "data: [DONE]"]
+        finished = sorted(c["choices"][0]["index"] for c in chunks
+                          if c["choices"][0]["finish_reason"])
+        assert finished == [0, 1, 2], finished
+        res = await completion({"prompt": ["One river", "Two rivers"],
+                                "max_tokens": 6})
+        assert [c["index"] for c in res["choices"]] == [0, 1], res
+    # logprobs
+    _, text = await call("POST", "/v1/chat/completions", {
+        "model": model, "temperature": 0.0, "max_tokens": 8,
+        "ignore_eos": True, "logprobs": True, "top_logprobs": 5,
+        "messages": [{"role": "user", "content": "Name three rivers."}]})
+    for e in json.loads(text)["choices"][0]["logprobs"]["content"]:
+        tops = [t["logprob"] for t in e["top_logprobs"]]
+        if len(tops) != 5 or tops != sorted(tops, reverse=True) \
+                or abs(e["logprob"] - tops[0]) > 1e-6:
+            raise AssertionError(f"top_logprobs entry {e}")
+    prompt = surface_prompt(2)
+    res = await completion({"prompt": prompt, "max_tokens": 1,
+                            "echo": True, "logprobs": 1})
+    lps = res["choices"][0]["logprobs"]["token_logprobs"]
+    assert lps[0] is None and len(lps) == len(prompt) + 1, lps[:3]
+    out["echo"] = {"prompt": prompt, "logprobs": lps[1:len(prompt)]}
+    launches = {**pa.launch_counts, **fa.launch_counts}
+    for name in pa.launch_counts:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"surface checks: {launches}")
+    for name in fa.launch_counts:
+        if launches[name]:
+            raise AssertionError(f"kernel {name} serves no path but was "
+                                 f"launched: {launches}")
+    log(json.dumps({"surface": {
+        "path": path, "seconds": time.monotonic() - t0,
+        "launches": launches,
+        **{k: v for k, v in out.items() if k == "load"}}}))
+    return out
+
+
+async def fault_probe(http, base, engine, path: str):
+    """Prompt ids outside the vocabulary ([1, V+100, -(V+100), 3]) answer
+    200 (the embedding's index rule), plain and with echo and logprobs
+    (the prompt logprobs' target rule: NaN at the two ids outside
+    [-V, V), finite elsewhere); min_tokens with stop ids outside the
+    vocabulary (V+5, 2**40) answers 200; and so does the next request."""
+    V = engine.engine.model_cfg.vocab_size
+    model = path_model(path)
+    bad = [1, V + 100, -(V + 100), 3]
+    probes = [{"prompt": bad},
+              {"prompt": bad, "echo": True, "logprobs": 1},
+              {"prompt": [1, 5, 6], "min_tokens": 2,
+               "stop_token_ids": [V + 5, 2 ** 40]},
+              {"prompt": "After the probe"}]
+    status = []
+    for extra in probes:
+        async with http.post(base + "/v1/completions", json={
+                "model": model, "max_tokens": 4, "temperature": 0.0,
+                **extra}) as r:
+            status.append(r.status)
+            if r.status != 200:
+                raise AssertionError(f"fault probe {extra!r} -> "
+                                     f"{r.status}: {await r.text()}")
+            body = await r.json()
+        if extra.get("echo"):
+            lps = body["choices"][0]["logprobs"]["token_logprobs"]
+            nan = [v is not None and math.isnan(v) for v in lps[:len(bad)]]
+            if nan != [False, True, True, False]:
+                raise AssertionError(f"fault probe echo logprobs "
+                                     f"{lps[:len(bad)]}")
+    log(json.dumps({"fault_probe": {"path": path, "vocab": V,
+                                    "status": status}}))
+
+
+def reference_phase(engine, path: str, surface: dict):
     """The served model's logits against a float32 reference on the card:
     the same weights upcast (exact; int8 weights shared as they are, and
     dequantized in f32 by the f32 forward), the plain attention, a pool of
@@ -815,7 +1059,21 @@ def reference_phase(engine, path: str):
     - the served bf16 path through the kernels may be at most
       BF16_FLOOR_FACTOR times further from it than the bf16 path through
       the plain attention is (bf16 rounding through every layer is the
-      floor both share)."""
+      floor both share).
+
+    Then the surface phase's outputs (surface_phase) against float32
+    forwards of the same weights through the plain attention:
+    - the penalized greedy request: each served token is the argmax of
+      the port's plain adjust_logits (sampler.py) over the f32 logits of
+      the served sequence so far (teacher-forced), or, where it is not,
+      the f32 gap between the best token and the served one is at most
+      BF16_FLOOR_FACTOR x the bf16 plain path's largest error on such a
+      gap over the same steps, a bound that must stay below the
+      smallest penalty term (shaped_check);
+    - the echoed prompt logprobs may be at most BF16_FLOOR_FACTOR times
+      further from the f32 prompt logprobs than the bf16 plain path's
+      are, as the logits are."""
+    from contextlib import contextmanager
     import dataclasses
 
     import torch
@@ -871,21 +1129,33 @@ def reference_phase(engine, path: str):
             return out
         return call
 
-    def run(params, mcfg, mode):
-        """Logits at the compared positions, and the pool's int8 K/V
-        (None over a float pool); mode "plain", "kernels" or "checked"."""
-        cache, tables = make_slot_cache(
-            mcfg.num_layers, 1, max_len, mcfg.num_kv_heads, mcfg.head_dim_,
-            dtype=kv_dtype if kv_dtype == torch.int8 else mcfg.dtype,
-            block_size=Bs, device=dev)
+    @contextmanager
+    def attention(mode):
+        """The attention the forward takes: "plain", "kernels" or
+        "checked"."""
         saved = (pa.paged_attention, pa.paged_decode_attention)
         if mode == "plain":
             pa.paged_attention = pa.paged_decode_attention = plain
         elif mode == "checked":
             pa.paged_attention = checked(saved[0])
             pa.paged_decode_attention = checked(saved[1])
-        out = []
         try:
+            yield
+        finally:
+            pa.paged_attention, pa.paged_decode_attention = saved
+
+    def pool(mcfg, length):
+        return make_slot_cache(
+            mcfg.num_layers, 1, length, mcfg.num_kv_heads, mcfg.head_dim_,
+            dtype=kv_dtype if kv_dtype == torch.int8 else mcfg.dtype,
+            block_size=Bs, device=dev)
+
+    def run(params, mcfg, mode):
+        """Logits at the compared positions, and the pool's int8 K/V
+        (None over a float pool); mode "plain", "kernels" or "checked"."""
+        cache, tables = pool(mcfg, max_len)
+        out = []
+        with attention(mode):
             for lo in range(0, P, chunk):
                 hi = min(lo + chunk, P)
                 logits, _ = llama.forward(
@@ -900,18 +1170,42 @@ def reference_phase(engine, path: str):
                     torch.tensor([[P + i]], device=dev), cache,
                     block_tables=tables, rope=runner.rope, kv_len=max_len)
                 out.append(logits[0, 0])
-        finally:
-            pa.paged_attention, pa.paged_decode_attention = saved
-        pool = (torch.stack([cache.k, cache.v])
-                if kv_dtype == torch.int8 else None)
+        k8 = (torch.stack([cache.k, cache.v])
+              if kv_dtype == torch.int8 else None)
         del cache
-        return torch.stack(out), pool
+        return torch.stack(out), k8
+
+    def all_logits(params, mcfg, ids):
+        """f32 logits [T, V] at every position of `ids`, one chunk
+        through a pool of its own and the plain attention."""
+        T = len(ids)
+        cache, tables = pool(mcfg, -(-T // Bs) * Bs)
+        with attention("plain"):
+            logits, _ = llama.forward(
+                params, mcfg, torch.tensor([ids], device=dev),
+                torch.arange(T, device=dev)[None], cache,
+                block_tables=tables, rope=runner.rope,
+                kv_len=-(-T // Bs) * Bs)
+        del cache
+        return logits[0]
+
+    def prompt_lps(params, mcfg, ids):
+        lsm = torch.log_softmax(all_logits(params, mcfg, ids)[:-1], -1)
+        return lsm.gather(1, torch.tensor(ids[1:], device=dev)[:, None])[
+            :, 0]
 
     t0 = time.monotonic()
     ref, ref_pool = run(p32, cfg32, "plain")
     int8 = ref_pool is not None
     got32, pool32 = run(p32, cfg32, "checked" if int8 else "kernels")
     err32 = (got32 - ref).abs().max().item()
+    shaped32 = echo32 = None
+    if "shaped" in surface:
+        sh = surface["shaped"]
+        shaped32 = all_logits(p32, cfg32, sh["prompt"] + sh["tokens"])[
+            len(sh["prompt"]) - 1:-1]
+    if "echo" in surface:
+        echo32 = prompt_lps(p32, cfg32, surface["echo"]["prompt"])
     del p32
     free_memory()
     err16 = (run(runner.params, cfg, "kernels")[0] - ref).abs().max().item()
@@ -932,6 +1226,23 @@ def reference_phase(engine, path: str):
         f32_ok = err32 <= F32_LOGIT_TOL * scale
     ok = (bool(torch.isfinite(ref).all()) and f32_ok
           and err16 <= BF16_FLOOR_FACTOR * floor16)
+    if shaped32 is not None:
+        sh = surface["shaped"]
+        shaped16 = all_logits(runner.params, cfg,
+                              sh["prompt"] + sh["tokens"])[
+            len(sh["prompt"]) - 1:-1].float()
+        extra["shaped"] = shaped_check(engine, sh, shaped32, shaped16)
+        ok = ok and extra["shaped"]["ok"]
+    if echo32 is not None:
+        served = torch.tensor(surface["echo"]["logprobs"], device=dev)
+        plain16 = prompt_lps(runner.params, cfg, surface["echo"]["prompt"])
+        e_err = (served - echo32).abs().max().item()
+        e_floor = (plain16 - echo32).abs().max().item()
+        extra["echo"] = {"tokens": len(surface["echo"]["prompt"]),
+                         "served_err": e_err, "bf16_plain_err": e_floor,
+                         "tol": BF16_FLOOR_FACTOR * e_floor,
+                         "ok": e_err <= BF16_FLOOR_FACTOR * e_floor}
+        ok = ok and extra["echo"]["ok"]
     log(json.dumps({"reference": {
         "path": path, "layers": cfg.num_layers, "kv_dtype": str(kv_dtype),
         "int8_weights": is_quantized(runner.params.q), "prompt_tokens": P,
@@ -945,6 +1256,58 @@ def reference_phase(engine, path: str):
     if not ok:
         raise AssertionError("served logits disagree with the float32 "
                              "reference beyond the stated bounds")
+
+
+def shaped_check(engine, shaped: dict, logits32, logits16) -> dict:
+    """The served penalized greedy tokens against the argmax of the
+    port's plain adjust_logits over f32 logits [n, V] (row i: the
+    distribution of served token i), both teacher-forced on the served
+    sequence: logits32 from the f32 weights, logits16 from the served
+    bf16 weights, both through the plain attention. Where a served token
+    is not the f32 best, the f32 gap between the two must be at most
+    BF16_FLOOR_FACTOR times the bf16 plain path's own error on such a
+    gap: its largest error, over the steps, on the shaped gap between
+    the f32 best token and the runner-up, or the served token where that
+    differs. That bound must stay below the smallest penalty term
+    (the frequency penalty, 1.0 a repeat), so a path that dropped a
+    term fails."""
+    import torch
+    from production_stack_tpu_torch.engine.sampler import (SamplingParams,
+                                                           adjust_logits)
+    dev = logits32.device
+    n, V = logits32.shape
+    served = torch.tensor(shaped["tokens"], device=dev)
+    counts = torch.zeros((n, V), dtype=torch.int32, device=dev)
+    for i in range(1, n):
+        counts[i] = counts[i - 1]
+        counts[i, served[i - 1]] += 1
+    seen = torch.zeros((n, V), dtype=torch.bool, device=dev)
+    seen[:, torch.tensor(shaped["prompt"], device=dev)] = True
+    sp = SamplingParams.filled(
+        n, temperature=0.0, presence=SHAPED["presence_penalty"],
+        frequency=SHAPED["frequency_penalty"],
+        repetition=SHAPED["repetition_penalty"], device=dev)
+    out_len = torch.arange(n, dtype=torch.int32, device=dev)
+    eos = int(engine.engine.tokenizer.eos_token_id)
+    adj = adjust_logits(logits32, sp, counts, seen, out_len, eos)
+    adj16 = adjust_logits(logits16, sp, counts, seen, out_len, eos)
+    top2 = adj.topk(2, dim=-1).indices
+    best = top2[:, 0]
+    other = torch.where(served != best, served, top2[:, 1])
+
+    def gap(a, t):
+        return (a.gather(1, best[:, None])[:, 0]
+                - a.gather(1, t[:, None])[:, 0])
+    noise = (gap(adj16, other) - gap(adj, other)).abs().max().item()
+    gaps = gap(adj, served)
+    differ = (best != served).nonzero()[:, 0].tolist()
+    worst = max((gaps[i].item() for i in differ), default=0.0)
+    tol = BF16_FLOOR_FACTOR * noise
+    least_term = min(SHAPED["presence_penalty"], SHAPED["frequency_penalty"])
+    return {"tokens": n, "differ_at": differ, "worst_gap": worst,
+            "bf16_plain_gap_err": noise, "tol": tol,
+            "least_penalty_term": least_term,
+            "ok": worst <= tol < least_term}
 
 
 def device_profile(fn):
@@ -1075,7 +1438,53 @@ def breakdown_phase(engine, path: str):
                device_profile(window), W, step_ms),
            "prefill_profile_per_chunk": profile_summary(
                device_profile(chunk), 1, chunk_ms)}
+    if path in PLAIN_DECODE_LAUNCHES:
+        out.update(shaped_breakdown(runner, sp, window, W, kv_len, starts))
+        got = out["decode_profile_per_step"].get("device_launches")
+        if got != PLAIN_DECODE_LAUNCHES[path]:
+            log(json.dumps({"breakdown": out}))
+            raise AssertionError(
+                f"the plain decode step launched {got} times per step, "
+                f"not the {PLAIN_DECODE_LAUNCHES[path]} it launched "
+                f"before logit shaping existed")
     log(json.dumps({"breakdown": out}))
+
+
+def shaped_breakdown(runner, sp, window, W, kv_len, starts) -> dict:
+    """The decode step with one shaped row (SHAPED penalties, a prompt
+    of SURFACE_PROMPT tokens) and top-5 alternatives among the batch,
+    timed and profiled as the plain step is; the counts ride the device
+    across calls as they do across an engine's windows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    B = len(starts)
+    V = runner.model_cfg.vocab_size
+    dev = sp.temperature.device
+    row = torch.arange(B, device=dev) == 0
+
+    def one_row(value, inert, dtype=torch.float32):
+        return torch.where(row, torch.tensor(value, dtype=dtype, device=dev),
+                           torch.tensor(inert, dtype=dtype, device=dev))
+    shaped = dataclasses.replace(
+        sp, presence=one_row(SHAPED["presence_penalty"], 0.0),
+        frequency=one_row(SHAPED["frequency_penalty"], 0.0),
+        repetition=one_row(SHAPED["repetition_penalty"], 1.0),
+        prompt_len=torch.tensor(starts, dtype=torch.int32, device=dev))
+    seen = np.zeros((B, V), bool)
+    seen[0, surface_prompt(1)] = True
+    runner.set_penalty_state(np.zeros((B, V), np.int32), seen)
+
+    def shaped_window(i=0):
+        runner.set_decode_state(np.zeros((B,), np.int32), starts)
+        return runner.decode(shaped, steps=W, kv_len=kv_len, greedy=True,
+                             penalized=True, topk=5)
+
+    step_ms = time_ms(shaped_window, 3) / W
+    return {"shaped_decode_step_ms": step_ms,
+            "shaped_decode_profile_per_step": profile_summary(
+                device_profile(shaped_window), W, step_ms)}
 
 
 def model_phase(path: str):
@@ -1107,13 +1516,13 @@ def model_phase(path: str):
                         pool.k, pool.v, pool.ks, pool.vs) if t is not None),
                     "mem_gib": torch.cuda.memory_allocated() / 2**30}))
     t0 = time.monotonic()
-    counts = asyncio.run(serve_phase(engine, path))
+    counts, surface = asyncio.run(serve_phase(engine, path))
     breakdown_phase(engine, path)
     # serving is over: the pool goes before the float32 copy arrives
     engine.engine.runner.cache = None
     del runner, pool
     free_memory()
-    reference_phase(engine, path)
+    reference_phase(engine, path, surface)
     del engine
     free_memory()
     log(json.dumps({"model_phase_s": time.monotonic() - t0,

@@ -10,6 +10,10 @@ the failure is delivered to every in-flight request as an
 ``EngineDeadError``, the loop ends, and later submissions raise the same
 error. A step that failed on the card leaves the pool and the decode
 carry in an unknown state, so carrying on would serve garbage or spin.
+
+``submit`` raises what ``add_request`` raises (``AdmissionRejected``
+when the waiting queue is full, ValueError for a bad option) to the
+server, and carries the request's deadline into the engine.
 """
 
 import asyncio
@@ -114,7 +118,8 @@ class AsyncLLMEngine:
     async def submit(self, prompt_tokens: List[int],
                      options: SamplingOptions,
                      seq_id: Optional[str] = None,
-                     model: Optional[str] = None
+                     model: Optional[str] = None,
+                     deadline: Optional[float] = None
                      ) -> Tuple[str, asyncio.Queue]:
         """Queue a request; returns (seq_id, result queue). add_request
         takes the engine lock, held across whole steps, so it runs on
@@ -130,7 +135,8 @@ class AsyncLLMEngine:
         try:
             cfut = self._lock_pool.submit(
                 lambda: self.engine.add_request(
-                    prompt_tokens, options, seq_id=seq_id, model=model))
+                    prompt_tokens, options, seq_id=seq_id, model=model,
+                    deadline=deadline))
         except RuntimeError:
             self._queues.pop(seq_id, None)
             raise
@@ -176,9 +182,11 @@ class AsyncLLMEngine:
 
     async def stream(self, prompt_tokens: List[int],
                      options: SamplingOptions,
-                     model: Optional[str] = None
+                     model: Optional[str] = None,
+                     deadline: Optional[float] = None
                      ) -> AsyncIterator[StepOutput]:
-        seq_id, q = await self.submit(prompt_tokens, options, model=model)
+        seq_id, q = await self.submit(prompt_tokens, options, model=model,
+                                      deadline=deadline)
         try:
             while True:
                 out = await q.get()

@@ -96,6 +96,21 @@ class BlockManager:
         # registered blocks with refcount 0, insertion order = LRU
         self._evictable: "collections.OrderedDict[int, None]" = \
             collections.OrderedDict()
+        # prefix-cache admissions that matched a block / matched none
+        self.hits = 0
+        self.misses = 0
+        # pool telemetry (plain ints, read at scrape time): allocation
+        # failures split by why the pool refused — zero allocatable
+        # blocks (exhausted), or fewer than the request needs
+        # (fragmented)
+        self.allocs = 0
+        self.blocks_allocated = 0
+        self.alloc_failures_exhausted = 0
+        self.alloc_failures_fragmented = 0
+        self.cache_evictions = 0
+        # optional observer called with the pool usage at every
+        # allocation attempt (the metrics layer's occupancy histogram)
+        self.on_alloc_occupancy = None
 
     # -- capacity --------------------------------------------------------
 
@@ -103,6 +118,47 @@ class BlockManager:
     def available(self) -> int:
         """Blocks allocatable right now (free + evictable-cached)."""
         return len(self._free) + len(self._evictable)
+
+    @property
+    def active_blocks(self) -> int:
+        """Blocks held by live sequences."""
+        return len(self._ref)
+
+    @property
+    def usage(self) -> float:
+        return self.active_blocks / float(self.num_blocks - 1)
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    def frag_report(self) -> dict:
+        """Point-in-time census of the pool (plain-int reads): block
+        states and the allocation-failure classification, served in
+        ``/load``'s ``kv_pool`` block and folded into ``/metrics``."""
+        return {
+            "num_blocks": self.num_blocks - 1,   # allocatable, no trash
+            "free": len(self._free),
+            "active": self.active_blocks,
+            "cached": len(self._evictable),
+            "usage": round(self.usage, 4),
+            "allocs": self.allocs,
+            "blocks_allocated": self.blocks_allocated,
+            "alloc_failures_exhausted": self.alloc_failures_exhausted,
+            "alloc_failures_fragmented": self.alloc_failures_fragmented,
+            "cache_evictions": self.cache_evictions,
+            "free_contiguity": round(self.free_contiguity(), 4),
+        }
+
+    def free_contiguity(self) -> float:
+        """Fraction of adjacent free-block-id pairs: 1.0 when the free
+        list is one dense run."""
+        if len(self._free) < 2:
+            return 1.0
+        s = sorted(self._free)
+        runs = sum(1 for a, b in zip(s, s[1:]) if b == a + 1)
+        return runs / (len(s) - 1)
 
     def blocks_for(self, num_tokens: int) -> int:
         return -(-num_tokens // self.block_size)
@@ -116,6 +172,7 @@ class BlockManager:
             blk, _ = self._evictable.popitem(last=False)   # LRU out
             key = self._key_of.pop(blk)
             del self._by_key[key]
+            self.cache_evictions += 1
             return blk
         return None
 
@@ -124,13 +181,21 @@ class BlockManager:
         nothing, so a failed admission/extension never leaks blocks."""
         if n <= 0:
             return None if n < 0 else []
+        self.allocs += 1
+        if self.on_alloc_occupancy is not None:
+            self.on_alloc_occupancy(self.usage)
         if self.available < n:
+            if self.available == 0:
+                self.alloc_failures_exhausted += 1
+            else:
+                self.alloc_failures_fragmented += 1
             return None
         out = []
         for _ in range(n):
             blk = self._take_one()
             self._ref[blk] = 1
             out.append(blk)
+        self.blocks_allocated += n
         return out
 
     def free(self, blocks: Sequence[int]) -> None:
@@ -165,17 +230,24 @@ class BlockManager:
         return self.hasher.chunk_keys(
             list(tokens[:usable * self.block_size]), salt=salt)
 
-    def match_keys(self, keys: Sequence[bytes]) -> Tuple[List[int], int]:
+    def match_keys(self, keys: Sequence[bytes],
+                   record_stats: bool = True) -> Tuple[List[int], int]:
         """Longest registered block chain along `keys` -> (pinned block
         ids, covered token count). Matched blocks are pinned
         (refcount++) — the caller owns them like alloc'd ones and must
-        free() them."""
+        free() them. record_stats=False skips the hit/miss counters (a
+        deferred admission's retries count once)."""
         blocks: List[int] = []
         for key in keys:
             blk = self._by_key.get(key)
             if blk is None:
                 break
             blocks.append(blk)
+        if record_stats and self.hasher is not None:
+            if blocks:
+                self.hits += 1
+            else:
+                self.misses += 1
         for blk in blocks:
             r = self._ref.get(blk, 0)
             if r == 0:

@@ -56,6 +56,17 @@ class EngineConfig:
     enable_prefix_caching: bool = False
     kv_transfer_config: Optional[Dict[str, Any]] = None
     lora_adapters: Optional[Dict[str, str]] = None
+    # overload protection: add_request raises AdmissionRejected (the
+    # server answers 503 + Retry-After) once this many sequences wait
+    # un-admitted beyond what the free slots absorb. None = unbounded
+    max_waiting_seqs: Optional[int] = None
+    # a sequence still waiting (never admitted) after this many
+    # milliseconds is shed (finish_reason "queue_delay" -> 503). None =
+    # never
+    max_queue_delay_ms: Optional[float] = None
+    # the device-memory peak the MBU gauge normalizes against (GB/s):
+    # an NVIDIA H100 SXM's 3,350 GB/s of HBM3 (NVIDIA's data sheet)
+    hbm_peak_gbps: float = 3350.0
     # the device every tensor of the engine lives on. "cuda" runs the
     # hand-written kernels; "cpu" runs their plain versions and must be
     # asked for. CUDA requested where there is none raises.
@@ -98,6 +109,15 @@ class EngineConfig:
             self.kv_block_size, max(8, (self.max_model_len + 7) // 8 * 8))
         if self.kv_pool_tokens is not None and self.kv_pool_tokens <= 0:
             raise ValueError("kv_pool_tokens must be positive")
+        if self.max_waiting_seqs is not None and self.max_waiting_seqs < 0:
+            raise ValueError("max_waiting_seqs must be >= 0 "
+                             "(0 sheds anything that cannot be admitted "
+                             "immediately; None = unbounded)")
+        if self.max_queue_delay_ms is not None \
+                and self.max_queue_delay_ms <= 0:
+            raise ValueError("max_queue_delay_ms must be positive")
+        if self.hbm_peak_gbps <= 0:
+            raise ValueError("hbm_peak_gbps must be positive")
         self.prefill_chunk = min(self.prefill_chunk, self.max_model_len)
         buckets = sorted(b for b in self.prefill_buckets
                          if b <= self.prefill_chunk)

@@ -14,14 +14,21 @@ host hands tokens to the server. Rows whose sequence finished or was
 aborted in between are discarded when the window is read. The JAX
 engine's adaptive window sizing and deeper pipelining are not ported:
 EngineConfig pins ``window_adapt`` off and ``pipeline_depth`` at 1.
-Sampling options the port does not implement (guided decoding,
-penalties, logit bias, min_tokens, top logprobs) and LoRA model ids are
-refused at ``add_request``.
+
+The load surface is the JAX engine's: bounded admission
+(``max_waiting_seqs`` -> ``AdmissionRejected``), deadlines and the
+queue-delay shed of waiting sequences (``scheduler.expire_waiting``), a
+lock-free ``load_report`` (``/load`` and the ``x-engine-*`` headers)
+and the metrics of engine/metrics.py, fed by plain-int accounting
+(engine/efficiency.py). Logit shaping (penalties, logit bias,
+min_tokens) and top-K logprobs run on the device (runner.py); guided
+decoding and LoRA model ids are refused at ``add_request``.
 """
 
 import dataclasses
 import itertools
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -31,8 +38,12 @@ import torch
 from production_stack_tpu_torch.engine.block_manager import (
     BlockManager, model_fingerprint)
 from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.efficiency import EngineEffAccounting
+from production_stack_tpu_torch.engine.metrics import EngineMetrics
 from production_stack_tpu_torch.engine.runner import ModelRunner
-from production_stack_tpu_torch.engine.sampler import SamplingParams
+from production_stack_tpu_torch.engine.sampler import (LOGIT_BIAS_K,
+                                                       MIN_TOKENS_STOP_K,
+                                                       SamplingParams)
 from production_stack_tpu_torch.engine.scheduler import (SamplingOptions,
                                                          Scheduler,
                                                          SeqStatus,
@@ -57,26 +68,36 @@ class StepOutput:
     text_delta: str
     finished: bool
     finish_reason: Optional[str]
-    # chosen token's log p under the raw model distribution
+    # chosen token's log p (shaped distribution for shaped rows, the raw
+    # model's otherwise)
     logprob: Optional[float] = None
+    # top_logprobs alternatives [(token_id, logprob)] when requested
+    top_alts: Optional[list] = None
+
+
+class AdmissionRejected(Exception):
+    """Bounded admission (cfg.max_waiting_seqs): the waiting queue is
+    full, so the request is shed at submit time. The server answers 503
+    + Retry-After."""
+
+    def __init__(self, queue_depth: int, retry_after_s: float):
+        self.queue_depth = queue_depth
+        self.retry_after_s = retry_after_s
+        super().__init__(
+            f"engine overloaded: {queue_depth} sequences already "
+            f"waiting (max_waiting_seqs reached); retry in "
+            f"~{retry_after_s:.1f}s")
+
+
+class DeadlineExceeded(Exception):
+    """The request's deadline (x-request-deadline-ms) expired while it
+    still waited; the server answers 504 with x-deadline-expired."""
 
 
 def unsupported_options(options: SamplingOptions) -> List[str]:
     """Names of the request options set away from their inert defaults
     that the port does not implement yet."""
-    bad = []
-    if options.guided_regex:
-        bad.append("guided decoding")
-    for name, inert in (("presence_penalty", 0.0),
-                        ("frequency_penalty", 0.0),
-                        ("repetition_penalty", 1.0), ("min_tokens", 0)):
-        if getattr(options, name) != inert:
-            bad.append(name)
-    if options.logit_bias:
-        bad.append("logit_bias")
-    if options.top_logprobs:
-        bad.append("top_logprobs")
-    return bad
+    return ["guided decoding"] if options.guided_regex else []
 
 
 class LLMEngine:
@@ -89,6 +110,30 @@ class LLMEngine:
                                         engine_cfg.chat_template)
         self.served_models = [engine_cfg.model]
         self.runner = ModelRunner(self.model_cfg, engine_cfg, params=params)
+        self.runner.eos_id = int(self.tokenizer.eos_token_id or 0)
+        self.metrics = EngineMetrics(engine_cfg.model)
+        # the byte model of the efficiency gauges: the whole parameter
+        # set, and what one cache position costs one attention read
+        # (K and V over layers and kv-heads, plus the int8 pool's f32
+        # scales)
+        mc = self.model_cfg
+        kv_itemsize = {"bfloat16": 2, "float32": 4,
+                       "int8": 1}[engine_cfg.kv_dtype]
+        kv_pos_bytes = (2 * mc.num_layers * mc.num_kv_heads
+                        * mc.head_dim_ * kv_itemsize)
+        if engine_cfg.kv_dtype == "int8":
+            kv_pos_bytes += 2 * mc.num_layers * mc.num_kv_heads * 4
+        params_ = self.runner.params
+        self.eff = EngineEffAccounting(
+            weight_bytes=sum(t.nbytes for t in (*params_.parameters(),
+                                                *params_.buffers())),
+            kv_position_bytes=kv_pos_bytes,
+            hbm_peak_bytes_per_s=engine_cfg.hbm_peak_gbps * 1e9)
+        # advertised once: the router's per-endpoint concurrency cap
+        # reads it (0 = unbounded admission)
+        self.metrics.capacity.set(
+            engine_cfg.max_num_seqs + engine_cfg.max_waiting_seqs
+            if engine_cfg.max_waiting_seqs is not None else 0)
         self.scheduler = Scheduler(engine_cfg.max_num_seqs,
                                    engine_cfg.max_model_len,
                                    engine_cfg.prefill_chunk)
@@ -99,11 +144,17 @@ class LLMEngine:
                                         engine_cfg.kv_dtype))
         self._tables = np.zeros((engine_cfg.max_num_seqs,
                                  engine_cfg.max_blocks_per_seq), np.int32)
+        self.block_mgr.on_alloc_occupancy = \
+            self.metrics.kvpool_occ_hist.observe
         self.scheduler.can_admit = self._try_admit
         self.scheduler.on_admit = self._set_slot_table
         self.seqs: Dict[str, Sequence] = {}
         self._finished_order: List[str] = []
         self._id_counter = itertools.count()
+        # EWMA of finished-request wall time (arrival -> finish), the
+        # pace of the queue-delay estimate; seeded before any request
+        # has finished
+        self._service_ewma = 0.5
         # guards scheduler state across the engine-loop and server threads
         self._lock = threading.RLock()
         # per-slot host mirrors feeding the decode batch; free and
@@ -116,6 +167,15 @@ class LLMEngine:
         self._slot_top_k = np.zeros((B,), np.int32)
         self._slot_seed = np.zeros((B,), np.int64)
         self._slot_min_p = np.zeros((B,), np.float32)
+        # logit-shaping mirrors (sampler.adjust_logits), inert by default
+        self._slot_presence = np.zeros((B,), np.float32)
+        self._slot_frequency = np.zeros((B,), np.float32)
+        self._slot_repetition = np.ones((B,), np.float32)
+        self._slot_min_tokens = np.zeros((B,), np.int32)
+        self._slot_prompt_len = np.zeros((B,), np.int32)
+        self._slot_bias_ids = np.full((B, LOGIT_BIAS_K), -1, np.int32)
+        self._slot_bias_vals = np.zeros((B, LOGIT_BIAS_K), np.float32)
+        self._slot_stop_ids = np.full((B, MIN_TOKENS_STOP_K), -1, np.int32)
         # device sampling params, re-uploaded only when a slot's options
         # change (admission/finish), never per window
         self._dev_sampling: Optional[SamplingParams] = None
@@ -123,9 +183,10 @@ class LLMEngine:
         # the decode carry is re-uploaded from the host mirrors only
         # after a slot-composition change (admission, finish, abort)
         self._decode_dirty = True
-        # the decode window in flight between steps:
-        # (ids_dev, lps_dev, W, [seqs at dispatch]) or None
+        # the decode window in flight between steps: (ids_dev, lps_dev,
+        # tops_dev, W, [seqs at dispatch], dispatch time, kv_len) or None
         self._inflight: Optional[tuple] = None
+        self._last_sync_t = 0.0
 
     # ------------------------------------------------------------------
 
@@ -141,24 +202,76 @@ class LLMEngine:
     def add_request(self, prompt_tokens: List[int],
                     options: Optional[SamplingOptions] = None,
                     seq_id: Optional[str] = None,
-                    model: Optional[str] = None) -> str:
+                    model: Optional[str] = None,
+                    deadline: Optional[float] = None) -> str:
+        """Queue a request. deadline: absolute time.monotonic() after
+        which a still-waiting sequence is dropped (finish_reason
+        "deadline"). Raises ValueError for an option out of range and
+        AdmissionRejected when the waiting queue is full."""
         seq_id = seq_id or f"seq-{next(self._id_counter)}"
         options = options or SamplingOptions()
         bad = unsupported_options(options)
         if bad:
             raise ValueError(f"not implemented in the PyTorch port yet: "
                              f"{', '.join(bad)}")
-        if not 0.0 <= options.min_p <= 1.0:
-            raise ValueError(f"min_p must be in [0, 1] "
-                             f"(got {options.min_p})")
+        self.check_options(options)
         self.resolve_model(model)
         seq = Sequence(seq_id=seq_id, prompt_tokens=list(prompt_tokens),
-                       options=options,
+                       options=options, deadline=deadline,
                        detok=DetokenizeStream(self.tokenizer))
         with self._lock:
+            # bounded admission: a fresh submit always lands in waiting
+            # first, so the bound is on waiting beyond what the free
+            # slots absorb on the next pass; preempted sequences (which
+            # hold a client stream already) reclaim slots first and do
+            # not count against new arrivals
+            if self.cfg.max_waiting_seqs is not None:
+                depth = sum(1 for s in self.scheduler.waiting
+                            if not s.output_tokens)
+                preempted = len(self.scheduler.waiting) - depth
+                allowance = self.cfg.max_waiting_seqs + max(
+                    0, len(self.scheduler.free_slots) - preempted)
+                if depth >= allowance:
+                    self.metrics.admission_rejected.inc()
+                    raise AdmissionRejected(
+                        depth, self.estimated_queue_delay_s())
             self.scheduler.add(seq)
             self.seqs[seq_id] = seq
         return seq_id
+
+    def check_options(self, options: SamplingOptions) -> None:
+        """The JAX engine's range checks: a bad value is a ValueError
+        here, on the caller's thread, never a failed step."""
+        if options.logit_bias:
+            if len(options.logit_bias) > LOGIT_BIAS_K:
+                raise ValueError(
+                    f"logit_bias supports at most {LOGIT_BIAS_K} "
+                    f"entries (got {len(options.logit_bias)})")
+            V = self.model_cfg.vocab_size
+            bad = [t for t in options.logit_bias if not 0 <= int(t) < V]
+            if bad:
+                raise ValueError(
+                    f"logit_bias token id {bad[0]} out of range for "
+                    f"vocab size {V}")
+        if not options.repetition_penalty > 0:
+            raise ValueError(
+                f"repetition_penalty must be > 0 "
+                f"(got {options.repetition_penalty})")
+        for fname in ("presence_penalty", "frequency_penalty"):
+            val = getattr(options, fname)
+            if not -2.0 <= val <= 2.0:
+                raise ValueError(f"{fname} must be in [-2, 2] (got {val})")
+        if not 0.0 <= options.min_p <= 1.0:
+            raise ValueError(f"min_p must be in [0, 1] "
+                             f"(got {options.min_p})")
+        if options.min_tokens < 0:
+            raise ValueError(f"min_tokens must be >= 0 "
+                             f"(got {options.min_tokens})")
+        if (options.min_tokens and options.stop_token_ids
+                and len(options.stop_token_ids) > MIN_TOKENS_STOP_K):
+            raise ValueError(
+                f"min_tokens supports at most {MIN_TOKENS_STOP_K} "
+                f"stop_token_ids (got {len(options.stop_token_ids)})")
 
     def abort(self, seq_id: str) -> bool:
         with self._lock:
@@ -170,6 +283,7 @@ class LLMEngine:
                 if seq is not None:
                     self._free_seq_blocks(seq)
                     self._remember(seq)
+            self._refresh_gauges()
             return ok
 
     # ------------------------------------------------------------------
@@ -178,7 +292,7 @@ class LLMEngine:
         """One engine iteration: this step's prefill chunks, then the
         decode window in flight is read and the next one dispatched."""
         with self._lock:
-            outputs: List[StepOutput] = []
+            outputs = self._expire_waiting()
             works, decode_seqs = self.scheduler.schedule()
             if works:
                 # the window in flight was dispatched before this
@@ -195,7 +309,35 @@ class LLMEngine:
                 decode_seqs = list(self.scheduler.running.values())
                 if decode_seqs:
                     self._dispatch_decode(decode_seqs)
+            self._refresh_gauges()
             return outputs
+
+    def _expire_waiting(self) -> List[StepOutput]:
+        """Drop expired-deadline and over-delayed sequences from the
+        waiting queue before admission, so no prefill is spent on a
+        request its client has given up on. Each gets a terminal
+        output with no token."""
+        cap = self.cfg.max_queue_delay_ms
+        outputs = []
+        for seq in self.scheduler.expire_waiting(
+                max_queue_delay_s=cap / 1e3 if cap is not None else None):
+            self._free_seq_blocks(seq)
+            self._remember(seq)
+            if seq.finish_reason == "deadline":
+                self.metrics.deadline_expired.inc()
+            else:
+                self.metrics.queue_delay_shed.inc()
+            now = time.monotonic()
+            logger.info("dropped %s while waiting (%s): queued %.0fms",
+                        seq.seq_id, seq.finish_reason,
+                        1e3 * (now - seq.arrival_time))
+            # its whole remaining life was queue wait
+            seq.queue_wait_s += now - seq.enqueued_time
+            self.metrics.engine_phases.observe("queue_wait",
+                                               seq.queue_wait_s)
+            outputs.append(StepOutput(seq.seq_id, None, "", True,
+                                      seq.finish_reason))
+        return outputs
 
     def _do_prefill(self, works) -> List[StepOutput]:
         """Batch-prefill every scheduled chunk: one forward per
@@ -221,13 +363,26 @@ class LLMEngine:
                 lengths[slot] = len(w.chunk)
                 kv_need = max(kv_need, w.start + bucket)
             opts = [w.seq.options for w in group]
-            ids_dev, lps_dev = self.runner.prefill(
+            last = [w.seq.options for w in group if w.is_last]
+            penalized = any(o.shaped for o in last)
+            topk = max((o.top_logprobs for o in last), default=0)
+            if penalized:
+                # the last chunks' rows sample their first token shaped;
+                # the window in flight was read first, so the mirrors
+                # are current. The next decode dispatch rebuilds again,
+                # with the tokens this prefill samples
+                self.runner.set_penalty_state(*self._penalty_arrays())
+            ids_dev, lps_dev, tops_dev = self.runner.prefill(
                 tokens, starts, lengths, self._dev_sampling,
                 self.cfg.kv_bucket_for(min(kv_need, S)),
-                **self._sampling_mode(opts))
-            ids = lps = None
+                penalized=penalized, topk=topk, **self._sampling_mode(opts))
+            self.eff.note_prefill(
+                bucket=bucket, batch=B,
+                real_tokens=sum(len(w.chunk) for w in group))
+            ids = lps = tops = None
             for w in group:
                 self.scheduler.on_prefill_done(w)
+                self.metrics.prompt_tokens.inc(len(w.chunk))
                 seq = w.seq
                 if self.cfg.enable_prefix_caching:
                     # a full block is final once its last position is
@@ -246,8 +401,18 @@ class LLMEngine:
                 if ids is None:
                     ids = ids_dev.cpu().numpy()   # one sync per bucket
                     lps = lps_dev.cpu().numpy()
+                    if tops_dev is not None:
+                        tops = (tops_dev[0].cpu().numpy(),
+                                tops_dev[1].cpu().numpy())
+                alts = None
+                k = seq.options.top_logprobs
+                if tops is not None and k:
+                    alts = _alts(tops[0][seq.slot], tops[1][seq.slot], k)
+                seq.first_token_time = time.monotonic()
+                self.metrics.ttft.observe(seq.first_token_time
+                                          - seq.arrival_time)
                 outputs.extend(self._accept_token(
-                    seq, int(ids[seq.slot]), float(lps[seq.slot])))
+                    seq, int(ids[seq.slot]), float(lps[seq.slot]), alts))
         self._decode_dirty = True
         return outputs
 
@@ -263,15 +428,48 @@ class LLMEngine:
                       for o in options))
 
     def _ensure_dev_sampling(self) -> None:
+        """Upload the slots' sampling mirrors when a slot's options
+        changed (admission, finish), never per window."""
         if self._sampling_dirty:
             dev = self.runner.device
+
+            def up(a):
+                return torch.from_numpy(a.copy()).to(dev)
+
             self._dev_sampling = SamplingParams(
-                temperature=torch.from_numpy(self._slot_temp.copy()).to(dev),
-                top_p=torch.from_numpy(self._slot_top_p.copy()).to(dev),
-                top_k=torch.from_numpy(self._slot_top_k.copy()).to(dev),
-                seed=torch.from_numpy(self._slot_seed.copy()).to(dev),
-                min_p=torch.from_numpy(self._slot_min_p.copy()).to(dev))
+                temperature=up(self._slot_temp), top_p=up(self._slot_top_p),
+                top_k=up(self._slot_top_k), seed=up(self._slot_seed),
+                min_p=up(self._slot_min_p),
+                presence=up(self._slot_presence),
+                frequency=up(self._slot_frequency),
+                repetition=up(self._slot_repetition),
+                min_tokens=up(self._slot_min_tokens),
+                prompt_len=up(self._slot_prompt_len),
+                bias_ids=up(self._slot_bias_ids),
+                bias_vals=up(self._slot_bias_vals),
+                stop_ids=up(self._slot_stop_ids))
             self._sampling_dirty = False
+
+    def _penalty_arrays(self):
+        """[B, V] generated-token counts and prompt membership of every
+        live slot, rebuilt from the sequences (at composition changes
+        only; within windows the device carries the counts), so a
+        sequence resumed after preemption has its own."""
+        B, V = self.cfg.max_num_seqs, self.model_cfg.vocab_size
+        counts = np.zeros((B, V), np.int32)
+        seen = np.zeros((B, V), bool)
+        live = list(self.scheduler.running.values()) + list(
+            self.scheduler._prefilling.values())
+        for s in live:
+            if s.slot < 0:
+                continue
+            if s.output_tokens:
+                out = np.asarray(s.output_tokens, np.int64)
+                np.add.at(counts[s.slot], np.clip(out, 0, V - 1), 1)
+            if s.prompt_tokens:
+                pt = np.clip(np.asarray(s.prompt_tokens, np.int64), 0, V - 1)
+                seen[s.slot][pt] = True
+        return counts, seen
 
     def _dispatch_decode(self, decode_seqs) -> bool:
         """Launch one decode window (no host sync). Every live slot's
@@ -291,13 +489,25 @@ class LLMEngine:
         kv_len = self.cfg.kv_bucket_for(
             min(max_pos + W + 1, self.cfg.max_model_len))
         self._ensure_dev_sampling()
+        # windows with a shaped row carry [B, V] counts and shape the
+        # logits; a row asking for alternatives gets the top K
+        penalized = any(s.options.shaped for s in decode_seqs)
+        topk = max((s.options.top_logprobs for s in decode_seqs),
+                   default=0)
         if self._decode_dirty:
+            if penalized:
+                # uploaded on the decode carry's trigger: any
+                # composition change; within windows the device adds
+                # each step's ids itself
+                self.runner.set_penalty_state(*self._penalty_arrays())
             self.runner.set_decode_state(self._slot_token, self._slot_pos)
             self._decode_dirty = False
-        ids_dev, lps_dev = self.runner.decode(
+        ids_dev, lps_dev, tops_dev = self.runner.decode(
             self._dev_sampling, steps=W, kv_len=kv_len,
+            penalized=penalized, topk=topk,
             **self._sampling_mode([s.options for s in decode_seqs]))
-        self._inflight = (ids_dev, lps_dev, W, list(decode_seqs))
+        self._inflight = (ids_dev, lps_dev, tops_dev, W, list(decode_seqs),
+                          time.monotonic(), kv_len)
         return True
 
     def _process_window(self) -> List[StepOutput]:
@@ -305,29 +515,57 @@ class LLMEngine:
         steps: each live row takes its tokens until it stops."""
         if self._inflight is None:
             return []
-        ids_dev, lps_dev, W, seqs = self._inflight
+        ids_dev, lps_dev, tops_dev, W, seqs, t0, kv_len = self._inflight
         self._inflight = None
+        # the window's wall time: from its dispatch, or from the last
+        # read if the host was still reading the previous one
+        t0 = max(t0, self._last_sync_t)
         ids = ids_dev.cpu().numpy()
         lps = lps_dev.cpu().numpy()
+        tops = None
+        if tops_dev is not None:
+            tops = (tops_dev[0].cpu().numpy(), tops_dev[1].cpu().numpy())
+        self._last_sync_t = time.monotonic()
+        self.metrics.engine_phases.observe("decode_window",
+                                           self._last_sync_t - t0)
         outputs: List[StepOutput] = []
         alive = [s for s in seqs if s.status is not SeqStatus.FINISHED]
+        accepted = steps_walked = 0
         for j in range(W):
+            steps_walked = j + 1
             still = []
             for seq in alive:
+                k = seq.options.top_logprobs
+                alts = (_alts(tops[0][seq.slot, j], tops[1][seq.slot, j], k)
+                        if tops is not None and k else None)
                 outs = self._accept_token(seq, int(ids[seq.slot, j]),
-                                          float(lps[seq.slot, j]))
+                                          float(lps[seq.slot, j]), alts)
+                accepted += 1
                 outputs.extend(outs)
                 if not outs[-1].finished:
                     still.append(seq)
             alive = still
             if not alive:
                 break
+        dt = time.monotonic() - t0
+        # inter-token latency: the window's wall over the steps walked
+        for _ in range(accepted):
+            self.metrics.per_token.observe(dt / steps_walked)
+        B = self.cfg.max_num_seqs
+        pad = (B - len(seqs)) * W
+        self.eff.note_window(steps=W, batch=B, kv_len=kv_len, real=accepted,
+                             pad=pad, dead=B * W - pad - accepted,
+                             window_s=dt)
         return outputs
 
     def _accept_token(self, seq: Sequence, token: int,
-                      logprob: Optional[float] = None) -> List[StepOutput]:
+                      logprob: Optional[float] = None,
+                      top_alts=None) -> List[StepOutput]:
         seq.output_tokens.append(token)
         seq.output_logprobs.append(logprob)
+        if seq.options.top_logprobs:
+            seq.output_top.append(top_alts)
+        self.metrics.generation_tokens.inc()
         delta = seq.detok.push(token)
         opt = seq.options
         if (token in opt.stop_token_ids
@@ -344,7 +582,7 @@ class LLMEngine:
         if reason is None:
             self._sync_slot(seq)
             return [StepOutput(seq.seq_id, token, text_delta, False, None,
-                               logprob)]
+                               logprob, top_alts)]
         # prefix caching: full blocks stay in the pool under their chain
         # keys; register BEFORE free so they land in the evictable LRU
         self.block_mgr.register(
@@ -354,8 +592,24 @@ class LLMEngine:
         self.scheduler.finish(seq, reason)
         self._park_slot(slot)
         self._remember(seq)
+        now = time.monotonic()
+        dur = now - seq.arrival_time
+        self.metrics.e2e_latency.observe(dur)
+        # the pace of the queue-delay estimate: the wall time, queueing
+        # included, that the next queued client will wait through
+        self._service_ewma = 0.8 * self._service_ewma + 0.2 * dur
+        # where the request's engine time went: cumulative queue wait,
+        # admission to first token, first token to finish
+        admit = seq.admit_time if seq.admit_time is not None \
+            else seq.arrival_time
+        first = seq.first_token_time if seq.first_token_time is not None \
+            else now
+        phases = self.metrics.engine_phases
+        phases.observe("queue_wait", seq.queue_wait_s)
+        phases.observe("prefill", max(0.0, first - admit))
+        phases.observe("decode", max(0.0, now - max(first, admit)))
         return [StepOutput(seq.seq_id, token, text_delta, True, reason,
-                           logprob)]
+                           logprob, top_alts)]
 
     def _stop_reason(self, seq: Sequence, token: int,
                      delta: str) -> Optional[str]:
@@ -388,30 +642,69 @@ class LLMEngine:
             self.seqs.pop(self._finished_order.pop(0), None)
 
     def _sync_slot(self, seq: Sequence) -> None:
-        """Mirror the sequence's next decode input into the slot arrays."""
+        """Mirror the sequence's next decode input into the slot arrays
+        (its sampling row was mirrored when its prefill was scheduled,
+        _do_prefill: a slot's options change only at admission)."""
         self._slot_token[seq.slot] = seq.output_tokens[-1]
         self._slot_pos[seq.slot] = seq.next_position
-        self._sync_sampling(seq)
 
     def _sync_sampling(self, seq: Sequence) -> None:
         slot, opt = seq.slot, seq.options
         # user seeds (0 and negatives included) map to a positive id;
         # 0 marks an unseeded row
         seed = 0 if opt.seed is None else (opt.seed % 0x7FFFFFFE) + 1
-        row = (opt.temperature, opt.top_p, opt.top_k, seed, opt.min_p)
+        bias_ids = np.full((LOGIT_BIAS_K,), -1, np.int32)
+        bias_vals = np.zeros((LOGIT_BIAS_K,), np.float32)
+        for i, (tid, val) in enumerate(sorted((opt.logit_bias
+                                               or {}).items())):
+            bias_ids[i] = tid
+            bias_vals[i] = val
+        stop_ids = np.full((MIN_TOKENS_STOP_K,), -1, np.int32)
+        if opt.min_tokens and opt.stop_token_ids:
+            # only read below the min_tokens floor; width checked at
+            # add_request. An id outside the vocabulary bans nothing,
+            # as the JAX sampler's scatter drops it
+            V = self.model_cfg.vocab_size
+            ids = [t for t in opt.stop_token_ids if 0 <= t < V]
+            stop_ids[:len(ids)] = ids
+        row = (opt.temperature, opt.top_p, opt.top_k, seed, opt.min_p,
+               opt.presence_penalty, opt.frequency_penalty,
+               opt.repetition_penalty, opt.min_tokens,
+               len(seq.prompt_tokens), bias_ids, bias_vals, stop_ids)
         mirrors = (self._slot_temp, self._slot_top_p, self._slot_top_k,
-                   self._slot_seed, self._slot_min_p)
-        if any(m[slot] != v for m, v in zip(mirrors, row)):
+                   self._slot_seed, self._slot_min_p, self._slot_presence,
+                   self._slot_frequency, self._slot_repetition,
+                   self._slot_min_tokens, self._slot_prompt_len,
+                   self._slot_bias_ids, self._slot_bias_vals,
+                   self._slot_stop_ids)
+        # compared in the mirrors' dtypes: a float32 mirror never
+        # equals a float64 0.8
+        if any(not np.array_equal(m[slot], np.asarray(v, m.dtype))
+               for m, v in zip(mirrors, row)):
             for m, v in zip(mirrors, row):
                 m[slot] = v
             self._sampling_dirty = True
 
     def _park_slot(self, slot: int) -> None:
         """Return a freed slot's mirrors to the idle state (position
-        max_model_len: its writes go to the trash block)."""
+        max_model_len: its writes go to the trash block; shaping
+        inert)."""
         if slot >= 0:
             self._slot_token[slot] = 0
             self._slot_pos[slot] = self.cfg.max_model_len
+            if (self._slot_presence[slot] or self._slot_frequency[slot]
+                    or self._slot_repetition[slot] != 1.0
+                    or self._slot_min_tokens[slot]
+                    or self._slot_bias_ids[slot, 0] >= 0
+                    or self._slot_stop_ids[slot, 0] >= 0):
+                self._slot_presence[slot] = 0.0
+                self._slot_frequency[slot] = 0.0
+                self._slot_repetition[slot] = 1.0
+                self._slot_min_tokens[slot] = 0
+                self._slot_bias_ids[slot, :] = -1
+                self._slot_bias_vals[slot, :] = 0.0
+                self._slot_stop_ids[slot, :] = -1
+                self._sampling_dirty = True
             self._decode_dirty = True
 
     # ---------------------------------------------------- paged-KV host
@@ -423,10 +716,13 @@ class LLMEngine:
         admission when the pool cannot cover the rest."""
         toks = seq.prefill_tokens
         # hash the prompt once per length: a deferred admission retries
-        # every scheduler pass
-        if seq.prefix_state is None or seq.prefix_state[0] != len(toks):
+        # every scheduler pass, and counts one hit or miss
+        first_try = (seq.prefix_state is None
+                     or seq.prefix_state[0] != len(toks))
+        if first_try:
             seq.prefix_state = (len(toks), self.block_mgr.prefix_keys(toks))
-        shared, covered = self.block_mgr.match_keys(seq.prefix_state[1])
+        shared, covered = self.block_mgr.match_keys(
+            seq.prefix_state[1], record_stats=first_try)
         need = self.block_mgr.blocks_for(len(toks) + 1) - len(shared)
         fresh = self.block_mgr.alloc(max(need, 0))
         if fresh is None:
@@ -491,9 +787,84 @@ class LLMEngine:
         self.scheduler.preempt(seq)
         self._park_slot(slot)
         self._set_table_row(slot, [])
+        self.metrics.preemptions.inc()
+
+    # ------------------------------------------------- overload surface
+
+    def render_metrics(self) -> bytes:
+        """The /metrics exposition: gauges refreshed, the efficiency and
+        pool totals folded in as counter deltas."""
+        with self._lock:
+            self._refresh_gauges()
+            self.metrics.sync_eff(self.eff.report(), self.eff.rates())
+            self.metrics.sync_kvpool(self.block_mgr.frag_report())
+        return self.metrics.render()
+
+    def admission_full(self) -> bool:
+        """Lock-free hint: True when a new submit would very likely be
+        rejected by bounded admission now, so a shed storm is refused
+        before tokenization. The exact count stays in add_request."""
+        cap = self.cfg.max_waiting_seqs
+        if cap is None:
+            return False
+        return len(self.scheduler.waiting) >= \
+            cap + len(self.scheduler.free_slots)
+
+    def estimated_queue_delay_s(self) -> float:
+        """The wait a newly queued request faces: the queue ahead of it
+        over the batch width, paced by the recent per-request wall
+        time. Lock-free (len() and attribute reads), so /load and
+        Retry-After answer while a step holds the engine lock."""
+        waiting = len(self.scheduler.waiting)
+        return (waiting / max(1, self.cfg.max_num_seqs)) \
+            * self._service_ewma
+
+    def load_report(self) -> Dict[str, object]:
+        """Point-in-time load signal, served on /load and as the
+        x-engine-* response headers (signals.parse_load_report reads
+        it). Lock-free, as estimated_queue_delay_s."""
+        sched = self.scheduler
+        cap = None
+        if self.cfg.max_waiting_seqs is not None:
+            cap = self.cfg.max_num_seqs + self.cfg.max_waiting_seqs
+        return {
+            "queue_depth": len(sched.waiting),
+            "running": len(sched.running) + len(sched._prefilling),
+            "max_num_seqs": self.cfg.max_num_seqs,
+            "max_waiting_seqs": self.cfg.max_waiting_seqs,
+            # in-flight sequences accepted before shedding (None =
+            # unbounded); the router derives its concurrency cap from it
+            "capacity": cap,
+            "free_kv_blocks": self.block_mgr.available,
+            "kv_usage": round(self.block_mgr.usage, 4),
+            "est_queue_delay_ms": round(
+                1e3 * self.estimated_queue_delay_s(), 1),
+            "models": list(self.served_models),
+            "perf": self.eff.perf_block(),
+            "kv_pool": self.block_mgr.frag_report(),
+        }
+
+    def _refresh_gauges(self) -> None:
+        m = self.metrics
+        m.num_running.set(self.scheduler.num_running)
+        m.num_waiting.set(self.scheduler.num_waiting)
+        m.est_queue_delay.set(1e3 * self.estimated_queue_delay_s())
+        usage = self.block_mgr.usage
+        m.kv_usage.set(usage)
+        m.hbm_kv_usage.set(usage)
+        if self.cfg.enable_prefix_caching:
+            m.hbm_prefix_hit_rate.set(self.block_mgr.hit_rate)
+            m.prefix_hit_rate.set(self.block_mgr.hit_rate)
 
     # ------------------------------------------------------------------
 
     @property
     def has_work(self) -> bool:
         return self.scheduler.has_work
+
+
+def _alts(ids: np.ndarray, lps: np.ndarray, k: int) -> list:
+    """A row's top-k alternatives [(id, logprob)], dropping banned
+    entries (-1e30 logits would serialize as -Infinity)."""
+    return [(int(t), float(l)) for t, l in zip(ids[:k], lps[:k])
+            if l > -1e29]

@@ -17,6 +17,14 @@ fall back from: on CUDA tensors attention runs the hand-written kernels
 (ops/paged_attention.py) or raises. CUDA graphs of the decode step are
 later work. The pool is updated in place (models/kv.write_chunk).
 
+Where JAX forks its executables on ``penalized`` and ``topk``, these
+are arguments here: a batch with a shaped row runs
+``sampler.adjust_logits`` before the pick (decode windows carry the
+[B, V] counts of generated tokens on the device and add each step's ids
+to them), and a batch that asks for alternatives takes the top K of the
+same log-softmax the chosen logprob comes from. A batch with neither
+runs exactly the launches it ran before either existed.
+
 ``quantization="int8"`` quantizes the weights on their device right
 after they are made or handed in (the given module is quantized in
 place, as JAX consumes its donated params); ``kv_dtype="int8"``
@@ -30,10 +38,12 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine.config import EngineConfig
-from production_stack_tpu_torch.engine.sampler import SamplingParams, sample
+from production_stack_tpu_torch.engine.sampler import (SamplingParams,
+                                                      adjust_logits, sample)
 from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models.config import ModelConfig
-from production_stack_tpu_torch.models.kv import KVCache, make_cache
+from production_stack_tpu_torch.models.kv import (KVCache, make_cache,
+                                                  make_slot_cache)
 from production_stack_tpu_torch.models.quant import quantize_params
 from production_stack_tpu_torch.utils import init_logger
 
@@ -43,21 +53,55 @@ _KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
               "int8": torch.int8}
 
 
+# top-K alternatives: (token ids int32, logprobs f32), [B, K] from a
+# pick and [B, steps, K] from a decode window
+Tops = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+# prompt logprobs: vocabulary rows of the LM head materialized at once
+_PROMPT_LP_CHUNK = 256
+
+
 def _pick(logits: torch.Tensor, sampling: SamplingParams,
           generator: torch.Generator, positions: torch.Tensor, *,
-          greedy: bool, seeded: bool,
-          plain: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(ids int32 [B], their logprobs f32 [B]) from f32 logits [B, V]:
-    argmax for all-greedy batches, else sample(); the logprob is the
-    chosen token's under the raw model distribution."""
+          greedy: bool, seeded: bool, plain: bool, shaping=None,
+          topk: int = 0) -> Tuple[torch.Tensor, torch.Tensor, Tops]:
+    """(ids int32 [B], their logprobs f32 [B], top-K or None) from f32
+    logits [B, V]; positions [B]: where the sampled token lands.
+    shaping (out_counts, prompt_seen, eos_id) shapes the logits first
+    (the token being sampled is output index positions - prompt_len).
+    Argmax for all-greedy batches, else sample(). The chosen logprob
+    and the alternatives are taken under the same distribution: the
+    shaped one where shaping is on, the raw model's otherwise."""
+    if shaping is not None:
+        counts, seen, eos_id = shaping
+        logits = adjust_logits(logits, sampling, counts, seen,
+                               positions - sampling.prompt_len, eos_id)
     if greedy:
         ids = torch.argmax(logits, dim=-1).to(torch.int32)
     else:
         ids = sample(logits, sampling, generator,
                      positions=positions if seeded else None, plain=plain)
-    lp = torch.log_softmax(logits, dim=-1).gather(
-        1, ids.long()[:, None])[:, 0]
-    return ids, lp
+    lsm = torch.log_softmax(logits, dim=-1)
+    lp = lsm.gather(1, ids.long()[:, None])[:, 0]
+    tops = None
+    if topk:
+        vals, idx = torch.topk(lsm, topk, dim=-1)
+        tops = (idx.to(torch.int32), vals)
+    return ids, lp, tops
+
+
+def _target_logprobs(logits: torch.Tensor,
+                     targets: torch.Tensor) -> torch.Tensor:
+    """log p(target) of f32 logits [N, C, V] at int64 targets [N, C] by
+    the JAX runner's rule (jnp.take_along_axis, mode "fill"): ids in
+    [-V, 0) wrap, ids outside [-V, V) read NaN. On the device, so a
+    prompt id outside the vocabulary never indexes out of bounds."""
+    V = logits.shape[-1]
+    idx = torch.remainder(torch.clamp(targets, -V, V - 1), V)
+    lp = (logits.gather(2, idx[..., None])[..., 0]
+          - torch.logsumexp(logits, dim=-1))
+    inside = (targets >= -V) & (targets < V)
+    return torch.where(inside, lp, torch.full_like(lp, float("nan")))
 
 
 class ModelRunner:
@@ -99,6 +143,12 @@ class ModelRunner:
         # only when the engine marks them stale
         self._dec_tokens: Optional[torch.Tensor] = None
         self._dec_pos: Optional[torch.Tensor] = None
+        # logit-shaping carry [B, V]: generated-token counts (int32) and
+        # prompt membership (bool), uploaded by set_penalty_state
+        self._dec_counts: Optional[torch.Tensor] = None
+        self._dec_seen: Optional[torch.Tensor] = None
+        # the EOS id min_tokens bans (the engine sets its tokenizer's)
+        self.eos_id = 0
 
     # ------------------------------------------------------------------
 
@@ -121,6 +171,19 @@ class ModelRunner:
         self._dec_tokens = self._upload(tokens)
         self._dec_pos = self._upload(positions)
 
+    def set_penalty_state(self, out_counts: np.ndarray,
+                          prompt_seen: np.ndarray) -> None:
+        """Upload the logit-shaping state: generated-token counts
+        [B, V] int32 (carried by the decode windows like tokens and
+        positions) and prompt membership [B, V] bool."""
+        self._dec_counts = torch.from_numpy(
+            np.array(out_counts, np.int32)).to(self.device)
+        self._dec_seen = torch.from_numpy(
+            np.array(prompt_seen, bool)).to(self.device)
+
+    def _shaping(self, B: int):
+        return self._dec_counts[:B], self._dec_seen[:B], self.eos_id
+
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         """A host int32 array as a device tensor (copied: the host
         mirror may change while the device still reads it)."""
@@ -131,45 +194,67 @@ class ModelRunner:
     @torch.no_grad()
     def decode(self, sampling: SamplingParams, steps: int = 1,
                kv_len: Optional[int] = None, greedy: bool = False,
-               seeded: bool = False, plain: bool = False
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               seeded: bool = False, plain: bool = False,
+               penalized: bool = False, topk: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor, Tops]:
         """A window of `steps` decode steps over the carried batch.
-        Returns device (ids int32 [B, steps], logprobs f32 [B, steps]);
-        reading them is the window's one host sync. Attention reads the
-        first ceil(kv_len/Bs) blocks; the engine guarantees every live
-        position stays < kv_len and its table row covers the window."""
+        Returns device (ids int32 [B, steps], logprobs f32 [B, steps],
+        top-K [B, steps, K] or None); reading them is the window's one
+        host sync. Attention reads the first ceil(kv_len/Bs) blocks; the
+        engine guarantees every live position stays < kv_len and its
+        table row covers the window. penalized: shape every step's
+        logits with the carried counts (set_penalty_state), which each
+        step's ids then join."""
         S = self.engine_cfg.max_model_len
         kv_len = kv_len or S
         toks, pos = self._dec_tokens, self._dec_pos
         B = toks.shape[0]
         sampling = sampling.rows(B)
         tables = self._dev_tables()[:B]
-        ids, lps = [], []
+        shaping = self._shaping(B) if penalized else None
+        ids, lps, tops = [], [], []
         for _ in range(steps):
             logits, _ = llama.forward(
                 self.params, self.model_cfg, toks[:, None], pos[:, None],
                 self.cache, block_tables=tables, rope=self.rope,
-                kv_len=kv_len, token_valid=(pos < S)[:, None])
-            tok, lp = _pick(logits[:, 0], sampling, self._generator,
-                            pos + 1, greedy=greedy, seeded=seeded,
-                            plain=plain)
+                kv_len=kv_len, token_valid=(pos < S)[:, None],
+                sampled_ids=True)
+            tok, lp, top = _pick(logits[:, 0], sampling, self._generator,
+                                 pos + 1, greedy=greedy, seeded=seeded,
+                                 plain=plain, shaping=shaping, topk=topk)
+            if shaping is not None:
+                counts, seen, eos_id = shaping
+                counts = counts.scatter_add(
+                    1, tok.long()[:, None],
+                    torch.ones_like(tok, dtype=torch.int32)[:, None])
+                shaping = (counts, seen, eos_id)
             ids.append(tok)
             lps.append(lp)
+            tops.append(top)
             toks, pos = tok, pos + 1
         self._dec_tokens, self._dec_pos = toks, pos
-        return torch.stack(ids, dim=1), torch.stack(lps, dim=1)
+        if shaping is not None:
+            self._dec_counts = shaping[0]
+        out_tops = None
+        if topk:
+            out_tops = (torch.stack([t[0] for t in tops], dim=1),
+                        torch.stack([t[1] for t in tops], dim=1))
+        return torch.stack(ids, dim=1), torch.stack(lps, dim=1), out_tops
 
     @torch.no_grad()
     def prefill(self, tokens: np.ndarray, starts: np.ndarray,
                 lengths: np.ndarray, sampling: SamplingParams,
                 kv_len: int, greedy: bool = False, seeded: bool = False,
-                plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                plain: bool = False, penalized: bool = False,
+                topk: int = 0) -> Tuple[torch.Tensor, torch.Tensor, Tops]:
         """Full-batch chunk prefill. tokens [B, Tb], starts/lengths [B]
         (host int32). Every row writes its chunk at its own offset
         through its table; idle rows (parked at start = max_model_len)
         and right padding write to the trash block. Returns device
         (id sampled after each row's last real token [B], its logprob
-        [B])."""
+        [B], top-K [B, K] or None). penalized: the first sampled token
+        takes the shaping, with the uploaded counts (the emitted output
+        of a row resumed after preemption) and prompt membership."""
         S = self.engine_cfg.max_model_len
         toks = self._upload(tokens)
         st = self._upload(starts)
@@ -183,9 +268,57 @@ class ModelRunner:
             block_tables=self._dev_tables(), rope=self.rope, kv_len=kv_len,
             token_valid=token_valid,
             last_index=torch.clamp(ln - 1, min=0))
-        return _pick(logits[:, 0], sampling.rows(toks.shape[0]),
-                     self._generator, st + torch.clamp(ln, min=1),
-                     greedy=greedy, seeded=seeded, plain=plain)
+        B = toks.shape[0]
+        return _pick(logits[:, 0], sampling.rows(B), self._generator,
+                     st + torch.clamp(ln, min=1), greedy=greedy,
+                     seeded=seeded, plain=plain,
+                     shaping=self._shaping(B) if penalized else None,
+                     topk=topk)
+
+    @torch.no_grad()
+    def prompt_logprobs(self, tokens: np.ndarray) -> torch.Tensor:
+        """Teacher-forced logprobs of a prompt batch: tokens [N, T] host
+        int32 -> f32 [N, T-1] on the device, entry t = log p(tokens[t+1]
+        | tokens[:t+1]) under the raw model distribution (rows shorter
+        than T are right-padded; their entries past len-1 are padding).
+        The prompt runs through the paged kernels over a pool of its own
+        (the serving pool is not touched, so this may run beside the
+        engine loop) in prefill_chunk chunks, and the LM head in chunks
+        of 256 positions, so one [N, 256, V] f32 slab exists at a time;
+        Gemma-2's final softcap and an int8 head's per-vocab scale apply
+        as in serving (llama.final_logits). A target id outside the
+        vocabulary reads as jnp.take_along_axis reads it in the JAX
+        runner (_target_logprobs)."""
+        cfg, ecfg = self.model_cfg, self.engine_cfg
+        N, T = tokens.shape
+        if T > ecfg.max_model_len:
+            raise ValueError(f"prompt length {T} exceeds max_model_len "
+                             f"{ecfg.max_model_len}")
+        Bs = ecfg.kv_block_size
+        cache, tables = make_slot_cache(
+            cfg.num_layers, N, -(-T // Bs) * Bs, cfg.num_kv_heads,
+            cfg.head_dim_, dtype=self.cache.k.dtype, block_size=Bs,
+            device=self.device)
+        toks = self._upload(tokens)
+        out = []
+        for lo in range(0, T - 1, ecfg.prefill_chunk):
+            hi = min(lo + ecfg.prefill_chunk, T)
+            pos = torch.arange(lo, hi, device=self.device,
+                               dtype=torch.int32)[None].expand(N, -1)
+            x = llama.hidden(self.params, cfg, toks[:, lo:hi], pos, cache,
+                             block_tables=tables, rope=self.rope,
+                             kv_len=hi)
+            for c0 in range(lo, min(hi, T - 1), _PROMPT_LP_CHUNK):
+                c1 = min(c0 + _PROMPT_LP_CHUNK, hi, T - 1)
+                logits = llama.final_logits(self.params, cfg,
+                                            x[:, c0 - lo:c1 - lo])
+                out.append(_target_logprobs(
+                    logits, toks[:, c0 + 1:c1 + 1].long()))
+        del cache
+        if not out:
+            return torch.zeros((N, 0), dtype=torch.float32,
+                               device=self.device)
+        return torch.cat(out, dim=1)
 
     def warmup(self) -> float:
         """One parked decode step and one parked prefill chunk: loads

@@ -12,8 +12,11 @@ seeded rows rely on: a row with ``seed > 0`` draws its Gumbel noise
 from a counter hash of (seed, position, vocab index) only, so the same
 seeded request gives the same tokens whatever else shares the batch —
 and the same on the CPU and on the card. Unseeded rows draw from the
-engine's ``torch.Generator``. ``adjust_logits`` (penalties, logit bias,
-min_tokens) is not ported yet.
+engine's ``torch.Generator``.
+
+``adjust_logits`` is the OpenAI/vLLM logit shaping (penalties, logit
+bias, min_tokens) ahead of sampling: plain tensor ops over [B, V], run
+only for windows with a shaped row (engine.py).
 """
 
 from dataclasses import dataclass, fields
@@ -26,37 +29,104 @@ from production_stack_tpu_torch.utils import resolve_device
 _EPS = 1e-6
 _NEG_INF = -1e30
 
+# logit_bias slots per row: covers OpenAI's documented 300-entry cap
+LOGIT_BIAS_K = 320
+
+# stop_token_ids masked while the output is below min_tokens (vLLM:
+# min_tokens bans EOS and every stop token)
+MIN_TOKENS_STOP_K = 16
+
 
 @dataclass
 class SamplingParams:
-    """Per-row request state, each a [B] tensor on the engine device."""
+    """Per-row request state on the engine device: [B] tensors, and
+    [B, K] for the logit-bias and stop-id slots."""
 
     temperature: torch.Tensor   # f32; <= 0 => greedy
     top_p: torch.Tensor         # f32 in (0, 1]
     top_k: torch.Tensor         # int32; 0 => disabled
     seed: torch.Tensor          # int64; 0 => unseeded (engine generator)
     min_p: torch.Tensor         # f32; 0 => off
+    # logit shaping (adjust_logits), inert at these defaults
+    presence: torch.Tensor      # f32; 0 => off (OpenAI presence_penalty)
+    frequency: torch.Tensor     # f32; 0 => off (OpenAI frequency_penalty)
+    repetition: torch.Tensor    # f32; 1 => off (HF/vLLM repetition_penalty)
+    min_tokens: torch.Tensor    # int32; EOS + stop ids banned below it
+    prompt_len: torch.Tensor    # int32; output index = position - this
+    bias_ids: torch.Tensor      # int32 [B, LOGIT_BIAS_K]; -1 => unused
+    bias_vals: torch.Tensor     # f32 [B, LOGIT_BIAS_K]
+    stop_ids: torch.Tensor      # int32 [B, MIN_TOKENS_STOP_K]; -1 => unused
 
     @staticmethod
     def filled(batch: int, temperature=1.0, top_p=1.0, top_k=0, seed=0,
-               min_p=0.0, device="cuda") -> "SamplingParams":
+               min_p=0.0, presence=0.0, frequency=0.0, repetition=1.0,
+               min_tokens=0, prompt_len=0, device="cuda"
+               ) -> "SamplingParams":
         device = resolve_device(device)
+
+        def full(shape, value, dtype):
+            return torch.full(shape, value, dtype=dtype, device=device)
+
+        f32, i32 = torch.float32, torch.int32
         return SamplingParams(
-            temperature=torch.full((batch,), temperature,
-                                   dtype=torch.float32, device=device),
-            top_p=torch.full((batch,), top_p, dtype=torch.float32,
-                             device=device),
-            top_k=torch.full((batch,), top_k, dtype=torch.int32,
-                             device=device),
-            seed=torch.full((batch,), seed, dtype=torch.int64,
-                            device=device),
-            min_p=torch.full((batch,), min_p, dtype=torch.float32,
-                             device=device))
+            temperature=full((batch,), temperature, f32),
+            top_p=full((batch,), top_p, f32),
+            top_k=full((batch,), top_k, i32),
+            seed=full((batch,), seed, torch.int64),
+            min_p=full((batch,), min_p, f32),
+            presence=full((batch,), presence, f32),
+            frequency=full((batch,), frequency, f32),
+            repetition=full((batch,), repetition, f32),
+            min_tokens=full((batch,), min_tokens, i32),
+            prompt_len=full((batch,), prompt_len, i32),
+            bias_ids=full((batch, LOGIT_BIAS_K), -1, i32),
+            bias_vals=full((batch, LOGIT_BIAS_K), 0.0, f32),
+            stop_ids=full((batch, MIN_TOKENS_STOP_K), -1, i32))
 
     def rows(self, n: int) -> "SamplingParams":
         """The first n rows."""
         return SamplingParams(**{f.name: getattr(self, f.name)[:n]
                                  for f in fields(self)})
+
+
+def adjust_logits(logits: torch.Tensor, params: SamplingParams,
+                  out_counts: torch.Tensor, prompt_seen: torch.Tensor,
+                  out_len: torch.Tensor, eos_id: int) -> torch.Tensor:
+    """OpenAI/vLLM logit shaping ahead of sampling
+    (``production_stack_tpu/engine/sampler.py adjust_logits``).
+
+    logits f32 [B, V]; out_counts int32 [B, V]: each row's counts of
+    generated tokens; prompt_seen bool [B, V]: tokens of the prompt;
+    out_len [B]: tokens generated so far (the one being sampled is
+    output index out_len). As in vLLM:
+
+    - logit_bias: added from the request's (id, value) pairs;
+    - repetition_penalty: divides positive and multiplies negative
+      logits of every token seen in the prompt or the output;
+    - presence_penalty: subtracted once for any generated token;
+    - frequency_penalty: subtracted per generated occurrence;
+    - min_tokens: EOS and the request's stop ids are banned while
+      out_len < min_tokens."""
+    B, V = logits.shape
+    valid = params.bias_ids >= 0
+    logits = logits.scatter_add(
+        1, params.bias_ids.clamp(min=0).long(),
+        torch.where(valid, params.bias_vals,
+                    torch.zeros_like(params.bias_vals)))
+    seen_out = out_counts > 0
+    rep = params.repetition[:, None]
+    penal = torch.where(logits > 0, logits / rep, logits * rep)
+    logits = torch.where(seen_out | prompt_seen, penal, logits)
+    logits = logits - params.presence[:, None] * seen_out
+    logits = logits - params.frequency[:, None] * out_counts
+    below_floor = (out_len < params.min_tokens)[:, None]
+    banned = torch.zeros((B, V), dtype=torch.int32,
+                         device=logits.device).scatter_add_(
+        1, params.stop_ids.clamp(min=0).long(),
+        (params.stop_ids >= 0).to(torch.int32)) > 0
+    banned[:, eos_id] = True
+    return torch.where(below_floor & banned,
+                       torch.full_like(logits, _NEG_INF), logits)
 
 
 def _i64(c: int) -> int:

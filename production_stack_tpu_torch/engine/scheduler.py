@@ -1,7 +1,7 @@
 """Continuous-batching scheduler: waiting queue -> slots -> decode batch
 (``production_stack_tpu/engine/scheduler.py``, without the state of
-features the port has not taken yet: deadlines and queue-delay shedding,
-KV tiering, guided decoding, LoRA, phase tracing).
+features the port has not taken yet: KV tiering, guided decoding, LoRA,
+sliding-window block rolling).
 
 Policy (round-robin between admission and decode):
 - A waiting sequence is admitted when a slot is free; its prompt is
@@ -86,8 +86,24 @@ class Sequence:
     # per output token: chosen-token logprob (pre-temperature, post-
     # shaping distribution — raw model distribution for unshaped rows)
     output_logprobs: List[Optional[float]] = field(default_factory=list)
+    # per output token, when options.top_logprobs: [(id, logprob)] top
+    # alternatives under the same distribution
+    output_top: List[Optional[list]] = field(default_factory=list)
     num_prefilled: int = 0
     arrival_time: float = field(default_factory=time.monotonic)
+    # phase attribution: queue time accumulates across admissions, so a
+    # preempted-and-requeued sequence never counts an interval twice —
+    # enqueued_time stamps each entry into the waiting queue, schedule()
+    # folds the closed interval into queue_wait_s at slot assignment,
+    # and admit_time keeps the last admission
+    enqueued_time: float = 0.0          # set from arrival in __post_init__
+    queue_wait_s: float = 0.0
+    admit_time: Optional[float] = None
+    first_token_time: Optional[float] = None
+    # absolute monotonic deadline (the client's x-request-deadline-ms):
+    # a sequence whose deadline passes while it still waits is dropped
+    # by expire_waiting() before any prefill. None = no deadline
+    deadline: Optional[float] = None
     finish_reason: Optional[str] = None
     # cached prefix-cache chain keys: (salt, prefill_len, keys) — an
     # admission deferred by pool pressure retries every scheduler pass
@@ -97,6 +113,9 @@ class Sequence:
     output_text: str = ""       # stable decoded text, stop-truncated
     chars_emitted: int = 0      # prefix of output_text already delivered
     detok: object = None
+
+    def __post_init__(self):
+        self.enqueued_time = self.arrival_time
 
     @property
     def num_tokens(self) -> int:
@@ -190,6 +209,40 @@ class Scheduler:
                 return True
         return False
 
+    def expire_waiting(self, now: Optional[float] = None,
+                       max_queue_delay_s: Optional[float] = None
+                       ) -> List[Sequence]:
+        """Overload sweep over the waiting queue, run by the engine at
+        the top of every step: a sequence past its ``deadline`` is
+        dropped with finish_reason ``"deadline"``; with
+        ``max_queue_delay_s`` set, one queued longer than that is shed
+        with ``"queue_delay"``. Preempted sequences (with emitted
+        output) are exempt from the queue-delay shed, not from their
+        deadline. Returns the dropped sequences."""
+        if not self.waiting:
+            return []
+        if now is None:
+            now = time.monotonic()
+        dropped: List[Sequence] = []
+        kept: List[Sequence] = []
+        for seq in self.waiting:
+            if seq.deadline is not None and now >= seq.deadline:
+                reason = "deadline"
+            elif (max_queue_delay_s is not None
+                  and not seq.output_tokens
+                  and now - seq.arrival_time >= max_queue_delay_s):
+                reason = "queue_delay"
+            else:
+                kept.append(seq)
+                continue
+            seq.status = SeqStatus.FINISHED
+            seq.finish_reason = reason
+            dropped.append(seq)
+        if dropped:
+            self.waiting.clear()
+            self.waiting.extend(kept)
+        return dropped
+
     # ------------------------------------------------------------------
 
     def schedule(self) -> Tuple[List[PrefillWork], List[Sequence]]:
@@ -207,6 +260,8 @@ class Scheduler:
             if self.can_admit is not None and not self.can_admit(seq):
                 break   # KV pool pressure: keep FIFO order, retry later
             self.waiting.popleft()
+            seq.admit_time = time.monotonic()
+            seq.queue_wait_s += seq.admit_time - seq.enqueued_time
             seq.slot = self.free_slots.pop()
             seq.status = SeqStatus.PREFILLING
             self._prefilling[seq.slot] = seq
@@ -244,6 +299,7 @@ class Scheduler:
         seq.slot = -1
         seq.status = SeqStatus.WAITING
         seq.num_prefilled = 0
+        seq.enqueued_time = time.monotonic()   # a new queue-wait interval
         self.waiting.appendleft(seq)
 
     def finish(self, seq: Sequence, reason: str) -> None:
@@ -266,4 +322,12 @@ class Scheduler:
     @property
     def has_work(self) -> bool:
         return bool(self.waiting or self.running or self._prefilling)
+
+    @property
+    def num_waiting(self) -> int:
+        return len(self.waiting) + len(self._prefilling)
+
+    @property
+    def num_running(self) -> int:
+        return len(self.running)
 

@@ -1,13 +1,23 @@
 """OpenAI-compatible HTTP server for the PyTorch engine (aiohttp)
-(``production_stack_tpu/engine/server.py``, the main path only).
+(``production_stack_tpu/engine/server.py``, without the routes of
+features the port has not taken: embeddings, rerank, score, LoRA and
+kvplane admin, trace and perf debugging).
 
-Endpoints: ``/health``, ``/v1/models``, ``/v1/completions`` and
-``/v1/chat/completions``, streamed (SSE) or not. A request that sets a
-field the port does not implement yet — guided decoding, penalties,
-logit_bias, min_tokens, top or prompt logprobs, n > 1, several prompts
-in one request, a LoRA model id — is answered 400 with the field's
-name; nothing is silently ignored. A failed engine step answers 500 and
-turns /health to 503 (engine/async_engine.py).
+Endpoints: ``/v1/completions`` and ``/v1/chat/completions`` (streamed
+as SSE or not; ``n`` choices, several prompts per completion request,
+logprobs with top alternatives, ``echo`` with prompt logprobs, logit
+shaping), ``/v1/models``, ``/health``, ``/load``, ``/metrics``,
+``/version``, ``/tokenize`` and ``/detokenize``. Every reply carries the
+engine's ``x-engine-*`` load headers. Overload answers as the JAX
+server does: 503 + Retry-After when bounded admission sheds a request
+or the queue-delay cap drops it, 504 + ``x-deadline-expired`` when the
+client's ``x-request-deadline-ms`` elapses before admission.
+
+A request that asks for what the port does not implement yet — guided
+decoding, a ``response_format`` other than text, a LoRA model id — is
+answered 400 with the field's name; nothing is silently ignored. A
+failed engine step answers 500 and turns /health to 503
+(engine/async_engine.py).
 
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b
 
@@ -16,10 +26,14 @@ runs on the card; ``--device cpu`` runs the plain PyTorch path.
 
 import argparse
 import asyncio
+import dataclasses
 import json
+import math
+import time
 from contextlib import aclosing
 from typing import List, Optional
 
+import numpy as np
 from aiohttp import web
 from pydantic import ValidationError
 
@@ -27,13 +41,23 @@ from production_stack_tpu_torch import protocol as proto
 from production_stack_tpu_torch.engine.async_engine import (AsyncLLMEngine,
                                                             EngineDeadError)
 from production_stack_tpu_torch.engine.config import EngineConfig
-from production_stack_tpu_torch.engine.engine import unsupported_options
+from production_stack_tpu_torch.engine.engine import (AdmissionRejected,
+                                                      DeadlineExceeded)
 from production_stack_tpu_torch.engine.scheduler import SamplingOptions
 from production_stack_tpu_torch.utils import init_logger
+from production_stack_tpu_torch.version import __version__
 
 logger = init_logger(__name__)
 
 ENGINE_KEY = web.AppKey("engine", AsyncLLMEngine)
+
+# relative per-request budget in milliseconds (the router sets it)
+DEADLINE_HEADER = "x-request-deadline-ms"
+# marks a 504 as "the client's deadline elapsed": the router relays it
+# without a breaker signal or failover
+DEADLINE_MARKER = "x-deadline-expired"
+# OpenAI's bound on n, and on len(prompt) * n
+MAX_CHOICES = 128
 
 
 def _error(status: int, message: str,
@@ -47,6 +71,96 @@ def _dead(e: EngineDeadError) -> web.Response:
     return _error(500, str(e), err_type="internal_error")
 
 
+class _QueueDelayShed(Exception):
+    """The scheduler shed this request for exceeding max_queue_delay_ms
+    while it waited (finish_reason "queue_delay")."""
+
+
+def _deadline_from(request: web.Request):
+    """x-request-deadline-ms as an absolute monotonic deadline:
+    (deadline or None, error response or None)."""
+    raw = request.headers.get(DEADLINE_HEADER)
+    if raw is None:
+        return None, None
+    try:
+        ms = float(raw)
+    except ValueError:
+        return None, _error(400, f"{DEADLINE_HEADER} must be a number "
+                                 f"of milliseconds (got {raw!r})")
+    if not math.isfinite(ms):
+        return None, _error(400, f"{DEADLINE_HEADER} must be finite")
+    if ms <= 0:
+        # already expired on arrival: 504 before any engine work
+        return None, _deadline_error()
+    return time.monotonic() + ms / 1e3, None
+
+
+def _deadline_error() -> web.Response:
+    resp = _error(504, "request deadline expired while waiting for "
+                       "admission (x-request-deadline-ms elapsed before "
+                       "the engine could start it)",
+                  err_type="timeout_error")
+    resp.headers[DEADLINE_MARKER] = "1"
+    return resp
+
+
+def _shed_error(engine: AsyncLLMEngine,
+                message: Optional[str] = None) -> web.Response:
+    """503 + Retry-After: the shed the router reads as shed-not-sick."""
+    retry_s = max(1.0, engine.engine.estimated_queue_delay_s())
+    resp = _error(503, message or "engine overloaded: request shed; "
+                                  "retry after the indicated delay",
+                  err_type="overloaded_error")
+    resp.headers["Retry-After"] = str(int(math.ceil(retry_s)))
+    return resp
+
+
+def _load_headers(engine: AsyncLLMEngine) -> dict:
+    """The load report every reply carries (lock-free)."""
+    report = engine.engine.load_report()
+    return {
+        "x-engine-queue-depth": str(report["queue_depth"]),
+        "x-engine-running": str(report["running"]),
+        "x-engine-free-kv-blocks": str(report["free_kv_blocks"]),
+        "x-engine-est-queue-delay-ms": str(report["est_queue_delay_ms"]),
+    }
+
+
+def _check_overload_finish(out) -> None:
+    """A waiting-dropped sequence's terminal output (no token, no text)
+    as the error the client contract promises."""
+    if not out.finished or out.new_token is not None or out.text_delta:
+        return
+    if out.finish_reason == "deadline":
+        raise DeadlineExceeded()
+    if out.finish_reason == "queue_delay":
+        raise _QueueDelayShed()
+
+
+async def _guarded_payloads(merged, lead_payloads, chunk_for):
+    """The streaming shape of both generation routes: the first engine
+    output is pulled before the lead payloads (role or echo chunks) go
+    out, so a shed or a deadline drop before it still answers a clean
+    503/504; then every chunk_for(i, out) payload. A drop after the
+    response started ends that choice with its finish_reason chunk."""
+    try:
+        head = await merged.__anext__()
+    except StopAsyncIteration:
+        head = None
+    if head is not None:
+        _check_overload_finish(head[1])
+    for payload in lead_payloads:
+        yield payload
+    if head is not None:
+        payload = chunk_for(*head)
+        if payload is not None:
+            yield payload
+        async for i, out in merged:
+            payload = chunk_for(i, out)
+            if payload is not None:
+                yield payload
+
+
 def _unsupported_fields(req) -> List[str]:
     """Request fields set to something the port does not implement."""
     bad = [name for name in ("guided_regex", "guided_choice", "guided_json")
@@ -54,17 +168,42 @@ def _unsupported_fields(req) -> List[str]:
     rf = getattr(req, "response_format", None)
     if rf and rf.get("type") not in (None, "text"):
         bad.append("response_format")
-    if req.n != 1:
-        bad.append("n")
-    tl = getattr(req, "top_logprobs", None)
-    if tl:
-        bad.append("top_logprobs")
-    lp = getattr(req, "logprobs", None)
-    if isinstance(lp, int) and not isinstance(lp, bool) and lp > 0:
-        bad.append("logprobs")   # legacy completions: top-N alternatives
-    if getattr(req, "echo", False) and lp is not None:
-        bad.append("echo")       # prompt logprobs
     return bad
+
+
+def _logit_bias(req) -> Optional[dict]:
+    """OpenAI logit_bias {token-id string: bias} -> {int: float}, at
+    most OpenAI's 300 entries."""
+    raw = getattr(req, "logit_bias", None)
+    if not raw:
+        return None
+    if len(raw) > 300:
+        raise ValueError(
+            f"logit_bias supports at most 300 entries (got {len(raw)})")
+    try:
+        return {int(k): float(v) for k, v in raw.items()}
+    except (TypeError, ValueError):
+        raise ValueError("logit_bias keys must be token ids and values "
+                         "numbers")
+
+
+def _top_logprobs(req) -> int:
+    """The alternatives per token a request asks for: chat's
+    top_logprobs (which needs logprobs=true), or legacy completions'
+    integer logprobs=N; at most 20, as OpenAI."""
+    tl = getattr(req, "top_logprobs", None)
+    if tl is not None and not 0 <= tl <= 20:
+        raise ValueError(f"top_logprobs must be in [0, 20] (got {tl})")
+    if tl and not getattr(req, "logprobs", None):
+        raise ValueError("top_logprobs requires logprobs to be set to true")
+    tl = tl or 0
+    if not tl:
+        lp = getattr(req, "logprobs", None)
+        if isinstance(lp, int) and not isinstance(lp, bool) and lp > 0:
+            tl = lp
+    if tl > 20:
+        raise ValueError(f"top_logprobs supports at most 20 (got {tl})")
+    return int(tl)
 
 
 def _sampling_options(req, max_tokens: Optional[int]) -> SamplingOptions:
@@ -79,7 +218,7 @@ def _sampling_options(req, max_tokens: Optional[int]) -> SamplingOptions:
         frequency_penalty=req.frequency_penalty,
         repetition_penalty=req.repetition_penalty, min_p=req.min_p,
         min_tokens=req.min_tokens, priority=req.priority,
-        logit_bias=req.logit_bias or None)
+        logit_bias=_logit_bias(req), top_logprobs=_top_logprobs(req))
 
 
 def _check_request(engine: AsyncLLMEngine, req, max_tokens):
@@ -88,14 +227,17 @@ def _check_request(engine: AsyncLLMEngine, req, max_tokens):
         engine.engine.resolve_model(req.model or None)
     except ValueError as e:
         return None, _error(400, f"model: {e}")
-    options = _sampling_options(req, max_tokens)
-    bad = _unsupported_fields(req) + unsupported_options(options)
+    if not 1 <= req.n <= MAX_CHOICES:
+        return None, _error(400, f"n must be between 1 and {MAX_CHOICES}")
+    bad = _unsupported_fields(req)
     if bad:
         return None, _error(400, f"not implemented in the PyTorch port "
                                  f"yet: {', '.join(bad)}")
-    if not 0.0 <= options.min_p <= 1.0:
-        return None, _error(400, f"min_p must be in [0, 1] "
-                                 f"(got {options.min_p})")
+    try:
+        options = _sampling_options(req, max_tokens)
+        engine.engine.check_options(options)
+    except ValueError as e:
+        return None, _error(400, str(e))
     return options, None
 
 
@@ -107,53 +249,208 @@ def _too_long(engine: AsyncLLMEngine, n: int) -> Optional[web.Response]:
     return None
 
 
-async def _sse_stream(request: web.Request, gen) -> web.StreamResponse:
-    """Relay an SSE generator. The 200 goes out with the first payload,
-    so a failure before it becomes a clean error response; one after it
-    can only close the connection."""
-    resp: Optional[web.StreamResponse] = None
+def _choice_options(options: SamplingOptions, i: int) -> SamplingOptions:
+    """A choice's options: a seeded request varies the seed by choice
+    index, or n choices would draw the same noise."""
+    if i == 0 or options.seed is None:
+        return options
+    return dataclasses.replace(options, seed=options.seed + i)
+
+
+def _choice_jobs(prompts, options, n):
+    """The OpenAI choice grid: (prompt p, sample j) is choice p * n + j.
+    Returns [(index, prompt ids, options)]."""
+    return [(p * n + j, pids, _choice_options(options, j))
+            for p, pids in enumerate(prompts) for j in range(n)]
+
+
+async def _gather_cancelling(coros):
+    """gather() where one failure cancels the siblings, which free
+    their engine slots before the error response goes out."""
+    tasks = [asyncio.ensure_future(c) for c in coros]
     try:
-        async for payload in gen:
-            if resp is None:
-                resp = web.StreamResponse(status=200, headers={
-                    "Content-Type": "text/event-stream",
-                    "Cache-Control": "no-cache"})
-                await resp.prepare(request)
-            await resp.write(f"data: {payload}\n\n".encode())
+        return await asyncio.gather(*tasks)
+    except BaseException:
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        raise
+
+
+def _merged_streams(engine, jobs, model, deadline=None):
+    """Run the jobs [(choice index, prompt ids, options)] at once and
+    yield (choice index, StepOutput) as they come. A stream's failure
+    reaches the consumer; closing the generator cancels every stream
+    and frees their slots."""
+    async def gen():
+        q: asyncio.Queue = asyncio.Queue()
+
+        async def pump(idx, pids, opts):
+            try:
+                async with aclosing(engine.stream(
+                        list(pids), opts, model=model,
+                        deadline=deadline)) as it:
+                    async for out in it:
+                        await q.put((idx, out))
+            except Exception as e:  # noqa: BLE001 — raised by the consumer
+                await q.put((idx, e))
+                return
+            await q.put((idx, None))
+
+        tasks = [asyncio.ensure_future(pump(*job)) for job in jobs]
+        try:
+            done = 0
+            while done < len(jobs):
+                i, out = await q.get()
+                if out is None:
+                    done += 1
+                    continue
+                if isinstance(out, Exception):
+                    raise out
+                yield i, out
+        finally:
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+    return gen()
+
+
+async def _sse_stream(request: web.Request, gen) -> web.StreamResponse:
+    """Relay an SSE generator, preparing the response lazily: the 200
+    and its headers go out with the first payload, so a shed, a
+    deadline drop or an engine failure before it is a clean error
+    response; after it they can only end the connection."""
+    engine = request.app[ENGINE_KEY]
+    resp: Optional[web.StreamResponse] = None
+
+    async def ensure_prepared() -> web.StreamResponse:
+        nonlocal resp
         if resp is None:
             resp = web.StreamResponse(status=200, headers={
-                "Content-Type": "text/event-stream"})
+                "Content-Type": "text/event-stream",
+                "Cache-Control": "no-cache", "X-Accel-Buffering": "no",
+                **_load_headers(engine)})
             await resp.prepare(request)
+        return resp
+
+    errors = {AdmissionRejected: lambda e: _shed_error(engine, str(e)),
+              DeadlineExceeded: lambda e: _deadline_error(),
+              _QueueDelayShed: lambda e: _shed_error(engine),
+              EngineDeadError: _dead}
+    try:
+        async for payload in gen:
+            await ensure_prepared()
+            await resp.write(f"data: {payload}\n\n".encode())
+        await ensure_prepared()
         await resp.write(b"data: [DONE]\n\n")
         await resp.write_eof()
     except (ConnectionResetError, ConnectionError):
+        # the client went away; closing the generator aborts the request
         await gen.aclose()
         if resp is None:
             resp = web.Response(status=500)   # never reaches the client
-    except EngineDeadError as e:
+    except tuple(errors) as e:
         await gen.aclose()
         if resp is None:
-            return _dead(e)
+            return errors[type(e)](e)
         resp.force_close()
     return resp
 
 
-async def _collect(engine: AsyncLLMEngine, prompt_ids: List[int],
-                   options: SamplingOptions, model: Optional[str]):
-    """Run one request to its end: (text, token ids, logprobs,
-    finish_reason). A stop token is excluded from text and logprobs."""
-    parts, ids, lps, finish = [], [], [], None
-    async with aclosing(engine.stream(list(prompt_ids), options,
-                                      model=model)) as it:
-        async for out in it:
-            parts.append(out.text_delta)
-            if out.new_token is not None and not (
-                    out.finished and out.finish_reason == "stop"):
-                ids.append(out.new_token)
-                lps.append(out.logprob)
-            if out.finished:
-                finish = out.finish_reason
-    return "".join(parts), ids, lps, finish
+# ---------------------------------------------------------------- logprobs
+
+def _lp_skip(out) -> bool:
+    """A token that stopped the sequence is excluded from the text, so
+    it has no logprobs entry either (OpenAI alignment)."""
+    return out.finished and out.finish_reason == "stop"
+
+
+def _chat_lp_entry(tok, token_id: int, logprob, want_top: bool,
+                   alts=None):
+    """One chat-logprobs content entry; `alts` [(token_id, logprob)]
+    are the device's top-K under the distribution the chosen logprob
+    comes from."""
+    text, raw = tok.id_to_token(token_id)
+    lp = logprob if logprob is not None else 0.0
+    entry = proto.ChatLogprobToken(token=text, logprob=lp, bytes=raw)
+    if want_top:
+        if alts:
+            tops = []
+            for tid, tlp in alts:
+                ttext, traw = tok.id_to_token(int(tid))
+                tops.append(proto.ChatLogprobTop(
+                    token=ttext, logprob=float(tlp), bytes=traw))
+            entry.top_logprobs = tops
+        else:
+            entry.top_logprobs = [proto.ChatLogprobTop(
+                token=text, logprob=lp, bytes=raw)]
+    return entry
+
+
+def _completion_logprobs(tok, token_ids, logprobs, want_top: bool,
+                         alts_list=None) -> proto.CompletionLogprobs:
+    """The legacy completions logprobs block; alts_list (parallel to
+    token_ids) holds each token's [(id, logprob)] alternatives."""
+    texts = [tok.id_to_token(t)[0] for t in token_ids]
+    lps = [lp if lp is not None else 0.0 for lp in logprobs]
+    top = None
+    if want_top:
+        top = []
+        for i, (text, lp) in enumerate(zip(texts, lps)):
+            alts = alts_list[i] if alts_list else None
+            if alts:
+                top.append({tok.id_to_token(int(t))[0]: float(l)
+                            for t, l in alts})
+            else:
+                top.append({text: lp})
+    return proto.CompletionLogprobs(tokens=texts, token_logprobs=lps,
+                                    top_logprobs=top)
+
+
+async def _prompt_echo_blocks(engine, tok, prompts, req):
+    """[(prompt text, CompletionLogprobs or None)] per prompt for
+    echo=true: the prompt's text prefixes each of its choices; with
+    logprobs asked, the teacher-forced prompt logprobs of every prompt
+    in one batched call (runner.prompt_logprobs, off the event loop),
+    position 0 reporting null as OpenAI does."""
+    texts = [tok.decode(p) for p in prompts]
+    if req.logprobs is None:
+        return [(t, None) for t in texts]
+    runner = engine.engine.runner
+    T = max(len(p) for p in prompts)
+    arr = np.zeros((len(prompts), T), np.int32)
+    for r, p in enumerate(prompts):
+        arr[r, :len(p)] = p
+
+    def compute():
+        out = runner.prompt_logprobs(arr).cpu().numpy()
+        return [out[r, :len(p) - 1].tolist()
+                for r, p in enumerate(prompts)]
+
+    all_lps = await asyncio.get_running_loop().run_in_executor(None, compute)
+    blocks = []
+    for text, pids, lps in zip(texts, prompts, all_lps):
+        pieces = [tok.id_to_token(t)[0] for t in pids]
+        token_lps = [None] + [float(v) for v in lps]
+        top = None
+        if req.logprobs > 0:
+            top = [None] + [{pc: lp} for pc, lp in
+                            zip(pieces[1:], token_lps[1:])]
+        blocks.append((text, proto.CompletionLogprobs(
+            tokens=pieces, token_logprobs=token_lps, top_logprobs=top)))
+    return blocks
+
+
+def _merge_echo_lp(echo_lp, lp_block):
+    """The prompt's logprobs block ahead of a completion's."""
+    if echo_lp is None:
+        return lp_block
+    return proto.CompletionLogprobs(
+        tokens=echo_lp.tokens + lp_block.tokens,
+        token_logprobs=echo_lp.token_logprobs + lp_block.token_logprobs,
+        top_logprobs=(echo_lp.top_logprobs + lp_block.top_logprobs
+                      if echo_lp.top_logprobs is not None
+                      and lp_block.top_logprobs is not None else None))
 
 
 def _usage(prompt_tokens: int, completion_tokens: int) -> proto.UsageInfo:
@@ -161,6 +458,22 @@ def _usage(prompt_tokens: int, completion_tokens: int) -> proto.UsageInfo:
                            completion_tokens=completion_tokens,
                            total_tokens=prompt_tokens + completion_tokens)
 
+
+async def _run_choices(engine, coros):
+    """Non-streamed choices, or the error response that ends them."""
+    try:
+        return await _gather_cancelling(coros), None
+    except AdmissionRejected as e:
+        return None, _shed_error(engine, str(e))
+    except DeadlineExceeded:
+        return None, _deadline_error()
+    except _QueueDelayShed:
+        return None, _shed_error(engine)
+    except EngineDeadError as e:
+        return None, _dead(e)
+
+
+# ---------------------------------------------------------------- handlers
 
 async def chat_completions(request: web.Request) -> web.StreamResponse:
     engine = request.app[ENGINE_KEY]
@@ -172,6 +485,12 @@ async def chat_completions(request: web.Request) -> web.StreamResponse:
         engine, req, req.max_completion_tokens or req.max_tokens)
     if bad is not None:
         return bad
+    deadline, bad = _deadline_from(request)
+    if bad is not None:
+        return bad
+    if engine.engine.admission_full():
+        # refuse before the template and tokenizer work
+        return _shed_error(engine)
     tok = engine.tokenizer
     prompt_ids = tok.encode(tok.apply_chat_template(
         [m.model_dump() for m in req.messages]))
@@ -180,84 +499,113 @@ async def chat_completions(request: web.Request) -> web.StreamResponse:
         return bad
     rid = proto._gen_id("chatcmpl")
     model = req.model or None
-
-    def lp_block(token_ids, logprobs):
-        if not req.logprobs:
-            return None
-        entries = []
-        for t, lp in zip(token_ids, logprobs):
-            text, raw = tok.id_to_token(t)
-            entries.append(proto.ChatLogprobToken(
-                token=text, logprob=lp if lp is not None else 0.0,
-                bytes=raw))
-        return proto.ChatLogprobs(content=entries)
+    want_top = bool(req.top_logprobs)
 
     if req.stream:
         include_usage = bool(req.stream_options
                              and req.stream_options.include_usage)
+        # with include_usage every chunk carries "usage": null until the
+        # final usage chunk; without it the field is left out
         exclude = None if include_usage else {"usage"}
 
         async def gen():
-            yield proto.ChatCompletionChunk(
+            num_tokens = 0
+
+            def chunk_for(i, out):
+                nonlocal num_tokens
+                if out.new_token is not None:
+                    num_tokens += 1
+                lp_block = None
+                if (req.logprobs and out.new_token is not None
+                        and not _lp_skip(out)):
+                    lp_block = proto.ChatLogprobs(content=[_chat_lp_entry(
+                        tok, out.new_token, out.logprob, want_top,
+                        out.top_alts)])
+                # a token may have no text yet (partial UTF-8) and still
+                # a logprob entry to deliver
+                if out.text_delta or out.finished or lp_block:
+                    return proto.ChatCompletionChunk(
+                        id=rid, model=req.model,
+                        choices=[proto.ChatCompletionChunkChoice(
+                            index=i, delta=proto.DeltaMessage(
+                                content=out.text_delta or None),
+                            finish_reason=out.finish_reason
+                            if out.finished else None,
+                            logprobs=lp_block)]
+                    ).model_dump_json(exclude=exclude)
+                return None
+
+            role_chunks = [proto.ChatCompletionChunk(
                 id=rid, model=req.model,
                 choices=[proto.ChatCompletionChunkChoice(
-                    delta=proto.DeltaMessage(role="assistant",
-                                             content=""))]
-            ).model_dump_json(exclude=exclude)
-            n = 0
-            async with aclosing(engine.stream(prompt_ids, options,
-                                              model=model)) as it:
-                async for out in it:
-                    n += out.new_token is not None
-                    stop = out.finished and out.finish_reason == "stop"
-                    lps = (lp_block([out.new_token], [out.logprob])
-                           if out.new_token is not None and not stop
-                           else None)
-                    if out.text_delta or out.finished or lps:
-                        yield proto.ChatCompletionChunk(
-                            id=rid, model=req.model,
-                            choices=[proto.ChatCompletionChunkChoice(
-                                delta=proto.DeltaMessage(
-                                    content=out.text_delta or None),
-                                finish_reason=out.finish_reason
-                                if out.finished else None,
-                                logprobs=lps)]
-                        ).model_dump_json(exclude=exclude)
+                    index=i, delta=proto.DeltaMessage(role="assistant",
+                                                      content=""))]
+            ).model_dump_json(exclude=exclude) for i in range(req.n)]
+            async with aclosing(_merged_streams(
+                    engine, _choice_jobs([prompt_ids], options, req.n),
+                    model, deadline)) as it:
+                async for payload in _guarded_payloads(it, role_chunks,
+                                                       chunk_for):
+                    yield payload
             if include_usage:
                 yield proto.ChatCompletionChunk(
                     id=rid, model=req.model, choices=[],
-                    usage=_usage(len(prompt_ids), n)).model_dump_json()
+                    usage=_usage(len(prompt_ids), num_tokens)
+                ).model_dump_json()
         return await _sse_stream(request, gen())
 
-    try:
-        text, ids, lps, finish = await _collect(engine, prompt_ids,
-                                                options, model)
-    except EngineDeadError as e:
-        return _dead(e)
-    n = len(ids) + (finish == "stop")
+    async def collect_one(i: int):
+        parts, lp_entries, finish, tokens = [], [], None, 0
+        async with aclosing(engine.stream(
+                list(prompt_ids), _choice_options(options, i), model=model,
+                deadline=deadline)) as it:
+            async for out in it:
+                _check_overload_finish(out)
+                parts.append(out.text_delta)
+                if out.new_token is not None:
+                    tokens += 1
+                    if req.logprobs and not _lp_skip(out):
+                        lp_entries.append(_chat_lp_entry(
+                            tok, out.new_token, out.logprob, want_top,
+                            out.top_alts))
+                if out.finished:
+                    finish = out.finish_reason
+        return proto.ChatCompletionChoice(
+            index=i, message=proto.ChatChoiceMessage(content="".join(parts)),
+            finish_reason=finish,
+            logprobs=(proto.ChatLogprobs(content=lp_entries)
+                      if req.logprobs else None)), tokens
+
+    results, bad = await _run_choices(
+        engine, [collect_one(i) for i in range(req.n)])
+    if bad is not None:
+        return bad
     resp = proto.ChatCompletionResponse(
-        id=rid, model=req.model,
-        choices=[proto.ChatCompletionChoice(
-            message=proto.ChatChoiceMessage(content=text),
-            finish_reason=finish, logprobs=lp_block(ids, lps))],
-        usage=_usage(len(prompt_ids), n))
+        id=rid, model=req.model, choices=[c for c, _ in results],
+        usage=_usage(len(prompt_ids), sum(t for _, t in results)))
     return web.json_response(resp.model_dump())
 
 
-def _prompt_ids(tok, raw) -> List[int]:
-    """One prompt: a string, a token-id list, or a one-element list of
-    either. Several prompts per request are not implemented yet."""
-    if isinstance(raw, list) and len(raw) == 1 and isinstance(
-            raw[0], (str, list)):
-        raw = raw[0]
+def _as_token_lists(tok, raw) -> List[List[int]]:
+    """OpenAI `prompt`: str | [str] | [int] | [[int]] -> token lists."""
     if isinstance(raw, str):
-        return tok.encode(raw)
-    if isinstance(raw, list) and raw and all(
-            isinstance(x, int) and not isinstance(x, bool) for x in raw):
-        return list(raw)
-    raise ValueError("prompt: one string or one token-id list per request "
-                     "(several prompts are not implemented in the PyTorch "
-                     "port yet)")
+        return [tok.encode(raw)]
+    if not isinstance(raw, list):
+        raise ValueError("prompt must be str, [str], [int], or [[int]]")
+    if raw and all(isinstance(x, int) and not isinstance(x, bool)
+                   for x in raw):
+        return [list(raw)]
+    out: List[List[int]] = []
+    for item in raw:
+        if isinstance(item, str):
+            out.append(tok.encode(item))
+        elif isinstance(item, list) and all(
+                isinstance(x, int) and not isinstance(x, bool)
+                for x in item):
+            out.append(list(item))
+        else:
+            raise ValueError("prompt must be str, [str], [int], or [[int]]")
+    return out
 
 
 async def completions(request: web.Request) -> web.StreamResponse:
@@ -269,25 +617,37 @@ async def completions(request: web.Request) -> web.StreamResponse:
     options, bad = _check_request(engine, req, req.max_tokens)
     if bad is not None:
         return bad
-    tok = engine.tokenizer
-    try:
-        prompt_ids = _prompt_ids(tok, req.prompt)
-    except ValueError as e:
-        return _error(400, str(e))
-    bad = _too_long(engine, len(prompt_ids))
+    deadline, bad = _deadline_from(request)
     if bad is not None:
         return bad
+    if engine.engine.admission_full():
+        return _shed_error(engine)
+    tok = engine.tokenizer
+    prompt = req.prompt
+    # cap the choice grid before tokenizing a large batch on the loop
+    if (isinstance(prompt, list) and prompt
+            and isinstance(prompt[0], (str, list))
+            and len(prompt) * req.n > MAX_CHOICES):
+        return _error(400, f"len(prompt) * n must be <= {MAX_CHOICES}")
+    try:
+        prompts = _as_token_lists(tok, prompt)
+    except ValueError as e:
+        return _error(400, str(e))
+    if not prompts or any(not p for p in prompts):
+        return _error(400, "prompt must not be (or contain) empty input")
+    for pids in prompts:
+        bad = _too_long(engine, len(pids))
+        if bad is not None:
+            return bad
     rid = proto._gen_id("cmpl")
     model = req.model or None
-    echo = tok.decode(prompt_ids) if req.echo else ""
-
-    def lp_block(token_ids, logprobs):
-        if req.logprobs is None:
-            return None
-        return proto.CompletionLogprobs(
-            tokens=[tok.id_to_token(t)[0] for t in token_ids],
-            token_logprobs=[lp if lp is not None else 0.0
-                            for lp in logprobs])
+    n_prompt = sum(len(p) for p in prompts)
+    want_top = req.logprobs is not None and req.logprobs > 0
+    # echo blocks come before any response starts: a failure is a clean
+    # error response, not a cut stream
+    echo_blocks = []
+    if req.echo:
+        echo_blocks = await _prompt_echo_blocks(engine, tok, prompts, req)
 
     if req.stream:
         include_usage = bool(req.stream_options
@@ -295,47 +655,83 @@ async def completions(request: web.Request) -> web.StreamResponse:
         exclude = None if include_usage else {"usage"}
 
         async def gen():
-            if echo:
-                yield proto.CompletionChunk(
-                    id=rid, model=req.model,
-                    choices=[proto.CompletionChunkChoice(text=echo)]
-                ).model_dump_json(exclude=exclude)
-            n = 0
-            async with aclosing(engine.stream(prompt_ids, options,
-                                              model=model)) as it:
-                async for out in it:
-                    n += out.new_token is not None
-                    stop = out.finished and out.finish_reason == "stop"
-                    lps = (lp_block([out.new_token], [out.logprob])
-                           if out.new_token is not None and not stop
-                           else None)
-                    if out.text_delta or out.finished or lps:
-                        yield proto.CompletionChunk(
-                            id=rid, model=req.model,
-                            choices=[proto.CompletionChunkChoice(
-                                text=out.text_delta,
-                                finish_reason=out.finish_reason
-                                if out.finished else None,
-                                logprobs=lps)]
-                        ).model_dump_json(exclude=exclude)
+            num_tokens = 0
+
+            def chunk_for(i, out):
+                nonlocal num_tokens
+                if out.new_token is not None:
+                    num_tokens += 1
+                lp_block = None
+                if (req.logprobs is not None and out.new_token is not None
+                        and not _lp_skip(out)):
+                    lp_block = _completion_logprobs(
+                        tok, [out.new_token], [out.logprob], want_top,
+                        [out.top_alts])
+                if out.text_delta or out.finished or lp_block:
+                    return proto.CompletionChunk(
+                        id=rid, model=req.model,
+                        choices=[proto.CompletionChunkChoice(
+                            index=i, text=out.text_delta,
+                            finish_reason=out.finish_reason
+                            if out.finished else None,
+                            logprobs=lp_block)]
+                    ).model_dump_json(exclude=exclude)
+                return None
+
+            echo_chunks = [proto.CompletionChunk(
+                id=rid, model=req.model,
+                choices=[proto.CompletionChunkChoice(
+                    index=p * req.n + j, text=echo_text,
+                    logprobs=echo_lp)]
+            ).model_dump_json(exclude=exclude)
+                for p, (echo_text, echo_lp) in enumerate(echo_blocks)
+                for j in range(req.n)]
+            async with aclosing(_merged_streams(
+                    engine, _choice_jobs(prompts, options, req.n),
+                    model, deadline)) as it:
+                async for payload in _guarded_payloads(it, echo_chunks,
+                                                       chunk_for):
+                    yield payload
             if include_usage:
                 yield proto.CompletionChunk(
                     id=rid, model=req.model, choices=[],
-                    usage=_usage(len(prompt_ids), n)).model_dump_json()
+                    usage=_usage(n_prompt, num_tokens)).model_dump_json()
         return await _sse_stream(request, gen())
 
-    try:
-        text, ids, lps, finish = await _collect(engine, prompt_ids,
-                                                options, model)
-    except EngineDeadError as e:
-        return _dead(e)
-    n = len(ids) + (finish == "stop")
+    async def collect_one(idx: int, pids, opts):
+        parts, ids, lps, alts, tokens, finish = [], [], [], [], 0, None
+        async with aclosing(engine.stream(list(pids), opts, model=model,
+                                          deadline=deadline)) as it:
+            async for out in it:
+                _check_overload_finish(out)
+                parts.append(out.text_delta)
+                if out.new_token is not None:
+                    tokens += 1
+                    if not _lp_skip(out):
+                        ids.append(out.new_token)
+                        lps.append(out.logprob)
+                        alts.append(out.top_alts)
+                if out.finished:
+                    finish = out.finish_reason
+        lp_block = (_completion_logprobs(tok, ids, lps, want_top, alts)
+                    if req.logprobs is not None else None)
+        echo_text = ""
+        if req.echo:
+            echo_text, echo_lp = echo_blocks[idx // req.n]
+            if lp_block is not None:
+                lp_block = _merge_echo_lp(echo_lp, lp_block)
+        return proto.CompletionChoice(
+            index=idx, text=echo_text + "".join(parts),
+            finish_reason=finish, logprobs=lp_block), tokens
+
+    results, bad = await _run_choices(
+        engine, [collect_one(*job)
+                 for job in _choice_jobs(prompts, options, req.n)])
+    if bad is not None:
+        return bad
     resp = proto.CompletionResponse(
-        id=rid, model=req.model,
-        choices=[proto.CompletionChoice(text=echo + text,
-                                        finish_reason=finish,
-                                        logprobs=lp_block(ids, lps))],
-        usage=_usage(len(prompt_ids), n))
+        id=rid, model=req.model, choices=[c for c, _ in results],
+        usage=_usage(n_prompt, sum(t for _, t in results)))
     return web.json_response(resp.model_dump())
 
 
@@ -355,13 +751,62 @@ async def health(request: web.Request) -> web.Response:
     return web.json_response({"status": "ok"})
 
 
+async def load(request: web.Request) -> web.Response:
+    """The engine's load report (queue depth, running sequences, free
+    KV blocks, estimated queue delay, advertised capacity, efficiency
+    and pool census), lock-free: it answers while a step holds the
+    engine lock."""
+    engine = request.app[ENGINE_KEY]
+    return web.json_response(engine.engine.load_report())
+
+
+async def version(request: web.Request) -> web.Response:
+    return web.json_response({"version": __version__})
+
+
+async def metrics(request: web.Request) -> web.Response:
+    engine = request.app[ENGINE_KEY]
+    return web.Response(body=engine.engine.render_metrics(),
+                        content_type="text/plain")
+
+
+async def tokenize(request: web.Request) -> web.Response:
+    engine = request.app[ENGINE_KEY]
+    body = await request.json()
+    ids = engine.tokenizer.encode(body.get("prompt", ""))
+    return web.json_response({"tokens": ids, "count": len(ids)})
+
+
+async def detokenize(request: web.Request) -> web.Response:
+    engine = request.app[ENGINE_KEY]
+    body = await request.json()
+    return web.json_response(
+        {"prompt": engine.tokenizer.decode(body.get("tokens", []))})
+
+
 def build_app(engine: AsyncLLMEngine) -> web.Application:
-    app = web.Application(client_max_size=32 * 1024 * 1024)
+    @web.middleware
+    async def stamp_load_headers(request: web.Request, handler):
+        # every reply carries the engine's load (SSE streams take theirs
+        # when they are prepared, in _sse_stream)
+        resp = await handler(request)
+        if not resp.prepared:
+            for k, v in _load_headers(engine).items():
+                resp.headers[k] = v
+        return resp
+
+    app = web.Application(client_max_size=32 * 1024 * 1024,
+                          middlewares=[stamp_load_headers])
     app[ENGINE_KEY] = engine
     app.router.add_post("/v1/chat/completions", chat_completions)
     app.router.add_post("/v1/completions", completions)
     app.router.add_get("/v1/models", list_models)
     app.router.add_get("/health", health)
+    app.router.add_get("/load", load)
+    app.router.add_get("/version", version)
+    app.router.add_get("/metrics", metrics)
+    app.router.add_post("/tokenize", tokenize)
+    app.router.add_post("/detokenize", detokenize)
 
     async def on_startup(app):
         # warmup (if any) ran before the loop started
@@ -402,6 +847,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "head stored int8 with per-channel scales; norms "
                         "stay in --dtype (models/quant.py)")
     p.add_argument("--max-num-seqs", type=int, default=8)
+    p.add_argument("--max-waiting-seqs", type=int, default=None,
+                   help="bounded admission: shed (503 + Retry-After) "
+                        "once this many sequences wait beyond the free "
+                        "slots (default unbounded)")
+    p.add_argument("--max-queue-delay-ms", type=float, default=None,
+                   help="shed (503) a request still waiting after this "
+                        "long (default never)")
     p.add_argument("--prefill-chunk", type=int, default=512)
     p.add_argument("--decode-window", type=int, default=8,
                    help="tokens per decode window (one host sync each)")
@@ -410,6 +862,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kv-block-size", type=int, default=64)
     p.add_argument("--kv-pool-tokens", type=int, default=None)
     p.add_argument("--enable-prefix-caching", action="store_true")
+    p.add_argument("--hbm-peak-gbps", type=float, default=3350.0,
+                   help="device-memory peak the MBU gauge normalizes "
+                        "against (GB/s; default an H100 SXM's)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-warmup", action="store_true")
     return p.parse_args(argv)
@@ -423,11 +878,14 @@ def main(argv=None) -> None:
         max_model_len=args.max_model_len, dtype=args.dtype,
         kv_dtype=args.kv_cache_dtype, quantization=args.quantization,
         max_num_seqs=args.max_num_seqs,
+        max_waiting_seqs=args.max_waiting_seqs,
+        max_queue_delay_ms=args.max_queue_delay_ms,
         prefill_chunk=args.prefill_chunk, decode_window=args.decode_window,
         kv_len_buckets=tuple(int(x) for x in args.kv_len_buckets.split(","))
         if args.kv_len_buckets else (),
         kv_block_size=args.kv_block_size, kv_pool_tokens=args.kv_pool_tokens,
-        enable_prefix_caching=args.enable_prefix_caching, seed=args.seed))
+        enable_prefix_caching=args.enable_prefix_caching,
+        hbm_peak_gbps=args.hbm_peak_gbps, seed=args.seed))
     if not args.no_warmup:
         engine.engine.runner.warmup()
     logger.info("engine serving %s on %s:%d (%s)", args.model, args.host,

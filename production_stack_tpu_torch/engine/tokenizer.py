@@ -1,7 +1,8 @@
 """Tokenizers: HF-backed for real checkpoints, byte-level for debug models.
 
 A copy of ``production_stack_tpu/engine/tokenizer.py`` (the port imports
-nothing of the JAX package).
+nothing of the JAX package), except that the byte tokenizer reads a
+negative id as an unknown one where the JAX copy raises.
 
 The byte tokenizer keeps every CI/e2e path hardware- and download-free
 (the reference achieves the same with facebook/opt-125m on CPU runners,
@@ -29,12 +30,15 @@ class ByteTokenizer:
         return [BOS_ID] + ids if add_bos else ids
 
     def decode(self, ids: Sequence[int]) -> str:
-        return bytes(i for i in ids if i < 256).decode("utf-8", errors="replace")
+        # ids outside the byte range (a prompt's negative ids too)
+        # decode to nothing
+        return bytes(i for i in ids if 0 <= i < 256).decode(
+            "utf-8", errors="replace")
 
     def id_to_token(self, token_id: int):
         """(token string, raw bytes) for logprobs reporting — byte ids
         keep their exact byte so clients can reassemble split UTF-8."""
-        if token_id < 256:
+        if 0 <= token_id < 256:
             raw = bytes([token_id])
             return raw.decode("utf-8", errors="replace"), list(raw)
         name = {BOS_ID: "<bos>", EOS_ID: "<eos>", PAD_ID: "<pad>"}.get(

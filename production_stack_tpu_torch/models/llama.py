@@ -197,7 +197,8 @@ def forward(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
             rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
             kv_len: Optional[int] = None,
             token_valid: Optional[torch.Tensor] = None,
-            last_index: Optional[torch.Tensor] = None
+            last_index: Optional[torch.Tensor] = None,
+            sampled_ids: bool = False
             ) -> Tuple[torch.Tensor, KVCache]:
     """Incremental forward. tokens/positions [B,T] -> (logits f32
     [B,T,V], cache), the cache updated in place.
@@ -211,7 +212,26 @@ def forward(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
     addition) computes logits only at one position per row, giving
     [B,1,V] — the serving runner needs no more than that.
     rope: (cos, sin) device tensors; None builds them from the config.
+    sampled_ids: the tokens are the sampler's own output, so in
+    [0, V) already and the embedding skips the index rule (_embed).
     """
+    x = hidden(model, cfg, tokens, positions, cache, block_tables, rope,
+               kv_len, token_valid, sampled_ids)
+    if last_index is not None:
+        x = torch.gather(x, 1, last_index.long()[:, None, None].expand(
+            -1, 1, x.shape[-1]))
+    return final_logits(model, cfg, x), cache
+
+
+def hidden(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
+           positions: torch.Tensor, cache: KVCache,
+           block_tables: Optional[torch.Tensor] = None,
+           rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+           kv_len: Optional[int] = None,
+           token_valid: Optional[torch.Tensor] = None,
+           sampled_ids: bool = False) -> torch.Tensor:
+    """forward() up to the last layer: the residual stream [B,T,H]
+    before the final norm, the cache updated in place."""
     device = tokens.device
     if rope is None:
         rope = rope_tensors(cfg, cfg.max_position_embeddings, device)
@@ -225,21 +245,34 @@ def forward(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
     starts = positions[:, 0].to(torch.int32).contiguous()
     rows = rope_rows(positions, *rope)
     addresses = chunk_addresses(block_tables, positions, Bs, token_valid)
-    x = _embed(model, cfg, tokens)
+    x = _embed(model, cfg, tokens, sampled_ids)
     for l in range(cfg.num_layers):
         x = _layer(cfg, model, l, x, rows, starts, cache, block_tables, nb,
                    addresses)
-    if last_index is not None:
-        x = torch.gather(x, 1, last_index.long()[:, None, None].expand(
-            -1, 1, x.shape[-1]))
+    return x
+
+
+def final_logits(model: Llama, cfg: ModelConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    """f32 logits [B,T,V] of the residual stream [B,T,H]: the final
+    norm, then the LM head."""
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps,
                  1.0 if cfg.rms_norm_offset else 0.0)
-    return _lm_head(model, cfg, x), cache
+    return _lm_head(model, cfg, x)
 
 
-def _embed(model: Llama, cfg: ModelConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
-    x = dequant_rows(model.embed, tokens.long(), cfg.dtype)
+def _embed(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
+           sampled_ids: bool = False) -> torch.Tensor:
+    """Embedding rows of `tokens`, bf16 and int8 tables alike. Ids from
+    outside (a prompt) take the JAX gather's index rule on the device:
+    ids >= V read row V-1, ids in [-V, 0) wrap, ids below -V read row 0
+    (clamped to [-V, V-1], the wrap is a remainder by V). Sampled ids
+    are in range and skip the two launches."""
+    ids = tokens.long()
+    if not sampled_ids:
+        V = cfg.vocab_size
+        ids = torch.remainder(torch.clamp(ids, -V, V - 1), V)
+    x = dequant_rows(model.embed, ids, cfg.dtype)
     if cfg.embed_scale:
         # Gemma: sqrt(hidden) in f32, then cast, as the JAX forward does
         # (HF multiplies in bf16)

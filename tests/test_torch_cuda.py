@@ -237,3 +237,121 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="T <= 8"):
         pa.paged_decode_attention(q.repeat(1, 9, 1, 1), k, v, tables,
                                   starts, nb=nb)
+
+
+# ------------------------------------------------------------ logit shaping
+
+def _shaping_inputs(dev, B=4, V=512, seed=0):
+    """Random logits, counts, prompt membership and shaping params."""
+    import dataclasses
+    from production_stack_tpu_torch.engine import sampler
+    g = torch.Generator().manual_seed(seed)
+    sp = sampler.SamplingParams.filled(B, device="cpu")
+    bias_ids = torch.full_like(sp.bias_ids, -1)
+    bias_ids[:, :6] = torch.randint(0, V, (B, 6), generator=g,
+                                    dtype=torch.int32)
+    stop_ids = torch.full_like(sp.stop_ids, -1)
+    stop_ids[:, :2] = torch.randint(0, V, (B, 2), generator=g,
+                                    dtype=torch.int32)
+    sp = dataclasses.replace(
+        sp, presence=torch.rand(B, generator=g) * 2,
+        frequency=torch.rand(B, generator=g) - 0.5,
+        repetition=torch.rand(B, generator=g) + 0.5,
+        min_tokens=torch.tensor([0, 3, 9, 1], dtype=torch.int32)[:B],
+        bias_ids=bias_ids, bias_vals=torch.randn(sp.bias_vals.shape,
+                                                 generator=g) * 5,
+        stop_ids=stop_ids)
+    logits = torch.randn(B, V, generator=g) * 4
+    counts = torch.randint(0, 3, (B, V), generator=g, dtype=torch.int32) \
+        * (torch.rand(B, V, generator=g) < 0.1)
+    seen = torch.rand(B, V, generator=g) < 0.1
+    out_len = torch.tensor([0, 2, 5, 1], dtype=torch.int32)[:B]
+    move = lambda x: x.to(dev)
+    return (move(logits), sampler.SamplingParams(
+        **{f.name: move(getattr(sp, f.name))
+           for f in dataclasses.fields(sp)}),
+        move(counts.to(torch.int32)), move(seen), move(out_len))
+
+
+def test_adjust_logits_on_the_card_equals_the_cpu(cuda):
+    from production_stack_tpu_torch.engine.sampler import adjust_logits
+    got = adjust_logits(*_shaping_inputs(cuda), eos_id=257)
+    want = adjust_logits(*_shaping_inputs("cpu"), eos_id=257)
+    assert (got.cpu() - want).abs().max().item() <= 1e-6
+
+
+def _tiny_runner(dev, B=4):
+    """debug-tiny at head dim 64 (the kernels take 64, 128 and 256) in
+    float32, weights from seed 0 made on the CPU, in a runner on
+    `dev`."""
+    import dataclasses
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.runner import ModelRunner
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import get_config
+    mcfg = dataclasses.replace(get_config("debug-tiny"), head_dim=64,
+                               dtype=torch.float32)
+    params = llama.init_params(mcfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    moved = llama.Llama(mcfg, device=dev)
+    moved.load_state_dict(params.state_dict())
+    cfg = EngineConfig(model="debug-tiny", dtype="float32",
+                       kv_dtype="float32", max_model_len=256,
+                       max_num_seqs=B, kv_block_size=16, device=dev)
+    return ModelRunner(mcfg, cfg, params=moved)
+
+
+def _shaped_window(dev, B=4, W=8):
+    """The runner of _tiny_runner on `dev`: one 8-token prefill per row,
+    then a decode window of W greedy steps with shaping and top-5 on
+    every row. Returns (ids, logprobs, top ids, top logprobs, counts) on
+    the CPU."""
+    import dataclasses
+
+    import numpy as np
+    runner = _tiny_runner(dev, B)
+    cfg = runner.engine_cfg
+    runner.eos_id = 257
+    MB = cfg.max_blocks_per_seq
+    runner.set_block_tables(
+        (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB))
+    _, sp, counts, seen, _ = _shaping_inputs(dev, B=B)
+    sp = dataclasses.replace(sp, prompt_len=torch.full(
+        (B,), 8, dtype=torch.int32, device=dev))
+    toks = np.array([[256, 5, 6, 7, 8, 9, 10, 11]] * B, np.int32)
+    runner.prefill(toks, np.zeros(B, np.int32), np.full(B, 8, np.int32),
+                   sp, 256, greedy=True)
+    runner.set_decode_state(np.full(B, 12, np.int32),
+                            np.full(B, 8, np.int32))
+    runner.set_penalty_state(counts.cpu().numpy(), seen.cpu().numpy())
+    ids, lps, tops = runner.decode(sp, steps=W, kv_len=256, greedy=True,
+                                   penalized=True, topk=5)
+    return [t.cpu() for t in (ids, lps, tops[0], tops[1],
+                              runner._dec_counts)]
+
+
+def test_shaped_decode_window_on_the_card_equals_the_cpu(cuda):
+    """The shaped window on the card (the paged kernels) and on the CPU
+    (their plain versions): the same ids, top-5 ids and counts, the
+    logprobs and alternatives to 1e-4 (float32 attention summed in
+    another order, 2e-5 per call)."""
+    c, g = _shaped_window("cpu"), _shaped_window(cuda)
+    assert torch.equal(c[0], g[0]) and torch.equal(c[2], g[2])
+    assert torch.equal(c[4], g[4])
+    assert (c[1] - g[1]).abs().max().item() <= 1e-4
+    assert (c[3] - g[3]).abs().max().item() <= 1e-4
+
+
+def test_out_of_vocab_prompt_logprobs_on_the_card_equal_the_cpu(cuda):
+    """Prompt logprobs with ids outside the vocabulary (V = 512) on the
+    card, through the paged kernels: no device assert, NaN where a
+    target lies outside [-V, V) as on the CPU, the rest to 1e-4."""
+    import numpy as np
+    row = [1, 612, -5, -612, 511, -512, 2 ** 30, 3]
+    toks = np.array([row, [256, 7, 8, 9, 10, 11, 12, 13]], np.int32)
+    c = _tiny_runner("cpu", 2).prompt_logprobs(toks)
+    g = _tiny_runner(cuda, 2).prompt_logprobs(toks).cpu()
+    assert torch.equal(c.isnan(), g.isnan())
+    assert c.isnan().sum().item() == 3
+    assert torch.allclose(c, g, rtol=0, atol=1e-4, equal_nan=True)

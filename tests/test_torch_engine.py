@@ -145,7 +145,7 @@ def test_runner_prefill_and_decode_windows_match_jax():
     jids, jlps, _ = jr.prefill(tokens, starts, lengths,
                             jsampler.SamplingParams.filled(
                                 B, temperature=0.0), kv)
-    tids, tlps = tr.prefill(tokens, starts, lengths,
+    tids, tlps, _ = tr.prefill(tokens, starts, lengths,
                             tsampler.SamplingParams.filled(
                                 B, temperature=0.0, device="cpu"), kv,
                             greedy=True)
@@ -160,7 +160,7 @@ def test_runner_prefill_and_decode_windows_match_jax():
         jw, jl, _, _ = jr.decode(
             jsampler.SamplingParams.filled(B, temperature=0.0), steps=4,
             kv_len=kv, greedy=True)
-        tw, tl = tr.decode(tsampler.SamplingParams.filled(
+        tw, tl, _ = tr.decode(tsampler.SamplingParams.filled(
             B, temperature=0.0, device="cpu"), steps=4, kv_len=kv,
             greedy=True)
         np.testing.assert_array_equal(tw.numpy()[:2], np.asarray(jw)[:2])
@@ -235,6 +235,40 @@ def test_engine_greedy_tokens_equal_jax_engine_gemma2():
     assert got == want
 
 
+@pytest.mark.parametrize("quantization", [None, "int8"])
+def test_out_of_vocab_prompt_ids_follow_jax_and_engine_serves_on(
+        quantization):
+    """Prompt ids outside the vocabulary (600 and -600 against V = 512,
+    and ids below -V) take the JAX gather's index rule in the embedding,
+    on a float and an int8 table: the greedy tokens equal the JAX
+    engine's, and the engine serves the next request."""
+    _, _, jparams, tparams = _weights(7)
+    common = dict(_F32, max_model_len=64, max_num_seqs=2, prefill_chunk=16,
+                  prefill_buckets=(16,), decode_window=4, kv_block_size=8,
+                  quantization=quantization)
+    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
+                           params=jparams)
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+                           params=tparams)
+    prompts = [[1, 600, 3], [1, 600, -600, -2000, 511, 3], [5, 6, 7]]
+
+    def run(engine, opts_cls):
+        out = []
+        for p in prompts:
+            sid = engine.add_request(p, opts_cls(temperature=0.0,
+                                                 max_tokens=6,
+                                                 ignore_eos=True))
+            while engine.has_work:
+                engine.step()
+            out.append(engine.seqs[sid].output_tokens)
+        return out
+
+    want = run(je, JSamplingOptions)
+    got = run(te, SamplingOptions)
+    assert [len(t) for t in got] == [6, 6, 6]
+    assert got == want
+
+
 def test_prefix_keys_and_fingerprint_match_jax():
     """Prefix-cache keys are the JAX package's, byte for byte, so KV
     chunks keyed by one package are found by the other."""
@@ -254,16 +288,19 @@ def test_prefix_keys_and_fingerprint_match_jax():
 
 
 def test_engine_refuses_unported_options():
+    """Guided decoding and LoRA model ids are refused; the shaping and
+    logprob options the port implements are taken."""
     te = tengine.LLMEngine(tec.EngineConfig(
         model="debug-tiny", device="cpu", max_model_len=64, max_num_seqs=1,
         prefill_chunk=16, prefill_buckets=(16,)))
-    for kw in (dict(presence_penalty=0.5), dict(logit_bias={1: 2.0}),
-               dict(guided_regex="a+"), dict(top_logprobs=2),
-               dict(min_tokens=3), dict(repetition_penalty=1.2)):
-        with pytest.raises(ValueError, match="not implemented"):
-            te.add_request([1, 2, 3], SamplingOptions(**kw))
+    with pytest.raises(ValueError, match="not implemented"):
+        te.add_request([1, 2, 3], SamplingOptions(guided_regex="a+"))
     with pytest.raises(ValueError, match="LoRA"):
         te.add_request([1, 2], SamplingOptions(), model="my-adapter")
+    for kw in (dict(presence_penalty=0.5), dict(logit_bias={1: 2.0}),
+               dict(top_logprobs=2), dict(min_tokens=3),
+               dict(repetition_penalty=1.2)):
+        te.add_request([1, 2, 3], SamplingOptions(**kw))
 
 
 @pytest.mark.parametrize("kw", [
@@ -389,34 +426,52 @@ def test_server_smoke(engine):
     _with_client(engine, body)
 
 
+def _payload(path, extra):
+    payload = {"model": "debug-tiny", "max_tokens": 2}
+    if path == "/v1/chat/completions":
+        payload["messages"] = [{"role": "user", "content": "x"}]
+    else:
+        payload["prompt"] = "x"
+    payload.update(extra)
+    return payload
+
+
 @pytest.mark.parametrize("path,extra,field", [
     ("/v1/chat/completions", {"guided_regex": "a+"}, "guided_regex"),
     ("/v1/chat/completions", {"guided_choice": ["a", "b"]},
      "guided_choice"),
-    ("/v1/chat/completions", {"presence_penalty": 0.5}, "presence_penalty"),
-    ("/v1/chat/completions", {"frequency_penalty": 0.5},
-     "frequency_penalty"),
-    ("/v1/chat/completions", {"logit_bias": {"5": 1.0}}, "logit_bias"),
-    ("/v1/chat/completions", {"logprobs": True, "top_logprobs": 2},
-     "top_logprobs"),
-    ("/v1/chat/completions", {"n": 2}, "n"),
     ("/v1/chat/completions", {"model": "sql-lora"}, "model"),
-    ("/v1/completions", {"logprobs": 3}, "logprobs"),
-    ("/v1/completions", {"echo": True, "logprobs": 0}, "echo"),
-    ("/v1/completions", {"min_tokens": 2}, "min_tokens"),
-    ("/v1/completions", {"prompt": ["a", "b"]}, "prompt"),
+    ("/v1/chat/completions", {"response_format": {"type": "json_object"}},
+     "response_format"),
 ])
 def test_server_unported_fields_answer_400(engine, path, extra, field):
     async def body(client):
-        payload = {"model": "debug-tiny", "max_tokens": 2}
-        if path == "/v1/chat/completions":
-            payload["messages"] = [{"role": "user", "content": "x"}]
-        else:
-            payload["prompt"] = "x"
-        payload.update(extra)
-        r = await client.post(path, json=payload)
+        r = await client.post(path, json=_payload(path, extra))
         assert r.status == 400
         assert field in (await r.json())["error"]["message"]
+    _with_client(engine, body)
+
+
+@pytest.mark.parametrize("path,extra,choices", [
+    ("/v1/chat/completions", {"presence_penalty": 0.5}, 1),
+    ("/v1/chat/completions", {"frequency_penalty": 0.5}, 1),
+    ("/v1/chat/completions", {"logit_bias": {"5": 1.0}}, 1),
+    ("/v1/chat/completions", {"logprobs": True, "top_logprobs": 2}, 1),
+    ("/v1/chat/completions", {"n": 2}, 2),
+    ("/v1/completions", {"logprobs": 3}, 1),
+    ("/v1/completions", {"echo": True, "logprobs": 0}, 1),
+    ("/v1/completions", {"min_tokens": 2}, 1),
+    ("/v1/completions", {"prompt": ["a", "b"]}, 2),
+])
+def test_server_formerly_refused_fields_answer_200(engine, path, extra,
+                                                   choices):
+    """The options the port refused until it implemented them are
+    served: 200, with one choice per (prompt, n)."""
+    async def body(client):
+        r = await client.post(path, json=_payload(path, extra))
+        assert r.status == 200, await r.text()
+        out = await r.json()
+        assert [c["index"] for c in out["choices"]] == list(range(choices))
     _with_client(engine, body)
 
 
@@ -466,6 +521,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import production_stack_tpu_torch.kernels
         import production_stack_tpu_torch.ops.flash_attention
         import production_stack_tpu_torch.models.quant
+        import production_stack_tpu_torch.tracing
+        import production_stack_tpu_torch.version
+        import production_stack_tpu_torch.engine.efficiency
+        import production_stack_tpu_torch.engine.metrics
         assert not any(m == "jax" or m.startswith("jax.")
                        or m == "production_stack_tpu"
                        or m.startswith("production_stack_tpu.")
