@@ -19,8 +19,10 @@
    wrapper call: the decode's split and merge launches), plain version
    and one PyTorch library call at the shapes the serving phases give
    them (Gemma-2's at both layer kinds, sliding and global; the paged
-   kernels over a bf16 and over an int8 pool), holding each kernel
-   against its plain version on the timed inputs too;
+   kernels over a bf16 and over an int8 pool; the speculative verify
+   windows, the decode kernel at T = 4 and the prefill kernel at
+   T = 9), holding each kernel against its plain version on the timed
+   inputs too;
 3. then for each served path — llama-3-8b, gemma-2-9b, and llama-3-8b
    with int8 weights and an int8 KV pool (llama-3-8b-int8) — at full
    width and depth with random weights from a seed, one after the other
@@ -44,11 +46,39 @@
    - breakdown: device time of a decode step and of a prefill chunk of
      the served model, and from a torch.profiler trace of each the
      device's idle share and each kernel class's share; on llama-3-8b
-     the decode step with one shaped row and top-5 beside it, and the
-     plain step's launches held to their count before shaping existed;
+     the decode step with one shaped row and top-5 beside it, and with
+     one guided row, and the plain step's launches held to their count
+     before shaping existed;
+   - then through the server again (after the breakdown, whose plain
+     step's count of device events large uploads disturb):
+   - guided (llama-3-8b, its own kernel counts): guided_regex,
+     guided_choice, guided_json and response_format json_schema, each
+     greedy and sampled, beside a plain and a shaped row; every output
+     fully matches its pattern or parses as schema-valid JSON;
+     json_object answers 400; the stacked table's shape and build time;
+   - spec (llama-3-8b at spec 3 and 8, gemma-2-9b at spec 3 over its
+     4,600-token prompt): a second engine over the same weights with
+     speculative_ngram_tokens serves a repetitive prompt, a
+     non-repetitive one and a mixed batch (plain, shaped, guided and
+     top_logprobs rows) that the spec-free engine served first; the
+     verify window must launch the decode kernel at T = 4 and the
+     prefill kernel at T = 9; the speculation counters, and at spec 3
+     a macro-step's wall and device time, launches and tokens per
+     macro-step;
+   - embed (llama-3-8b, its own kernel counts, which stay 0: the
+     pooling forward is the plain causal attention, as in the JAX
+     package): /v1/embeddings over three inputs of different lengths
+     gives finite vectors of the model's width; /v1/rerank, /v2/rerank
+     and /v1/score answer 200 with finite scores;
    - reference: the served model's logits through the kernels agree
      with a float32 forward through the plain attention (on the int8
-     path over the same int8 weights and an int8 pool).
+     path over the same int8 weights and an int8 pool); on the
+     speculating paths the teacher-forced verify window (one forward of
+     spec + 1 tokens, and spec + 1 single-token forwards) against it
+     too, the speculating engine's greedy tokens against the spec-free
+     ones (a first difference only at a near-tie) and its shaped row
+     against the f32 shaped argmax; the pooled vector against the f32
+     encode and padding-independent.
 
 Progress goes to stdout; the line before the last two is the kernels'
 JSON record, then the card's name and power limit, then the result.
@@ -138,6 +168,14 @@ BF16_FLOPS = 989e12
 # before logit shaping existed: a batch with no shaped row and no top-K
 # must launch exactly these
 PLAIN_DECODE_LAUNCHES = {"llama-3-8b": 1836.5}
+# n-gram speculation each path serves beside its spec-free engine
+# (spec_phase): the draft lengths; the verify window spec + 1 takes the
+# paged decode kernel at 4 and the prefill kernel at 9
+SPEC = {"llama-3-8b": (3, 8), "gemma-2-9b": (3,)}
+# the two-key object of the guided phase: every path through it ends
+GUIDED_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "colour": {"enum": ["red", "green",
+                                                   "blue"]}}}
 
 
 def log(*args):
@@ -206,6 +244,18 @@ def free_memory():
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def release(engine) -> None:
+    """Drop a served engine's device tensors (weights, pool, carries,
+    the guided table). aiohttp caches each application's middleware
+    chain for the life of the process, and with the application the
+    engine object, so deleting the last name of an engine frees
+    nothing after its server has run."""
+    eng = engine.engine
+    eng.runner = eng._guided_table = eng._dev_sampling = None
+    eng._inflight = None
+    free_memory()
 
 
 # ------------------------------------------------------------ kernels
@@ -515,7 +565,7 @@ REPLACES = {
 }
 
 
-def paged_timings(pa, model, kv, path):
+def paged_timings(pa, model, kv, path, verify=False):
     """Both paged kernels at one served model's shapes: a decode step of
     the whole batch (T=1) and a 512-token prefill chunk of one row with
     the others parked, at the model's softcap and scale, bf16 q over a
@@ -526,7 +576,11 @@ def paged_timings(pa, model, kv, path):
     names in `path` the serving path whose launches main() reports (None:
     no path serves these shapes with this pool) and in `layers` the layer
     kind. Over an int8 pool no PyTorch call attends, so library_ms is
-    null and SDPA over the dequantized bf16 view is logged beside it."""
+    null and SDPA over the dequantized bf16 view is logged beside it.
+    verify: the speculative verify windows instead — the decode kernel
+    at T = 4 (spec 3) over the whole batch and, for Llama-3-8B, the
+    prefill kernel at T = 9 (spec 8), rows at decode_starts; their
+    launches come from the speculative serving run (spec_phase)."""
     import torch
     from production_stack_tpu_torch.models.config import get_config
     from production_stack_tpu_torch.models.llama import attn_scale
@@ -541,6 +595,11 @@ def paged_timings(pa, model, kv, path):
         "paged_decode_attention": (1, p["decode_starts"], 0, 64, 101),
         "paged_attention": (512, [p["chunk_start"]] * B, B - 1, 8, 102),
     }
+    if verify:
+        shapes = {"paged_decode_attention": (4, p["decode_starts"], 0, 64,
+                                             104)}
+        if 8 in SPEC.get(model, ()):
+            shapes["paged_attention"] = (9, p["decode_starts"], 0, 64, 105)
     records = []
     for name, (T, lens, parked, it, seed) in shapes.items():
         q, k, v, tables, starts, nb = paged_case(
@@ -591,6 +650,8 @@ def paged_timings(pa, model, kv, path):
             rec["layers"] = layers
             rec["kv_dtype"] = kv
             rec["shapes_of"] = model
+            if verify:
+                rec["verify_T"] = T
             # the yardstick where library_ms is null: SDPA without the
             # softcap, over the bf16 pool or the dequantized bf16 view
             rec["sdpa_ms"] = sdpa_ms
@@ -661,6 +722,9 @@ def kernel_phase():
     # with an int8 pool, so the Gemma-2 rows name no path (no launches)
     records += paged_timings(pa, "llama-3-8b", "int8", "llama-3-8b-int8")
     records += paged_timings(pa, "gemma-2-9b", "int8", None)
+    # the speculative verify windows the spec phase serves
+    for model in SPEC:
+        records += paged_timings(pa, model, "bfloat16", model, verify=True)
     records += flash_timing(fa)
     free_memory()
     return records
@@ -1002,6 +1066,410 @@ async def surface_phase(http, base, engine, path: str) -> dict:
     return out
 
 
+async def feature_phase(engine, path: str) -> dict:
+    """The OpenAI server in-process on `engine` again, after the
+    breakdown: guided_phase, spec_phase and embed_phase, each with its
+    own kernel counts. They run after the breakdown because its plain
+    step's count of device events is held to PLAIN_DECODE_LAUNCHES, and
+    after large uploads (the guided table) the profiler records fewer of
+    the step's small pageable host-to-device copies (the kernels it
+    launches are the same)."""
+    import aiohttp
+    from aiohttp import web
+    from production_stack_tpu_torch.engine.server import build_app
+    port = free_port()
+    runner = web.AppRunner(build_app(engine))
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    base = f"http://127.0.0.1:{port}"
+    try:
+        async with aiohttp.ClientSession() as http:
+            return {"guided": await guided_phase(http, base, engine, path),
+                    "spec": await spec_phase(http, base, engine, path),
+                    "embed": await embed_phase(http, base, engine, path)}
+    finally:
+        await runner.cleanup()
+
+
+async def _post_json(http, url, body, status=200):
+    async with http.post(url, json=body) as r:
+        text = await r.text()
+        if r.status != status:
+            raise AssertionError(f"{url} -> {r.status} (want {status}): "
+                                 f"{text[:500]}")
+        return json.loads(text)
+
+
+async def guided_phase(http, base, engine, path) -> dict:
+    """Guided decoding on llama-3-8b through the server, the kernel
+    counts zeroed before and read after: guided_regex (red|green|blue)
+    and \\d{3}, guided_choice, guided_json and response_format
+    json_schema with a two-key object (GUIDED_SCHEMA), each as a greedy
+    row and as a row sampled at temperature 1.0, sent together with a
+    plain and a shaped row so they share windows (a window with the
+    guided table and the shaping carry must run). Every guided output
+    must fully match its pattern or parse as schema-valid JSON, ending
+    on EOS; response_format json_object answers 400. Logs the stacked
+    table's shape and build time (host lift, stack and upload)."""
+    import re
+
+    import torch
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    if path != "llama-3-8b":
+        return {}
+    model = path_model(path)
+    eng = engine.engine
+    builds, windows = [], []
+    orig_table, orig_decode = eng._ensure_guided_table, eng.runner.decode
+
+    def timed_table():
+        t0, before = time.monotonic(), eng._guided_table
+        out = orig_table()
+        if out[0] is not before:
+            torch.cuda.synchronize()
+            builds.append({"shape": list(out[0].shape),
+                           "seconds": time.monotonic() - t0})
+        return out
+
+    def noted_decode(*a, **k):
+        windows.append((k.get("guide_table") is not None,
+                        bool(k.get("penalized"))))
+        return orig_decode(*a, **k)
+
+    def check_json(text):
+        doc = json.loads(text)
+        return (set(doc) == {"ok", "colour"} and isinstance(doc["ok"], bool)
+                and doc["colour"] in ("red", "green", "blue"))
+
+    cases = [
+        ("regex", {"guided_regex": "(red|green|blue)"},
+         lambda t: re.fullmatch("(red|green|blue)", t)),
+        ("digits", {"guided_regex": r"\d{3}"},
+         lambda t: re.fullmatch(r"\d{3}", t)),
+        ("choice", {"guided_choice": ["north", "south", "east", "west"]},
+         lambda t: t in ("north", "south", "east", "west")),
+        ("json", {"guided_json": GUIDED_SCHEMA}, check_json),
+        ("response_format", {"response_format": {
+            "type": "json_schema",
+            "json_schema": {"name": "pick", "schema": GUIDED_SCHEMA}}},
+         check_json),
+    ]
+    prompt = surface_prompt(3)
+    reqs = [("plain", None, {"prompt": surface_prompt(4), "max_tokens": 32,
+                             "temperature": 0.0, "ignore_eos": True}),
+            ("shaped", None, {"prompt": surface_prompt(5), "max_tokens": 32,
+                              "temperature": 0.0, "ignore_eos": True,
+                              **SHAPED})]
+    for name, extra, check in cases:
+        for temp in (0.0, 1.0):
+            reqs.append((f"{name}@{temp}", check, {
+                "prompt": prompt, "max_tokens": 64, "temperature": temp,
+                "seed": 11, **extra}))
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    eng._ensure_guided_table, eng.runner.decode = timed_table, noted_decode
+    t0 = time.monotonic()
+
+    def post(body):
+        return asyncio.ensure_future(_post_json(
+            http, base + "/v1/completions", {"model": model, **body}))
+    try:
+        # the plain and the shaped row first, so that the guided rows
+        # join their windows (the server admits requests from a thread
+        # pool, in no fixed order)
+        first = [post(body) for _, _, body in reqs[:2]]
+        while sum(s.prompt_tokens in (reqs[0][2]["prompt"],
+                                      reqs[1][2]["prompt"])
+                  for s in list(eng.seqs.values())) < 2:
+            await asyncio.sleep(0.005)
+        results = await asyncio.gather(*first, *(
+            post(body) for _, _, body in reqs[2:]))
+        wall = time.monotonic() - t0
+        launches = {**pa.launch_counts, **fa.launch_counts}
+        await _post_json(http, base + "/v1/completions", {
+            "model": model, "prompt": prompt, "max_tokens": 8,
+            "response_format": {"type": "json_object"}}, status=400)
+    finally:
+        eng._ensure_guided_table, eng.runner.decode = orig_table, \
+            orig_decode
+    outputs, bad = {}, []
+    for (name, check, _), res in zip(reqs, results):
+        ch = res["choices"][0]
+        outputs[name] = ch["text"]
+        if check is not None and (ch["finish_reason"] != "stop"
+                                  or not check(ch["text"])):
+            bad.append((name, ch["finish_reason"], ch["text"]))
+    shared = any(g and p for g, p in windows)
+    rec = {"path": path, "requests": len(reqs) + 1, "wall_s": wall,
+           "tables": builds, "outputs": outputs,
+           "guided_and_shaped_window": shared, "launches": launches}
+    log(json.dumps({"guided": rec}))
+    if bad or not builds or not shared:
+        raise AssertionError(f"guided phase: outputs off their pattern "
+                             f"{bad}, tables {builds}, shared {shared}")
+    for name in pa.launch_counts:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"guided phase: {launches}")
+    return {"table_shape": builds[-1]["shape"]}
+
+
+def spec_prompts(engine, path):
+    """The spec phase's prompts as token ids: a repetitive one (a
+    12-token base x 6, as tests/test_engine.py; Gemma-2 its long prompt
+    past the 4096 window, itself a repeated sentence), a non-repetitive
+    one, and the mixed batch's four."""
+    import random
+    tok = engine.engine.tokenizer
+    rnd = random.Random(17)
+    base = [rnd.randrange(32, 127) for _ in range(12)]
+    if path == "gemma-2-9b":
+        rep = tok.encode(long_prompt_text(PATHS[path]["long_tokens"]))
+    else:
+        rep = [256] + base * 6
+    other = [256] + [rnd.randrange(32, 256) for _ in range(80)]
+    mixed = [[256] + base[3:] * 5] + [surface_prompt(20 + i)
+                                      for i in range(3)]
+    return rep, other, mixed
+
+
+SPEC_GUIDED = r"(red|green|blue)!"
+
+
+def spec_requests(rep, other, mixed):
+    """[[(name, body)], [(name, body)]] of the spec phase, each list
+    sent at once: the repetitive and the non-repetitive prompt, then the
+    mixed batch (a plain greedy, a shaped, a guided and a top_logprobs
+    row)."""
+    greedy = {"temperature": 0.0, "ignore_eos": True}
+    return [[("repetitive", {"prompt": rep, "max_tokens": 32, **greedy}),
+             ("other", {"prompt": other, "max_tokens": 24, **greedy})],
+            [("plain", {"prompt": mixed[0], "max_tokens": 16, **greedy}),
+             # 24 steps, as the surface phase's shaped request: the
+             # bf16 noise shaped_check bounds by is a maximum over them
+             ("shaped", {"prompt": mixed[1], "max_tokens": 24, **greedy,
+                         **SHAPED}),
+             ("guided", {"prompt": mixed[2], "max_tokens": 16,
+                         "temperature": 0.0, "guided_regex": SPEC_GUIDED}),
+             ("top", {"prompt": mixed[3], "max_tokens": 16, **greedy,
+                      "logprobs": 5})]]
+
+
+async def serve_spec_requests(http, base, engine, model, groups):
+    """{name: (prompt ids, served ids)}: each group of spec_requests at
+    once, one group after the other; the ids read from the engine's
+    sequences."""
+    for group in groups:
+        await asyncio.gather(*(_post_json(http, base + "/v1/completions",
+                                          {"model": model, **body})
+                               for _, body in group))
+    seqs = list(engine.engine.seqs.values())
+    out = {}
+    for name, body in groups[0] + groups[1]:
+        seq = next(s for s in reversed(seqs)
+                   if s.prompt_tokens == body["prompt"]
+                   and s.options.max_tokens == body["max_tokens"])
+        out[name] = (list(body["prompt"]), list(seq.output_tokens))
+    return out
+
+
+async def spec_phase(http, base, engine, path) -> dict:
+    """n-gram speculation beside the spec-free engine: for each draft
+    length of SPEC[path] a second engine over the same weights with
+    speculative_ngram_tokens set serves, through its own server, the
+    requests spec_requests names — which the served spec-free engine
+    has answered first. The kernel counts are zeroed before each
+    speculating engine serves and read after: the verify window
+    spec + 1 must have launched the paged decode kernel at T = 4
+    (spec 3) and the prefill kernel at T = 9 (spec 8). The guided row
+    must match its pattern; the greedy rows' tokens against the
+    spec-free ones, the shaped row's against the f32 shaped argmax and
+    the teacher-forced verify logits are held in reference_phase (the
+    f32 weights live there). Logs the speculation counters and, at
+    spec 3, the macro-step breakdown (macro_step_breakdown). Each speculating engine is freed before
+    the next."""
+    import re
+
+    from aiohttp import web
+    from prometheus_client.parser import text_string_to_metric_families
+    from production_stack_tpu_torch.engine.async_engine import \
+        AsyncLLMEngine
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.server import build_app
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    if path not in SPEC:
+        return {}
+    model = path_model(path)
+    rep, other, mixed = spec_prompts(engine, path)
+    groups = spec_requests(rep, other, mixed)
+    ref = await serve_spec_requests(http, base, engine, model, groups)
+    out = {"ref": ref, "runs": {}, "verify": {}, "verify_window": {}}
+    for K in SPEC[path]:
+        spec_engine = AsyncLLMEngine(
+            EngineConfig(model=model, device=engine.engine.cfg.device,
+                         speculative_ngram_tokens=K,
+                         **PATHS[path]["serve"]),
+            params=engine.engine.runner.params)
+        port = free_port()
+        runner = web.AppRunner(build_app(spec_engine))
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        base2 = f"http://127.0.0.1:{port}"
+        try:
+            pa.reset_launch_counts()
+            fa.reset_launch_counts()
+            t0 = time.monotonic()
+            got = await serve_spec_requests(http, base2, spec_engine, model,
+                                            groups)
+            wall = time.monotonic() - t0
+            launches = {**pa.launch_counts, **fa.launch_counts}
+            verify = {n: dict(v) for n, v in pa.verify_launches.items()}
+            vwin = {n: dict(v) for n, v in
+                    pa.verify_window_launches.items()}
+            async with http.get(base2 + "/metrics") as r:
+                samples = {x.name: x.value for f in
+                           text_string_to_metric_families(await r.text())
+                           for x in f.samples}
+        finally:
+            await runner.cleanup()
+        kernel = ("paged_decode_attention" if K + 1 <= pa.DECODE_T_MAX
+                  else "paged_attention")
+        guided_text = spec_engine.engine.tokenizer.decode(
+            got["guided"][1])
+        rec = {"path": path, "spec": K, "wall_s": wall,
+               "accepted_draft_tokens":
+                   samples["tpu:spec_accepted_draft_tokens_total"],
+               "macro_steps": samples["tpu:spec_macro_steps_total"],
+               "generated": sum(len(t) for _, t in got.values()),
+               "equal_to_spec_free": {n: got[n][1] == ref[n][1]
+                                      for n in got},
+               "guided_text": guided_text, "launches": launches,
+               "verify_launches": verify,
+               "verify_window_launches": vwin}
+        if K == 3:
+            rec["macro_step"] = macro_step_breakdown(
+                spec_engine.engine.runner, rep, K)
+        log(json.dumps({"spec": rec}))
+        if verify[kernel].get(K + 1, 0) <= 0 or launches[
+                "flash_attention_with_cache"]:
+            raise AssertionError(f"the verify window T = {K + 1} did not "
+                                 f"launch {kernel}: {rec}")
+        if not re.fullmatch(SPEC_GUIDED, guided_text):
+            raise AssertionError(f"guided row under speculation: "
+                                 f"{guided_text!r}")
+        out["runs"][K] = got
+        for counts, key in ((verify, "verify"), (vwin, "verify_window")):
+            for name, by_t in counts.items():
+                for T, n in by_t.items():
+                    agg = out[key].setdefault(name, {})
+                    agg[T] = agg.get(T, 0) + n
+        release(spec_engine)
+    return out
+
+
+def macro_step_breakdown(runner, prompt, K, steps=2):
+    """One speculative window of `steps` macro-steps of K drafts over
+    the whole batch, every row the repetitive prompt prefilled and its
+    history uploaded at each call (the history and decode state
+    re-upload is part of the profiled span): per macro-step the wall
+    time (CUDA events), the device's busy time and launches (profiler)
+    and the tokens each row emits. Two macro-steps keep the trace
+    short; the upload's share of a macro-step is then 1/2 where a
+    decode_window of 8 would make it 1/8."""
+    import numpy as np
+    from production_stack_tpu_torch.engine.sampler import SamplingParams
+    cfg = runner.engine_cfg
+    B, S, W = cfg.max_num_seqs, cfg.max_model_len, steps
+    MB = cfg.max_blocks_per_seq
+    runner.set_block_tables(
+        (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB))
+    sp = SamplingParams.filled(B, temperature=0.0, device=runner.device)
+    P = len(prompt)
+    toks = np.tile(np.array(prompt, np.int32), (B, 1))
+    first = runner.prefill(toks, np.zeros(B, np.int32),
+                           np.full(B, P, np.int32), sp,
+                           cfg.kv_bucket_for(P), greedy=True)[0]
+    first = first.cpu().numpy()
+    hist = np.zeros((B, S), np.int32)
+    hist[:, :P] = prompt
+    hist[:, P] = first
+    kv_len = cfg.kv_bucket_for(min(P + W * (K + 1) + 1, S))
+    ok = np.ones(B, bool)
+
+    def window(i=0):
+        runner.set_decode_state(first, np.full(B, P, np.int32),
+                                history=hist)
+        return runner.decode_spec(sp, steps=W, kv_len=kv_len, spec=K,
+                                  spec_ok=ok, greedy=True)
+
+    counts = window()[2].cpu().numpy()
+    step_ms = time_ms(window, 3) / W
+    return {"spec": K, "batch": B, "kv_len": kv_len, "prompt_tokens": P,
+            "macro_step_ms": step_ms,
+            "tokens_per_macro_step": float(counts.mean()),
+            "tokens_per_row": counts.sum(axis=1).tolist(),
+            "profile_per_macro_step": profile_summary(
+                device_profile(window), W, step_ms)}
+
+
+async def embed_phase(http, base, engine, path) -> dict:
+    """The pooling routes on llama-3-8b, the kernel counts zeroed before
+    and read after (the pooling forward is the plain causal attention,
+    as in the JAX package: no paged or flash kernel may launch):
+    /v1/embeddings with three inputs of different lengths gives three
+    finite vectors of the model's width, labelled causal-mean-pool; the
+    shortest input alone gives its vector again (padding-independence,
+    held in reference_phase with the f32 bound); /v1/rerank, /v2/rerank
+    and /v1/score answer 200 with finite scores."""
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    if path != "llama-3-8b":
+        return {}
+    model = path_model(path)
+    eng = engine.engine
+    H = eng.model_cfg.hidden_size
+    inputs = [long_prompt_text(300), "Rivers run to the sea, and the sea "
+              "is never full.", "Tea."]
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    res = await _post_json(http, base + "/v1/embeddings",
+                           {"model": model, "input": inputs})
+    alone = await _post_json(http, base + "/v1/embeddings",
+                             {"model": model, "input": [inputs[2]]})
+    docs = inputs[1:] + ["Keys and values, paged."]
+    scores = [
+        await _post_json(http, base + path_, {"model": model, **body})
+        for path_, body in (
+            ("/v1/rerank", {"query": "where do rivers go?",
+                            "documents": docs}),
+            ("/v2/rerank", {"query": "pools", "documents": docs,
+                            "top_n": 2}),
+            ("/v1/score", {"text_1": "rivers", "text_2": docs}))]
+    wall = time.monotonic() - t0
+    launches = {**pa.launch_counts, **fa.launch_counts}
+    vecs = [d["embedding"] for d in res["data"]]
+    finite = [math.isfinite(x) for v in vecs + [alone["data"][0][
+        "embedding"]] for x in v]
+    vals = [r["relevance_score"] for r in scores[0]["results"]
+            + scores[1]["results"]] + [d["score"] for d in scores[2]["data"]]
+    rec = {"path": path, "wall_s": wall, "vectors": len(vecs),
+           "width": [len(v) for v in vecs],
+           "embedding_source": res["embedding_source"],
+           "input_tokens": [len(eng.tokenizer.encode(t)) for t in inputs],
+           "scores": vals, "launches": launches}
+    log(json.dumps({"embed": rec}))
+    if (len(vecs) != 3 or any(len(v) != H for v in vecs) or not all(finite)
+            or not all(math.isfinite(v) for v in vals) or len(vals) != 8
+            or res["embedding_source"] != "causal-mean-pool"
+            or any(launches.values())):
+        raise AssertionError(f"embed phase: {rec}")
+    return {"tokens": eng.tokenizer.encode(inputs[2]),
+            "batched": vecs[2], "alone": alone["data"][0]["embedding"]}
+
+
 async def fault_probe(http, base, engine, path: str):
     """Prompt ids outside the vocabulary ([1, V+100, -(V+100), 3]) answer
     200 (the embedding's index rule), plain and with echo and logprobs
@@ -1072,7 +1540,19 @@ def reference_phase(engine, path: str, surface: dict):
       smallest penalty term (shaped_check);
     - the echoed prompt logprobs may be at most BF16_FLOOR_FACTOR times
       further from the f32 prompt logprobs than the bf16 plain path's
-      are, as the logits are."""
+      are, as the logits are.
+
+    On the paths that speculate (SPEC), the teacher-forced verify: after
+    the 3 decode steps, spec + 1 further tokens go through one forward
+    (the verify window's shape), and through the kernels also as
+    spec + 1 single-token forwards over the same positions. The bf16
+    verify and single-token logits may each be at most
+    BF16_FLOOR_FACTOR times further from the f32 forward than the bf16
+    plain path's verify forward is, so at most 2 x BF16_FLOOR_FACTOR
+    times that from each other; the f32 verify through the kernels is
+    held at F32_LOGIT_TOL. The spec phase's greedy rows against the
+    spec-free ones (near_tie_check) and its shaped row
+    (shaped_check). The embed phase's vector (embed_check)."""
     from contextlib import contextmanager
     import dataclasses
 
@@ -1081,6 +1561,7 @@ def reference_phase(engine, path: str, surface: dict):
     from production_stack_tpu_torch.models.kv import make_slot_cache
     from production_stack_tpu_torch.models.quant import is_quantized
     from production_stack_tpu_torch.ops import paged_attention as pa
+    from production_stack_tpu_torch.ops.norms import rms_norm
 
     runner = engine.engine.runner
     cfg = runner.model_cfg
@@ -1090,7 +1571,8 @@ def reference_phase(engine, path: str, surface: dict):
     kv_dtype = getattr(torch, path_kv(path))
     steps = 3
     Bs = 64
-    max_len = -(-(P + steps) // Bs) * Bs
+    verify_T = [K + 1 for K in SPEC.get(path, ())]
+    max_len = -(-(P + steps + sum(verify_T)) // Bs) * Bs
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     p32 = llama.Llama(cfg32, device=dev)
     with torch.no_grad():
@@ -1105,6 +1587,8 @@ def reference_phase(engine, path: str, surface: dict):
                            device=dev)
     step_toks = torch.randint(0, cfg.vocab_size, (steps,), generator=g,
                               device=dev)
+    ver_toks = torch.randint(0, cfg.vocab_size, (sum(verify_T),),
+                             generator=g, device=dev)
 
     def plain(q, k, v, tables, starts, *, nb, scale=None, window=0,
               softcap=0.0, k_scales=None, v_scales=None):
@@ -1151,10 +1635,13 @@ def reference_phase(engine, path: str, surface: dict):
             block_size=Bs, device=dev)
 
     def run(params, mcfg, mode):
-        """Logits at the compared positions, and the pool's int8 K/V
-        (None over a float pool); mode "plain", "kernels" or "checked"."""
+        """Logits at the compared positions, the verify segments' logits
+        {T: [T, V]} as one forward and (not in "plain") as T
+        single-token forwards over the same positions, and the pool's
+        int8 K/V (None over a float pool); mode "plain", "kernels" or
+        "checked"."""
         cache, tables = pool(mcfg, max_len)
-        out = []
+        out, ver, single = [], {}, {}
         with attention(mode):
             for lo in range(0, P, chunk):
                 hi = min(lo + chunk, P)
@@ -1170,10 +1657,24 @@ def reference_phase(engine, path: str, surface: dict):
                     torch.tensor([[P + i]], device=dev), cache,
                     block_tables=tables, rope=runner.rope, kv_len=max_len)
                 out.append(logits[0, 0])
+            at = P + steps
+            for T in verify_T:
+                toks = ver_toks[at - P - steps:at - P - steps + T]
+                pos = torch.arange(at, at + T, device=dev)
+                logits, _ = llama.forward(
+                    params, mcfg, toks[None], pos[None], cache,
+                    block_tables=tables, rope=runner.rope, kv_len=max_len)
+                ver[T] = logits[0]
+                if mode != "plain":
+                    single[T] = torch.cat([llama.forward(
+                        params, mcfg, toks[i].view(1, 1), pos[i].view(1, 1),
+                        cache, block_tables=tables, rope=runner.rope,
+                        kv_len=max_len)[0][0] for i in range(T)])
+                at += T
         k8 = (torch.stack([cache.k, cache.v])
               if kv_dtype == torch.int8 else None)
         del cache
-        return torch.stack(out), k8
+        return torch.stack(out), ver, single, k8
 
     def all_logits(params, mcfg, ids):
         """f32 logits [T, V] at every position of `ids`, one chunk
@@ -1189,17 +1690,76 @@ def reference_phase(engine, path: str, surface: dict):
         del cache
         return logits[0]
 
+    def tail_logits(params, mcfg, ids, n):
+        """f32 logits [n, V] of the distributions of the last n tokens of
+        `ids` (positions len-1-n .. len-2), through a pool of its own,
+        prefill_chunk at a time, and the plain attention."""
+        T = len(ids)
+        cache, tables = pool(mcfg, -(-T // Bs) * Bs)
+        t = torch.tensor([ids], device=dev)
+        rows = []
+        with attention("plain"):
+            for lo in range(0, T - 1, chunk):
+                hi = min(lo + chunk, T - 1)
+                x = llama.hidden(params, mcfg, t[:, lo:hi],
+                                 torch.arange(lo, hi, device=dev)[None],
+                                 cache, block_tables=tables,
+                                 rope=runner.rope, kv_len=-(-T // Bs) * Bs)
+                first = max(lo, T - 1 - n)
+                if first < hi:
+                    rows.append(llama.final_logits(
+                        params, mcfg, x[:, first - lo:])[0])
+        del cache
+        return torch.cat(rows).float()
+
+    def pooled_plain(params, mcfg, ids):
+        """The mean over `ids` of the final-normed hidden states of one
+        incremental forward through the plain attention: the bf16 plain
+        path of embed_check."""
+        T = len(ids)
+        cache, tables = pool(mcfg, -(-T // Bs) * Bs)
+        with attention("plain"):
+            x = llama.hidden(params, mcfg, torch.tensor([ids], device=dev),
+                             torch.arange(T, device=dev)[None], cache,
+                             block_tables=tables, rope=runner.rope,
+                             kv_len=-(-T // Bs) * Bs)
+        del cache
+        x = rms_norm(x, params.final_norm, mcfg.rms_norm_eps,
+                     1.0 if mcfg.rms_norm_offset else 0.0)
+        return x[0].float().mean(dim=0)
+
     def prompt_lps(params, mcfg, ids):
         lsm = torch.log_softmax(all_logits(params, mcfg, ids)[:-1], -1)
         return lsm.gather(1, torch.tensor(ids[1:], device=dev)[:, None])[
             :, 0]
 
     t0 = time.monotonic()
-    ref, ref_pool = run(p32, cfg32, "plain")
+    ref, ref_ver, _, ref_pool = run(p32, cfg32, "plain")
     int8 = ref_pool is not None
-    got32, pool32 = run(p32, cfg32, "checked" if int8 else "kernels")
+    got32, ver32, _, pool32 = run(p32, cfg32,
+                                  "checked" if int8 else "kernels")
     err32 = (got32 - ref).abs().max().item()
     shaped32 = echo32 = None
+    # the spec phase's rows that left the spec-free tokens, and its
+    # shaped rows: f32 logits of their distributions
+    spec = surface.get("spec") or {}
+    spec_rows = []
+    for K, got in spec.get("runs", {}).items():
+        for name, (prompt_ids, toks) in got.items():
+            want = spec["ref"][name][1]
+            if name == "shaped" or (name != "guided" and toks != want):
+                seq = toks if name == "shaped" else want
+                spec_rows.append({"spec": K, "name": name,
+                                  "prompt": prompt_ids, "tokens": seq,
+                                  "got": toks,
+                                  "f32": tail_logits(p32, cfg32,
+                                                     prompt_ids + seq,
+                                                     len(seq))})
+    embed = surface.get("embed")
+    if embed:
+        ids = torch.tensor([embed["tokens"]], device=dev)
+        embed32 = llama.encode(p32, cfg32, ids, rope=runner.rope)[0].mean(
+            dim=0)
     if "shaped" in surface:
         sh = surface["shaped"]
         shaped32 = all_logits(p32, cfg32, sh["prompt"] + sh["tokens"])[
@@ -1208,8 +1768,10 @@ def reference_phase(engine, path: str, surface: dict):
         echo32 = prompt_lps(p32, cfg32, surface["echo"]["prompt"])
     del p32
     free_memory()
-    err16 = (run(runner.params, cfg, "kernels")[0] - ref).abs().max().item()
-    floor16 = (run(runner.params, cfg, "plain")[0] - ref).abs().max().item()
+    got16, ver16, single16, _ = run(runner.params, cfg, "kernels")
+    plain16, pver16, _, _ = run(runner.params, cfg, "plain")
+    err16 = (got16 - ref).abs().max().item()
+    floor16 = (plain16 - ref).abs().max().item()
     scale = ref.abs().max().item()
     extra = {}
     if int8:
@@ -1233,6 +1795,49 @@ def reference_phase(engine, path: str, surface: dict):
             len(sh["prompt"]) - 1:-1].float()
         extra["shaped"] = shaped_check(engine, sh, shaped32, shaped16)
         ok = ok and extra["shaped"]["ok"]
+    if verify_T:
+        extra["verify"] = []
+        for T in verify_T:
+            r32 = ref_ver[T]
+
+            def dist(a):
+                return (a.float() - r32).abs().max().item()
+            floor = dist(pver16[T])
+            v = {"T": T, "bf16_verify_err": dist(ver16[T]),
+                 "bf16_single_err": dist(single16[T]),
+                 "verify_vs_single": (ver16[T].float()
+                                      - single16[T].float()).abs().max()
+                 .item(),
+                 "bf16_plain_err": floor,
+                 "tol": BF16_FLOOR_FACTOR * floor,
+                 "f32_verify_err": dist(ver32[T]),
+                 "f32_tol": F32_LOGIT_TOL * scale}
+            v["ok"] = (v["bf16_verify_err"] <= v["tol"]
+                       and v["bf16_single_err"] <= v["tol"]
+                       and v["verify_vs_single"] <= 2 * v["tol"]
+                       and v["f32_verify_err"] <= v["f32_tol"])
+            extra["verify"].append(v)
+            ok = ok and v["ok"]
+    if spec:
+        extra["spec"] = []
+        for row in spec_rows:
+            l16 = tail_logits(runner.params, cfg,
+                              row["prompt"] + row["tokens"],
+                              len(row["tokens"]))
+            if row["name"] == "shaped":
+                chk = shaped_check(engine, {"prompt": row["prompt"],
+                                            "tokens": row["tokens"]},
+                                   row["f32"], l16)
+            else:
+                chk = near_tie_check(row["tokens"], row["got"], row["f32"],
+                                     l16)
+            extra["spec"].append({"spec": row["spec"], "row": row["name"],
+                                  **chk})
+            ok = ok and chk["ok"]
+    if embed:
+        extra["embed"] = embed_check(embed, embed32, pooled_plain(
+            runner.params, cfg, embed["tokens"]))
+        ok = ok and extra["embed"]["ok"]
     if echo32 is not None:
         served = torch.tensor(surface["echo"]["logprobs"], device=dev)
         plain16 = prompt_lps(runner.params, cfg, surface["echo"]["prompt"])
@@ -1256,6 +1861,60 @@ def reference_phase(engine, path: str, surface: dict):
     if not ok:
         raise AssertionError("served logits disagree with the float32 "
                              "reference beyond the stated bounds")
+
+
+def near_tie_check(want, got, logits32, logits16) -> dict:
+    """Greedy tokens of the speculating engine (`got`) against the
+    spec-free engine's (`want`), logits [n, V] of want's n
+    distributions teacher-forced (f32 weights, and the served bf16
+    weights), both through the plain attention. Equal, or the first
+    token where they part is a near-tie: the f32 gap between the two
+    tokens there is at most BF16_FLOOR_FACTOR times the bf16 plain
+    path's own largest error on such a gap over the steps (between
+    the f32 best token and the spec-free one, or the runner-up where
+    those agree). After the first difference the sequences condition
+    on different tokens and are not compared."""
+    import torch
+    n = len(want)
+    differ = [i for i in range(min(n, len(got))) if want[i] != got[i]]
+    if not differ and len(got) == n:
+        return {"tokens": n, "differ_at": None, "ok": True}
+    i = differ[0] if differ else min(n, len(got))
+    dev = logits32.device
+    w = torch.tensor(want, device=dev)
+    top2 = logits32.topk(2, dim=-1).indices
+    best = top2[:, 0]
+    other = torch.where(w != best, w, top2[:, 1])
+
+    def gap(a):
+        return (a.gather(1, best[:, None])[:, 0]
+                - a.gather(1, other[:, None])[:, 0])
+    noise = (gap(logits16.float()) - gap(logits32)).abs().max().item()
+    tol = BF16_FLOOR_FACTOR * noise
+    gap_i = (logits32[i, want[i]] - logits32[i, got[i]]).abs().item() \
+        if i < min(n, len(got)) else math.inf
+    return {"tokens": n, "differ_at": i, "f32_gap": gap_i,
+            "bf16_plain_gap_err": noise, "tol": tol, "ok": gap_i <= tol}
+
+
+def embed_check(embed: dict, pooled32, pooled16_plain) -> dict:
+    """The served pooled vector (an input batched with longer ones)
+    against the f32 encode of its tokens: at most BF16_FLOOR_FACTOR
+    times as far as the bf16 plain path's vector (one incremental
+    forward through the plain attention) is; and the vector of the
+    input served alone at most as far from the batched one."""
+    import torch
+    dev = pooled32.device
+    batched = torch.tensor(embed["batched"], device=dev)
+    alone = torch.tensor(embed["alone"], device=dev)
+    floor = (pooled16_plain - pooled32).abs().max().item()
+    err = (batched - pooled32).abs().max().item()
+    pad = (alone - batched).abs().max().item()
+    tol = BF16_FLOOR_FACTOR * floor
+    return {"tokens": len(embed["tokens"]), "served_err": err,
+            "alone_vs_batched": pad, "bf16_plain_err": floor, "tol": tol,
+            "max_abs": pooled32.abs().max().item(),
+            "ok": err <= tol and pad <= tol}
 
 
 def shaped_check(engine, shaped: dict, logits32, logits16) -> dict:
@@ -1440,7 +2099,11 @@ def breakdown_phase(engine, path: str):
                device_profile(chunk), 1, chunk_ms)}
     if path in PLAIN_DECODE_LAUNCHES:
         out.update(shaped_breakdown(runner, sp, window, W, kv_len, starts))
+        out.update(guided_breakdown(engine, sp, W, kv_len, starts))
         got = out["decode_profile_per_step"].get("device_launches")
+        out["guided_added_launches_per_step"] = (
+            out["guided_decode_profile_per_step"].get("device_launches", 0)
+            - (got or 0))
         if got != PLAIN_DECODE_LAUNCHES[path]:
             log(json.dumps({"breakdown": out}))
             raise AssertionError(
@@ -1487,6 +2150,37 @@ def shaped_breakdown(runner, sp, window, W, kv_len, starts) -> dict:
                 device_profile(shaped_window), W, step_ms)}
 
 
+def guided_breakdown(engine, sp, W, kv_len, starts) -> dict:
+    """The decode step with one guided row ((red|green|blue), its table
+    stacked as the engine stacks it) among the batch, timed and
+    profiled as the plain step is; the DFA states are uploaded with the
+    tokens at each call, as at an engine's composition change."""
+    import numpy as np
+    import torch
+    from production_stack_tpu_torch.engine import guided
+    from production_stack_tpu_torch.engine.engine import stack_guided_tables
+    eng = engine.engine
+    runner = eng.runner
+    B = len(starts)
+    table = torch.from_numpy(stack_guided_tables(
+        [guided.compile_grammar("(red|green|blue)", eng.tokenizer)],
+        eng.model_cfg.vocab_size)).to(runner.device)
+    gids = np.zeros(B, np.int32)
+    gids[0] = 1
+
+    def guided_window(i=0):
+        runner.set_decode_state(np.zeros((B,), np.int32), starts,
+                                guide_states=np.zeros((B,), np.int32))
+        return runner.decode(sp, steps=W, kv_len=kv_len, greedy=True,
+                             guide_table=table, guide_ids=gids)
+
+    step_ms = time_ms(guided_window, 3) / W
+    return {"guided_table_shape": list(table.shape),
+            "guided_decode_step_ms": step_ms,
+            "guided_decode_profile_per_step": profile_summary(
+                device_profile(guided_window), W, step_ms)}
+
+
 def model_phase(path: str):
     """Serve one path's model at full width and depth, then its breakdown
     and its reference; returns the kernels' launch counts of the serving
@@ -1518,13 +2212,16 @@ def model_phase(path: str):
     t0 = time.monotonic()
     counts, surface = asyncio.run(serve_phase(engine, path))
     breakdown_phase(engine, path)
+    surface.update(asyncio.run(feature_phase(engine, path)))
+    # the speculative serving runs' launches by window length T
+    counts["verify"] = surface["spec"].get("verify", {})
+    counts["verify_window"] = surface["spec"].get("verify_window", {})
     # serving is over: the pool goes before the float32 copy arrives
     engine.engine.runner.cache = None
     del runner, pool
     free_memory()
     reference_phase(engine, path, surface)
-    del engine
-    free_memory()
+    release(engine)
     log(json.dumps({"model_phase_s": time.monotonic() - t0,
                     "path": path}))
     return counts
@@ -1615,6 +2312,13 @@ def main() -> int:
         elif rec["path"] is None:
             # an int8 row at the shapes of a model served with a bf16 pool
             rec["launches"] = 0
+        elif "verify_T" in rec:
+            # a verify window: launches at that T while speculating
+            c, T = counts[rec["path"]], rec["verify_T"]
+            total = c["verify"].get(name, {}).get(T, 0)
+            windowed = c["verify_window"].get(name, {}).get(T, 0)
+            rec["launches"] = {"all": total, "sliding": windowed,
+                               "global": total - windowed}[rec["layers"]]
         else:
             c = counts[rec["path"]]
             key = ("int8_launches" if rec["kv_dtype"] == "int8"

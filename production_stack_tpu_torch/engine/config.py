@@ -2,13 +2,16 @@
 plus ``device``.
 
 The fields keep their names and meaning, so a JAX-package config maps
-onto this one field by field. Weight-only int8 (``quantization="int8"``)
-and the int8 KV pool (``kv_dtype="int8"``) are validated as the JAX
-config does. Options the port does not implement yet raise here instead
-of being ignored: speculation, LoRA, KV tiering, checkpoints,
-embeddings, multi-device parallelism, adaptive decode windows and
-pipelined windows (the last two default to off here, where the JAX
-engine turns them on). They arrive with the slices that need them
+onto this one field by field. Weight-only int8 (``quantization="int8"``),
+the int8 KV pool (``kv_dtype="int8"``) and n-gram speculation
+(``speculative_ngram_tokens`` in 0..16) are validated as the JAX config
+does. Options the port does not implement yet raise here instead of
+being ignored: LoRA, KV tiering, checkpoints, an embedding encoder
+(``embedding_model``; the pooling routes serve the causal model's
+mean-pooled hidden states), multi-device parallelism, adaptive decode
+windows and pipelined windows (the last two default to off here, where
+the JAX engine turns them on; speculation pins the adaptive windows off
+in the JAX engine too). They arrive with the slices that need them
 (ROADMAP.md, Queue A).
 """
 
@@ -49,6 +52,10 @@ class EngineConfig:
     pipeline_parallel_size: int = 1
     expert_parallel_size: int = 1
     quantization: Optional[str] = None
+    # n-gram (prompt-lookup) speculative decoding: draft length per
+    # macro-step (0 = off). Only greedy, unguided, unshaped,
+    # no-alternatives rows speculate; other rows single-step inside the
+    # same window (engine/runner.decode_spec)
     speculative_ngram_tokens: int = 0
     seed: int = 0
     checkpoint: Optional[str] = None
@@ -86,11 +93,12 @@ class EngineConfig:
             raise ValueError(
                 f"quantization={self.quantization!r} unsupported: only "
                 f"weight-only 'int8' (models/quant.py) is implemented")
+        if not 0 <= self.speculative_ngram_tokens <= 16:
+            raise ValueError("speculative_ngram_tokens must be in 0..16")
         not_ported = {
             "tensor_parallel_size": self.tensor_parallel_size != 1,
             "pipeline_parallel_size": self.pipeline_parallel_size != 1,
             "expert_parallel_size": self.expert_parallel_size != 1,
-            "speculative_ngram_tokens": self.speculative_ngram_tokens != 0,
             "checkpoint": self.checkpoint is not None,
             "embedding_model": self.embedding_model is not None,
             "kv_transfer_config": bool(self.kv_transfer_config),

@@ -64,12 +64,14 @@ class EngineEffAccounting:
     # -- step-loop writes ------------------------------------------------
 
     def note_window(self, *, steps: int, batch: int, kv_len: int,
-                    real: int, pad: int, dead: int,
-                    window_s: float) -> None:
-        """One decode window: ``batch * steps`` token-step computations,
-        of which ``real`` emitted tokens the client keeps, ``pad`` ran
-        on parked rows and ``dead`` on live rows past their stop."""
-        total = batch * steps
+                    real: int, pad: int, dead: int, window_s: float,
+                    positions: int = 1) -> None:
+        """One decode window: ``batch * steps * positions`` token-step
+        computations (``positions`` = spec + 1 per speculative
+        macro-step), of which ``real`` emitted tokens the client keeps,
+        ``pad`` ran on parked rows and ``dead`` on live rows past their
+        stop or on rejected draft positions."""
+        total = batch * steps * positions
         useful = real / total if total else 0.0
         win_bytes = steps * (self.weight_bytes
                              + batch * self.kv_position_bytes * kv_len)

@@ -21,8 +21,29 @@ queue-delay shed of waiting sequences (``scheduler.expire_waiting``), a
 lock-free ``load_report`` (``/load`` and the ``x-engine-*`` headers)
 and the metrics of engine/metrics.py, fed by plain-int accounting
 (engine/efficiency.py). Logit shaping (penalties, logit bias,
-min_tokens) and top-K logprobs run on the device (runner.py); guided
-decoding and LoRA model ids are refused at ``add_request``.
+min_tokens), top-K logprobs and guided decoding run on the device
+(runner.py); LoRA model ids are refused at ``add_request``.
+
+Guided decoding (engine/guided.py): a guided request's pattern is
+compiled at ``add_request`` (LRU-cached; the server compiles it first
+in an executor), the engine stacks the active patterns' tables into one
+[G, S, V] device table rebuilt only when that set changes, and each
+slot's DFA state rides the device carry with a host mirror
+(``_slot_gstate``) advanced in ``_accept_token``.
+
+n-gram speculation (``speculative_ngram_tokens`` K > 0): a window with a
+row that may speculate (greedy, unguided, unshaped, no alternatives)
+runs ``runner.decode_spec``, whose macro-steps emit 1..K+1 tokens per
+such row and one per other row. Block coverage and the kv bucket take
+the worst case, W * (K + 1) + 1 positions past each row; the token
+history [B, max_model_len] is uploaded with the decode carry, at
+composition changes only; ``_process_window`` walks the macro-steps, dropping the rest
+of one where its row stops, and counts rejected draft positions as dead
+token-steps.
+
+``embed_tokens`` serves the pooling routes (/v1/embeddings, rerank,
+score) with the serving model's mean-pooled final hidden states
+(``runner.embed``, no cache), beside the engine loop.
 """
 
 import dataclasses
@@ -35,6 +56,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from production_stack_tpu_torch.engine import guided
 from production_stack_tpu_torch.engine.block_manager import (
     BlockManager, model_fingerprint)
 from production_stack_tpu_torch.engine.config import EngineConfig
@@ -92,12 +114,6 @@ class AdmissionRejected(Exception):
 class DeadlineExceeded(Exception):
     """The request's deadline (x-request-deadline-ms) expired while it
     still waited; the server answers 504 with x-deadline-expired."""
-
-
-def unsupported_options(options: SamplingOptions) -> List[str]:
-    """Names of the request options set away from their inert defaults
-    that the port does not implement yet."""
-    return ["guided decoding"] if options.guided_regex else []
 
 
 class LLMEngine:
@@ -176,6 +192,12 @@ class LLMEngine:
         self._slot_bias_ids = np.full((B, LOGIT_BIAS_K), -1, np.int32)
         self._slot_bias_vals = np.zeros((B, LOGIT_BIAS_K), np.float32)
         self._slot_stop_ids = np.full((B, MIN_TOKENS_STOP_K), -1, np.int32)
+        # guided decoding: each slot's DFA state (the device carries it
+        # within windows), and the stacked table of the active patterns
+        self._slot_gstate = np.zeros((B,), np.int32)
+        self._guided_key: Optional[tuple] = None   # the active patterns
+        self._guided_table: Optional[torch.Tensor] = None  # [G, S, V]
+        self._guided_gids: Dict[str, int] = {}    # pattern -> table row
         # device sampling params, re-uploaded only when a slot's options
         # change (admission/finish), never per window
         self._dev_sampling: Optional[SamplingParams] = None
@@ -184,7 +206,8 @@ class LLMEngine:
         # after a slot-composition change (admission, finish, abort)
         self._decode_dirty = True
         # the decode window in flight between steps: (ids_dev, lps_dev,
-        # tops_dev, W, [seqs at dispatch], dispatch time, kv_len) or None
+        # counts_dev or None, tops_dev, W, [seqs at dispatch], dispatch
+        # time, spec_ok or None, kv_len) or None
         self._inflight: Optional[tuple] = None
         self._last_sync_t = 0.0
 
@@ -210,15 +233,16 @@ class LLMEngine:
         AdmissionRejected when the waiting queue is full."""
         seq_id = seq_id or f"seq-{next(self._id_counter)}"
         options = options or SamplingOptions()
-        bad = unsupported_options(options)
-        if bad:
-            raise ValueError(f"not implemented in the PyTorch port yet: "
-                             f"{', '.join(bad)}")
         self.check_options(options)
         self.resolve_model(model)
         seq = Sequence(seq_id=seq_id, prompt_tokens=list(prompt_tokens),
                        options=options, deadline=deadline,
                        detok=DetokenizeStream(self.tokenizer))
+        if options.guided_regex:
+            # compiled per (pattern, tokenizer) with an LRU cache; a bad
+            # pattern raises here, on the caller's thread, as ValueError
+            seq.grammar = guided.compile_grammar(options.guided_regex,
+                                                 self.tokenizer)
         with self._lock:
             # bounded admission: a fresh submit always lands in waiting
             # first, so the bound is on waiting beyond what the free
@@ -364,6 +388,9 @@ class LLMEngine:
                 kv_need = max(kv_need, w.start + bucket)
             opts = [w.seq.options for w in group]
             last = [w.seq.options for w in group if w.is_last]
+            # the first output token is masked from each guided row's
+            # DFA state
+            guide = self._guide_args([w.seq for w in group], states=True)
             penalized = any(o.shaped for o in last)
             topk = max((o.top_logprobs for o in last), default=0)
             if penalized:
@@ -375,7 +402,8 @@ class LLMEngine:
             ids_dev, lps_dev, tops_dev = self.runner.prefill(
                 tokens, starts, lengths, self._dev_sampling,
                 self.cfg.kv_bucket_for(min(kv_need, S)),
-                penalized=penalized, topk=topk, **self._sampling_mode(opts))
+                penalized=penalized, topk=topk, **guide,
+                **self._sampling_mode(opts))
             self.eff.note_prefill(
                 bucket=bucket, batch=B,
                 real_tokens=sum(len(w.chunk) for w in group))
@@ -471,57 +499,136 @@ class LLMEngine:
                 seen[s.slot][pt] = True
         return counts, seen
 
+    def _ensure_guided_table(self):
+        """(Re)build the stacked table of the distinct patterns among
+        admitted sequences (JAX ``_ensure_guided_table``) on the device
+        (stack_guided_tables). Returns (table, {pattern: row}).
+        Rebuilt only when the set of active patterns changes, which
+        marks the decode carry stale (the ids and states re-upload)."""
+        active = list(self.scheduler.running.values()) + list(
+            self.scheduler._prefilling.values())
+        pats = sorted({s.options.guided_regex for s in active
+                       if s.grammar is not None})
+        key = tuple(pats)
+        if pats and key != self._guided_key:
+            table = stack_guided_tables(
+                [guided.compile_grammar(p, self.tokenizer) for p in pats],
+                self.model_cfg.vocab_size)
+            self._guided_table = torch.from_numpy(table).to(
+                self.runner.device)
+            self._guided_gids = {p: i + 1 for i, p in enumerate(pats)}
+            self._guided_key = key
+            self._decode_dirty = True
+        return self._guided_table, self._guided_gids
+
+    def _guide_args(self, seqs, states: bool = False) -> dict:
+        """The runner's guide arguments for a batch holding `seqs`: none
+        without a guided row, else the table and each row's table index
+        (0 = unguided), with `states` also each row's DFA state."""
+        if all(s.grammar is None for s in seqs):
+            return {}
+        table, gid_map = self._ensure_guided_table()
+        B = self.cfg.max_num_seqs
+        gids = np.zeros((B,), np.int32)
+        gstates = np.zeros((B,), np.int32)
+        for s in seqs:
+            if s.grammar is not None:
+                gids[s.slot] = gid_map[s.options.guided_regex]
+                gstates[s.slot] = s.fsm_state
+        out = dict(guide_table=table, guide_ids=gids)
+        if states:
+            out["guide_states"] = gstates
+        return out
+
     def _dispatch_decode(self, decode_seqs) -> bool:
         """Launch one decode window (no host sync). Every live slot's
-        block table must span the whole window first: under pool
-        pressure the youngest sequences are preempted (recomputed
-        later)."""
+        block table must span the whole window first — W * (K + 1) + 1
+        positions under speculation of K tokens, the most a window can
+        emit: under pool pressure the youngest sequences are preempted
+        (recomputed later)."""
         W = self.cfg.decode_window
+        horizon = W * (self.cfg.speculative_ngram_tokens + 1) + 1
         for s in list(decode_seqs):
             if s.status is not SeqStatus.RUNNING:
                 continue   # already preempted as a victim this pass
-            if not self._ensure_blocks(s, s.next_position + W + 1):
+            if not self._ensure_blocks(s, s.next_position + horizon):
                 self._preempt(s)
         decode_seqs = list(self.scheduler.running.values())
         if not decode_seqs:
             return False
-        max_pos = max(s.next_position for s in decode_seqs)
-        kv_len = self.cfg.kv_bucket_for(
-            min(max_pos + W + 1, self.cfg.max_model_len))
+        B, S = self.cfg.max_num_seqs, self.cfg.max_model_len
         self._ensure_dev_sampling()
+        guide = self._guide_args(decode_seqs)
         # windows with a shaped row carry [B, V] counts and shape the
         # logits; a row asking for alternatives gets the top K
         penalized = any(s.options.shaped for s in decode_seqs)
         topk = max((s.options.top_logprobs for s in decode_seqs),
                    default=0)
+        # speculation is per row: greedy (the argmax verify is exact),
+        # unguided (drafts would pass the DFA mask by), unshaped (the
+        # verify ignores the shaped logits) and without alternatives (a
+        # macro-step emits several tokens)
+        spec_rows = [s for s in decode_seqs
+                     if s.options.temperature <= 0.0 and s.grammar is None
+                     and not s.options.shaped
+                     and not s.options.top_logprobs]
+        spec = self.cfg.speculative_ngram_tokens if spec_rows else 0
+        spec_ok = None
+        if spec:
+            spec_ok = np.zeros((B,), bool)
+            spec_ok[[s.slot for s in spec_rows]] = True
+        max_pos = max(s.next_position for s in decode_seqs)
+        kv_len = self.cfg.kv_bucket_for(
+            min(max_pos + W * (spec + 1) + 1, S))
+        hist = None
+        if spec and self._decode_dirty:
+            # the set of rows, and so whether any speculates, changes
+            # only with the composition, which marks the carry stale:
+            # the device history is current whenever the carry is
+            hist = np.zeros((B, S), np.int32)
+            for s in decode_seqs:
+                row = s.prompt_tokens + s.output_tokens
+                hist[s.slot, :len(row)] = row
+        if penalized and self._decode_dirty:
+            # uploaded on the decode carry's trigger: any composition
+            # change; within windows the device adds each step's ids
+            self.runner.set_penalty_state(*self._penalty_arrays())
         if self._decode_dirty:
-            if penalized:
-                # uploaded on the decode carry's trigger: any
-                # composition change; within windows the device adds
-                # each step's ids itself
-                self.runner.set_penalty_state(*self._penalty_arrays())
-            self.runner.set_decode_state(self._slot_token, self._slot_pos)
+            self.runner.set_decode_state(
+                self._slot_token, self._slot_pos,
+                self._slot_gstate if guide else None, hist)
             self._decode_dirty = False
-        ids_dev, lps_dev, tops_dev = self.runner.decode(
-            self._dev_sampling, steps=W, kv_len=kv_len,
-            penalized=penalized, topk=topk,
-            **self._sampling_mode([s.options for s in decode_seqs]))
-        self._inflight = (ids_dev, lps_dev, tops_dev, W, list(decode_seqs),
-                          time.monotonic(), kv_len)
+        kw = dict(steps=W, kv_len=kv_len, penalized=penalized, topk=topk,
+                  **guide, **self._sampling_mode(
+                      [s.options for s in decode_seqs]))
+        if spec:
+            ids_dev, lps_dev, counts_dev, tops_dev = self.runner.decode_spec(
+                self._dev_sampling, spec=spec, spec_ok=spec_ok, **kw)
+        else:
+            ids_dev, lps_dev, tops_dev = self.runner.decode(
+                self._dev_sampling, **kw)
+            counts_dev = None
+        self._inflight = (ids_dev, lps_dev, counts_dev, tops_dev, W,
+                          list(decode_seqs), time.monotonic(), spec_ok,
+                          kv_len)
         return True
 
     def _process_window(self) -> List[StepOutput]:
         """Read the window in flight (its one host sync) and walk its
-        steps: each live row takes its tokens until it stops."""
+        steps: each live row takes its tokens until it stops — under
+        speculation 1..K+1 per macro-step, the rest of a macro-step
+        dropped where the row stops."""
         if self._inflight is None:
             return []
-        ids_dev, lps_dev, tops_dev, W, seqs, t0, kv_len = self._inflight
+        (ids_dev, lps_dev, counts_dev, tops_dev, W, seqs, t0, spec_ok,
+         kv_len) = self._inflight
         self._inflight = None
         # the window's wall time: from its dispatch, or from the last
         # read if the host was still reading the previous one
         t0 = max(t0, self._last_sync_t)
         ids = ids_dev.cpu().numpy()
         lps = lps_dev.cpu().numpy()
+        counts = None if counts_dev is None else counts_dev.cpu().numpy()
         tops = None
         if tops_dev is not None:
             tops = (tops_dev[0].cpu().numpy(), tops_dev[1].cpu().numpy())
@@ -535,27 +642,46 @@ class LLMEngine:
             steps_walked = j + 1
             still = []
             for seq in alive:
+                slot = seq.slot
+                if counts is None:
+                    row = [(ids[slot, j], lps[slot, j])]
+                else:
+                    c = int(counts[slot, j])
+                    row = list(zip(ids[slot, j, :c], lps[slot, j, :c]))
+                    if spec_ok[slot]:
+                        self.metrics.spec_macro_steps.inc()
+                        self.metrics.spec_accepted_tokens.inc(c - 1)
+                # a row with alternatives never speculates: one token
+                # per step, and the step's alternatives are its own
                 k = seq.options.top_logprobs
-                alts = (_alts(tops[0][seq.slot, j], tops[1][seq.slot, j], k)
+                alts = (_alts(tops[0][slot, j], tops[1][slot, j], k)
                         if tops is not None and k else None)
-                outs = self._accept_token(seq, int(ids[seq.slot, j]),
-                                          float(lps[seq.slot, j]), alts)
-                accepted += 1
-                outputs.extend(outs)
-                if not outs[-1].finished:
+                finished = False
+                for token, lp in row:
+                    accepted += 1
+                    outs = self._accept_token(seq, int(token), float(lp),
+                                              alts)
+                    outputs.extend(outs)
+                    if outs[-1].finished:
+                        finished = True
+                        break
+                if not finished:
                     still.append(seq)
             alive = still
             if not alive:
                 break
         dt = time.monotonic() - t0
-        # inter-token latency: the window's wall over the steps walked
+        # inter-token latency: the window's wall over the steps walked,
+        # or over the tokens emitted where a macro-step emits several
+        per_tok = dt / (steps_walked if counts is None else max(accepted, 1))
         for _ in range(accepted):
-            self.metrics.per_token.observe(dt / steps_walked)
+            self.metrics.per_token.observe(per_tok)
         B = self.cfg.max_num_seqs
-        pad = (B - len(seqs)) * W
+        P = ids.shape[2] if counts is not None else 1
+        pad = (B - len(seqs)) * W * P
         self.eff.note_window(steps=W, batch=B, kv_len=kv_len, real=accepted,
-                             pad=pad, dead=B * W - pad - accepted,
-                             window_s=dt)
+                             pad=pad, dead=B * W * P - pad - accepted,
+                             window_s=dt, positions=P)
         return outputs
 
     def _accept_token(self, seq: Sequence, token: int,
@@ -565,6 +691,11 @@ class LLMEngine:
         seq.output_logprobs.append(logprob)
         if seq.options.top_logprobs:
             seq.output_top.append(top_alts)
+        if seq.grammar is not None:
+            # host mirror of the device-carried DFA state (re-uploaded
+            # on composition changes); the dead state is never picked
+            seq.fsm_state = max(
+                seq.grammar.next_state(seq.fsm_state, token), 0)
         self.metrics.generation_tokens.inc()
         delta = seq.detok.push(token)
         opt = seq.options
@@ -647,6 +778,7 @@ class LLMEngine:
         _do_prefill: a slot's options change only at admission)."""
         self._slot_token[seq.slot] = seq.output_tokens[-1]
         self._slot_pos[seq.slot] = seq.next_position
+        self._slot_gstate[seq.slot] = seq.fsm_state
 
     def _sync_sampling(self, seq: Sequence) -> None:
         slot, opt = seq.slot, seq.options
@@ -692,6 +824,7 @@ class LLMEngine:
         if slot >= 0:
             self._slot_token[slot] = 0
             self._slot_pos[slot] = self.cfg.max_model_len
+            self._slot_gstate[slot] = 0
             if (self._slot_presence[slot] or self._slot_frequency[slot]
                     or self._slot_repetition[slot] != 1.0
                     or self._slot_min_tokens[slot]
@@ -789,6 +922,48 @@ class LLMEngine:
         self._set_table_row(slot, [])
         self.metrics.preemptions.inc()
 
+    # ------------------------------------------------- pooling routes
+
+    @property
+    def embedding_source(self) -> str:
+        """What the pooling routes serve: the serving model's mean-pooled
+        final hidden states (an encoder, ``embedding_model``, is not
+        ported)."""
+        return "causal-mean-pool"
+
+    @property
+    def embedding_tokenizer(self):
+        """The tokenizer of the pooling routes: the serving one."""
+        return self.tokenizer
+
+    @property
+    def max_embed_len(self) -> int:
+        """Length cap of a pooling input: the serving cache length."""
+        return self.cfg.max_model_len
+
+    def embed_tokens(self, token_lists: List[List[int]]) -> np.ndarray:
+        """Pooled embeddings [n, H] f32 of token lists (JAX
+        ``embed_tokens``): batches of max_num_seqs rows, each padded to
+        the smallest prefill or kv-length bucket that holds its longest
+        input. Reads the weights only, so the server runs it beside the
+        engine loop."""
+        B = self.cfg.max_num_seqs
+        buckets = sorted(set(self.cfg.prefill_buckets)
+                         | set(self.cfg.kv_len_buckets))
+        out: List[np.ndarray] = []
+        for i in range(0, len(token_lists), B):
+            group = token_lists[i:i + B]
+            need = max(len(t) for t in group)
+            tb = next((b for b in buckets if b >= need), need)
+            tokens = np.zeros((B, tb), np.int32)
+            lengths = np.ones((B,), np.int32)
+            for j, toks in enumerate(group):
+                tokens[j, :len(toks)] = toks
+                lengths[j] = len(toks)
+            pooled = self.runner.embed(tokens, lengths).cpu().numpy()
+            out.append(pooled[:len(group)])
+        return np.concatenate(out, axis=0)
+
     # ------------------------------------------------- overload surface
 
     def render_metrics(self) -> bytes:
@@ -861,6 +1036,22 @@ class LLMEngine:
     @property
     def has_work(self) -> bool:
         return self.scheduler.has_work
+
+
+def stack_guided_tables(grammars, vocab: int) -> np.ndarray:
+    """The compiled grammars' token tables stacked into one int32
+    [G, S, vocab] table: row 0 the unguided placeholder, grammar i at
+    row i + 1, G and S padded to powers of two (as the JAX engine pads
+    them to bound its executables' shapes), -1 = forbidden, the
+    vocabulary columns beyond a grammar's tokenizer too."""
+    S = max(g.n_states for g in grammars)
+    S = 1 << (S - 1).bit_length() if S > 1 else 1
+    G = 1 << len(grammars).bit_length()
+    table = np.full((G, S, vocab), -1, np.int32)
+    for gi, g in enumerate(grammars, start=1):
+        s, v = g.token_next.shape
+        table[gi, :s, :min(v, vocab)] = g.token_next[:, :vocab]
+    return table
 
 
 def _alts(ids: np.ndarray, lps: np.ndarray, k: int) -> list:

@@ -7,8 +7,8 @@ The gauge names are the ones the router parses
 ``tpu:engine_capacity_seqs`` and ``tpu:est_queue_delay_ms``; every other
 family keeps its JAX name too, so one dashboard reads either engine.
 The families of features the port has not taken (KV tiering and its
-codecs, kvplane defrag and migration, LoRA, speculation, XLA compiles)
-are left out.
+codecs, kvplane defrag and migration, LoRA, XLA compiles) are left
+out.
 
 Totals the engine loop keeps as plain ints (token-steps, the pool
 census) are folded in at scrape time as counter deltas (``sync_eff``,
@@ -83,6 +83,15 @@ class EngineMetrics:
         self.per_token = histo(
             "vllm:time_per_output_token_seconds", "Inter-token latency",
             (0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5))
+        # n-gram speculation: accepted draft tokens are those emitted
+        # beyond one per macro-step; both count speculating rows only
+        # (per-row spec_ok), so accepted / steps is the rows' acceptance
+        self.spec_accepted_tokens = counter(
+            "tpu:spec_accepted_draft_tokens_total",
+            "Draft tokens accepted by speculative verification")
+        self.spec_macro_steps = counter(
+            "tpu:spec_macro_steps_total",
+            "Speculative macro-steps executed by eligible rows")
         # overload protection
         self.admission_rejected = counter(
             "tpu:admission_rejected_total",

@@ -23,7 +23,20 @@ are arguments here: a batch with a shaped row runs
 [B, V] counts of generated tokens on the device and add each step's ids
 to them), and a batch that asks for alternatives takes the top K of the
 same log-softmax the chosen logprob comes from. A batch with neither
-runs exactly the launches it ran before either existed.
+runs exactly the launches it ran before either existed. Guided decoding
+is a third such argument: a window with a guided row takes the engine's
+[G, S, V] DFA table, masks each step's logits with one [B, V] gather and
+carries each row's DFA state on the device (``_pick``).
+
+- ``decode_spec``: the decode window with per-row n-gram (prompt-lookup)
+  speculation (JAX ``_decode_spec_impl``). Each macro-step drafts K
+  tokens per row from the device history [B, max_model_len], verifies
+  K + 1 positions in one forward (the paged decode kernel at
+  K + 1 <= 8, the prefill kernel above) and emits the agreeing prefix
+  plus one token; rows that do not speculate emit one token with the
+  full ``_pick`` treatment.
+- ``embed``: mean-pooled final hidden states of padded prompts
+  (``llama.encode``, no cache) for the pooling routes.
 
 ``quantization="int8"`` quantizes the weights on their device right
 after they are made or handed in (the given module is quantized in
@@ -61,21 +74,38 @@ Tops = Optional[Tuple[torch.Tensor, torch.Tensor]]
 _PROMPT_LP_CHUNK = 256
 
 
+# guided decoding: (table [G, S, V] int32, gids [B] int32, states [B]
+# int32); row 0 of the table is the unguided placeholder (gid 0)
+Guide = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
 def _pick(logits: torch.Tensor, sampling: SamplingParams,
           generator: torch.Generator, positions: torch.Tensor, *,
           greedy: bool, seeded: bool, plain: bool, shaping=None,
-          topk: int = 0) -> Tuple[torch.Tensor, torch.Tensor, Tops]:
-    """(ids int32 [B], their logprobs f32 [B], top-K or None) from f32
-    logits [B, V]; positions [B]: where the sampled token lands.
-    shaping (out_counts, prompt_seen, eos_id) shapes the logits first
-    (the token being sampled is output index positions - prompt_len).
-    Argmax for all-greedy batches, else sample(). The chosen logprob
-    and the alternatives are taken under the same distribution: the
-    shaped one where shaping is on, the raw model's otherwise."""
+          topk: int = 0, guide: Guide = None
+          ) -> Tuple[torch.Tensor, torch.Tensor, Tops,
+                     Optional[torch.Tensor]]:
+    """(ids int32 [B], their logprobs f32 [B], top-K or None, the guided
+    rows' next DFA states [B] or None) from f32 logits [B, V];
+    positions [B]: where the sampled token lands. shaping (out_counts,
+    prompt_seen, eos_id) shapes the logits first (the token being
+    sampled is output index positions - prompt_len); guide (table,
+    gids, states) then sets every token the DFA forbids from a guided
+    row's state to -inf (JAX ``_sample_position``). Argmax for
+    all-greedy batches, else sample(). The chosen logprob and the
+    alternatives are taken under the same distribution: the shaped and
+    masked one where those are on, the raw model's otherwise. A guided
+    row's state advances to the table entry of its pick (max 0: the
+    dead state is never picked)."""
     if shaping is not None:
         counts, seen, eos_id = shaping
         logits = adjust_logits(logits, sampling, counts, seen,
                                positions - sampling.prompt_len, eos_id)
+    if guide is not None:
+        table, gids, gstate = guide
+        nxt_row = table[gids.long(), gstate.long()]            # [B, V]
+        is_g = (gids > 0)[:, None]
+        logits = logits.masked_fill(is_g & (nxt_row < 0), float("-inf"))
     if greedy:
         ids = torch.argmax(logits, dim=-1).to(torch.int32)
     else:
@@ -87,7 +117,47 @@ def _pick(logits: torch.Tensor, sampling: SamplingParams,
     if topk:
         vals, idx = torch.topk(lsm, topk, dim=-1)
         tops = (idx.to(torch.int32), vals)
-    return ids, lp, tops
+    new_state = None
+    if guide is not None:
+        adv = nxt_row.gather(1, ids.long()[:, None])[:, 0]
+        new_state = torch.where(gids > 0, adv.clamp(min=0), gstate)
+    return ids, lp, tops, new_state
+
+
+def _add_counts(shaping, tok: torch.Tensor):
+    """The shaping carry with this step's ids added to the counts."""
+    if shaping is None:
+        return None
+    counts, seen, eos_id = shaping
+    counts = counts.scatter_add(
+        1, tok.long()[:, None],
+        torch.ones_like(tok, dtype=torch.int32)[:, None])
+    return counts, seen, eos_id
+
+
+def _stack_tops(tops: list) -> Tops:
+    """Per-step top-K pairs -> ([B, steps, K] ids, [B, steps, K] lps)."""
+    return (torch.stack([t[0] for t in tops], dim=1),
+            torch.stack([t[1] for t in tops], dim=1))
+
+
+def _draft(hist: torch.Tensor, pos: torch.Tensor, K: int) -> torch.Tensor:
+    """The K-token drafts [B, K] (JAX ``draft_row``): for each row,
+    the tokens after the latest prior occurrence i < pos of the
+    bigram (hist[pos-1], hist[pos]), or after position 0 when there
+    is none. Indices clamp as JAX's gathers and dynamic_slice do:
+    positions into [0, S-1], the slice's start into [0, S-K]."""
+    S = hist.shape[1]
+    p = pos.long()[:, None]
+    a = hist.gather(1, (p - 1).clamp(0, S - 1))
+    c = hist.gather(1, p.clamp(0, S - 1))
+    idx = torch.arange(S, device=hist.device)[None]
+    m = ((idx >= 1) & (idx < p) & (torch.roll(hist, 1, dims=1) == a)
+         & (hist == c))
+    j = torch.where(m, idx, torch.zeros_like(idx)).amax(dim=1)
+    start = (j + 1).clamp(max=S - K)
+    return hist.gather(1, start[:, None] + torch.arange(
+        K, device=hist.device)[None])
 
 
 def _target_logprobs(logits: torch.Tensor,
@@ -143,6 +213,10 @@ class ModelRunner:
         # only when the engine marks them stale
         self._dec_tokens: Optional[torch.Tensor] = None
         self._dec_pos: Optional[torch.Tensor] = None
+        # guided DFA states [B] and the speculation history [B, S],
+        # uploaded only by windows that read them (None otherwise)
+        self._dec_gstate: Optional[torch.Tensor] = None
+        self._dec_hist: Optional[torch.Tensor] = None
         # logit-shaping carry [B, V]: generated-token counts (int32) and
         # prompt membership (bool), uploaded by set_penalty_state
         self._dec_counts: Optional[torch.Tensor] = None
@@ -165,11 +239,21 @@ class ModelRunner:
             self._tables_dirty = False
         return self._tables
 
-    def set_decode_state(self, tokens: np.ndarray,
-                         positions: np.ndarray) -> None:
-        """Upload fresh decode inputs (host mirrors -> device carry)."""
+    def set_decode_state(self, tokens: np.ndarray, positions: np.ndarray,
+                         guide_states: Optional[np.ndarray] = None,
+                         history: Optional[np.ndarray] = None) -> None:
+        """Upload fresh decode inputs (host mirrors -> device carry):
+        tokens and positions [B]; the guided rows' DFA states [B] when
+        a window with a guided row follows, and the token history
+        [B, max_model_len] (history[b, t] = row b's token at position
+        t, live through positions[b]) when a speculative one does.
+        Either left None costs no upload; a guided window then starts
+        every row from state 0."""
         self._dec_tokens = self._upload(tokens)
         self._dec_pos = self._upload(positions)
+        self._dec_gstate = (None if guide_states is None
+                            else self._upload(guide_states))
+        self._dec_hist = None if history is None else self._upload(history)
 
     def set_penalty_state(self, out_counts: np.ndarray,
                           prompt_seen: np.ndarray) -> None:
@@ -189,13 +273,30 @@ class ModelRunner:
         mirror may change while the device still reads it)."""
         return torch.from_numpy(np.array(x, np.int32)).to(self.device)
 
+    def _guide(self, table: Optional[torch.Tensor],
+               gids: Optional[np.ndarray], states) -> Guide:
+        """The guide of a window or chunk: None without a table, else
+        (table, gids on the device, the DFA states; the carried ones
+        where `states` is None, zeros where none are carried)."""
+        if table is None:
+            return None
+        g = self._upload(gids)
+        if states is None:
+            states = (self._dec_gstate if self._dec_gstate is not None
+                      else torch.zeros_like(g))
+        else:
+            states = self._upload(states)
+        return table, g, states
+
     # ------------------------------------------------------------------
 
     @torch.no_grad()
     def decode(self, sampling: SamplingParams, steps: int = 1,
                kv_len: Optional[int] = None, greedy: bool = False,
                seeded: bool = False, plain: bool = False,
-               penalized: bool = False, topk: int = 0
+               penalized: bool = False, topk: int = 0,
+               guide_table: Optional[torch.Tensor] = None,
+               guide_ids: Optional[np.ndarray] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, Tops]:
         """A window of `steps` decode steps over the carried batch.
         Returns device (ids int32 [B, steps], logprobs f32 [B, steps],
@@ -204,7 +305,9 @@ class ModelRunner:
         engine guarantees every live position stays < kv_len and its
         table row covers the window. penalized: shape every step's
         logits with the carried counts (set_penalty_state), which each
-        step's ids then join."""
+        step's ids then join. guide_table [G, S, V] int32 with guide_ids
+        [B] (0 = unguided): mask every step from the carried DFA
+        states, which each step's ids advance."""
         S = self.engine_cfg.max_model_len
         kv_len = kv_len or S
         toks, pos = self._dec_tokens, self._dec_pos
@@ -212,6 +315,7 @@ class ModelRunner:
         sampling = sampling.rows(B)
         tables = self._dev_tables()[:B]
         shaping = self._shaping(B) if penalized else None
+        guide = self._guide(guide_table, guide_ids, None)
         ids, lps, tops = [], [], []
         for _ in range(steps):
             logits, _ = llama.forward(
@@ -219,15 +323,13 @@ class ModelRunner:
                 self.cache, block_tables=tables, rope=self.rope,
                 kv_len=kv_len, token_valid=(pos < S)[:, None],
                 sampled_ids=True)
-            tok, lp, top = _pick(logits[:, 0], sampling, self._generator,
-                                 pos + 1, greedy=greedy, seeded=seeded,
-                                 plain=plain, shaping=shaping, topk=topk)
-            if shaping is not None:
-                counts, seen, eos_id = shaping
-                counts = counts.scatter_add(
-                    1, tok.long()[:, None],
-                    torch.ones_like(tok, dtype=torch.int32)[:, None])
-                shaping = (counts, seen, eos_id)
+            tok, lp, top, gstate = _pick(
+                logits[:, 0], sampling, self._generator, pos + 1,
+                greedy=greedy, seeded=seeded, plain=plain, shaping=shaping,
+                topk=topk, guide=guide)
+            shaping = _add_counts(shaping, tok)
+            if guide is not None:
+                guide = (guide[0], guide[1], gstate)
             ids.append(tok)
             lps.append(lp)
             tops.append(top)
@@ -235,18 +337,106 @@ class ModelRunner:
         self._dec_tokens, self._dec_pos = toks, pos
         if shaping is not None:
             self._dec_counts = shaping[0]
-        out_tops = None
-        if topk:
-            out_tops = (torch.stack([t[0] for t in tops], dim=1),
-                        torch.stack([t[1] for t in tops], dim=1))
-        return torch.stack(ids, dim=1), torch.stack(lps, dim=1), out_tops
+        if guide is not None:
+            self._dec_gstate = guide[2]
+        return (torch.stack(ids, dim=1), torch.stack(lps, dim=1),
+                _stack_tops(tops) if topk else None)
+
+    @torch.no_grad()
+    def decode_spec(self, sampling: SamplingParams, steps: int,
+                    kv_len: int, spec: int, spec_ok: np.ndarray,
+                    greedy: bool = False, seeded: bool = False,
+                    plain: bool = False, penalized: bool = False,
+                    topk: int = 0,
+                    guide_table: Optional[torch.Tensor] = None,
+                    guide_ids: Optional[np.ndarray] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               Tops]:
+        """A decode window of `steps` macro-steps with per-row n-gram
+        speculation over the carried batch and history (JAX
+        ``_decode_spec_impl``). spec_ok [B] bool marks the rows that
+        speculate (greedy, unshaped, unguided, no alternatives: the
+        engine decides per row).
+
+        Each macro-step drafts `spec` = K tokens per row (_draft) and
+        verifies the K + 1 positions in one forward (token_valid:
+        position < max_model_len). Position 0 takes the whole _pick
+        treatment — shaping, the guided mask, sampling when the batch
+        is not all greedy, top-K — so every row emits what decode()
+        would have; positions 1..K take their logprobs from the raw f32
+        log-softmax and their tokens from the argmax. A speculating row
+        accepts the drafts that agree with the argmax up to the first
+        that does not, and emits accepted + 1 tokens (every one an
+        argmax given the true prefix: exact greedy); any other row
+        emits one. The K + 1 tokens are written into the history at
+        pos + 1 (the start clamped into [0, S - K - 1], as JAX's
+        dynamic_update_slice clamps it); rejected positions' K/V past
+        the live length are rewritten before anything reads them.
+
+        Returns device (ids int32 [B, steps, K+1], logprobs f32
+        [B, steps, K+1], counts int32 [B, steps] of emitted tokens,
+        top-K [B, steps, K] or None)."""
+        S = self.engine_cfg.max_model_len
+        K = spec
+        toks, pos, hist = self._dec_tokens, self._dec_pos, self._dec_hist
+        B = toks.shape[0]
+        sampling = sampling.rows(B)
+        tables = self._dev_tables()[:B]
+        shaping = self._shaping(B) if penalized else None
+        guide = self._guide(guide_table, guide_ids, None)
+        ok = torch.from_numpy(np.array(spec_ok[:B], bool)).to(self.device)
+        ar = torch.arange(K + 1, device=self.device, dtype=torch.int32)
+        ids, lps, tops, cnts = [], [], [], []
+        for _ in range(steps):
+            draft = _draft(hist, pos, K)
+            step_toks = torch.cat([toks[:, None], draft], dim=1)
+            step_pos = pos[:, None] + ar[None]
+            logits, _ = llama.forward(
+                self.params, self.model_cfg, step_toks, step_pos,
+                self.cache, block_tables=tables, rope=self.rope,
+                kv_len=kv_len, token_valid=step_pos < S)
+            expected = torch.argmax(logits, dim=-1).to(torch.int32)
+            tok0, lp0, top, gstate = _pick(
+                logits[:, 0], sampling, self._generator, pos + 1,
+                greedy=greedy, seeded=seeded, plain=plain, shaping=shaping,
+                topk=topk, guide=guide)
+            shaping = _add_counts(shaping, tok0)
+            if guide is not None:
+                guide = (guide[0], guide[1], gstate)
+            expected[:, 0] = tok0
+            lp = torch.log_softmax(logits, dim=-1).gather(
+                2, expected.long()[..., None])[..., 0]
+            lp[:, 0] = lp0
+            agree = (draft == expected[:, :K]).to(torch.int32)
+            accepted = torch.cumprod(agree, dim=1).sum(dim=1)
+            count = torch.where(ok, accepted, torch.zeros_like(accepted)) + 1
+            start = (pos.long() + 1).clamp(max=S - K - 1)
+            hist = hist.scatter(1, start[:, None] + ar.long()[None],
+                                expected)
+            toks = expected.gather(1, (count - 1).long()[:, None])[:, 0]
+            pos = pos + count.to(torch.int32)
+            ids.append(expected)
+            lps.append(lp)
+            cnts.append(count.to(torch.int32))
+            tops.append(top)
+        self._dec_tokens, self._dec_pos, self._dec_hist = toks, pos, hist
+        if shaping is not None:
+            self._dec_counts = shaping[0]
+        if guide is not None:
+            self._dec_gstate = guide[2]
+        return (torch.stack(ids, dim=1), torch.stack(lps, dim=1),
+                torch.stack(cnts, dim=1),
+                _stack_tops(tops) if topk else None)
 
     @torch.no_grad()
     def prefill(self, tokens: np.ndarray, starts: np.ndarray,
                 lengths: np.ndarray, sampling: SamplingParams,
                 kv_len: int, greedy: bool = False, seeded: bool = False,
                 plain: bool = False, penalized: bool = False,
-                topk: int = 0) -> Tuple[torch.Tensor, torch.Tensor, Tops]:
+                topk: int = 0, guide_table: Optional[torch.Tensor] = None,
+                guide_ids: Optional[np.ndarray] = None,
+                guide_states: Optional[np.ndarray] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, Tops]:
         """Full-batch chunk prefill. tokens [B, Tb], starts/lengths [B]
         (host int32). Every row writes its chunk at its own offset
         through its table; idle rows (parked at start = max_model_len)
@@ -254,7 +444,10 @@ class ModelRunner:
         (id sampled after each row's last real token [B], its logprob
         [B], top-K [B, K] or None). penalized: the first sampled token
         takes the shaping, with the uploaded counts (the emitted output
-        of a row resumed after preemption) and prompt membership."""
+        of a row resumed after preemption) and prompt membership.
+        guide_table with guide_ids and guide_states [B]: a guided row's
+        first token is masked from its DFA state (the state it reaches
+        comes back with the tokens through the engine's host walk)."""
         S = self.engine_cfg.max_model_len
         toks = self._upload(tokens)
         st = self._upload(starts)
@@ -269,11 +462,28 @@ class ModelRunner:
             token_valid=token_valid,
             last_index=torch.clamp(ln - 1, min=0))
         B = toks.shape[0]
-        return _pick(logits[:, 0], sampling.rows(B), self._generator,
-                     st + torch.clamp(ln, min=1), greedy=greedy,
-                     seeded=seeded, plain=plain,
-                     shaping=self._shaping(B) if penalized else None,
-                     topk=topk)
+        ids, lp, tops, _ = _pick(
+            logits[:, 0], sampling.rows(B), self._generator,
+            st + torch.clamp(ln, min=1), greedy=greedy, seeded=seeded,
+            plain=plain, shaping=self._shaping(B) if penalized else None,
+            topk=topk, guide=self._guide(guide_table, guide_ids,
+                                         guide_states))
+        return ids, lp, tops
+
+    @torch.no_grad()
+    def embed(self, tokens: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
+        """Mean-pooled final hidden states of right-padded prompts
+        (JAX ``runner.embed``): tokens [N, Tb] host int32, lengths [N] ->
+        f32 [N, H] on the device, the mean over each row's first
+        lengths[b] positions of llama.encode's output. No cache is read
+        or written, so this may run beside the engine loop."""
+        toks = self._upload(tokens)
+        lens = self._upload(lengths)
+        mask = (torch.arange(toks.shape[1], device=self.device)[None]
+                < lens[:, None])
+        h = llama.encode(self.params, self.model_cfg, toks, rope=self.rope)
+        pooled = (h.float() * mask[..., None]).sum(dim=1)
+        return pooled / lens.clamp(min=1)[:, None]
 
     @torch.no_grad()
     def prompt_logprobs(self, tokens: np.ndarray) -> torch.Tensor:

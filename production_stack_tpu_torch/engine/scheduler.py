@@ -1,7 +1,7 @@
 """Continuous-batching scheduler: waiting queue -> slots -> decode batch
 (``production_stack_tpu/engine/scheduler.py``, without the state of
-features the port has not taken yet: KV tiering, guided decoding, LoRA,
-sliding-window block rolling).
+features the port has not taken yet: KV tiering, LoRA, sliding-window
+block rolling).
 
 Policy (round-robin between admission and decode):
 - A waiting sequence is admitted when a slot is free; its prompt is
@@ -109,6 +109,10 @@ class Sequence:
     # admission deferred by pool pressure retries every scheduler pass
     # and must not re-hash the prompt (or re-count hit/miss) each time
     prefix_state: object = None
+    # guided decoding (engine/guided.py): compiled grammar + current
+    # DFA state (host mirror of the device-carried state)
+    grammar: object = None
+    fsm_state: int = 0
     # incremental detokenization state (owned by LLMEngine)
     output_text: str = ""       # stable decoded text, stop-truncated
     chars_emitted: int = 0      # prefix of output_text already delivered

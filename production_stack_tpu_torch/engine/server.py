@@ -1,23 +1,28 @@
 """OpenAI-compatible HTTP server for the PyTorch engine (aiohttp)
 (``production_stack_tpu/engine/server.py``, without the routes of
-features the port has not taken: embeddings, rerank, score, LoRA and
-kvplane admin, trace and perf debugging).
+features the port has not taken: LoRA and kvplane admin, trace and perf
+debugging).
 
 Endpoints: ``/v1/completions`` and ``/v1/chat/completions`` (streamed
 as SSE or not; ``n`` choices, several prompts per completion request,
 logprobs with top alternatives, ``echo`` with prompt logprobs, logit
-shaping), ``/v1/models``, ``/health``, ``/load``, ``/metrics``,
-``/version``, ``/tokenize`` and ``/detokenize``. Every reply carries the
-engine's ``x-engine-*`` load headers. Overload answers as the JAX
-server does: 503 + Retry-After when bounded admission sheds a request
-or the queue-delay cap drops it, 504 + ``x-deadline-expired`` when the
-client's ``x-request-deadline-ms`` elapses before admission.
+shaping, guided decoding), the pooling routes ``/v1/embeddings``,
+``/v1/rerank``, ``/v2/rerank`` and ``/v1/score`` (the serving model's
+mean-pooled hidden states, flagged ``embedding_source``
+``causal-mean-pool``), ``/v1/models``, ``/health``, ``/load``,
+``/metrics``, ``/version``, ``/tokenize`` and ``/detokenize``. Every
+reply carries the engine's ``x-engine-*`` load headers. Overload answers
+as the JAX server does: 503 + Retry-After when bounded admission sheds a
+request or the queue-delay cap drops it, 504 + ``x-deadline-expired``
+when the client's ``x-request-deadline-ms`` elapses before admission.
 
-A request that asks for what the port does not implement yet — guided
-decoding, a ``response_format`` other than text, a LoRA model id — is
-answered 400 with the field's name; nothing is silently ignored. A
-failed engine step answers 500 and turns /health to 503
-(engine/async_engine.py).
+Guided decoding takes vLLM's fields — ``guided_regex``,
+``guided_choice``, ``guided_json`` — and ``response_format``
+``json_schema``; the grammar is compiled in an executor before the
+request reaches the engine, and a constraint the DFA cannot express
+(``json_object`` among them) answers 400 naming its field. A LoRA model
+id answers 400; nothing is silently ignored. A failed engine step
+answers 500 and turns /health to 503 (engine/async_engine.py).
 
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b
 
@@ -38,6 +43,7 @@ from aiohttp import web
 from pydantic import ValidationError
 
 from production_stack_tpu_torch import protocol as proto
+from production_stack_tpu_torch.engine import guided
 from production_stack_tpu_torch.engine.async_engine import (AsyncLLMEngine,
                                                             EngineDeadError)
 from production_stack_tpu_torch.engine.config import EngineConfig
@@ -161,14 +167,57 @@ async def _guarded_payloads(merged, lead_payloads, chunk_for):
                 yield payload
 
 
-def _unsupported_fields(req) -> List[str]:
-    """Request fields set to something the port does not implement."""
-    bad = [name for name in ("guided_regex", "guided_choice", "guided_json")
-           if getattr(req, name, None) is not None]
+_GUIDED_FIELDS = ("guided_regex", "guided_choice", "guided_json",
+                  "response_format")
+
+
+def _guided_pattern(req) -> Optional[str]:
+    """vLLM-style guided decoding fields -> one regex, or None (JAX
+    ``_guided_pattern``): guided_regex as it is, guided_choice as an
+    alternation of its literals, guided_json and response_format
+    json_schema as the schema's regex. A free-form json_object and an
+    unknown response_format type raise ValueError."""
+    if getattr(req, "guided_regex", None):
+        return req.guided_regex
+    if getattr(req, "guided_choice", None):
+        return guided.choice_regex(req.guided_choice)
+    if getattr(req, "guided_json", None) is not None:
+        return guided.json_schema_regex(req.guided_json)
     rf = getattr(req, "response_format", None)
-    if rf and rf.get("type") not in (None, "text"):
-        bad.append("response_format")
-    return bad
+    if rf:
+        kind = rf.get("type")
+        if kind == "json_schema":
+            spec = rf.get("json_schema") or {}
+            schema = spec.get("schema", spec)   # OpenAI nests .schema
+            return guided.json_schema_regex(schema)
+        if kind == "json_object":
+            raise ValueError(
+                "response_format json_object (free-form JSON) is not "
+                "supported: a DFA cannot express unbounded-depth JSON. "
+                "Use response_format json_schema or guided_json with a "
+                "schema.")
+        if kind not in (None, "text"):
+            raise ValueError(f"unsupported response_format type {kind!r}")
+    return None
+
+
+async def _guided_options(engine: AsyncLLMEngine, req, options):
+    """(options with the request's guided pattern, None) or (None, a
+    400 naming the field): the grammar is compiled here, in an
+    executor, so a bad pattern is a 400 before any response starts and
+    a first compile (a walk over the whole vocabulary) never blocks the
+    event loop; the engine then finds it in the compile cache."""
+    field = next((f for f in _GUIDED_FIELDS if getattr(req, f, None)),
+                 "guided decoding")
+    try:
+        pattern = _guided_pattern(req)
+        if pattern is not None:
+            await asyncio.get_running_loop().run_in_executor(
+                None, guided.compile_grammar, pattern, engine.tokenizer)
+    except ValueError as e:
+        return None, _error(400, f"invalid guided decoding constraint "
+                                 f"({field}): {e}")
+    return dataclasses.replace(options, guided_regex=pattern), None
 
 
 def _logit_bias(req) -> Optional[dict]:
@@ -221,7 +270,7 @@ def _sampling_options(req, max_tokens: Optional[int]) -> SamplingOptions:
         logit_bias=_logit_bias(req), top_logprobs=_top_logprobs(req))
 
 
-def _check_request(engine: AsyncLLMEngine, req, max_tokens):
+async def _check_request(engine: AsyncLLMEngine, req, max_tokens):
     """(SamplingOptions, None) or (None, error response)."""
     try:
         engine.engine.resolve_model(req.model or None)
@@ -229,16 +278,12 @@ def _check_request(engine: AsyncLLMEngine, req, max_tokens):
         return None, _error(400, f"model: {e}")
     if not 1 <= req.n <= MAX_CHOICES:
         return None, _error(400, f"n must be between 1 and {MAX_CHOICES}")
-    bad = _unsupported_fields(req)
-    if bad:
-        return None, _error(400, f"not implemented in the PyTorch port "
-                                 f"yet: {', '.join(bad)}")
     try:
         options = _sampling_options(req, max_tokens)
         engine.engine.check_options(options)
     except ValueError as e:
         return None, _error(400, str(e))
-    return options, None
+    return await _guided_options(engine, req, options)
 
 
 def _too_long(engine: AsyncLLMEngine, n: int) -> Optional[web.Response]:
@@ -481,7 +526,7 @@ async def chat_completions(request: web.Request) -> web.StreamResponse:
         req = proto.ChatCompletionRequest(**await request.json())
     except (ValidationError, json.JSONDecodeError) as e:
         return _error(400, f"invalid request: {e}")
-    options, bad = _check_request(
+    options, bad = await _check_request(
         engine, req, req.max_completion_tokens or req.max_tokens)
     if bad is not None:
         return bad
@@ -586,12 +631,13 @@ async def chat_completions(request: web.Request) -> web.StreamResponse:
     return web.json_response(resp.model_dump())
 
 
-def _as_token_lists(tok, raw) -> List[List[int]]:
-    """OpenAI `prompt`: str | [str] | [int] | [[int]] -> token lists."""
+def _as_token_lists(tok, raw, what: str = "prompt") -> List[List[int]]:
+    """OpenAI `prompt` (or the pooling routes' `input`): str | [str] |
+    [int] | [[int]] -> token lists."""
     if isinstance(raw, str):
         return [tok.encode(raw)]
     if not isinstance(raw, list):
-        raise ValueError("prompt must be str, [str], [int], or [[int]]")
+        raise ValueError(f"{what} must be str, [str], [int], or [[int]]")
     if raw and all(isinstance(x, int) and not isinstance(x, bool)
                    for x in raw):
         return [list(raw)]
@@ -604,7 +650,8 @@ def _as_token_lists(tok, raw) -> List[List[int]]:
                 for x in item):
             out.append(list(item))
         else:
-            raise ValueError("prompt must be str, [str], [int], or [[int]]")
+            raise ValueError(f"{what} must be str, [str], [int], or "
+                             f"[[int]]")
     return out
 
 
@@ -614,7 +661,7 @@ async def completions(request: web.Request) -> web.StreamResponse:
         req = proto.CompletionRequest(**await request.json())
     except (ValidationError, json.JSONDecodeError) as e:
         return _error(400, f"invalid request: {e}")
-    options, bad = _check_request(engine, req, req.max_tokens)
+    options, bad = await _check_request(engine, req, req.max_tokens)
     if bad is not None:
         return bad
     deadline, bad = _deadline_from(request)
@@ -735,6 +782,141 @@ async def completions(request: web.Request) -> web.StreamResponse:
     return web.json_response(resp.model_dump())
 
 
+# ---------------------------------------------------------------- pooling
+
+def _check_pool_model(engine: AsyncLLMEngine,
+                      model) -> Optional[web.Response]:
+    """The pooling routes serve the base model only; any other model
+    name is unknown here (404), as the JAX server answers an unknown
+    one."""
+    try:
+        engine.engine.resolve_model(model or None)
+    except ValueError as e:
+        return _error(404, str(e))
+    return None
+
+
+async def _pooled(engine: AsyncLLMEngine,
+                  token_lists: List[List[int]]) -> np.ndarray:
+    """The pooled vectors [n, H] of non-empty token lists within the
+    embedding length cap, computed in an executor (the forward blocks
+    until the card is done) beside the engine loop."""
+    max_len = engine.engine.max_embed_len
+    for toks in token_lists:
+        if not toks:
+            raise ValueError("empty input")
+        if len(toks) > max_len:
+            raise ValueError(f"input has {len(toks)} tokens, which "
+                             f"exceeds the embedding length cap {max_len}")
+    return await asyncio.get_running_loop().run_in_executor(
+        None, engine.engine.embed_tokens, token_lists)
+
+
+def _cosine(a: np.ndarray, b: np.ndarray) -> float:
+    num = float(np.dot(a, b))
+    den = float(np.linalg.norm(a) * np.linalg.norm(b)) or 1e-12
+    return num / den
+
+
+async def _pool_body(request: web.Request):
+    """(engine, JSON body, None) or (.., .., the error response of an
+    unknown model)."""
+    engine = request.app[ENGINE_KEY]
+    body = await request.json()
+    return engine, body, _check_pool_model(engine, body.get("model"))
+
+
+async def embeddings(request: web.Request) -> web.Response:
+    """OpenAI /v1/embeddings: one vector per input, the mean of the
+    serving model's final hidden states over the input's tokens
+    (``embedding_source`` says so: an approximation of an embedding
+    model whose quality nothing here validates)."""
+    try:
+        engine, body, bad = await _pool_body(request)
+        if bad is not None:
+            return bad
+        tok = engine.engine.embedding_tokenizer
+        token_lists = _as_token_lists(tok, body.get("input"), "input")
+        if not token_lists:
+            return _error(400, "missing 'input'")
+        vecs = await _pooled(engine, token_lists)
+    except (ValueError, TypeError, json.JSONDecodeError) as e:
+        return _error(400, f"invalid request: {e}")
+    n_tokens = sum(len(t) for t in token_lists)
+    return web.json_response({
+        "object": "list",
+        "model": body.get("model") or engine.engine.cfg.model,
+        "embedding_source": engine.engine.embedding_source,
+        "data": [{"object": "embedding", "index": i,
+                  "embedding": vec.tolist()}
+                 for i, vec in enumerate(vecs)],
+        "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+    })
+
+
+async def rerank(request: web.Request) -> web.Response:
+    """/v1/rerank and /v2/rerank: the documents ordered by the cosine
+    of their pooled vectors with the query's (top_n keeps the first)."""
+    try:
+        engine, body, bad = await _pool_body(request)
+        if bad is not None:
+            return bad
+        query, docs = body.get("query"), body.get("documents")
+        if not isinstance(query, str) or not isinstance(docs, list) \
+                or not docs or not all(isinstance(d, str) for d in docs):
+            return _error(400, "need 'query' (str) and 'documents' "
+                               "(non-empty list of str)")
+        token_lists = _as_token_lists(engine.engine.embedding_tokenizer,
+                                      [query] + docs, "input")
+        vecs = await _pooled(engine, token_lists)
+    except (ValueError, TypeError, json.JSONDecodeError) as e:
+        return _error(400, f"invalid request: {e}")
+    q = vecs[0]
+    scored = sorted(
+        ({"index": i, "document": {"text": d},
+          "relevance_score": _cosine(q, v)}
+         for i, (d, v) in enumerate(zip(docs, vecs[1:]))),
+        key=lambda r: r["relevance_score"], reverse=True)
+    top_n = body.get("top_n")
+    if isinstance(top_n, int) and top_n > 0:
+        scored = scored[:top_n]
+    return web.json_response({
+        "id": proto._gen_id("rerank"),
+        "model": body.get("model") or engine.engine.cfg.model,
+        "results": scored,
+        "usage": {"total_tokens": sum(len(t) for t in token_lists)},
+    })
+
+
+async def score(request: web.Request) -> web.Response:
+    """/v1/score: the cosine of text_1's pooled vector with each
+    text_2 entry's."""
+    try:
+        engine, body, bad = await _pool_body(request)
+        if bad is not None:
+            return bad
+        t1, t2 = body.get("text_1"), body.get("text_2")
+        texts = [t2] if isinstance(t2, str) else t2
+        if not isinstance(t1, str) or not isinstance(texts, list) \
+                or not texts or not all(isinstance(x, str) for x in texts):
+            return _error(400, "need 'text_1' (str) and 'text_2' "
+                               "(str or non-empty list of str)")
+        token_lists = _as_token_lists(engine.engine.embedding_tokenizer,
+                                      [t1] + texts, "input")
+        vecs = await _pooled(engine, token_lists)
+    except (ValueError, TypeError, json.JSONDecodeError) as e:
+        return _error(400, f"invalid request: {e}")
+    return web.json_response({
+        "id": proto._gen_id("score"),
+        "model": body.get("model") or engine.engine.cfg.model,
+        "data": [{"index": i, "score": _cosine(vecs[0], v)}
+                 for i, v in enumerate(vecs[1:])],
+        "usage": {"total_tokens": sum(len(t) for t in token_lists)},
+    })
+
+
+# ------------------------------------------------------------------ misc
+
 async def list_models(request: web.Request) -> web.Response:
     engine = request.app[ENGINE_KEY]
     cards = proto.ModelList(data=[proto.ModelCard(id=name) for name in
@@ -807,6 +989,10 @@ def build_app(engine: AsyncLLMEngine) -> web.Application:
     app.router.add_get("/metrics", metrics)
     app.router.add_post("/tokenize", tokenize)
     app.router.add_post("/detokenize", detokenize)
+    app.router.add_post("/v1/embeddings", embeddings)
+    app.router.add_post("/v1/rerank", rerank)
+    app.router.add_post("/v2/rerank", rerank)
+    app.router.add_post("/v1/score", score)
 
     async def on_startup(app):
         # warmup (if any) ran before the loop started
@@ -862,6 +1048,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kv-block-size", type=int, default=64)
     p.add_argument("--kv-pool-tokens", type=int, default=None)
     p.add_argument("--enable-prefix-caching", action="store_true")
+    p.add_argument("--speculative-ngram-tokens", type=int, default=0,
+                   help="n-gram (prompt-lookup) speculative decoding: "
+                        "draft length per macro-step (0 = off); eligible "
+                        "rows (greedy, unguided, unshaped, no "
+                        "top_logprobs) speculate, the others single-step "
+                        "in the same window")
     p.add_argument("--hbm-peak-gbps", type=float, default=3350.0,
                    help="device-memory peak the MBU gauge normalizes "
                         "against (GB/s; default an H100 SXM's)")
@@ -885,6 +1077,7 @@ def main(argv=None) -> None:
         if args.kv_len_buckets else (),
         kv_block_size=args.kv_block_size, kv_pool_tokens=args.kv_pool_tokens,
         enable_prefix_caching=args.enable_prefix_caching,
+        speculative_ngram_tokens=args.speculative_ngram_tokens,
         hbm_peak_gbps=args.hbm_peak_gbps, seed=args.seed))
     if not args.no_warmup:
         engine.engine.runner.warmup()

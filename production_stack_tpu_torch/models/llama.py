@@ -13,7 +13,9 @@ O-proj -> gated MLP. Attention dispatches exactly as the JAX forward
 does (llama.py:188-223): ``nb = min(ceil(kv_len/Bs), MB)`` blocks, and
 windows of T <= DECODE_T_MAX tokens take the decode kernel, longer
 chunks the prefill kernel. On CUDA tensors both are the hand-written
-kernels; on the CPU their plain versions.
+kernels; on the CPU their plain versions. ``encode`` (the pooling
+routes) runs the same blocks over a whole sequence with the plain causal
+attention of ops/attention.py, as the JAX encode does.
 
 Weight-only int8 (models/quant.py, JAX ``llama.py:130-140,419-450``):
 after ``quant.quantize_params`` the projections run through
@@ -49,6 +51,7 @@ from production_stack_tpu_torch.models.quant import (dequant_matmul,
                                                      dequant_rows,
                                                      is_quantized)
 from production_stack_tpu_torch.ops import paged_attention as pa
+from production_stack_tpu_torch.ops.attention import causal_attention
 from production_stack_tpu_torch.ops.norms import rms_norm
 from production_stack_tpu_torch.ops.rope import rope_rows, rope_table, rotate
 from production_stack_tpu_torch.utils import resolve_device
@@ -151,8 +154,34 @@ def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
            rows: Tuple[torch.Tensor, torch.Tensor], starts,
            cache: KVCache, block_tables, nb: int,
            addresses: Tuple[torch.Tensor, torch.Tensor]):
-    """One transformer block; rows = this chunk's rope rows and
-    addresses = its KV write addresses, both shared by every layer."""
+    """One transformer block over the paged pool; rows = this chunk's
+    rope rows and addresses = its KV write addresses, both shared by
+    every layer. The chunk's K/V are written first, then the paged
+    kernels attend."""
+    def paged(q, k, v):
+        if cache.quantized:
+            k_pool, k_scales = write_at_q(cache.k[l], cache.ks[l], k,
+                                          *addresses)
+            v_pool, v_scales = write_at_q(cache.v[l], cache.vs[l], v,
+                                          *addresses)
+            scales = dict(k_scales=k_scales, v_scales=v_scales)
+        else:
+            k_pool = write_at(cache.k[l], k, *addresses)
+            v_pool = write_at(cache.v[l], v, *addresses)
+            scales = {}
+        attn_fn = (pa.paged_decode_attention if q.shape[1] <= pa.DECODE_T_MAX
+                   else pa.paged_attention)
+        return attn_fn(q, k_pool, v_pool, block_tables, starts, nb=nb,
+                       scale=attn_scale(cfg), window=layer_window(cfg, l),
+                       softcap=cfg.attn_logit_softcap or 0.0, **scales)
+    return _block(cfg, model, l, x, rows, paged)
+
+
+def _block(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
+           rows: Tuple[torch.Tensor, torch.Tensor], attend):
+    """Layer l on the residual stream x [B,T,H]: attend(q, k, v) ->
+    [B,T,nh,hd] is the attention (the paged kernels in serving, the
+    plain causal attention in encode)."""
     B, T, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     eps = cfg.rms_norm_eps
@@ -163,19 +192,7 @@ def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
     k = rotate(dequant_matmul(hidden, model.k[l]).reshape(B, T, nkv, hd),
                *rows)
     v = dequant_matmul(hidden, model.v[l]).reshape(B, T, nkv, hd)
-    if cache.quantized:
-        k_pool, k_scales = write_at_q(cache.k[l], cache.ks[l], k, *addresses)
-        v_pool, v_scales = write_at_q(cache.v[l], cache.vs[l], v, *addresses)
-        scales = dict(k_scales=k_scales, v_scales=v_scales)
-    else:
-        k_pool = write_at(cache.k[l], k, *addresses)
-        v_pool = write_at(cache.v[l], v, *addresses)
-        scales = {}
-    attn_fn = (pa.paged_decode_attention if T <= pa.DECODE_T_MAX
-               else pa.paged_attention)
-    attn = attn_fn(q, k_pool, v_pool, block_tables, starts, nb=nb,
-                   scale=attn_scale(cfg), window=layer_window(cfg, l),
-                   softcap=cfg.attn_logit_softcap or 0.0, **scales)
+    attn = attend(q, k, v)
     o_out = dequant_matmul(attn.reshape(B, T, nh * hd), model.o[l])
     if cfg.sandwich_norms:
         o_out = rms_norm(o_out, model.post_attn_norm[l], eps, off)
@@ -259,6 +276,35 @@ def final_logits(model: Llama, cfg: ModelConfig,
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps,
                  1.0 if cfg.rms_norm_offset else 0.0)
     return _lm_head(model, cfg, x)
+
+
+def encode(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
+           rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+           ) -> torch.Tensor:
+    """Full-sequence causal forward without the LM head (JAX
+    ``llama.encode``): the final-normed hidden states [B,T,H] of tokens
+    [B,T] at positions 0..T-1, no cache. The pooling routes mean-pool
+    them (runner.embed). Attention is ops/attention.causal_attention,
+    plain PyTorch with Gemma-2's window and softcap, as the JAX encode
+    never reaches a Pallas kernel. Right padding needs no mask here: in
+    a dense model a pad token after the real ones cannot reach them
+    through causal attention (the JAX function's token_valid only
+    routes MoE experts), and the pooling leaves the pads out."""
+    device = tokens.device
+    if rope is None:
+        rope = rope_tensors(cfg, cfg.max_position_embeddings, device)
+    B, T = tokens.shape
+    positions = torch.arange(T, device=device)[None].expand(B, T)
+    rows = rope_rows(positions, *rope)
+    scale = attn_scale(cfg)
+    x = _embed(model, cfg, tokens)
+    for l in range(cfg.num_layers):
+        def attend(q, k, v, w=layer_window(cfg, l)):
+            return causal_attention(q, k, v, scale=scale, sliding_window=w,
+                                    logit_softcap=cfg.attn_logit_softcap)
+        x = _block(cfg, model, l, x, rows, attend)
+    return rms_norm(x, model.final_norm, cfg.rms_norm_eps,
+                    1.0 if cfg.rms_norm_offset else 0.0)
 
 
 def _embed(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1,11 +1,14 @@
-"""Grouped-query attention over a contiguous cache view
-(``production_stack_tpu/ops/attention.py:38-44,89-127``).
+"""Grouped-query attention over a contiguous cache view or a whole
+sequence (``production_stack_tpu/ops/attention.py:38-127``).
 
 ``attention_with_cache`` is the body of the kernels' plain versions
-(ops/paged_attention.py, ops/flash_attention.py): q is viewed as
-[B, T, Hkv, G, D] so K/V are never repeated to H query heads; scores and
-softmax are f32 and masked with -1e30, and the probabilities are cast to
-V's dtype before the value product, as the JAX function does."""
+(ops/paged_attention.py, ops/flash_attention.py); ``causal_attention``
+is the full-sequence attention of ``llama.encode`` (the pooling routes),
+which the JAX package also computes outside any Pallas kernel. Both view
+q as [B, T, Hkv, G, D] so K/V are never repeated to H query heads;
+scores and softmax are f32 and masked with -1e30, and the probabilities
+are cast to V's dtype before the value product, as the JAX functions
+do."""
 
 from typing import Optional
 
@@ -55,3 +58,19 @@ def attention_with_cache(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgts,bskd->btkgd", probs.to(v_cache.dtype),
                        v_cache)
     return out.reshape(B, T, H, D)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: Optional[float] = None,
+                     sliding_window: Optional[int] = None,
+                     logit_softcap: Optional[float] = None
+                     ) -> torch.Tensor:
+    """Full-sequence causal GQA: q [B,T,H,D], k/v [B,T,Hkv,D] ->
+    [B,T,H,D] in v's dtype. The query at t attends keys s <= t, and
+    s > t - sliding_window when windowed (0 or None = off); the softcap
+    applies to the raw scores (0 or None = off)."""
+    T = q.shape[1]
+    t = torch.arange(T, device=q.device)
+    return attention_with_cache(q, k, v, t[None].expand(q.shape[0], T),
+                                scale=scale, sliding_window=sliding_window,
+                                logit_softcap=logit_softcap)

@@ -59,6 +59,13 @@ launch_counts = {"paged_decode_attention": 0, "paged_attention": 0}
 window_launches = dict(launch_counts)
 softcap_launches = dict(launch_counts)
 int8_launches = dict(launch_counts)
+# launches per query-window length T for T in 2..VERIFY_T_MAX, the
+# windows a speculative verify forward gives the kernels (spec + 1 for
+# spec up to 16): {wrapper: {T: launches}}; verify_window_launches
+# counts those of them made with the window
+VERIFY_T_MAX = 17
+verify_launches = {name: {} for name in launch_counts}
+verify_window_launches = {name: {} for name in launch_counts}
 
 
 def reset_launch_counts() -> None:
@@ -66,6 +73,9 @@ def reset_launch_counts() -> None:
                    int8_launches):
         for name in counts:
             counts[name] = 0
+    for counts in (verify_launches, verify_window_launches):
+        for by_t in counts.values():
+            by_t.clear()
 
 
 # element types of q / out (0, 1) and of the pool (0, 1, or 2 = int8)
@@ -263,6 +273,10 @@ def _launch(name: str, q, k_pool, v_pool, tables, starts, nb, scale,
         softcap_launches[name] += 1
     if quant:
         int8_launches[name] += 1
+    if 2 <= T <= VERIFY_T_MAX:
+        for counts in ((verify_launches, verify_window_launches) if window
+                       else (verify_launches,)):
+            counts[name][T] = counts[name].get(T, 0) + 1
     return out
 
 

@@ -355,3 +355,60 @@ def test_out_of_vocab_prompt_logprobs_on_the_card_equal_the_cpu(cuda):
     assert torch.equal(c.isnan(), g.isnan())
     assert c.isnan().sum().item() == 3
     assert torch.allclose(c, g, rtol=0, atol=1e-4, equal_nan=True)
+
+
+def _verify_window(dev, spec, B=4, steps=4):
+    """The runner of _tiny_runner on `dev`: one prefill of four prompts
+    (two repetitive, one short, one of 250 tokens whose macro-steps run
+    into max_model_len 256), then a speculative window of `steps`
+    macro-steps of `spec` drafts with the third row declining to
+    speculate. Returns (ids, logprobs, counts, history) on the CPU."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine import sampler
+    runner = _tiny_runner(dev, B)
+    cfg = runner.engine_cfg
+    S, MB = cfg.max_model_len, cfg.max_blocks_per_seq
+    runner.set_block_tables(
+        (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB))
+    rng = np.random.default_rng(1)
+    base = rng.integers(1, 40, 10).tolist()
+    prompts = [base * 4, (base[3:] + base[:3]) * 4,
+               rng.integers(0, 512, 24).tolist(), (base * 25)[:250]]
+    toks = np.zeros((B, 250), np.int32)
+    lens = np.array([len(p) for p in prompts], np.int32)
+    for b, p in enumerate(prompts):
+        toks[b, :len(p)] = p
+    sp = sampler.SamplingParams.filled(B, temperature=0.0, device=dev)
+    first, _, _ = runner.prefill(toks, np.zeros(B, np.int32), lens, sp, S,
+                                 greedy=True)
+    first = first.cpu().numpy()
+    hist = np.zeros((B, S), np.int32)
+    for b, p in enumerate(prompts):
+        hist[b, :len(p)] = p
+        hist[b, len(p)] = first[b]
+    runner.set_decode_state(first, lens, history=hist)
+    ids, lps, counts, _ = runner.decode_spec(
+        sp, steps=steps, kv_len=S, spec=spec,
+        spec_ok=np.array([True, True, False, True]), greedy=True)
+    return [t.cpu() for t in (ids, lps, counts, runner._dec_hist)]
+
+
+@pytest.mark.parametrize("spec", [3, 8])
+def test_verify_window_on_the_card_equals_the_cpu(cuda, spec):
+    """Speculative verify windows through the paged kernels at
+    T = spec + 1 (the decode kernel at 4, the prefill kernel at 9),
+    a row running past max_model_len among them: the same tokens,
+    accepted counts and history as the plain versions on the CPU, the
+    logprobs to 1e-4, and the kernel launched at that T."""
+    pa.reset_launch_counts()
+    g = _verify_window(cuda, spec)
+    name = ("paged_decode_attention" if spec + 1 <= pa.DECODE_T_MAX
+            else "paged_attention")
+    assert pa.verify_launches[name].get(spec + 1, 0) > 0
+    c = _verify_window("cpu", spec)
+    assert torch.equal(c[0], g[0]) and torch.equal(c[2], g[2])
+    assert torch.equal(c[3], g[3])
+    assert (c[1] - g[1]).abs().max().item() <= 1e-4
+    assert c[2][:2].sum().item() > 2 * c[2].shape[1]   # drafts accepted
+    assert (c[2][2] == 1).all()

@@ -288,23 +288,25 @@ def test_prefix_keys_and_fingerprint_match_jax():
 
 
 def test_engine_refuses_unported_options():
-    """Guided decoding and LoRA model ids are refused; the shaping and
-    logprob options the port implements are taken."""
+    """LoRA model ids are refused; the shaping, logprob and guided
+    options the port implements are taken, and a guided pattern the
+    regex compiler cannot parse is a ValueError at add_request, as in
+    the JAX engine."""
     te = tengine.LLMEngine(tec.EngineConfig(
         model="debug-tiny", device="cpu", max_model_len=64, max_num_seqs=1,
         prefill_chunk=16, prefill_buckets=(16,)))
-    with pytest.raises(ValueError, match="not implemented"):
-        te.add_request([1, 2, 3], SamplingOptions(guided_regex="a+"))
     with pytest.raises(ValueError, match="LoRA"):
         te.add_request([1, 2], SamplingOptions(), model="my-adapter")
+    with pytest.raises(ValueError):
+        te.add_request([1, 2, 3], SamplingOptions(guided_regex="(a+"))
     for kw in (dict(presence_penalty=0.5), dict(logit_bias={1: 2.0}),
                dict(top_logprobs=2), dict(min_tokens=3),
-               dict(repetition_penalty=1.2)):
+               dict(repetition_penalty=1.2), dict(guided_regex="a+")):
         te.add_request([1, 2, 3], SamplingOptions(**kw))
 
 
 @pytest.mark.parametrize("kw", [
-    dict(speculative_ngram_tokens=2), dict(tensor_parallel_size=2),
+    dict(embedding_model="bge-small"), dict(tensor_parallel_size=2),
     dict(window_adapt=True), dict(pipeline_depth=2),
     dict(lora_adapters={"a": "random:1"}),
     dict(kv_transfer_config={"kv_role": "kv_both"})])
@@ -436,9 +438,12 @@ def _payload(path, extra):
     return payload
 
 
+# the model id the port does not serve, and guided constraints it cannot
+# take (a pattern that does not parse, a choice that is not a string, a
+# free-form JSON object): 400, naming the field
 @pytest.mark.parametrize("path,extra,field", [
-    ("/v1/chat/completions", {"guided_regex": "a+"}, "guided_regex"),
-    ("/v1/chat/completions", {"guided_choice": ["a", "b"]},
+    ("/v1/chat/completions", {"guided_regex": "(a+"}, "guided_regex"),
+    ("/v1/chat/completions", {"guided_choice": ["a", 5]},
      "guided_choice"),
     ("/v1/chat/completions", {"model": "sql-lora"}, "model"),
     ("/v1/chat/completions", {"response_format": {"type": "json_object"}},
@@ -503,7 +508,9 @@ def test_failed_step_fails_requests_and_stops_the_loop():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """The port's server imports with jax and production_stack_tpu
-    blocked (a subprocess: this one has both loaded)."""
+    blocked (a subprocess: this one has both loaded), guided decoding
+    (engine/guided.py) and the pooling path (encode, causal_attention,
+    the routes) included."""
     code = textwrap.dedent("""
         import sys
 
@@ -525,6 +532,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import production_stack_tpu_torch.version
         import production_stack_tpu_torch.engine.efficiency
         import production_stack_tpu_torch.engine.metrics
+        import production_stack_tpu_torch.engine.guided
+        import production_stack_tpu_torch.engine.runner
+        from production_stack_tpu_torch.models.llama import encode
+        from production_stack_tpu_torch.ops.attention import (
+            causal_attention)
+        from production_stack_tpu_torch.engine.server import (
+            embeddings, rerank, score)
         assert not any(m == "jax" or m.startswith("jax.")
                        or m == "production_stack_tpu"
                        or m.startswith("production_stack_tpu.")
