@@ -22,8 +22,15 @@
    kernels over a bf16 and over an int8 pool; the speculative verify
    windows, the decode kernel at T = 4 and the prefill kernel at
    T = 9), holding each kernel against its plain version on the timed
-   inputs too;
-3. then for each served path — llama-3-8b, gemma-2-9b, and llama-3-8b
+   inputs too; Gemma-2's bf16 rows, which SDPA cannot compute (no
+   softcap), take flex_attention with a tanh softcap and a window mask
+   as their library call;
+3. checkpoint: an HF checkpoint directory of Llama-3-8B's widths at 2
+   layers (config.json, two .safetensors shards of the seed-0 draw)
+   loads through the port's reader (bytes, seconds, GB/s), and an
+   engine started on it serves and matches, bit for bit, an engine
+   given the same weights in memory; the directory is deleted;
+4. then for each served path — llama-3-8b, gemma-2-9b, and llama-3-8b
    with int8 weights and an int8 KV pool (llama-3-8b-int8) — at full
    width and depth with random weights from a seed, one after the other
    (each engine is freed before the next is built):
@@ -70,6 +77,15 @@
      package): /v1/embeddings over three inputs of different lengths
      gives finite vectors of the model's width; /v1/rerank, /v2/rerank
      and /v1/score answer 200 with finite scores;
+   - lora (llama-3-8b, and on llama-3-8b-int8 the .npz adapter alone;
+     its own kernel counts): adapters loaded over /admin/lora/load
+     (random:11 and a full-width .npz written from a seeded numpy
+     draw, rank 16 on all seven projections) are listed by /v1/models,
+     /load and the tpu:engine_adapter_* series; a batch of the base
+     model and both adapters gives distinct streams through both paged
+     kernels; an evicted adapter answers 404 and a new load takes the
+     next id; then lora_breakdown times a decode step of two adapter
+     rows and two base rows beside the plain step;
    - reference: the served model's logits through the kernels agree
      with a float32 forward through the plain attention (on the int8
      path over the same int8 weights and an int8 pool); on the
@@ -78,7 +94,10 @@
      too, the speculating engine's greedy tokens against the spec-free
      ones (a first difference only at a near-tie) and its shaped row
      against the f32 shaped argmax; the pooled vector against the f32
-     encode and padding-independent.
+     encode and padding-independent; with adapters, the .npz adapter's
+     bf16 logits through the kernels against an f32 forward with the
+     same adapter, and each adapter row of the mixed batch against the
+     same request served alone (equal, or parting at a near-tie).
 
 Progress goes to stdout; the line before the last two is the kernels'
 JSON record, then the card's name and power limit, then the result.
@@ -98,6 +117,11 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
+# LoRA on the llama paths (lora_phase): rank 16 on all seven projections,
+# scaling alpha / rank = 1; nothing is stacked until an adapter loads
+LORA_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
+LORA = dict(lora_rank=16, lora_alpha=16.0, lora_targets=LORA_TARGETS)
+
 # the served paths, in the order they are served. model: the preset (the
 # path's name where not given); serve: the engine's
 # geometry; decode_starts: the rows of the timed decode step; chunk_start:
@@ -110,7 +134,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PATHS = {
     "llama-3-8b": dict(
         serve=dict(max_num_seqs=4, max_model_len=1024, prefill_chunk=512,
-                   decode_window=8, kv_block_size=64, seed=0),
+                   decode_window=8, kv_block_size=64, seed=0, **LORA),
         decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
         long_tokens=697, timing_layers=32, ref_prompt=40),
     # Gemma-2-9B: KV 344 KB per token, 11.3 GB for the pool; the long
@@ -127,7 +151,7 @@ PATHS = {
         model="llama-3-8b",
         serve=dict(max_num_seqs=4, max_model_len=1024, prefill_chunk=512,
                    decode_window=8, kv_block_size=64, seed=0,
-                   quantization="int8", kv_dtype="int8"),
+                   quantization="int8", kv_dtype="int8", **LORA),
         decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
         long_tokens=697, timing_layers=32, ref_prompt=40),
 }
@@ -255,6 +279,7 @@ def release(engine) -> None:
     eng = engine.engine
     eng.runner = eng._guided_table = eng._dev_sampling = None
     eng._inflight = None
+    eng._lora_rows = []
     free_memory()
 
 
@@ -395,6 +420,53 @@ def sdpa_over_view(q, k, v, tables, starts, nb, window=0, scale=None,
     else:
         kv = gather_view(k, tables, nb), gather_view(v, tables, nb)
     return sdpa_call(q, *kv, qpos, window, scale)
+
+
+def flex_over_view(q, k, v, tables, starts, nb, window, scale, softcap):
+    """The library yardstick for Gemma-2's rows, which SDPA cannot
+    compute (it applies no softcap): torch.nn.attention.flex_attention,
+    compiled (once per shape), over the same gathered view of the paged
+    pool as sdpa_over_view, with a tanh softcap score_mod and a causal
+    mask_mod that also drops keys at or past `window` behind the query
+    (window 0: none). The mods are module functions reading the call's
+    positions, window and cap from module globals, so every call of one
+    shape (both layer kinds) shares one compiled kernel. Returns (call,
+    output of one call)."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    from production_stack_tpu_torch.models.kv import gather_view
+    global _FLEX, _FLEX_QPOS, _FLEX_WIN, _FLEX_CAP
+    if _FLEX is None:
+        _FLEX = torch.compile(flex_attention, dynamic=False)
+    B, T, H, D = q.shape
+    kt = gather_view(k, tables, nb).transpose(1, 2).contiguous()
+    vt = gather_view(v, tables, nb).transpose(1, 2).contiguous()
+    S = kt.shape[2]
+    _FLEX_QPOS = starts.long()[:, None] + torch.arange(T, device=q.device)
+    _FLEX_WIN = torch.tensor(window or (1 << 30), device=q.device)
+    _FLEX_CAP = float(softcap)
+    block_mask = create_block_mask(_flex_mask, B, None, T, S,
+                                   device=q.device)
+    qt = q.transpose(1, 2).contiguous()
+
+    def call(i=0):
+        return _FLEX(qt, kt, vt, score_mod=_flex_softcap,
+                     block_mask=block_mask, scale=scale, enable_gqa=True)
+    return call, call().transpose(1, 2)
+
+
+def _flex_mask(b, h, q_idx, kv_idx):
+    p = _FLEX_QPOS[b, q_idx]
+    return (kv_idx <= p) & (kv_idx > p - _FLEX_WIN)
+
+
+def _flex_softcap(score, b, h, q_idx, kv_idx):
+    return _FLEX_CAP * (score / _FLEX_CAP).tanh()
+
+
+_FLEX = _FLEX_QPOS = _FLEX_WIN = None
+_FLEX_CAP = 0.0
 
 
 def paged_checks(pa):
@@ -576,7 +648,9 @@ def paged_timings(pa, model, kv, path, verify=False):
     names in `path` the serving path whose launches main() reports (None:
     no path serves these shapes with this pool) and in `layers` the layer
     kind. Over an int8 pool no PyTorch call attends, so library_ms is
-    null and SDPA over the dequantized bf16 view is logged beside it.
+    null and SDPA over the dequantized bf16 view is logged beside it;
+    with a softcap over a bf16 pool, flex_attention is the library call
+    (flex_over_view; null with flex_error where it fails).
     verify: the speculative verify windows instead — the decode kernel
     at T = 4 (spec 3) over the whole batch and, for Llama-3-8B, the
     prefill kernel at T = 9 (spec 8), rows at decode_starts; their
@@ -642,11 +716,31 @@ def paged_timings(pa, model, kv, path, verify=False):
             byts, flops = work(q, starts, nb, MB, Bs, Hkv, D, 2,
                                kw["window"], kv_itemsize=k.element_size())
             # SDPA computes the same function only without a softcap and
-            # over a bf16 pool
+            # over a bf16 pool; with the softcap over a bf16 pool,
+            # flex_attention does (null, with the error, where it fails)
+            library_ms, flex = (None if kw["softcap"] or sc[0]
+                                else sdpa_ms), {}
+            if kw["softcap"] and not sc[0]:
+                t_flex = time.monotonic()
+                try:
+                    call, got = flex_over_view(
+                        q, k[0], v[0], tables, starts, nb, kw["window"],
+                        kw["scale"], kw["softcap"])
+                    live = starts < MB * Bs
+                    want = fn(q, k[0], v[0], tables, starts, nb=nb, **kw)
+                    flex["flex_err_vs_kernel"] = (
+                        got[live].float() - want[live].float()).abs().max(
+                    ).item()
+                    del got, want
+                    library_ms = device_ms(call, it)
+                    del call
+                except Exception as e:   # the row keeps null, with why
+                    flex["flex_error"] = f"{type(e).__name__}: {e}"[:600]
+                free_memory()
+                flex["flex_s"] = time.monotonic() - t_flex
             rec = _record(name, PAGED_SOURCE, REPLACES[name], path, err,
-                          ms, plain_ms,
-                          None if kw["softcap"] or sc[0] else sdpa_ms, byts,
-                          flops, shape)
+                          ms, plain_ms, library_ms, byts, flops, shape)
+            rec.update(flex)
             rec["layers"] = layers
             rec["kv_dtype"] = kv
             rec["shapes_of"] = model
@@ -1068,12 +1162,12 @@ async def surface_phase(http, base, engine, path: str) -> dict:
 
 async def feature_phase(engine, path: str) -> dict:
     """The OpenAI server in-process on `engine` again, after the
-    breakdown: guided_phase, spec_phase and embed_phase, each with its
-    own kernel counts. They run after the breakdown because its plain
-    step's count of device events is held to PLAIN_DECODE_LAUNCHES, and
-    after large uploads (the guided table) the profiler records fewer of
-    the step's small pageable host-to-device copies (the kernels it
-    launches are the same)."""
+    breakdown: guided_phase, spec_phase, embed_phase and lora_phase,
+    each with its own kernel counts. They run after the breakdown
+    because its plain step's count of device events is held to
+    PLAIN_DECODE_LAUNCHES, and after large uploads (the guided table)
+    the profiler records fewer of the step's small pageable
+    host-to-device copies (the kernels it launches are the same)."""
     import aiohttp
     from aiohttp import web
     from production_stack_tpu_torch.engine.server import build_app
@@ -1086,7 +1180,8 @@ async def feature_phase(engine, path: str) -> dict:
         async with aiohttp.ClientSession() as http:
             return {"guided": await guided_phase(http, base, engine, path),
                     "spec": await spec_phase(http, base, engine, path),
-                    "embed": await embed_phase(http, base, engine, path)}
+                    "embed": await embed_phase(http, base, engine, path),
+                    "lora": await lora_phase(http, base, engine, path)}
     finally:
         await runner.cleanup()
 
@@ -1470,6 +1565,167 @@ async def embed_phase(http, base, engine, path) -> dict:
             "batched": vecs[2], "alone": alone["data"][0]["embedding"]}
 
 
+# the full-width .npz adapter of lora_phase, written from a seeded numpy
+# draw (both factors N(0, 0.05), the scale of the JAX package's
+# random_adapter) into build/ at the first use
+LORA_NPZ = os.path.join(REPO, "build", "lora", "ad-npz.npz")
+LORA_NPZ_SEED = 5
+LORA_TOKENS = 16
+
+
+def npz_adapter(cfg) -> str:
+    """LORA_NPZ for `cfg`'s widths at rank LORA["lora_rank"] on every
+    target of LORA_TARGETS ({proj}.a [L, in, r], {proj}.b [L, r, out],
+    float32, the models/lora.py format)."""
+    import numpy as np
+    from production_stack_tpu_torch.models.lora import _proj_dims
+    if not os.path.exists(LORA_NPZ):
+        os.makedirs(os.path.dirname(LORA_NPZ), exist_ok=True)
+        rng = np.random.default_rng(LORA_NPZ_SEED)
+        L, r = cfg.num_layers, LORA["lora_rank"]
+        arrays = {}
+        for name in LORA_TARGETS:
+            d_in, d_out = _proj_dims(cfg)[name]
+            for key, shape in (("a", (L, d_in, r)), ("b", (L, r, d_out))):
+                arrays[f"{name}.{key}"] = rng.standard_normal(
+                    shape, dtype=np.float32) * np.float32(0.05)
+        np.savez(LORA_NPZ + ".tmp.npz", **arrays)
+        os.replace(LORA_NPZ + ".tmp.npz", LORA_NPZ)
+    return LORA_NPZ
+
+
+def served_ids(engine, prompt, adapter_id) -> list:
+    """The output ids of the latest sequence of `prompt` on adapter
+    `adapter_id`."""
+    seq = next(s for s in reversed(list(engine.engine.seqs.values()))
+               if s.prompt_tokens == prompt and s.adapter_id == adapter_id)
+    return list(seq.output_tokens)
+
+
+async def _adapter_series(http, base) -> dict:
+    from prometheus_client.parser import text_string_to_metric_families
+    async with http.get(base + "/metrics") as r:
+        text = await r.text()
+    names = ("tpu:engine_adapter_loads_total",
+             "tpu:engine_adapter_evictions_total",
+             "tpu:engine_adapters_loaded")
+    return {x.name: x.value for f in text_string_to_metric_families(text)
+            for x in f.samples if x.name in names}
+
+
+async def lora_phase(http, base, engine, path) -> dict:
+    """Multi-LoRA through the server (llama-3-8b; on llama-3-8b-int8 the
+    .npz adapter beside a base row), the kernel counts zeroed before the
+    mixed batch and read after. /admin/lora/load loads ad-rand
+    (random:11) and ad-npz (npz_adapter); /v1/models (root and parent),
+    /load's models and the tpu:engine_adapter_* series (2 / 0 / 2) list
+    them. Each adapter's request is served alone, then one batch of the
+    base model, ad-rand and ad-npz on one prompt and the base model on
+    another, greedy: three distinct streams; both paged kernels launch,
+    the flash kernel not. The mixed rows against the solo ones are held
+    in reference_phase (equal, or parting at a near-tie). Then ad-rand
+    is evicted: it answers 404 as a model and on a second evict, ad-npz
+    still serves, and a new load takes id 3."""
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    if path not in ("llama-3-8b", "llama-3-8b-int8"):
+        return {}
+    full = path == "llama-3-8b"
+    model = path_model(path)
+    eng = engine.engine
+    t_phase = t0 = time.monotonic()
+    npz = npz_adapter(eng.model_cfg)
+    out = {"npz_write_s": time.monotonic() - t0,
+           "npz_bytes": os.path.getsize(npz), "load_s": {}}
+    sources = ({"ad-rand": "random:11", "ad-npz": npz} if full
+               else {"ad-npz": npz})
+    for name, src in sources.items():
+        t0 = time.monotonic()
+        res = await _post_json(http, base + "/admin/lora/load",
+                               {"name": name, "src": src})
+        out["load_s"][name] = time.monotonic() - t0
+        if res["loaded"] is not True:
+            raise AssertionError(f"adapter {name} did not load: {res}")
+    names = list(sources)
+    ids = {n: eng.lora_ids[n] for n in names}
+    async with http.get(base + "/v1/models") as r:
+        cards = (await r.json())["data"]
+    async with http.get(base + "/load") as r:
+        models = (await r.json())["models"]
+    series = await _adapter_series(http, base)
+    want = {"tpu:engine_adapter_loads_total": len(names),
+            "tpu:engine_adapter_evictions_total": 0,
+            "tpu:engine_adapters_loaded": len(names)}
+    if ([c["id"] for c in cards] != [model] + names or models
+            != [model] + names or series != want
+            or any(c["root"] != model or c["parent"] != model
+                   for c in cards[1:])):
+        raise AssertionError(f"adapter catalog: cards {cards}, /load "
+                             f"{models}, series {series}")
+    prompt, other = surface_prompt(30), surface_prompt(31)
+    rows = ([(model, prompt)] + [(n, prompt) for n in names]
+            + [(model, other)])
+
+    def body(m, p):
+        return {"model": m, "prompt": p, "max_tokens": LORA_TOKENS,
+                "temperature": 0.0, "ignore_eos": True}
+
+    solo = {}
+    for name in names:
+        await _post_json(http, base + "/v1/completions", body(name, prompt))
+        solo[name] = served_ids(engine, prompt, ids[name])
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    await asyncio.gather(*(_post_json(http, base + "/v1/completions",
+                                      body(m, p)) for m, p in rows))
+    out["mixed_wall_s"] = time.monotonic() - t0
+    launches = {**pa.launch_counts, **fa.launch_counts}
+    streams = {m if p is prompt else "base2":
+               served_ids(engine, p, ids.get(m, 0)) for m, p in rows}
+    out.update(path=path, adapters=ids, launches=launches,
+               int8_launches=dict(pa.int8_launches), streams=streams,
+               solo=solo, equal_to_solo={n: streams[n] == solo[n]
+                                         for n in names})
+    first = [tuple(streams[n]) for n in [model] + names]
+    if (len(set(first)) != len(first)
+            or any(len(t) != LORA_TOKENS for t in streams.values())):
+        log(json.dumps({"lora": out}))
+        raise AssertionError("the adapters' streams are not distinct from "
+                             "the base model's and each other's")
+    for name in pa.launch_counts:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"adapter requests: {launches}")
+    if any(launches[n] for n in fa.launch_counts):
+        raise AssertionError(f"the flash kernel launched: {launches}")
+    if full:
+        await _post_json(http, base + "/admin/lora/evict",
+                         {"name": "ad-rand"})
+        await _post_json(http, base + "/v1/completions",
+                         body("ad-rand", prompt), status=404)
+        await _post_json(http, base + "/admin/lora/evict",
+                         {"name": "ad-rand"}, status=404)
+        res = await _post_json(http, base + "/v1/completions",
+                               body("ad-npz", other))
+        if res["usage"]["completion_tokens"] != LORA_TOKENS:
+            raise AssertionError(f"ad-npz after the evict: {res}")
+        await _post_json(http, base + "/admin/lora/load",
+                         {"name": "ad-three", "src": "random:13"})
+        out["new_load_id"] = eng.lora_ids["ad-three"]
+        out["series_after"] = await _adapter_series(http, base)
+        if out["new_load_id"] != 3 or out["series_after"] != {
+                "tpu:engine_adapter_loads_total": 3,
+                "tpu:engine_adapter_evictions_total": 1,
+                "tpu:engine_adapters_loaded": 2}:
+            raise AssertionError(f"after the evict: {out}")
+    out["seconds"] = time.monotonic() - t_phase
+    log(json.dumps({"lora": out}))
+    return {"ids": ids, "prompt": prompt,
+            "rows": {n: {"mixed": streams[n], "solo": solo[n]}
+                     for n in names}}
+
+
 async def fault_probe(http, base, engine, path: str):
     """Prompt ids outside the vocabulary ([1, V+100, -(V+100), 3]) answer
     200 (the embedding's index rule), plain and with echo and logprobs
@@ -1552,12 +1808,21 @@ def reference_phase(engine, path: str, surface: dict):
     times that from each other; the f32 verify through the kernels is
     held at F32_LOGIT_TOL. The spec phase's greedy rows against the
     spec-free ones (near_tie_check) and its shaped row
-    (shaped_check). The embed phase's vector (embed_check)."""
+    (shaped_check). The embed phase's vector (embed_check).
+
+    After the lora phase: the .npz adapter's logits (the same prompt and
+    steps, its factors in every forward) through the kernels in bf16
+    may be at most BF16_FLOOR_FACTOR times further from the f32 plain
+    forward with the adapter (its factors upcast, exact) than the bf16
+    plain path with it is; each adapter row of the mixed batch against
+    the same request served alone (near_tie_check, over the solo
+    sequence's logits with the adapter)."""
     from contextlib import contextmanager
     import dataclasses
 
     import torch
     from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models import lora as lora_mod
     from production_stack_tpu_torch.models.kv import make_slot_cache
     from production_stack_tpu_torch.models.quant import is_quantized
     from production_stack_tpu_torch.ops import paged_attention as pa
@@ -1634,14 +1899,28 @@ def reference_phase(engine, path: str, surface: dict):
             dtype=kv_dtype if kv_dtype == torch.int8 else mcfg.dtype,
             block_size=Bs, device=dev)
 
-    def run(params, mcfg, mode):
+    def adapter(aid, dtype):
+        """(factors of adapter `aid` for one row, in `dtype`, scaling)
+        from the served engine's stack, as llama.forward's lora_rows,
+        lora_scaling; None for aid None."""
+        if aid is None:
+            return {}
+        rows = lora_mod.gather_rows(runner._lora,
+                                    torch.tensor([aid], device=dev))
+        return dict(lora_rows={n: (a.to(dtype), b.to(dtype))
+                               for n, (a, b) in rows.items()},
+                    lora_scaling=runner._lora_scaling)
+
+    def run(params, mcfg, mode, lora=None):
         """Logits at the compared positions, the verify segments' logits
         {T: [T, V]} as one forward and (not in "plain") as T
         single-token forwards over the same positions, and the pool's
         int8 K/V (None over a float pool); mode "plain", "kernels" or
-        "checked"."""
+        "checked"; lora: an adapter id whose factors join every
+        forward."""
         cache, tables = pool(mcfg, max_len)
         out, ver, single = [], {}, {}
+        ad = adapter(lora, mcfg.dtype)
         with attention(mode):
             for lo in range(0, P, chunk):
                 hi = min(lo + chunk, P)
@@ -1649,16 +1928,18 @@ def reference_phase(engine, path: str, surface: dict):
                     params, mcfg, prompt[:, lo:hi],
                     torch.arange(lo, hi, device=dev)[None], cache,
                     block_tables=tables, rope=runner.rope, kv_len=max_len,
-                    last_index=torch.tensor([hi - lo - 1], device=dev))
+                    last_index=torch.tensor([hi - lo - 1], device=dev),
+                    **ad)
                 out.append(logits[0, 0])
             for i, tok in enumerate(step_toks):
                 logits, _ = llama.forward(
                     params, mcfg, tok.view(1, 1),
                     torch.tensor([[P + i]], device=dev), cache,
-                    block_tables=tables, rope=runner.rope, kv_len=max_len)
+                    block_tables=tables, rope=runner.rope, kv_len=max_len,
+                    **ad)
                 out.append(logits[0, 0])
             at = P + steps
-            for T in verify_T:
+            for T in (verify_T if lora is None else ()):
                 toks = ver_toks[at - P - steps:at - P - steps + T]
                 pos = torch.arange(at, at + T, device=dev)
                 logits, _ = llama.forward(
@@ -1690,21 +1971,24 @@ def reference_phase(engine, path: str, surface: dict):
         del cache
         return logits[0]
 
-    def tail_logits(params, mcfg, ids, n):
+    def tail_logits(params, mcfg, ids, n, lora=None):
         """f32 logits [n, V] of the distributions of the last n tokens of
         `ids` (positions len-1-n .. len-2), through a pool of its own,
-        prefill_chunk at a time, and the plain attention."""
+        prefill_chunk at a time, and the plain attention; lora: an
+        adapter id whose factors join the forward."""
         T = len(ids)
         cache, tables = pool(mcfg, -(-T // Bs) * Bs)
         t = torch.tensor([ids], device=dev)
         rows = []
+        ad = adapter(lora, mcfg.dtype)
         with attention("plain"):
             for lo in range(0, T - 1, chunk):
                 hi = min(lo + chunk, T - 1)
                 x = llama.hidden(params, mcfg, t[:, lo:hi],
                                  torch.arange(lo, hi, device=dev)[None],
                                  cache, block_tables=tables,
-                                 rope=runner.rope, kv_len=-(-T // Bs) * Bs)
+                                 rope=runner.rope, kv_len=-(-T // Bs) * Bs,
+                                 **ad)
                 first = max(lo, T - 1 - n)
                 if first < hi:
                     rows.append(llama.final_logits(
@@ -1766,6 +2050,18 @@ def reference_phase(engine, path: str, surface: dict):
             len(sh["prompt"]) - 1:-1]
     if "echo" in surface:
         echo32 = prompt_lps(p32, cfg32, surface["echo"]["prompt"])
+    # the lora phase: ad-npz's f32 forward, and the f32 logits of each
+    # adapter row whose mixed tokens left its solo ones
+    lora = surface.get("lora") or {}
+    lora_rows = []
+    if lora:
+        npz_id = lora["ids"]["ad-npz"]
+        ref_lora = run(p32, cfg32, "plain", lora=npz_id)[0]
+        for name, row in lora["rows"].items():
+            if row["mixed"] != row["solo"]:
+                lora_rows.append((name, tail_logits(
+                    p32, cfg32, lora["prompt"] + row["solo"],
+                    len(row["solo"]), lora=lora["ids"][name])))
     del p32
     free_memory()
     got16, ver16, single16, _ = run(runner.params, cfg, "kernels")
@@ -1838,6 +2134,29 @@ def reference_phase(engine, path: str, surface: dict):
         extra["embed"] = embed_check(embed, embed32, pooled_plain(
             runner.params, cfg, embed["tokens"]))
         ok = ok and extra["embed"]["ok"]
+    if lora:
+        got_l = run(runner.params, cfg, "kernels", lora=npz_id)[0]
+        plain_l = run(runner.params, cfg, "plain", lora=npz_id)[0]
+        l_err = (got_l - ref_lora).abs().max().item()
+        l_floor = (plain_l - ref_lora).abs().max().item()
+        extra["lora"] = {"adapter": "ad-npz", "bf16_kernels_err": l_err,
+                         "bf16_plain_err": l_floor,
+                         "tol": BF16_FLOOR_FACTOR * l_floor,
+                         "moved_by_adapter": (ref_lora - ref).abs().max()
+                         .item(),
+                         "ok": l_err <= BF16_FLOOR_FACTOR * l_floor}
+        ok = ok and extra["lora"]["ok"]
+        extra["lora"]["rows"] = {n: {"tokens": len(r["solo"]),
+                                     "differ_at": None, "ok": True}
+                                 for n, r in lora["rows"].items()}
+        for name, l32 in lora_rows:
+            row = lora["rows"][name]
+            l16 = tail_logits(runner.params, cfg,
+                              lora["prompt"] + row["solo"],
+                              len(row["solo"]), lora=lora["ids"][name])
+            chk = near_tie_check(row["solo"], row["mixed"], l32, l16)
+            extra["lora"]["rows"][name] = chk
+            ok = ok and chk["ok"]
     if echo32 is not None:
         served = torch.tensor(surface["echo"]["logprobs"], device=dev)
         plain16 = prompt_lps(runner.params, cfg, surface["echo"]["prompt"])
@@ -2111,6 +2430,63 @@ def breakdown_phase(engine, path: str):
                 f"not the {PLAIN_DECODE_LAUNCHES[path]} it launched "
                 f"before logit shaping existed")
     log(json.dumps({"breakdown": out}))
+    return out
+
+
+def lora_breakdown(engine, path: str, plain: dict):
+    """The decode step of breakdown_phase with two adapter rows (ad-npz
+    and ad-three, loaded by lora_phase, rank 16 on all seven targets)
+    and two base rows: wall (CUDA events), device busy time, launches
+    and idle share per step from a torch.profiler trace, beside the
+    plain step `plain` that breakdown_phase measured before any adapter
+    was loaded. The rows' factors are gathered at the first call (a new
+    sampling upload), as at an engine's composition change."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from production_stack_tpu_torch.engine.sampler import SamplingParams
+    eng = engine.engine
+    runner = eng.runner
+    p = PATHS[path]
+    serve, kv_len = p["serve"], p["kv_len"]
+    B, W, S = serve["max_num_seqs"], serve["decode_window"], \
+        serve["max_model_len"]
+    MB = S // serve["kv_block_size"]
+    runner.set_block_tables(
+        (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB))
+    dev = runner.device
+    ids = [eng.lora_ids["ad-npz"], 0, eng.lora_ids["ad-three"], 0]
+    sp = dataclasses.replace(
+        SamplingParams.filled(B, temperature=0.0, device=dev),
+        adapter=torch.tensor(ids, dtype=torch.int32, device=dev))
+    starts = np.array(p["decode_starts"], np.int32)
+    t0 = time.monotonic()
+
+    def window(i=0):
+        runner.set_decode_state(np.zeros((B,), np.int32), starts)
+        return runner.decode(sp, steps=W, kv_len=kv_len, greedy=True)
+
+    step_ms = time_ms(window, 3) / W
+    prof = profile_summary(device_profile(window), W, step_ms)
+    base = plain["decode_profile_per_step"]
+    out = {"path": path, "adapter_ids": ids,
+           "lora_rank": serve["lora_rank"], "targets": list(LORA_TARGETS),
+           "lora_decode_step_ms": step_ms,
+           "lora_decode_profile_per_step": prof,
+           "plain_decode_step_ms": plain["decode_step_ms"],
+           "plain_device_busy_ms": base.get("device_busy_ms"),
+           "plain_device_launches": base.get("device_launches"),
+           "added_launches_per_step": (prof.get("device_launches", 0)
+                                       - (base.get("device_launches")
+                                          or 0)),
+           "seconds": time.monotonic() - t0}
+    log(json.dumps({"lora_breakdown": out}))
+    if out["added_launches_per_step"] <= 0:
+        raise AssertionError("the adapter rows' step launched no more "
+                             "than the plain step: the LoRA products did "
+                             "not run")
+    return out
 
 
 def shaped_breakdown(runner, sp, window, W, kv_len, starts) -> dict:
@@ -2211,8 +2587,10 @@ def model_phase(path: str):
                     "mem_gib": torch.cuda.memory_allocated() / 2**30}))
     t0 = time.monotonic()
     counts, surface = asyncio.run(serve_phase(engine, path))
-    breakdown_phase(engine, path)
+    plain = breakdown_phase(engine, path)
     surface.update(asyncio.run(feature_phase(engine, path)))
+    if path in PLAIN_DECODE_LAUNCHES:
+        lora_breakdown(engine, path, plain)
     # the speculative serving runs' launches by window length T
     counts["verify"] = surface["spec"].get("verify", {})
     counts["verify_window"] = surface["spec"].get("verify_window", {})
@@ -2225,6 +2603,140 @@ def model_phase(path: str):
     log(json.dumps({"model_phase_s": time.monotonic() - t0,
                     "path": path}))
     return counts
+
+
+# checkpoint_phase's directory: Llama-3-8B's widths at 2 layers, HF
+# names, bf16, two safetensors shards, written from a seed-0 draw
+CHECKPOINT_DIR = os.path.join(REPO, "build", "checkpoint")
+CHECKPOINT_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 128256, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 2, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "max_position_embeddings": 8192,
+    "rope_theta": 500000.0, "rms_norm_eps": 1e-5,
+    "tie_word_embeddings": False, "attention_bias": False,
+    "hidden_act": "silu", "torch_dtype": "bfloat16"}
+
+
+def hf_shards(model, cfg) -> list:
+    """The Llama module's weights under HF names and layouts ([out, in]
+    projections), on the CPU, as two shards: the embedding and layer 0,
+    then the rest."""
+    from production_stack_tpu_torch.models.hf_loader import _LAYER_MAP
+    first, second = {}, {}
+    first["model.embed_tokens.weight"] = model.embed.detach().cpu()
+    for ours, (suffix, transpose) in _LAYER_MAP.items():
+        for i in range(cfg.num_layers):
+            w = getattr(model, ours)[i].detach()
+            (first if i == 0 else second)[f"model.layers.{i}.{suffix}"] = (
+                w.t() if transpose else w).contiguous().cpu()
+    second["model.norm.weight"] = model.final_norm.detach().cpu()
+    second["lm_head.weight"] = model.lm_head.detach().t().contiguous().cpu()
+    return [first, second]
+
+
+def checkpoint_phase(device="cuda"):
+    """HF checkpoint loading on the card: a directory with a config.json
+    of Llama-3-8B's widths at 2 layers and the seed-0 draw's bf16
+    weights in two .safetensors shards (the port's writer), loaded by
+    the port's reader (hf_loader.load_checkpoint: bytes, seconds,
+    GB/s); an engine started with model = checkpoint = the directory
+    serves two greedy requests, and its weights and its logits on one
+    prompt (through the kernels) are bit for bit those of an engine
+    given the drawn weights in memory, as are both requests' tokens.
+    Both engines are freed and the directory deleted before returning."""
+    import shutil
+
+    import torch
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.scheduler import SamplingOptions
+    from production_stack_tpu_torch.models import hf_loader, llama
+    from production_stack_tpu_torch.models.config import get_config
+    from production_stack_tpu_torch.models.kv import make_slot_cache
+    t_phase = time.monotonic()
+    shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    os.makedirs(CHECKPOINT_DIR)
+    with open(os.path.join(CHECKPOINT_DIR, "config.json"), "w") as f:
+        json.dump(CHECKPOINT_CONFIG, f)
+    cfg = get_config(CHECKPOINT_DIR)
+    drawn = llama.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    t0 = time.monotonic()
+    nbytes = 0
+    for i, shard in enumerate(hf_shards(drawn, cfg)):
+        path = os.path.join(CHECKPOINT_DIR,
+                            f"model-{i + 1:05d}-of-00002.safetensors")
+        hf_loader.save_safetensors(shard, path)
+        nbytes += os.path.getsize(path)
+        del shard
+    write_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    loaded = hf_loader.load_checkpoint(cfg, CHECKPOINT_DIR, device=device)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    same = all(torch.equal(p, getattr(drawn, n))
+               for n, p in loaded.named_parameters())
+    del loaded
+    free_memory()
+    # the directory holds no tokenizer files: the byte tokenizer, named
+    # outright so no tokenizer library is tried on the directory
+    serve = dict(max_model_len=256, max_num_seqs=2, prefill_chunk=64,
+                 kv_block_size=64, decode_window=8, tokenizer="byte")
+    t0 = time.monotonic()
+    from_dir = LLMEngine(EngineConfig(model=CHECKPOINT_DIR,
+                                      checkpoint=CHECKPOINT_DIR,
+                                      device=device, **serve))
+    engine_s = time.monotonic() - t0
+    in_memory = LLMEngine(EngineConfig(model=CHECKPOINT_DIR, device=device,
+                                       **serve), params=drawn)
+    same = same and all(
+        torch.equal(p, getattr(in_memory.runner.params, n))
+        for n, p in from_dir.runner.params.named_parameters())
+    prompts = [surface_prompt(40), surface_prompt(41)[:25]]
+
+    def served(engine):
+        ids = [engine.add_request(p, SamplingOptions(
+            temperature=0.0, max_tokens=8, ignore_eos=True))
+            for p in prompts]
+        while engine.has_work:
+            engine.step()
+        return [list(engine.seqs[i].output_tokens) for i in ids]
+
+    def logits(engine):
+        runner = engine.runner
+        cache, tables = make_slot_cache(
+            cfg.num_layers, 1, 64, cfg.num_kv_heads, cfg.head_dim_,
+            dtype=torch.bfloat16, block_size=64, device=device)
+        toks = torch.tensor([prompts[0]], device=device)
+        out, _ = llama.forward(
+            runner.params, runner.model_cfg, toks,
+            torch.arange(len(prompts[0]), device=device)[None], cache,
+            block_tables=tables, rope=runner.rope, kv_len=64)
+        return out
+
+    tokens = served(from_dir)
+    tokens_mem = served(in_memory)
+    bitwise = bool(torch.equal(logits(from_dir), logits(in_memory)))
+    for engine in (from_dir, in_memory):
+        engine.runner = None
+    del from_dir, in_memory, drawn
+    free_memory()
+    shutil.rmtree(CHECKPOINT_DIR)
+    out = {"layers": cfg.num_layers, "hidden": cfg.hidden_size,
+           "vocab": cfg.vocab_size, "shards": 2, "bytes": nbytes,
+           "write_s": write_s, "load_s": load_s,
+           "load_gb_per_s": nbytes / load_s / 1e9,
+           "engine_start_s": engine_s, "weights_equal": same,
+           "tokens": tokens, "tokens_equal_in_memory": tokens == tokens_mem,
+           "logits_bitwise_equal": bitwise,
+           "seconds": time.monotonic() - t_phase}
+    log(json.dumps({"checkpoint": out}))
+    if not (same and bitwise and tokens == tokens_mem
+            and all(len(t) == 8 for t in tokens)):
+        raise AssertionError(f"the checkpoint engine differs from the "
+                             f"in-memory one: {out}")
 
 
 # ------------------------------------------------------------ main
@@ -2291,6 +2803,10 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     gpu = gpu_line()
     t_start = time.monotonic()
+    # flex_attention's compiled kernels are cached inside the checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(REPO, "build", sub))
 
     t0 = time.monotonic()
     log(json.dumps({"build": build_phase(kernels),
@@ -2299,6 +2815,8 @@ def main() -> int:
     t0 = time.monotonic()
     records = kernel_phase()
     log(json.dumps({"kernel_phase_s": time.monotonic() - t0}))
+
+    checkpoint_phase()
 
     counts = {path: model_phase(path) for path in PATHS}
 

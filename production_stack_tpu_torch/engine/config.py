@@ -3,10 +3,12 @@ plus ``device``.
 
 The fields keep their names and meaning, so a JAX-package config maps
 onto this one field by field. Weight-only int8 (``quantization="int8"``),
-the int8 KV pool (``kv_dtype="int8"``) and n-gram speculation
-(``speculative_ngram_tokens`` in 0..16) are validated as the JAX config
-does. Options the port does not implement yet raise here instead of
-being ignored: LoRA, KV tiering, checkpoints, an embedding encoder
+the int8 KV pool (``kv_dtype="int8"``), n-gram speculation
+(``speculative_ngram_tokens`` in 0..16), multi-LoRA (``lora_adapters``
+with ``lora_rank``, ``lora_alpha`` and ``lora_targets``) and an HF
+checkpoint directory (``checkpoint``) are taken as the JAX config takes
+them. Options the port does not implement yet raise here instead of
+being ignored: KV tiering, an embedding encoder
 (``embedding_model``; the pooling routes serve the causal model's
 mean-pooled hidden states), multi-device parallelism, adaptive decode
 windows and pipelined windows (the last two default to off here, where
@@ -58,11 +60,20 @@ class EngineConfig:
     # same window (engine/runner.decode_spec)
     speculative_ngram_tokens: int = 0
     seed: int = 0
+    # HF checkpoint directory (*.safetensors, else *.bin) loaded in
+    # place of random weights (models/hf_loader.py)
     checkpoint: Optional[str] = None
     embedding_model: Optional[str] = None
     enable_prefix_caching: bool = False
     kv_transfer_config: Optional[Dict[str, Any]] = None
+    # multi-LoRA: name -> .npz path (models/lora.py format) or
+    # "random:SEED"; each adapter is served as its own model id. Rank,
+    # alpha and targets are shared by every adapter of an engine,
+    # runtime loads (/admin/lora/load) included
     lora_adapters: Optional[Dict[str, str]] = None
+    lora_rank: int = 8
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = ("q", "v")
     # overload protection: add_request raises AdmissionRejected (the
     # server answers 503 + Retry-After) once this many sequences wait
     # un-admitted beyond what the free slots absorb. None = unbounded
@@ -99,10 +110,8 @@ class EngineConfig:
             "tensor_parallel_size": self.tensor_parallel_size != 1,
             "pipeline_parallel_size": self.pipeline_parallel_size != 1,
             "expert_parallel_size": self.expert_parallel_size != 1,
-            "checkpoint": self.checkpoint is not None,
             "embedding_model": self.embedding_model is not None,
             "kv_transfer_config": bool(self.kv_transfer_config),
-            "lora_adapters": bool(self.lora_adapters),
             "window_adapt": self.window_adapt,
             "pipeline_depth": self.pipeline_depth != 1,
         }

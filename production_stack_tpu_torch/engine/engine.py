@@ -22,7 +22,19 @@ lock-free ``load_report`` (``/load`` and the ``x-engine-*`` headers)
 and the metrics of engine/metrics.py, fed by plain-int accounting
 (engine/efficiency.py). Logit shaping (penalties, logit bias,
 min_tokens), top-K logprobs and guided decoding run on the device
-(runner.py); LoRA model ids are refused at ``add_request``.
+(runner.py).
+
+Multi-LoRA (JAX ``engine.py:102-127,329-415``): every adapter is served
+as its own model id (``served_models``: the base first, then the
+adapters). Adapter ids are append-only — id = stack row — so an evicted
+adapter's row is tombstoned, not freed: in-flight sequences finish on
+it while its name answers ``unknown model``. A runtime load restacks
+and swaps the runner's stack before the id is published. Each slot's
+adapter id rides the sampling upload (``_slot_adapter``), and prefix
+keys are salted with the adapter's name (``_adapter_salt``), so an
+adapter request never attaches a base block. ``checkpoint`` loads an
+HF checkpoint directory (models/hf_loader.py) in place of random
+weights; int8 quantization then applies to the loaded weights.
 
 Guided decoding (engine/guided.py): a guided request's pattern is
 compiled at ``add_request`` (LRU-cached; the server compiles it first
@@ -72,7 +84,9 @@ from production_stack_tpu_torch.engine.scheduler import (SamplingOptions,
                                                          Sequence)
 from production_stack_tpu_torch.engine.tokenizer import (DetokenizeStream,
                                                          load_tokenizer)
+from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.config import get_config
+from production_stack_tpu_torch.models.hf_loader import load_checkpoint
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -124,10 +138,37 @@ class LLMEngine:
         self.tokenizer = load_tokenizer(engine_cfg.model,
                                         engine_cfg.tokenizer,
                                         engine_cfg.chat_template)
-        self.served_models = [engine_cfg.model]
-        self.runner = ModelRunner(self.model_cfg, engine_cfg, params=params)
+        if params is None and engine_cfg.checkpoint:
+            t0 = time.time()
+            params = load_checkpoint(self.model_cfg, engine_cfg.checkpoint,
+                                     device=engine_cfg.torch_device)
+            logger.info("loaded %s from %s (%.2fs)", self.model_cfg.name,
+                        engine_cfg.checkpoint, time.time() - t0)
+        # multi-LoRA: adapter name -> id (= its row in the stack; 0 is
+        # the base model). Rows are append-only and share the rank,
+        # alpha and targets pinned at the first use
+        self.lora_ids: Dict[str, int] = {}
+        self._lora_cfg: Optional[lora_mod.LoRAConfig] = None
+        self._lora_rows: List[lora_mod.Adapter] = []
+        self.adapter_loads = 0
+        self.adapter_evictions = 0
+        lora_stacked, lora_scaling = None, 1.0
+        if engine_cfg.lora_adapters:
+            lcfg = self._ensure_lora_cfg()
+            for name, src in sorted(engine_cfg.lora_adapters.items()):
+                self._lora_rows.append(self._build_adapter(name, src))
+                self.lora_ids[name] = len(self._lora_rows)
+            lora_stacked = lora_mod.stack_adapters(
+                self.model_cfg, lcfg, self._lora_rows,
+                device=engine_cfg.torch_device)
+            lora_scaling = lcfg.scaling
+        self.served_models = [engine_cfg.model] + list(self.lora_ids)
+        self.runner = ModelRunner(self.model_cfg, engine_cfg, params=params,
+                                  lora_stacked=lora_stacked,
+                                  lora_scaling=lora_scaling)
         self.runner.eos_id = int(self.tokenizer.eos_token_id or 0)
         self.metrics = EngineMetrics(engine_cfg.model)
+        self.metrics.adapters_loaded.set(len(self.lora_ids))
         # the byte model of the efficiency gauges: the whole parameter
         # set, and what one cache position costs one attention read
         # (K and V over layers and kv-heads, plus the int8 pool's f32
@@ -181,6 +222,7 @@ class LLMEngine:
         self._slot_temp = np.full((B,), 1.0, np.float32)
         self._slot_top_p = np.ones((B,), np.float32)
         self._slot_top_k = np.zeros((B,), np.int32)
+        self._slot_adapter = np.zeros((B,), np.int32)
         self._slot_seed = np.zeros((B,), np.int64)
         self._slot_min_p = np.zeros((B,), np.float32)
         # logit-shaping mirrors (sampler.adjust_logits), inert by default
@@ -213,14 +255,91 @@ class LLMEngine:
 
     # ------------------------------------------------------------------
 
-    def resolve_model(self, model: Optional[str]) -> None:
-        """Check a served model name: the port serves the base model
-        only (LoRA adapters come later)."""
+    def _adapter_salt(self, adapter_id: int) -> str:
+        """Prefix-key salt: the adapter's NAME (stable across processes
+        and config orderings, unlike the id), so adapter-colored KV
+        blocks never collide with the base model's or each other's."""
+        if adapter_id == 0:
+            return ""
+        for name, aid in self.lora_ids.items():
+            if aid == adapter_id:
+                return f"lora:{name}"
+        return f"lora-id:{adapter_id}"
+
+    def resolve_model(self, model: Optional[str]) -> int:
+        """Served model name -> adapter id (0 = base). Raises on unknown."""
         if model is None or model == self.cfg.model:
-            return
-        raise ValueError(f"model {model!r} is not served: the PyTorch port "
-                         f"serves {self.cfg.model!r} only (LoRA adapter "
-                         f"ids are not implemented yet)")
+            return 0
+        if model in self.lora_ids:
+            return self.lora_ids[model]
+        raise ValueError(f"unknown model {model!r}; serving "
+                         f"{self.served_models}")
+
+    # ------------------------------------------------- runtime adapters
+
+    def _ensure_lora_cfg(self) -> lora_mod.LoRAConfig:
+        if self._lora_cfg is None:
+            self._lora_cfg = lora_mod.LoRAConfig(
+                rank=self.cfg.lora_rank, alpha=self.cfg.lora_alpha,
+                targets=tuple(self.cfg.lora_targets))
+        return self._lora_cfg
+
+    def _build_adapter(self, name: str, src: str) -> lora_mod.Adapter:
+        """One adapter's factors on the engine's device: "random:SEED"
+        draws from a torch.Generator seeded SEED (other values than the
+        JAX package's threefry draws), anything else is an .npz path."""
+        lcfg = self._ensure_lora_cfg()
+        dev = self.cfg.torch_device
+        if src.startswith("random:"):
+            gen = torch.Generator(device=dev).manual_seed(
+                int(src.split(":", 1)[1]))
+            return lora_mod.random_adapter(self.model_cfg, lcfg, gen,
+                                           device=dev)
+        return lora_mod.load_adapter_npz(self.model_cfg, lcfg, src,
+                                         device=dev)
+
+    def load_adapter(self, name: str, src: str) -> bool:
+        """Load a LoRA adapter at runtime and serve it as model ``name``.
+        False when the name is already served (idempotent); any failure
+        raises (the server answers 503 + Retry-After: a shed, the engine
+        serves on)."""
+        with self._lock:
+            if name == self.cfg.model or name in self.lora_ids:
+                return False
+            new_row = self._build_adapter(name, src)
+            lcfg = self._ensure_lora_cfg()
+            rows = self._lora_rows + [new_row]
+            # restack and swap before the id is published: a request on
+            # the new name never selects a row the runner lacks
+            self.runner.set_lora(
+                lora_mod.stack_adapters(self.model_cfg, lcfg, rows,
+                                        device=self.cfg.torch_device),
+                lcfg.scaling)
+            self._lora_rows = rows
+            self.lora_ids[name] = len(rows)
+            self.served_models.append(name)
+            self.adapter_loads += 1
+            self.metrics.adapter_loads.inc()
+            self.metrics.adapters_loaded.set(len(self.lora_ids))
+            logger.info("adapter %s loaded from %s (id=%d, %d rows "
+                        "stacked)", name, src, len(rows), len(rows))
+            return True
+
+    def evict_adapter(self, name: str) -> None:
+        """Stop serving adapter ``name``; KeyError when it is not served
+        (the server answers 404). Its row is tombstoned: in-flight
+        sequences keep their id and finish, new requests for the name
+        answer unknown model."""
+        with self._lock:
+            if name not in self.lora_ids:
+                raise KeyError(f"adapter {name!r} is not loaded; "
+                               f"serving {self.served_models}")
+            del self.lora_ids[name]
+            self.served_models.remove(name)
+            self.adapter_evictions += 1
+            self.metrics.adapter_evictions.inc()
+            self.metrics.adapters_loaded.set(len(self.lora_ids))
+            logger.info("adapter %s evicted (row tombstoned)", name)
 
     def add_request(self, prompt_tokens: List[int],
                     options: Optional[SamplingOptions] = None,
@@ -234,9 +353,10 @@ class LLMEngine:
         seq_id = seq_id or f"seq-{next(self._id_counter)}"
         options = options or SamplingOptions()
         self.check_options(options)
-        self.resolve_model(model)
         seq = Sequence(seq_id=seq_id, prompt_tokens=list(prompt_tokens),
-                       options=options, deadline=deadline,
+                       options=options,
+                       adapter_id=self.resolve_model(model),
+                       deadline=deadline,
                        detok=DetokenizeStream(self.tokenizer))
         if options.guided_regex:
             # compiled per (pattern, tokenizer) with an LRU cache; a bad
@@ -417,7 +537,8 @@ class LLMEngine:
                     # written: register it for concurrent sharers now
                     seq.reg_state = self.block_mgr.register_incremental(
                         seq.prefill_tokens[:seq.num_prefilled],
-                        seq.block_ids, seq.reg_state)
+                        seq.block_ids, seq.reg_state,
+                        salt=self._adapter_salt(seq.adapter_id))
                 if not w.is_last:
                     continue
                 if seq.output_tokens:
@@ -466,7 +587,8 @@ class LLMEngine:
 
             self._dev_sampling = SamplingParams(
                 temperature=up(self._slot_temp), top_p=up(self._slot_top_p),
-                top_k=up(self._slot_top_k), seed=up(self._slot_seed),
+                top_k=up(self._slot_top_k), adapter=up(self._slot_adapter),
+                seed=up(self._slot_seed),
                 min_p=up(self._slot_min_p),
                 presence=up(self._slot_presence),
                 frequency=up(self._slot_frequency),
@@ -717,7 +839,8 @@ class LLMEngine:
         # prefix caching: full blocks stay in the pool under their chain
         # keys; register BEFORE free so they land in the evictable LRU
         self.block_mgr.register(
-            (seq.prompt_tokens + seq.output_tokens)[:-1], seq.block_ids)
+            (seq.prompt_tokens + seq.output_tokens)[:-1], seq.block_ids,
+            salt=self._adapter_salt(seq.adapter_id))
         self._free_seq_blocks(seq)
         slot = seq.slot
         self.scheduler.finish(seq, reason)
@@ -799,13 +922,14 @@ class LLMEngine:
             V = self.model_cfg.vocab_size
             ids = [t for t in opt.stop_token_ids if 0 <= t < V]
             stop_ids[:len(ids)] = ids
-        row = (opt.temperature, opt.top_p, opt.top_k, seed, opt.min_p,
-               opt.presence_penalty, opt.frequency_penalty,
+        row = (opt.temperature, opt.top_p, opt.top_k, seq.adapter_id, seed,
+               opt.min_p, opt.presence_penalty, opt.frequency_penalty,
                opt.repetition_penalty, opt.min_tokens,
                len(seq.prompt_tokens), bias_ids, bias_vals, stop_ids)
         mirrors = (self._slot_temp, self._slot_top_p, self._slot_top_k,
-                   self._slot_seed, self._slot_min_p, self._slot_presence,
-                   self._slot_frequency, self._slot_repetition,
+                   self._slot_adapter, self._slot_seed, self._slot_min_p,
+                   self._slot_presence, self._slot_frequency,
+                   self._slot_repetition,
                    self._slot_min_tokens, self._slot_prompt_len,
                    self._slot_bias_ids, self._slot_bias_vals,
                    self._slot_stop_ids)
@@ -825,6 +949,11 @@ class LLMEngine:
             self._slot_token[slot] = 0
             self._slot_pos[slot] = self.cfg.max_model_len
             self._slot_gstate[slot] = 0
+            if self._slot_adapter[slot]:
+                # a parked row on an adapter would keep the batch's
+                # factors gathered for nothing
+                self._slot_adapter[slot] = 0
+                self._sampling_dirty = True
             if (self._slot_presence[slot] or self._slot_frequency[slot]
                     or self._slot_repetition[slot] != 1.0
                     or self._slot_min_tokens[slot]
@@ -848,12 +977,14 @@ class LLMEngine:
         prefix blocks are attached by reference. False defers
         admission when the pool cannot cover the rest."""
         toks = seq.prefill_tokens
-        # hash the prompt once per length: a deferred admission retries
-        # every scheduler pass, and counts one hit or miss
+        salt = self._adapter_salt(seq.adapter_id)
+        # hash the prompt once per (salt, length): a deferred admission
+        # retries every scheduler pass, and counts one hit or miss
         first_try = (seq.prefix_state is None
-                     or seq.prefix_state[0] != len(toks))
+                     or seq.prefix_state[0] != (salt, len(toks)))
         if first_try:
-            seq.prefix_state = (len(toks), self.block_mgr.prefix_keys(toks))
+            seq.prefix_state = ((salt, len(toks)),
+                                self.block_mgr.prefix_keys(toks, salt=salt))
         shared, covered = self.block_mgr.match_keys(
             seq.prefix_state[1], record_stats=first_try)
         need = self.block_mgr.blocks_for(len(toks) + 1) - len(shared)

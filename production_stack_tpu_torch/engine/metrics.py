@@ -5,10 +5,10 @@ The gauge names are the ones the router parses
 ``vllm:num_requests_waiting``, ``vllm:gpu_cache_usage_perc``,
 ``tpu:hbm_kv_usage_perc``, ``vllm:gpu_prefix_cache_hit_rate``,
 ``tpu:engine_capacity_seqs`` and ``tpu:est_queue_delay_ms``; every other
-family keeps its JAX name too, so one dashboard reads either engine.
-The families of features the port has not taken (KV tiering and its
-codecs, kvplane defrag and migration, LoRA, XLA compiles) are left
-out.
+family keeps its JAX name too, so one dashboard reads either engine,
+the LoRA adapter pool's ``tpu:engine_adapter_*`` included. The
+families of features the port has not taken (KV tiering and its
+codecs, kvplane defrag and migration, XLA compiles) are left out.
 
 Totals the engine loop keeps as plain ints (token-steps, the pool
 census) are folded in at scrape time as counter deltas (``sync_eff``,
@@ -92,6 +92,18 @@ class EngineMetrics:
         self.spec_macro_steps = counter(
             "tpu:spec_macro_steps_total",
             "Speculative macro-steps executed by eligible rows")
+        # runtime LoRA adapter pool (engine.load_adapter/evict_adapter;
+        # /admin/lora/load|evict): lifecycle counters + live catalog
+        self.adapter_loads = counter(
+            "tpu:engine_adapter_loads_total",
+            "LoRA adapters loaded at runtime (/admin/lora/load)")
+        self.adapter_evictions = counter(
+            "tpu:engine_adapter_evictions_total",
+            "LoRA adapters evicted at runtime (/admin/lora/evict)")
+        self.adapters_loaded = gauge(
+            "tpu:engine_adapters_loaded",
+            "LoRA adapters currently serving (served model catalog "
+            "minus the base model)")
         # overload protection
         self.admission_rejected = counter(
             "tpu:admission_rejected_total",

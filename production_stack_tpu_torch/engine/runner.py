@@ -38,6 +38,17 @@ carries each row's DFA state on the device (``_pick``).
 - ``embed``: mean-pooled final hidden states of padded prompts
   (``llama.encode``, no cache) for the pooling routes.
 
+Multi-LoRA (models/lora.py): the runner holds the engine's adapter
+stack layer-first (``set_lora``, swapped whole at a runtime load) and
+the factors gathered for the batch's adapter ids (``sampling.adapter``),
+regathered only when a new sampling upload or a new stack arrives — at
+composition changes, never per window. ``decode``, ``decode_spec`` and
+``prefill`` add the rows' deltas (JAX ``runner.py:356,445,527``); a
+batch of base rows only, or an engine without adapters, launches
+nothing more. ``embed`` and ``prompt_logprobs`` are the base model's, as
+in JAX, so an adapter request's echoed prompt logprobs are the base
+model's in both packages.
+
 ``quantization="int8"`` quantizes the weights on their device right
 after they are made or handed in (the given module is quantized in
 place, as JAX consumes its donated params); ``kv_dtype="int8"``
@@ -54,6 +65,7 @@ from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.sampler import (SamplingParams,
                                                       adjust_logits, sample)
 from production_stack_tpu_torch.models import llama
+from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.kv import (KVCache, make_cache,
                                                   make_slot_cache)
@@ -176,7 +188,8 @@ def _target_logprobs(logits: torch.Tensor,
 
 class ModelRunner:
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                 params: Optional[llama.Llama] = None):
+                 params: Optional[llama.Llama] = None, lora_stacked=None,
+                 lora_scaling: float = 1.0):
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
         self.device = engine_cfg.torch_device
@@ -223,8 +236,42 @@ class ModelRunner:
         self._dec_seen: Optional[torch.Tensor] = None
         # the EOS id min_tokens bans (the engine sets its tokenizer's)
         self.eos_id = 0
+        # multi-LoRA: the layer-first stack (_lora), and the factors
+        # gathered for the last batch's adapter ids (_lora_batch) under
+        # the key (ids tensor, B) (_lora_key); all set by set_lora
+        self._lora_scaling = lora_scaling
+        self.set_lora(lora_stacked)
 
     # ------------------------------------------------------------------
+
+    def set_lora(self, lora_stacked, lora_scaling: Optional[float] = None
+                 ) -> None:
+        """Swap the adapter stack ({proj: {a: [N+1, L, in, r], b: ...}},
+        row 0 zero; None = no adapter) whole (JAX ``set_lora``: a runtime
+        load restacks). Adapter ids are append-only, so a row keeps its
+        index; the next dispatch regathers the batch's factors."""
+        self._lora = lora_mod.layer_slice(lora_stacked)
+        if lora_scaling is not None:
+            self._lora_scaling = lora_scaling
+        self._lora_key = self._lora_batch = None
+
+    def _lora_rows(self, sampling: SamplingParams, B: int
+                   ) -> Optional[lora_mod.Rows]:
+        """The factors of the first B rows' adapters, or None when no
+        adapter is loaded or every row is the base model. Gathered when
+        `sampling.adapter` is a new tensor (the engine uploads one at
+        each composition change) or the stack changed; the all-base test
+        reads the ids back once then."""
+        if self._lora is None:
+            return None
+        ids = sampling.adapter
+        if (self._lora_key is None or self._lora_key[0] is not ids
+                or self._lora_key[1] != B):
+            sel = ids[:B]
+            self._lora_batch = (lora_mod.gather_rows(self._lora, sel)
+                                if bool((sel > 0).any()) else None)
+            self._lora_key = (ids, B)
+        return self._lora_batch
 
     def set_block_tables(self, tables: np.ndarray) -> None:
         """Note a change to the host block-table mirror [B, MB] int32;
@@ -312,6 +359,8 @@ class ModelRunner:
         kv_len = kv_len or S
         toks, pos = self._dec_tokens, self._dec_pos
         B = toks.shape[0]
+        # keyed on the uploaded tensor, so before rows() slices it
+        lora = self._lora_rows(sampling, B)
         sampling = sampling.rows(B)
         tables = self._dev_tables()[:B]
         shaping = self._shaping(B) if penalized else None
@@ -322,7 +371,8 @@ class ModelRunner:
                 self.params, self.model_cfg, toks[:, None], pos[:, None],
                 self.cache, block_tables=tables, rope=self.rope,
                 kv_len=kv_len, token_valid=(pos < S)[:, None],
-                sampled_ids=True)
+                sampled_ids=True, lora_rows=lora,
+                lora_scaling=self._lora_scaling)
             tok, lp, top, gstate = _pick(
                 logits[:, 0], sampling, self._generator, pos + 1,
                 greedy=greedy, seeded=seeded, plain=plain, shaping=shaping,
@@ -380,6 +430,8 @@ class ModelRunner:
         K = spec
         toks, pos, hist = self._dec_tokens, self._dec_pos, self._dec_hist
         B = toks.shape[0]
+        # keyed on the uploaded tensor, so before rows() slices it
+        lora = self._lora_rows(sampling, B)
         sampling = sampling.rows(B)
         tables = self._dev_tables()[:B]
         shaping = self._shaping(B) if penalized else None
@@ -394,7 +446,8 @@ class ModelRunner:
             logits, _ = llama.forward(
                 self.params, self.model_cfg, step_toks, step_pos,
                 self.cache, block_tables=tables, rope=self.rope,
-                kv_len=kv_len, token_valid=step_pos < S)
+                kv_len=kv_len, token_valid=step_pos < S, lora_rows=lora,
+                lora_scaling=self._lora_scaling)
             expected = torch.argmax(logits, dim=-1).to(torch.int32)
             tok0, lp0, top, gstate = _pick(
                 logits[:, 0], sampling, self._generator, pos + 1,
@@ -456,14 +509,18 @@ class ModelRunner:
         ar = torch.arange(Tb, device=self.device, dtype=torch.int32)
         positions = st[:, None] + ar[None, :]
         token_valid = (ar[None, :] < ln[:, None]) & (st < S)[:, None]
+        B = toks.shape[0]
+        # keyed on the uploaded tensor, so before rows() slices it
+        lora = self._lora_rows(sampling, B)
+        sampling = sampling.rows(B)
         logits, _ = llama.forward(
             self.params, self.model_cfg, toks, positions, self.cache,
             block_tables=self._dev_tables(), rope=self.rope, kv_len=kv_len,
             token_valid=token_valid,
-            last_index=torch.clamp(ln - 1, min=0))
-        B = toks.shape[0]
+            last_index=torch.clamp(ln - 1, min=0),
+            lora_rows=lora, lora_scaling=self._lora_scaling)
         ids, lp, tops, _ = _pick(
-            logits[:, 0], sampling.rows(B), self._generator,
+            logits[:, 0], sampling, self._generator,
             st + torch.clamp(ln, min=1), greedy=greedy, seeded=seeded,
             plain=plain, shaping=self._shaping(B) if penalized else None,
             topk=topk, guide=self._guide(guide_table, guide_ids,

@@ -40,11 +40,17 @@ MIN_TOKENS_STOP_K = 16
 @dataclass
 class SamplingParams:
     """Per-row request state on the engine device: [B] tensors, and
-    [B, K] for the logit-bias and stop-id slots."""
+    [B, K] for the logit-bias and stop-id slots.
+
+    ``adapter`` selects each row's LoRA adapter (0 = base model,
+    models/lora.py); it rides with the sampling params because both
+    change only when a slot's sequence does, so one upload covers them.
+    sample() ignores it; the runner gathers the rows' factors from it."""
 
     temperature: torch.Tensor   # f32; <= 0 => greedy
     top_p: torch.Tensor         # f32 in (0, 1]
     top_k: torch.Tensor         # int32; 0 => disabled
+    adapter: torch.Tensor       # int32 adapter id; 0 => base model
     seed: torch.Tensor          # int64; 0 => unseeded (engine generator)
     min_p: torch.Tensor         # f32; 0 => off
     # logit shaping (adjust_logits), inert at these defaults
@@ -58,9 +64,9 @@ class SamplingParams:
     stop_ids: torch.Tensor      # int32 [B, MIN_TOKENS_STOP_K]; -1 => unused
 
     @staticmethod
-    def filled(batch: int, temperature=1.0, top_p=1.0, top_k=0, seed=0,
-               min_p=0.0, presence=0.0, frequency=0.0, repetition=1.0,
-               min_tokens=0, prompt_len=0, device="cuda"
+    def filled(batch: int, temperature=1.0, top_p=1.0, top_k=0, adapter=0,
+               seed=0, min_p=0.0, presence=0.0, frequency=0.0,
+               repetition=1.0, min_tokens=0, prompt_len=0, device="cuda"
                ) -> "SamplingParams":
         device = resolve_device(device)
 
@@ -72,6 +78,7 @@ class SamplingParams:
             temperature=full((batch,), temperature, f32),
             top_p=full((batch,), top_p, f32),
             top_k=full((batch,), top_k, i32),
+            adapter=full((batch,), adapter, i32),
             seed=full((batch,), seed, torch.int64),
             min_p=full((batch,), min_p, f32),
             presence=full((batch,), presence, f32),

@@ -76,6 +76,7 @@ class Sequence:
     options: SamplingOptions
     status: SeqStatus = SeqStatus.WAITING
     slot: int = -1
+    adapter_id: int = 0      # LoRA adapter (0 = base model, models/lora.py)
     # paged-KV blocks this sequence owns, table order (engine/
     # block_manager.py); prefix-shared blocks lead, exclusive ones follow
     block_ids: List[int] = field(default_factory=list)

@@ -1,6 +1,6 @@
 """OpenAI-compatible HTTP server for the PyTorch engine (aiohttp)
 (``production_stack_tpu/engine/server.py``, without the routes of
-features the port has not taken: LoRA and kvplane admin, trace and perf
+features the port has not taken: kvplane admin, trace and perf
 debugging).
 
 Endpoints: ``/v1/completions`` and ``/v1/chat/completions`` (streamed
@@ -10,8 +10,9 @@ shaping, guided decoding), the pooling routes ``/v1/embeddings``,
 ``/v1/rerank``, ``/v2/rerank`` and ``/v1/score`` (the serving model's
 mean-pooled hidden states, flagged ``embedding_source``
 ``causal-mean-pool``), ``/v1/models``, ``/health``, ``/load``,
-``/metrics``, ``/version``, ``/tokenize`` and ``/detokenize``. Every
-reply carries the engine's ``x-engine-*`` load headers. Overload answers
+``/metrics``, ``/version``, ``/tokenize`` and ``/detokenize``, and the
+runtime adapter verbs ``/admin/lora/load`` and ``/admin/lora/evict``.
+Every reply carries the engine's ``x-engine-*`` load headers. Overload answers
 as the JAX server does: 503 + Retry-After when bounded admission sheds a
 request or the queue-delay cap drops it, 504 + ``x-deadline-expired``
 when the client's ``x-request-deadline-ms`` elapses before admission.
@@ -20,9 +21,18 @@ Guided decoding takes vLLM's fields — ``guided_regex``,
 ``guided_choice``, ``guided_json`` — and ``response_format``
 ``json_schema``; the grammar is compiled in an executor before the
 request reaches the engine, and a constraint the DFA cannot express
-(``json_object`` among them) answers 400 naming its field. A LoRA model
-id answers 400; nothing is silently ignored. A failed engine step
-answers 500 and turns /health to 503 (engine/async_engine.py).
+(``json_object`` among them) answers 400 naming its field; nothing is
+silently ignored. A failed engine step answers 500 and turns /health to
+503 (engine/async_engine.py).
+
+Multi-LoRA, as the JAX server serves it: each adapter is a model id
+(``--lora-adapters name=/path.npz,other=random:SEED``, or loaded at
+runtime with ``POST /admin/lora/load {"name", "src"}``), listed on
+``/v1/models`` with the base model as ``root`` / ``parent`` and on
+``/load``'s ``models``. An unknown model answers 404, a failed load 503
++ Retry-After (a shed: the engine serves on), an unknown evict 404; the
+pooling routes serve the base model only (400 for an adapter).
+``--checkpoint DIR`` serves an HF checkpoint's weights.
 
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b
 
@@ -275,7 +285,7 @@ async def _check_request(engine: AsyncLLMEngine, req, max_tokens):
     try:
         engine.engine.resolve_model(req.model or None)
     except ValueError as e:
-        return None, _error(400, f"model: {e}")
+        return None, _error(404, str(e))
     if not 1 <= req.n <= MAX_CHOICES:
         return None, _error(400, f"n must be between 1 and {MAX_CHOICES}")
     try:
@@ -786,13 +796,17 @@ async def completions(request: web.Request) -> web.StreamResponse:
 
 def _check_pool_model(engine: AsyncLLMEngine,
                       model) -> Optional[web.Response]:
-    """The pooling routes serve the base model only; any other model
-    name is unknown here (404), as the JAX server answers an unknown
-    one."""
+    """The pooling routes serve the base model only: they pool the base
+    model's hidden states, which no adapter colors. Unknown models 404,
+    adapters 400, as the JAX server answers."""
     try:
-        engine.engine.resolve_model(model or None)
+        adapter_id = engine.engine.resolve_model(model or None)
     except ValueError as e:
         return _error(404, str(e))
+    if adapter_id != 0:
+        return _error(400, f"model {model!r} is a LoRA adapter; "
+                           f"embeddings/rerank/score serve the base "
+                           f"model only")
     return None
 
 
@@ -918,9 +932,15 @@ async def score(request: web.Request) -> web.Response:
 # ------------------------------------------------------------------ misc
 
 async def list_models(request: web.Request) -> web.Response:
+    """The base model, then every adapter with the base as its root and
+    parent."""
     engine = request.app[ENGINE_KEY]
-    cards = proto.ModelList(data=[proto.ModelCard(id=name) for name in
-                                  engine.engine.served_models])
+    served = engine.engine.served_models
+    base = served[0]
+    cards = proto.ModelList(data=[
+        proto.ModelCard(id=name, root=base if i else None,
+                        parent=base if i else None)
+        for i, name in enumerate(served)])
     return web.json_response(cards.model_dump())
 
 
@@ -950,6 +970,63 @@ async def metrics(request: web.Request) -> web.Response:
     engine = request.app[ENGINE_KEY]
     return web.Response(body=engine.engine.render_metrics(),
                         content_type="text/plain")
+
+
+async def _admin_body(request: web.Request) -> dict:
+    try:
+        body = await request.json()
+    except Exception:
+        body = {}
+    return body if isinstance(body, dict) else {}
+
+
+async def admin_lora_load(request: web.Request) -> web.Response:
+    """Load a LoRA adapter at runtime and serve it as its own model id.
+    Body: {"name": "sql-adapter", "src": "random:7" | "/path.npz"}. A
+    failed load (bad source, no memory for the restack) answers 503 +
+    Retry-After: a shed, never a breaker signal, since the engine serves
+    its other models on. A reload answers 200 with loaded false."""
+    engine = request.app[ENGINE_KEY]
+    body = await _admin_body(request)
+    name = str(body.get("name") or "").strip()
+    src = str(body.get("src") or "").strip()
+    if not name or not src:
+        return _error(400, "adapter load needs {'name': ..., 'src': "
+                           "'random:SEED' or '/path/to/adapter.npz'}")
+    try:
+        # the restack holds the engine lock: off the event loop
+        loaded = await asyncio.to_thread(
+            engine.engine.load_adapter, name, src)
+    except Exception as e:
+        logger.warning("adapter load %s from %s failed: %s", name, src, e)
+        resp = _error(503, f"adapter {name!r} failed to load: {e}; "
+                           f"the engine is healthy and still serving "
+                           f"its current models — retry later",
+                      err_type="overloaded_error")
+        resp.headers["Retry-After"] = "5"
+        return resp
+    return web.json_response({
+        "loaded": loaded, "name": name,
+        "models": list(engine.engine.served_models)})
+
+
+async def admin_lora_evict(request: web.Request) -> web.Response:
+    """Stop serving adapter ``name`` (body: {"name": ...}); an adapter
+    that is not served answers 404. Its row is tombstoned, so in-flight
+    requests on it finish."""
+    engine = request.app[ENGINE_KEY]
+    body = await _admin_body(request)
+    name = str(body.get("name") or "").strip()
+    if not name:
+        return _error(400, "adapter evict needs {'name': ...}")
+    try:
+        await asyncio.to_thread(engine.engine.evict_adapter, name)
+    except KeyError as e:
+        return _error(404, str(e.args[0]) if e.args else
+                      f"adapter {name!r} is not loaded",
+                      err_type="not_found_error")
+    return web.json_response({
+        "evicted": name, "models": list(engine.engine.served_models)})
 
 
 async def tokenize(request: web.Request) -> web.Response:
@@ -993,6 +1070,8 @@ def build_app(engine: AsyncLLMEngine) -> web.Application:
     app.router.add_post("/v1/rerank", rerank)
     app.router.add_post("/v2/rerank", rerank)
     app.router.add_post("/v1/score", score)
+    app.router.add_post("/admin/lora/load", admin_lora_load)
+    app.router.add_post("/admin/lora/evict", admin_lora_evict)
 
     async def on_startup(app):
         # warmup (if any) ran before the loop started
@@ -1012,6 +1091,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         description="OpenAI-compatible serving engine, PyTorch + CUDA")
     p.add_argument("--model", default="debug-tiny")
     p.add_argument("--tokenizer", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="HF checkpoint dir (*.safetensors or *.bin; random "
+                        "weights if omitted); --model names the same dir "
+                        "or a preset of the same widths")
     p.add_argument("--chat-template", default=None,
                    help="Jinja file overriding the tokenizer chat template")
     p.add_argument("--device", default="cuda",
@@ -1057,6 +1140,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--hbm-peak-gbps", type=float, default=3350.0,
                    help="device-memory peak the MBU gauge normalizes "
                         "against (GB/s; default an H100 SXM's)")
+    p.add_argument("--lora-adapters", default=None,
+                   help="comma-separated name=source pairs; source is an "
+                        ".npz adapter checkpoint (models/lora.py) or "
+                        "random:SEED. Each adapter is served as its own "
+                        "model id")
+    p.add_argument("--lora-rank", type=int, default=8)
+    p.add_argument("--lora-alpha", type=float, default=16.0)
+    p.add_argument("--lora-targets", default="q,v",
+                   help="comma-separated projections to adapt "
+                        "(q,k,v,o,gate,up,down)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-warmup", action="store_true")
     return p.parse_args(argv)
@@ -1078,7 +1171,13 @@ def main(argv=None) -> None:
         kv_block_size=args.kv_block_size, kv_pool_tokens=args.kv_pool_tokens,
         enable_prefix_caching=args.enable_prefix_caching,
         speculative_ngram_tokens=args.speculative_ngram_tokens,
-        hbm_peak_gbps=args.hbm_peak_gbps, seed=args.seed))
+        hbm_peak_gbps=args.hbm_peak_gbps, seed=args.seed,
+        checkpoint=args.checkpoint,
+        lora_adapters=dict(pair.split("=", 1)
+                           for pair in args.lora_adapters.split(","))
+        if args.lora_adapters else None,
+        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
+        lora_targets=tuple(args.lora_targets.split(","))))
     if not args.no_warmup:
         engine.engine.runner.warmup()
     logger.info("engine serving %s on %s:%d (%s)", args.model, args.host,

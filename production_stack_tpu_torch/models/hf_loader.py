@@ -1,0 +1,195 @@
+"""Load HuggingFace Llama-family checkpoints into the port's ``Llama``
+module (``production_stack_tpu/models/hf_loader.py``).
+
+Takes a state-dict-like mapping (name -> torch tensor or numpy array)
+or a checkpoint directory: ``*.safetensors`` shards, read by this
+module's own reader (the header length, the JSON header, then each
+tensor straight from the file's bytes with ``torch.frombuffer``; no
+``safetensors`` package), else ``*.bin`` through ``torch.load(...,
+weights_only=True)``.
+
+HF stores projections ``[out, in]``; the port, like the JAX package,
+``[in, out]`` (``x @ W``), so every projection is transposed on load,
+and per-layer tensors fill the leading layer axis of the stacked
+parameters one layer at a time. Values are cast straight to the model
+dtype, which rounds as the JAX loader's cast through float32 does
+(bf16 -> bf16 is exact). Dense Llama, Gemma-1 and Gemma-2 (sandwich-norm
+names) load; a configuration with experts or attention biases raises
+before any file is read (``llama.check_supported``).
+"""
+
+import glob
+import json
+import os
+import struct
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.models.llama import Llama, check_supported
+from production_stack_tpu_torch.utils import init_logger
+
+logger = init_logger(__name__)
+
+_LAYER_MAP = {
+    # our-name: (hf-suffix, transpose)
+    "attn_norm": ("input_layernorm.weight", False),
+    "q": ("self_attn.q_proj.weight", True),
+    "k": ("self_attn.k_proj.weight", True),
+    "v": ("self_attn.v_proj.weight", True),
+    "o": ("self_attn.o_proj.weight", True),
+    "mlp_norm": ("post_attention_layernorm.weight", False),
+    "gate": ("mlp.gate_proj.weight", True),
+    "up": ("mlp.up_proj.weight", True),
+    "down": ("mlp.down_proj.weight", True),
+}
+
+# safetensors dtype names -> torch dtypes
+_ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def _to_tensor(t: Any) -> torch.Tensor:
+    if isinstance(t, torch.Tensor):
+        return t.detach()
+    arr = np.asarray(t)
+    if arr.dtype.kind not in "biuf":
+        # ml_dtypes.bfloat16 and the like: numpy holds them, torch does
+        # not take them from numpy; float32 keeps their values
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+@torch.no_grad()
+def params_from_state_dict(cfg: ModelConfig, sd: Mapping[str, Any],
+                           device="cuda") -> Llama:
+    """The Llama module of an HF LlamaForCausalLM / GemmaForCausalLM /
+    Gemma2ForCausalLM state dict, in cfg.dtype on `device`."""
+    model = Llama(cfg, device=device)   # check_supported runs here
+
+    def put(dst: torch.Tensor, name: str, transpose: bool,
+            bare: bool = False) -> None:
+        src = _to_tensor(_lookup(sd, name, bare=bare)).to(dst.device)
+        if transpose:
+            src = src.t()
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"weight {name!r}: shape {tuple(src.shape)} "
+                             f"!= {tuple(dst.shape)} of the config")
+        dst.copy_(src)
+
+    layer_map = dict(_LAYER_MAP)
+    if cfg.sandwich_norms:
+        # Gemma-2: post_attention_layernorm is the sandwich post-attn
+        # norm (Llama's MLP pre-norm), the MLP pre-norm is
+        # pre_feedforward_layernorm, plus post_feedforward_layernorm
+        layer_map["mlp_norm"] = ("pre_feedforward_layernorm.weight", False)
+        layer_map["post_attn_norm"] = ("post_attention_layernorm.weight",
+                                       False)
+        layer_map["post_mlp_norm"] = ("post_feedforward_layernorm.weight",
+                                      False)
+    for ours, (suffix, transpose) in layer_map.items():
+        stacked = getattr(model, ours)
+        for i in range(cfg.num_layers):
+            put(stacked[i], f"layers.{i}.{suffix}", transpose)
+    put(model.embed, "embed_tokens.weight", False)
+    put(model.final_norm, "norm.weight", False)
+    if not cfg.tie_word_embeddings:
+        put(model.lm_head, "lm_head.weight", True, bare=True)
+    return model
+
+
+def _lookup(sd: Mapping[str, Any], name: str, bare: bool = False) -> Any:
+    candidates = [name] if bare else []
+    candidates += [f"model.{name}", name]
+    for c in candidates:
+        if c in sd:
+            return sd[c]
+    raise KeyError(f"missing weight {name!r}")
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of one .safetensors file, on the CPU: an 8-byte
+    little-endian header length, the JSON header ({name: {dtype, shape,
+    data_offsets}}, plus an optional __metadata__), then the data. The
+    file is read once into one buffer the tensors view."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(os.path.getsize(path) - 8 - n)
+        got = f.readinto(data)
+    if got != len(data):
+        raise ValueError(f"{path}: read {got} of {len(data)} data bytes")
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has dtype "
+                             f"{info['dtype']}, which the reader does not "
+                             f"take ({sorted(_ST_DTYPES)})")
+        dtype = _ST_DTYPES[info["dtype"]]
+        shape = list(info["shape"])
+        lo, hi = info["data_offsets"]
+        count = int(np.prod(shape, dtype=np.int64))
+        if hi - lo != count * dtype.itemsize or hi > len(data):
+            raise ValueError(f"{path}: tensor {name!r} spans bytes "
+                             f"[{lo}, {hi}), not {count} x "
+                             f"{info['dtype']}")
+        t = (torch.frombuffer(data, dtype=dtype, count=count, offset=lo)
+             if count else torch.empty(0, dtype=dtype))
+        out[name] = t.reshape(shape)
+    return out
+
+
+def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str
+                     ) -> None:
+    """Write tensors as one .safetensors file (the format read_safetensors
+    reads; the header padded to 8 bytes with spaces, as the reference
+    writer pads it)."""
+    header, chunks, at = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() \
+            if t.numel() else b""
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [at, at + len(raw)]}
+        chunks.append(raw)
+        at += len(raw)
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for raw in chunks:
+            f.write(raw)
+
+
+def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """Raw tensors of an HF checkpoint dir: every *.safetensors shard,
+    else every *.bin (torch.load, weights only)."""
+    st_files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    sd: Dict[str, torch.Tensor] = {}
+    if st_files:
+        for f in st_files:
+            sd.update(read_safetensors(f))
+    else:
+        for f in sorted(glob.glob(os.path.join(path, "*.bin"))):
+            sd.update(torch.load(f, map_location="cpu", weights_only=True))
+    if not sd:
+        raise FileNotFoundError(f"no weights (*.safetensors|*.bin) in {path}")
+    logger.info("read %d tensors from %s", len(sd), path)
+    return sd
+
+
+def load_checkpoint(cfg: ModelConfig, path: str, device="cuda") -> Llama:
+    """The Llama module of an HF checkpoint directory on disk; a family
+    the port does not implement raises before any file is read."""
+    check_supported(cfg)
+    return params_from_state_dict(cfg, read_state_dict(path), device=device)

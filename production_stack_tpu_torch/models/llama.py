@@ -33,6 +33,14 @@ and a sliding window on the even layers (``alternating_sliding``).
 MoE, attention biases and a sliding window on every layer (Mistral
 v0.1, whose engine frees blocks behind the window) raise
 (check_supported) instead of being ignored.
+
+Multi-LoRA (models/lora.py, JAX ``proj`` at ``llama.py:130-138``):
+``forward`` and ``hidden`` take a batch's gathered adapter factors
+(``lora.gather_rows`` of the rows' adapter ids) and the scaling; after
+every product of a targeted projection (q, k, v, o, gate, up, down, on
+the bf16 and the int8 weight path alike) ``lora.apply`` adds the rows'
+deltas. Without factors nothing more is launched. ``encode`` takes no
+adapter, as in JAX.
 """
 
 import math
@@ -43,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.kv import (KVCache, chunk_addresses,
                                                   linear_tables, write_at,
@@ -153,11 +162,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
            rows: Tuple[torch.Tensor, torch.Tensor], starts,
            cache: KVCache, block_tables, nb: int,
-           addresses: Tuple[torch.Tensor, torch.Tensor]):
+           addresses: Tuple[torch.Tensor, torch.Tensor], lora=None):
     """One transformer block over the paged pool; rows = this chunk's
     rope rows and addresses = its KV write addresses, both shared by
     every layer. The chunk's K/V are written first, then the paged
-    kernels attend."""
+    kernels attend. lora: (gathered factors, scaling) or None."""
     def paged(q, k, v):
         if cache.quantized:
             k_pool, k_scales = write_at_q(cache.k[l], cache.ks[l], k,
@@ -174,35 +183,41 @@ def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
         return attn_fn(q, k_pool, v_pool, block_tables, starts, nb=nb,
                        scale=attn_scale(cfg), window=layer_window(cfg, l),
                        softcap=cfg.attn_logit_softcap or 0.0, **scales)
-    return _block(cfg, model, l, x, rows, paged)
+    return _block(cfg, model, l, x, rows, paged, lora)
 
 
 def _block(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
-           rows: Tuple[torch.Tensor, torch.Tensor], attend):
+           rows: Tuple[torch.Tensor, torch.Tensor], attend, lora=None):
     """Layer l on the residual stream x [B,T,H]: attend(q, k, v) ->
     [B,T,nh,hd] is the attention (the paged kernels in serving, the
-    plain causal attention in encode)."""
+    plain causal attention in encode). lora: (factors gathered for the
+    batch's rows, scaling), whose deltas join each targeted product."""
     B, T, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     eps = cfg.rms_norm_eps
     off = 1.0 if cfg.rms_norm_offset else 0.0
+
+    def proj(h, name):
+        out = dequant_matmul(h, getattr(model, name)[l])
+        if lora is not None and name in lora[0]:
+            a, b = lora[0][name]
+            out = lora_mod.apply(h, out, a[l], b[l], lora[1])
+        return out
+
     hidden = rms_norm(x, model.attn_norm[l], eps, off)
-    q = rotate(dequant_matmul(hidden, model.q[l]).reshape(B, T, nh, hd),
-               *rows)
-    k = rotate(dequant_matmul(hidden, model.k[l]).reshape(B, T, nkv, hd),
-               *rows)
-    v = dequant_matmul(hidden, model.v[l]).reshape(B, T, nkv, hd)
+    q = rotate(proj(hidden, "q").reshape(B, T, nh, hd), *rows)
+    k = rotate(proj(hidden, "k").reshape(B, T, nkv, hd), *rows)
+    v = proj(hidden, "v").reshape(B, T, nkv, hd)
     attn = attend(q, k, v)
-    o_out = dequant_matmul(attn.reshape(B, T, nh * hd), model.o[l])
+    o_out = proj(attn.reshape(B, T, nh * hd), "o")
     if cfg.sandwich_norms:
         o_out = rms_norm(o_out, model.post_attn_norm[l], eps, off)
     x = x + o_out
     hidden = rms_norm(x, model.mlp_norm[l], eps, off)
-    gate = dequant_matmul(hidden, model.gate[l])
+    gate = proj(hidden, "gate")
     act = (F.silu(gate) if cfg.activation == "silu"
            else F.gelu(gate, approximate="tanh"))
-    mlp_out = dequant_matmul(act * dequant_matmul(hidden, model.up[l]),
-                             model.down[l])
+    mlp_out = proj(act * proj(hidden, "up"), "down")
     if cfg.sandwich_norms:
         mlp_out = rms_norm(mlp_out, model.post_mlp_norm[l], eps, off)
     return x + mlp_out
@@ -215,7 +230,9 @@ def forward(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
             kv_len: Optional[int] = None,
             token_valid: Optional[torch.Tensor] = None,
             last_index: Optional[torch.Tensor] = None,
-            sampled_ids: bool = False
+            sampled_ids: bool = False,
+            lora_rows: Optional[lora_mod.Rows] = None,
+            lora_scaling: float = 1.0
             ) -> Tuple[torch.Tensor, KVCache]:
     """Incremental forward. tokens/positions [B,T] -> (logits f32
     [B,T,V], cache), the cache updated in place.
@@ -231,9 +248,12 @@ def forward(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
     rope: (cos, sin) device tensors; None builds them from the config.
     sampled_ids: the tokens are the sampler's own output, so in
     [0, V) already and the embedding skips the index rule (_embed).
+    lora_rows: the adapter factors gathered for the B rows' adapter ids
+    (lora.gather_rows; JAX passes the stack and the ids) and
+    lora_scaling = alpha / rank; None runs the base model.
     """
     x = hidden(model, cfg, tokens, positions, cache, block_tables, rope,
-               kv_len, token_valid, sampled_ids)
+               kv_len, token_valid, sampled_ids, lora_rows, lora_scaling)
     if last_index is not None:
         x = torch.gather(x, 1, last_index.long()[:, None, None].expand(
             -1, 1, x.shape[-1]))
@@ -246,7 +266,9 @@ def hidden(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
            rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
            kv_len: Optional[int] = None,
            token_valid: Optional[torch.Tensor] = None,
-           sampled_ids: bool = False) -> torch.Tensor:
+           sampled_ids: bool = False,
+           lora_rows: Optional[lora_mod.Rows] = None,
+           lora_scaling: float = 1.0) -> torch.Tensor:
     """forward() up to the last layer: the residual stream [B,T,H]
     before the final norm, the cache updated in place."""
     device = tokens.device
@@ -263,9 +285,10 @@ def hidden(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
     rows = rope_rows(positions, *rope)
     addresses = chunk_addresses(block_tables, positions, Bs, token_valid)
     x = _embed(model, cfg, tokens, sampled_ids)
+    lora = None if lora_rows is None else (lora_rows, lora_scaling)
     for l in range(cfg.num_layers):
         x = _layer(cfg, model, l, x, rows, starts, cache, block_tables, nb,
-                   addresses)
+                   addresses, lora)
     return x
 
 

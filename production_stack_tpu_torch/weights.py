@@ -7,7 +7,9 @@ which is lossless both ways. The layouts are the same on both sides
 (``[L, in, out]`` stacked weights, ``[L, N, Hkv, Bs, D]`` pools), so
 carrying them is a copy, never a transpose. Leaves the JAX package
 quantized (``{"w8": int8, "scale": f32}``, models/quant.py) and an int8
-pool with its ``ks``/``vs`` scales come across bit for bit.
+pool with its ``ks``/``vs`` scales come across bit for bit. A LoRA
+adapter (``{proj: {"a": [L, in, r], "b": [L, r, out]}}``, models/lora.py)
+keeps the JAX layout too.
 """
 
 from typing import Mapping, Optional, Tuple
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.kv import KVCache
 from production_stack_tpu_torch.models.llama import LAYER_KEYS, Llama
 from production_stack_tpu_torch.models.quant import QuantizedWeight
@@ -57,6 +60,28 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig,
             else:
                 p.copy_(_tensor(src, cfg.dtype, device))
     return model
+
+
+def adapter_from_jax(np_adapter: Mapping, cfg: ModelConfig,
+                     device="cuda") -> lora_mod.Adapter:
+    """One JAX adapter ({proj: {"a", "b"}}, numpy leaves) as the port's
+    in cfg.dtype on `device`, each projection's shapes checked against
+    the model's ([L, in, r] and [L, r, out], one rank)."""
+    device = resolve_device(device)
+    dims = lora_mod._proj_dims(cfg)
+    lora_mod._check_targets(cfg, tuple(np_adapter), dims)
+    out: lora_mod.Adapter = {}
+    for name, ab in np_adapter.items():
+        a, b = np.asarray(ab["a"]), np.asarray(ab["b"])
+        d_in, d_out = dims[name]
+        L, r = cfg.num_layers, a.shape[-1]
+        if a.shape != (L, d_in, r) or b.shape != (L, r, d_out):
+            raise ValueError(
+                f"adapter {name}: got a{a.shape} b{b.shape}, want "
+                f"a{(L, d_in, r)} b{(L, r, d_out)}")
+        out[name] = {"a": _tensor(a, cfg.dtype, device),
+                     "b": _tensor(b, cfg.dtype, device)}
+    return out
 
 
 def cache_from_jax(k, v, tables=None, dtype: Optional[torch.dtype] = None,

@@ -412,3 +412,58 @@ def test_verify_window_on_the_card_equals_the_cpu(cuda, spec):
     assert (c[1] - g[1]).abs().max().item() <= 1e-4
     assert c[2][:2].sum().item() > 2 * c[2].shape[1]   # drafts accepted
     assert (c[2][2] == 1).all()
+
+
+def _adapter_window(dev, B=4, W=6):
+    """The runner of _tiny_runner on `dev` with two adapters on all seven
+    targets (drawn on the CPU, rank 4) and rows on adapters [0, 1, 2, 1]:
+    one prefill of four prompts, then a greedy decode window of W steps.
+    Returns (first ids, window ids, logprobs) on the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from production_stack_tpu_torch.engine import sampler
+    from production_stack_tpu_torch.models import lora
+    runner = _tiny_runner(dev, B)
+    mcfg, cfg = runner.model_cfg, runner.engine_cfg
+    lcfg = lora.LoRAConfig(rank=4, alpha=8.0, targets=(
+        "q", "k", "v", "o", "gate", "up", "down"))
+    gen = torch.Generator().manual_seed(11)
+    ads = [lora.random_adapter(mcfg, lcfg, gen, device="cpu")
+           for _ in range(2)]
+    stack = lora.stack_adapters(mcfg, lcfg, ads, device="cpu")
+    runner.set_lora({n: {k: t.to(dev) for k, t in ab.items()}
+                     for n, ab in stack.items()}, lcfg.scaling)
+    MB = cfg.max_blocks_per_seq
+    runner.set_block_tables(
+        (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB))
+    sp = sampler.SamplingParams.filled(B, temperature=0.0, device=dev)
+    sp = dataclasses.replace(sp, adapter=torch.tensor(
+        [0, 1, 2, 1], dtype=torch.int32, device=dev))
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, 512, (B, 20)).astype(np.int32)
+    toks[3] = toks[1]
+    first, _, _ = runner.prefill(toks, np.zeros(B, np.int32),
+                                 np.full(B, 20, np.int32), sp, 256,
+                                 greedy=True)
+    runner.set_decode_state(first.cpu().numpy(), np.full(B, 20, np.int32))
+    ids, lps, _ = runner.decode(sp, steps=W, kv_len=256, greedy=True)
+    return first.cpu(), ids.cpu(), lps.cpu()
+
+
+def test_mixed_adapter_batch_on_the_card_equals_the_cpu(cuda):
+    """A batch mixing the base model and two adapters through the paged
+    kernels on the card: the same greedy ids as the plain versions on
+    the CPU, logprobs to 1e-4 (float32), both kernels launched; rows 1
+    and 3 share prompt and adapter, so their streams are equal, and the
+    adapters give streams of their own."""
+    pa.reset_launch_counts()
+    g = _adapter_window(cuda)
+    assert pa.launch_counts["paged_attention"] > 0
+    assert pa.launch_counts["paged_decode_attention"] > 0
+    c = _adapter_window("cpu")
+    assert torch.equal(c[0], g[0]) and torch.equal(c[1], g[1])
+    assert (c[2] - g[2]).abs().max().item() <= 1e-4
+    assert torch.equal(g[1][1], g[1][3])
+    assert not torch.equal(g[1][1], g[1][2])

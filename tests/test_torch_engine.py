@@ -288,14 +288,15 @@ def test_prefix_keys_and_fingerprint_match_jax():
 
 
 def test_engine_refuses_unported_options():
-    """LoRA model ids are refused; the shaping, logprob and guided
-    options the port implements are taken, and a guided pattern the
-    regex compiler cannot parse is a ValueError at add_request, as in
-    the JAX engine."""
+    """A model id the engine does not serve (no adapter of that name) is
+    refused as unknown, as in the JAX engine; the shaping, logprob and
+    guided options the port implements are taken, and a guided pattern
+    the regex compiler cannot parse is a ValueError at add_request, as
+    in the JAX engine."""
     te = tengine.LLMEngine(tec.EngineConfig(
         model="debug-tiny", device="cpu", max_model_len=64, max_num_seqs=1,
         prefill_chunk=16, prefill_buckets=(16,)))
-    with pytest.raises(ValueError, match="LoRA"):
+    with pytest.raises(ValueError, match="unknown model"):
         te.add_request([1, 2], SamplingOptions(), model="my-adapter")
     with pytest.raises(ValueError):
         te.add_request([1, 2, 3], SamplingOptions(guided_regex="(a+"))
@@ -308,7 +309,7 @@ def test_engine_refuses_unported_options():
 @pytest.mark.parametrize("kw", [
     dict(embedding_model="bge-small"), dict(tensor_parallel_size=2),
     dict(window_adapt=True), dict(pipeline_depth=2),
-    dict(lora_adapters={"a": "random:1"}),
+    dict(expert_parallel_size=2),
     dict(kv_transfer_config={"kv_role": "kv_both"})])
 def test_engine_config_pins_unported_options(kw):
     with pytest.raises(NotImplementedError):
@@ -438,14 +439,16 @@ def _payload(path, extra):
     return payload
 
 
-# the model id the port does not serve, and guided constraints it cannot
-# take (a pattern that does not parse, a choice that is not a string, a
-# free-form JSON object): 400, naming the field
+# a model field that is not a model name, and guided constraints the port
+# cannot take (a pattern that does not parse, a choice that is not a
+# string, a free-form JSON object): 400, naming the field. (A model name
+# that is not served answers 404, as in the JAX server:
+# tests/test_torch_lora_server.py.)
 @pytest.mark.parametrize("path,extra,field", [
     ("/v1/chat/completions", {"guided_regex": "(a+"}, "guided_regex"),
     ("/v1/chat/completions", {"guided_choice": ["a", 5]},
      "guided_choice"),
-    ("/v1/chat/completions", {"model": "sql-lora"}, "model"),
+    ("/v1/chat/completions", {"model": ["sql-lora"]}, "model"),
     ("/v1/chat/completions", {"response_format": {"type": "json_object"}},
      "response_format"),
 ])
@@ -508,17 +511,26 @@ def test_failed_step_fails_requests_and_stops_the_loop():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """The port's server imports with jax and production_stack_tpu
-    blocked (a subprocess: this one has both loaded), guided decoding
-    (engine/guided.py) and the pooling path (encode, causal_attention,
-    the routes) included."""
+    blocked (a subprocess: this one has both loaded), and with them
+    safetensors, transformers and peft, which the card does not have:
+    guided decoding (engine/guided.py), the pooling path (encode,
+    causal_attention, the routes), multi-LoRA (models/lora.py) and the
+    checkpoint loader (models/hf_loader.py, whose own reader then reads
+    back a file its writer wrote) included."""
     code = textwrap.dedent("""
         import sys
+        import tempfile
+
+        ROOTS = ("jax", "production_stack_tpu", "safetensors",
+                 "transformers", "peft")
+
+        def blocked(name):
+            return any(name == r or name.startswith(r + ".")
+                       for r in ROOTS)
 
         class Block:
             def find_spec(self, name, path=None, target=None):
-                if (name == "jax" or name.startswith("jax.")
-                        or name == "production_stack_tpu"
-                        or name.startswith("production_stack_tpu.")):
+                if blocked(name):
                     raise ImportError("blocked: " + name)
                 return None
 
@@ -534,15 +546,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import production_stack_tpu_torch.engine.metrics
         import production_stack_tpu_torch.engine.guided
         import production_stack_tpu_torch.engine.runner
+        import production_stack_tpu_torch.models.lora
+        import production_stack_tpu_torch.models.hf_loader
         from production_stack_tpu_torch.models.llama import encode
         from production_stack_tpu_torch.ops.attention import (
             causal_attention)
         from production_stack_tpu_torch.engine.server import (
             embeddings, rerank, score)
-        assert not any(m == "jax" or m.startswith("jax.")
-                       or m == "production_stack_tpu"
-                       or m.startswith("production_stack_tpu.")
-                       for m in sys.modules)
+        import torch
+        from production_stack_tpu_torch.models import hf_loader
+        with tempfile.TemporaryDirectory() as d:
+            t = {"w": torch.arange(6, dtype=torch.bfloat16).reshape(2, 3)}
+            hf_loader.save_safetensors(t, d + "/m.safetensors")
+            assert torch.equal(hf_loader.read_state_dict(d)["w"], t["w"])
+        assert not any(blocked(m) for m in sys.modules)
         print("ok")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

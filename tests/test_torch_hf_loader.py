@@ -1,0 +1,230 @@
+"""The port's HF checkpoint loader against the JAX package's on the CPU:
+params from random-init ``transformers`` models (Llama and Gemma-2,
+the configurations of tests/test_model_numerics.py and
+tests/test_gemma2.py) equal the JAX loader's bit for bit in float32,
+and the port's logits equal HF's within JAX's tolerance there (1e-2);
+the port's own safetensors reader and writer against the
+``safetensors`` package (F32, F16, BF16, two shards); the .bin
+fallback, the errors; an engine started on a checkpoint directory
+(greedy tokens equal the JAX engine's on the same directory, exactly);
+and the families the port does not implement refused before any file
+is read.
+"""
+
+import os
+
+# transformers imports TensorFlow where it finds it (~9 s here), which
+# these tests do not use
+os.environ.setdefault("USE_TF", "0")
+
+import jax  # noqa: E402
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from production_stack_tpu.engine import config as jec
+from production_stack_tpu.engine import engine as jengine
+from production_stack_tpu.engine.scheduler import (
+    SamplingOptions as JSamplingOptions)
+from production_stack_tpu.models import hf_loader as jloader
+from production_stack_tpu.models.config import ModelConfig as JModelConfig
+from production_stack_tpu_torch.engine import config as tec
+from production_stack_tpu_torch.engine import engine as tengine
+from production_stack_tpu_torch.engine.scheduler import SamplingOptions
+from production_stack_tpu_torch.models import config as tconfig
+from production_stack_tpu_torch.models import hf_loader as tloader
+from production_stack_tpu_torch.models import llama as tllama
+from production_stack_tpu_torch.models.kv import make_slot_cache
+
+transformers = pytest.importorskip("transformers")
+st_torch = pytest.importorskip("safetensors.torch")
+
+
+def _llama_hf():
+    hf_cfg = transformers.LlamaConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128, rms_norm_eps=1e-5, rope_theta=10000.0,
+        tie_word_embeddings=False, attn_implementation="eager")
+    torch.manual_seed(0)
+    return hf_cfg, transformers.LlamaForCausalLM(hf_cfg).eval().float()
+
+
+def _gemma2_hf():
+    hf_cfg = transformers.Gemma2Config(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=16, max_position_embeddings=128, rms_norm_eps=1e-6,
+        rope_theta=10000.0, sliding_window=16, query_pre_attn_scalar=24.0,
+        attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+        hidden_activation="gelu_pytorch_tanh", tie_word_embeddings=True,
+        attn_implementation="eager")
+    torch.manual_seed(3)
+    return hf_cfg, transformers.Gemma2ForCausalLM(hf_cfg).eval().float()
+
+
+@pytest.fixture(scope="module", params=["llama", "gemma2"])
+def hf(request):
+    hf_cfg, model = {"llama": _llama_hf, "gemma2": _gemma2_hf}[
+        request.param]()
+    d = hf_cfg.to_dict()
+    return (JModelConfig.from_hf_config(d, name="tiny", dtype=jnp.float32),
+            tconfig.ModelConfig.from_hf_config(d, name="tiny",
+                                               dtype=torch.float32),
+            model)
+
+
+def test_params_equal_the_jax_loaders(hf):
+    """Every parameter equals the JAX loader's, bit for bit (float32),
+    sandwich-norm renames and tied embeddings included."""
+    jcfg, tcfg, model = hf
+    sd = model.state_dict()
+    jparams = jloader.params_from_state_dict(jcfg, sd)
+    tparams = tloader.params_from_state_dict(tcfg, sd, device="cpu")
+    names = dict(tparams.named_parameters())
+    assert ("lm_head" in names) == (not tcfg.tie_word_embeddings)
+    assert ("post_mlp_norm" in names) == tcfg.sandwich_norms
+    for name, p in names.items():
+        src = (jparams["layers"][name] if name in tllama.LAYER_KEYS
+               else jparams[name])
+        np.testing.assert_array_equal(p.numpy(), np.asarray(src))
+
+
+def test_logits_match_hf(hf):
+    """A 40-token prompt (past Gemma-2's 16-token window) through the
+    port's forward over a paged pool: logits within 1e-2 of HF's, the
+    tolerance the JAX package holds its loader to."""
+    _, tcfg, model = hf
+    params = tloader.params_from_state_dict(tcfg, model.state_dict(),
+                                            device="cpu")
+    toks = np.random.default_rng(4).integers(0, 256, size=(2, 40))
+    with torch.no_grad():
+        ref = model(torch.tensor(toks)).logits.numpy()
+    cache, tables = make_slot_cache(
+        tcfg.num_layers, 2, 48, tcfg.num_kv_heads, tcfg.head_dim_,
+        dtype=torch.float32, block_size=16, device="cpu")
+    logits, _ = tllama.forward(
+        params, tcfg, torch.from_numpy(toks).to(torch.int32),
+        torch.arange(40, dtype=torch.int32)[None].expand(2, -1), cache,
+        block_tables=tables, kv_len=48)
+    np.testing.assert_allclose(logits.numpy(), ref, atol=1e-2, rtol=0)
+
+
+# ------------------------------------------------------------ safetensors
+
+def _tensors(dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return {f"t{seed}.{i}": (torch.randn(shape, generator=g) * 3).to(dtype)
+            for i, shape in enumerate([(7, 5), (3,), (2, 3, 4), (1, 1)])}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_reader_matches_safetensors_on_two_shards(tmp_path, dtype):
+    """Two shards written by the safetensors package read back equal,
+    dtype and bits, through the port's reader — one file at a time and
+    as a checkpoint directory."""
+    shards = [_tensors(dtype, 0), _tensors(dtype, 1)]
+    for i, tensors in enumerate(shards):
+        st_torch.save_file(tensors, str(tmp_path / f"model-{i}.safetensors"),
+                           metadata={"format": "pt"})
+    merged = {}
+    for i in range(2):
+        path = str(tmp_path / f"model-{i}.safetensors")
+        want, got = st_torch.load_file(path), tloader.read_safetensors(path)
+        assert list(got) == list(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype == dtype
+            assert torch.equal(got[k], want[k])
+        merged.update(want)
+    sd = tloader.read_state_dict(str(tmp_path))
+    assert sorted(sd) == sorted(merged)
+    assert all(torch.equal(sd[k], merged[k]) for k in merged)
+
+
+def test_writer_is_read_by_safetensors(tmp_path):
+    """What the port writes (bf16, f16, f32, int8 and a scalar) the
+    safetensors package reads back bit for bit, and so does the port."""
+    tensors = {**_tensors(torch.bfloat16, 2), **_tensors(torch.float16, 3),
+               **_tensors(torch.float32, 4),
+               "i8": torch.arange(-5, 5, dtype=torch.int8),
+               "scalar": torch.tensor(2.5)}
+    path = str(tmp_path / "w.safetensors")
+    tloader.save_safetensors(tensors, path)
+    for got in (st_torch.load_file(path), tloader.read_safetensors(path)):
+        assert sorted(got) == sorted(tensors)
+        for k, t in tensors.items():
+            assert got[k].dtype == t.dtype and torch.equal(got[k], t)
+
+
+def test_bin_fallback_and_errors(tmp_path):
+    """A directory of .bin files loads as the safetensors one does; an
+    empty directory raises FileNotFoundError, a missing tensor KeyError,
+    as in JAX."""
+    hf_cfg, model = _llama_hf()
+    tcfg = tconfig.ModelConfig.from_hf_config(hf_cfg.to_dict(),
+                                              dtype=torch.float32)
+    sd = model.state_dict()
+    torch.save(sd, str(tmp_path / "pytorch_model.bin"))
+    got = tloader.load_checkpoint(tcfg, str(tmp_path), device="cpu")
+    want = tloader.params_from_state_dict(tcfg, sd, device="cpu")
+    for (n, p), (_, q) in zip(got.named_parameters(),
+                              want.named_parameters()):
+        assert torch.equal(p, q), n
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    with pytest.raises(FileNotFoundError):
+        tloader.read_state_dict(str(empty))
+    partial = {k: v for k, v in sd.items() if "layers.1.mlp.up" not in k}
+    with pytest.raises(KeyError, match="missing weight"):
+        tloader.params_from_state_dict(tcfg, partial, device="cpu")
+    with pytest.raises(KeyError, match="missing weight"):
+        jloader.params_from_state_dict(
+            JModelConfig.from_hf_config(hf_cfg.to_dict(),
+                                        dtype=jnp.float32), partial)
+
+
+@pytest.mark.parametrize("preset", ["qwen2-7b", "debug-moe"])
+def test_unported_families_refused_before_reading(tmp_path, preset):
+    """Qwen2's q/k/v bias and MoE raise NotImplementedError before any
+    file is read (the directory does not even exist)."""
+    cfg = tconfig.get_config(preset)
+    with pytest.raises(NotImplementedError):
+        tloader.load_checkpoint(cfg, str(tmp_path / "missing"),
+                                device="cpu")
+    with pytest.raises(NotImplementedError):
+        tloader.params_from_state_dict(cfg, {}, device="cpu")
+
+
+def test_checkpoint_engine_tokens_equal_jax(tmp_path):
+    """An engine started with model = checkpoint = a directory written by
+    transformers (config.json + model.safetensors): greedy tokens of a
+    mixed batch equal the JAX engine's on the same directory, and the
+    loaded weights equal the file's."""
+    hf_cfg, model = _llama_hf()
+    model.save_pretrained(str(tmp_path))
+    assert os.path.exists(tmp_path / "model.safetensors")
+    common = dict(model=str(tmp_path), checkpoint=str(tmp_path),
+                  dtype="float32", kv_dtype="float32", max_model_len=64,
+                  max_num_seqs=2, prefill_chunk=16, prefill_buckets=(16,),
+                  decode_window=4, kv_block_size=8)
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"))
+    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False))
+    assert torch.equal(te.runner.params.lm_head,
+                       model.lm_head.weight.t().contiguous())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (5, 21, 9)]
+
+    def run(engine, opts_cls):
+        ids = [engine.add_request(p, opts_cls(temperature=0.0,
+                                              max_tokens=8,
+                                              ignore_eos=True))
+               for p in prompts]
+        while engine.has_work:
+            engine.step()
+        return [engine.seqs[i].output_tokens for i in ids]
+
+    got = run(te, SamplingOptions)
+    assert got == run(je, JSamplingOptions)
+    assert [len(t) for t in got] == [8, 8, 8]
