@@ -13,27 +13,33 @@
    written first, D in {64, 128, 256}, a sliding window that is not a
    multiple of the block size and a softcap on scores that reach it;
    the split decode over a 72-block row beside a 1-block row, the wgmma
-   prefill at G = 2, 4, 8 with T off its 64-row tile; every paged case
-   once more over an int8 pool with its scales; for the flash kernel T
+   prefill at G = 2, 4, 8 with T off its 64-row tile, G = 1 (MHA, D 128
+   and 256) and G = 7 (63 live rows of the tile), Mistral's window of
+   4096; every paged case once more over an int8 pool with its scales;
+   rolled tables (the entries behind each row's window at trash block 0,
+   filled with 1e4) against the intact ones; for the flash kernel T
    and S that are not multiples of its tiles — and times kernel (a whole
    wrapper call: the decode's split and merge launches), plain version
    and one PyTorch library call at the shapes the serving phases give
    them (Gemma-2's at both layer kinds, sliding and global; the paged
    kernels over a bf16 and over an int8 pool; the speculative verify
    windows, the decode kernel at T = 4 and the prefill kernel at
-   T = 9), holding each kernel against its plain version on the timed
-   inputs too; Gemma-2's bf16 rows, which SDPA cannot compute (no
-   softcap), take flex_attention with a tanh softcap and a window mask
-   as their library call;
+   T = 9; Qwen1.5-MoE's G = 1, Mistral's window on every layer, and
+   Qwen2-7B's G = 7, which no path serves), holding each kernel against
+   its plain version on the timed inputs too; Gemma-2's bf16 rows, which
+   SDPA cannot compute (no softcap), take flex_attention with a tanh
+   softcap and a window mask as their library call;
 3. checkpoint: an HF checkpoint directory of Llama-3-8B's widths at 2
    layers (config.json, two .safetensors shards of the seed-0 draw)
    loads through the port's reader (bytes, seconds, GB/s), and an
    engine started on it serves and matches, bit for bit, an engine
    given the same weights in memory; the directory is deleted;
-4. then for each served path — llama-3-8b, gemma-2-9b, and llama-3-8b
-   with int8 weights and an int8 KV pool (llama-3-8b-int8) — at full
-   width and depth with random weights from a seed, one after the other
-   (each engine is freed before the next is built):
+4. then for each served path — llama-3-8b, gemma-2-9b, llama-3-8b
+   with int8 weights and an int8 KV pool (llama-3-8b-int8),
+   qwen1.5-moe-a2.7b (60 experts, top-4, a shared expert, q/k/v biases)
+   and mistral-7b-v0.1 (a 4096 window on every layer, rolling KV) — at
+   full width and depth with random weights from a seed, one after the
+   other (each engine is freed before the next is built):
    - serve: starts the port's OpenAI server in-process, sends completion
      and chat requests (some concurrent, one streamed, one prompt long
      enough for several prefill chunks — past Gemma-2's 4096-token
@@ -41,6 +47,12 @@
      that both paged kernels were launched (on Gemma-2 with the window
      and the softcap on, on the int8 path with the int8 pool) and the
      flash kernel, which serves no path as in the JAX package, was not;
+     on Mistral every launch carries the window, on Qwen1.5-MoE the
+     prefill chunks took the MoE's capacity dispatch and decode its
+     exact path;
+   - roll (mistral-7b-v0.1): a 4,600-token prompt through the engine;
+     at the first decode window 7 blocks behind the window are freed
+     and the pool's free blocks rise by 7;
    - surface (its own kernel counts): on llama-3-8b, /load against the
      engine while a request is in flight, /metrics with the router's
      gauges, the x-engine-* headers on every reply, a 504 for an elapsed
@@ -55,7 +67,9 @@
      device's idle share and each kernel class's share; on llama-3-8b
      the decode step with one shaped row and top-5 beside it, and with
      one guided row, and the plain step's launches held to their count
-     before shaping existed;
+     before shaping existed; on Qwen1.5-MoE the MoE block's share of the
+     step and of the chunk (its device time per layer, times the
+     layers);
    - then through the server again (after the breakdown, whose plain
      step's count of device events large uploads disturb):
    - guided (llama-3-8b, its own kernel counts): guided_regex,
@@ -88,7 +102,12 @@
      rows and two base rows beside the plain step;
    - reference: the served model's logits through the kernels agree
      with a float32 forward through the plain attention (on the int8
-     path over the same int8 weights and an int8 pool); on the
+     path over the same int8 weights and an int8 pool; the f32 weights
+     upcast a layer at a time, so Qwen1.5-MoE's fit beside its bf16
+     ones); on Qwen1.5-MoE the first layer's expert ids of the bf16
+     path against the f32 ones (a difference only within the bf16
+     router error); on Mistral the greedy tokens past the roll against
+     the f32 teacher-forced argmax (near_tie_check); on the
      speculating paths the teacher-forced verify window (one forward of
      spec + 1 tokens, and spec + 1 single-token forwards) against it
      too, the speculating engine's greedy tokens against the spec-free
@@ -154,7 +173,35 @@ PATHS = {
                    quantization="int8", kv_dtype="int8", **LORA),
         decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
         long_tokens=697, timing_layers=32, ref_prompt=40),
+    # Qwen1.5-MoE-A2.7B: 60 experts, top-4 raw softmax weights, a shared
+    # expert, q/k/v biases, 16 q heads over 16 kv heads (G = 1); 28.6 GB
+    # of bf16 weights, KV 196 KB per token (3.2 GB for the pool). Its
+    # prefill chunks (4 x 512 tokens) take the capacity dispatch, its
+    # decode the exact all-expert path; the reference prompt of 600
+    # tokens runs both (chunks of 512 and 88 tokens, N > 64)
+    "qwen1.5-moe-a2.7b": dict(
+        serve=dict(max_num_seqs=4, max_model_len=4096, prefill_chunk=512,
+                   decode_window=8, kv_block_size=64, seed=0),
+        decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
+        long_tokens=1100, timing_layers=24, ref_prompt=600),
+    # Mistral-7B-v0.1: the 4096-token window on every layer, so the
+    # engine rolls the blocks behind it (roll_phase)
+    "mistral-7b-v0.1": dict(
+        serve=dict(max_num_seqs=4, max_model_len=8192, prefill_chunk=512,
+                   decode_window=8, kv_block_size=64, seed=0),
+        decode_starts=[4600, 1000, 57, 400], chunk_start=4096,
+        kv_len=8192, long_tokens=4600, timing_layers=4, ref_prompt=4600),
 }
+# models timed in the kernel phase at their shapes without a serving
+# path (no launches): Qwen2-7B's 28 q heads over 4 kv heads (G = 7)
+KERNEL_ONLY = {
+    "qwen2-7b": dict(
+        serve=dict(max_num_seqs=4, kv_block_size=64),
+        decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
+        timing_layers=28),
+}
+# tokens the roll phase generates past the long prompt
+ROLL_TOKENS = 24
 
 
 def path_model(path: str) -> str:
@@ -514,6 +561,22 @@ def paged_checks(pa):
         ("prefill", 37, 2, 8, 64, 64, llama_rows, 0, 0.0, 1.0, 1.0),
         ("prefill", 96, 8, 2, 256, 64, [4550, 4100, 300, 0], 4096, 50.0,
          30.0, 0.5),
+        # G = 1 (MHA): Qwen1.5-MoE (16 kv heads, D = 128) and Gemma-7B
+        # (D = 256); the bf16 prefill tile holds 64 positions of one head
+        ("decode", 1, 16, 1, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("decode", 8, 16, 1, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 130, 16, 1, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("decode", 1, 4, 1, 256, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 100, 4, 1, 256, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        # G = 7: Qwen2-7B, 28 q heads over 4 kv heads; the prefill tile
+        # has 63 live rows (block_q 9), decode R = 7 rows per kv head
+        ("decode", 1, 4, 7, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("decode", 8, 4, 7, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 100, 4, 7, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        # Mistral-7B-v0.1: the 4096 window at G = 4, D = 128
+        ("decode", 1, 8, 4, 128, 64, gemma_rows, 4096, 0.0, 1.0, 1.0),
+        ("prefill", 96, 8, 4, 128, 64, [4550, 4100, 300, 0], 4096, 0.0,
+         1.0, 1.0),
     ]
     # every case over a pool of q's dtype, then over an int8 pool with its
     # scales (V's scales times the case's V scale)
@@ -558,6 +621,79 @@ def paged_checks(pa):
                 if not ok:
                     raise AssertionError(f"{fn.__name__} disagrees with its "
                                          f"plain version: {rec}")
+                del q, k, v, sc
+
+
+# rolled-table cases (kernel, T, Hkv, G, D, Bs, rows, window): the
+# decode windows and verify chunks of a model with a window on every
+# layer, after the engine freed the blocks behind each row's window
+ROLLED_CASES = (
+    ("decode", 1, 2, 4, 128, 16, [300, 170, 517, 45], 40),
+    ("decode", 8, 2, 4, 128, 16, [300, 170, 517, 45], 40),
+    ("prefill", 9, 2, 4, 128, 16, [300, 170, 517, 45], 40),
+    ("prefill", 70, 2, 4, 128, 16, [300, 170, 517, 45], 40),
+    # Mistral's geometry: a 4,600-token row has rolled 7 blocks of 64
+    ("decode", 1, 8, 4, 128, 64, [4600, 10, 2000, 0], 4096),
+    ("decode", 8, 8, 4, 128, 64, [4600, 10, 2000, 0], 4096),
+)
+# what the rolled cases write into trash block 0, finite and far from
+# any real value: read without its mask, it would dominate the output
+TRASH_VALUE = 1.0e4
+
+
+def rolled_checks(pa):
+    """Each of ROLLED_CASES over a rolled table — every block wholly
+    behind its row's first query's window (keep_from = (start - W + 1) //
+    Bs, the engine's _roll_windows) and the parked row's whole row point
+    at trash block 0, filled with TRASH_VALUE (int8: 127 with scales of
+    TRASH_VALUE / 127) — against the plain version of the same rows over
+    the intact table, at TOL; both dtypes, over a pool of q's dtype and
+    over an int8 pool."""
+    import torch
+    fns = {"decode": pa.paged_decode_attention,
+           "prefill": pa.paged_attention}
+    i = 500
+    for kv in ("native", "int8"):
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            for kind, T, Hkv, G, D, Bs, lens, w in ROLLED_CASES:
+                i += 1
+                q, k, v, tables, starts, nb = paged_case(
+                    4, T, Hkv, G, D, Bs, lens, dtype, parked=1, seed=i)
+                sc = {}
+                if kv == "int8":
+                    k, v, ks, vs = int8_pools(k, v, tables, starts, T, i)
+                    sc = dict(k_scales=ks[0], v_scales=vs[0])
+                    for pool, scales in ((k, ks), (v, vs)):
+                        pool[:, 0] = 127
+                        scales[:, 0] = TRASH_VALUE / 127
+                else:
+                    k[:, 0] = TRASH_VALUE
+                    v[:, 0] = TRASH_VALUE
+                rolled = tables.clone()
+                MB = tables.shape[1]
+                for b, s_ in enumerate(starts.tolist()):
+                    keep = (MB if s_ >= MB * Bs
+                            else max(s_ - w + 1, 0) // Bs)
+                    rolled[b, :keep] = 0
+                got = fns[kind](q, k[0], v[0], rolled, starts, nb=nb,
+                                window=w, **sc)
+                torch.cuda.synchronize()
+                want = pa.paged_attention_plain(
+                    q.float() if sc else q, k[0], v[0], tables, starts, nb,
+                    D ** -0.5, w, 0.0, **sc)
+                err = (got.float() - want.float()).abs().max().item()
+                ok = bool(torch.isfinite(got).all()) and err <= TOL[dt]
+                rec = {"check": fns[kind].__name__ + "_rolled", "kv": kv,
+                       "T": T, "Hkv": Hkv, "G": G, "D": D, "Bs": Bs,
+                       "starts": starts.tolist(), "window": w, "dtype": dt,
+                       "rolled_blocks": (rolled == 0).sum(dim=1).tolist(),
+                       "max_abs_err": err, "tol": TOL[dt], "ok": ok}
+                log(json.dumps(rec))
+                if not ok:
+                    raise AssertionError(f"{fns[kind].__name__} over a "
+                                         f"rolled table disagrees with "
+                                         f"the intact one: {rec}")
                 del q, k, v, sc
 
 
@@ -658,13 +794,16 @@ def paged_timings(pa, model, kv, path, verify=False):
     import torch
     from production_stack_tpu_torch.models.config import get_config
     from production_stack_tpu_torch.models.llama import attn_scale
-    cfg, p = get_config(model), PATHS[model]
+    cfg, p = get_config(model), PATHS.get(model) or KERNEL_ONLY[model]
     B, Bs = p["serve"]["max_num_seqs"], p["serve"]["kv_block_size"]
     Hkv, G, D = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
         cfg.head_dim_
     L = p["timing_layers"]
+    # Gemma-2's two layer kinds; a window on every layer (Mistral) is
+    # one kind, windowed
     kinds = ([("sliding", cfg.sliding_window), ("global", 0)]
-             if cfg.sliding_window else [("all", 0)])
+             if cfg.alternating_sliding
+             else [("all", cfg.sliding_window or 0)])
     shapes = {
         "paged_decode_attention": (1, p["decode_starts"], 0, 64, 101),
         "paged_attention": (512, [p["chunk_start"]] * B, B - 1, 8, 102),
@@ -807,11 +946,15 @@ def kernel_phase():
     from production_stack_tpu_torch.ops import flash_attention as fa
     from production_stack_tpu_torch.ops import paged_attention as pa
     paged_checks(pa)
+    rolled_checks(pa)
     flash_checks(fa)
     free_memory()
     records = []
-    for model in ("llama-3-8b", "gemma-2-9b"):
+    for model in ("llama-3-8b", "gemma-2-9b", "qwen1.5-moe-a2.7b",
+                  "mistral-7b-v0.1"):
         records += paged_timings(pa, model, "bfloat16", model)
+    # Qwen2-7B's G = 7, which no path serves (no launches)
+    records += paged_timings(pa, "qwen2-7b", "bfloat16", None)
     # the int8 branches at both models' shapes; only Llama-3-8B is served
     # with an int8 pool, so the Gemma-2 rows name no path (no launches)
     records += paged_timings(pa, "llama-3-8b", "int8", "llama-3-8b-int8")
@@ -850,8 +993,19 @@ async def serve_phase(engine, path: str):
     from aiohttp import web
     from production_stack_tpu_torch.engine.server import build_app
     from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import moe
     from production_stack_tpu_torch.ops import paged_attention as pa
 
+    # which MoE path each MLP call took while serving
+    moe_paths = {"exact": 0, "dispatch": 0}
+    originals = {"exact": moe._moe_exact, "dispatch": moe._moe_dispatch}
+
+    def counted(kind):
+        def call(*a, **kw):
+            moe_paths[kind] += 1
+            return originals[kind](*a, **kw)
+        return call
+    moe._moe_exact, moe._moe_dispatch = counted("exact"), counted("dispatch")
     port = free_port()
     runner = web.AppRunner(build_app(engine))
     await runner.setup()
@@ -912,6 +1066,8 @@ async def serve_phase(engine, path: str):
             await fault_probe(http, base, engine, path)
     finally:
         await runner.cleanup()
+        moe._moe_exact, moe._moe_dispatch = (originals["exact"],
+                                             originals["dispatch"])
 
     want = [24, 16, 16, 20]
     for (url, body), res, n in zip(reqs, results, want):
@@ -946,6 +1102,18 @@ async def serve_phase(engine, path: str):
         # the long prompt's last prefill chunks and its decode skip blocks
         assert prompt_tokens > cfg.sliding_window + \
             PATHS[path]["serve"]["kv_block_size"], prompt_tokens
+    if cfg.sliding_window and not cfg.alternating_sliding:
+        # a window on every layer: every launch carries it
+        if any(counts["window_launches"][name] != counts["launches"][name]
+               for name in pa.launch_counts):
+            raise AssertionError(f"a launch without the window on a model "
+                                 f"windowed on every layer: {counts}")
+    if cfg.num_experts:
+        # prefill chunks (4 x 512 tokens) dispatch, decode is exact
+        counts["moe_paths"] = moe_paths
+        if not (moe_paths["exact"] and moe_paths["dispatch"]):
+            raise AssertionError(f"the MoE did not take both paths while "
+                                 f"serving: {moe_paths}")
     if cfg.attn_logit_softcap:
         need.append("softcap_launches")
     if engine.engine.cfg.kv_dtype == "int8":
@@ -1825,6 +1993,7 @@ def reference_phase(engine, path: str, surface: dict):
     from production_stack_tpu_torch.models import lora as lora_mod
     from production_stack_tpu_torch.models.kv import make_slot_cache
     from production_stack_tpu_torch.models.quant import is_quantized
+    from production_stack_tpu_torch.ops import moe
     from production_stack_tpu_torch.ops import paged_attention as pa
     from production_stack_tpu_torch.ops.norms import rms_norm
 
@@ -1839,14 +2008,7 @@ def reference_phase(engine, path: str, surface: dict):
     verify_T = [K + 1 for K in SPEC.get(path, ())]
     max_len = -(-(P + steps + sum(verify_T)) // Bs) * Bs
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    p32 = llama.Llama(cfg32, device=dev)
-    with torch.no_grad():
-        for name, src in list(runner.params.named_children()):
-            if is_quantized(src):
-                delattr(p32, name)
-                setattr(p32, name, src)
-        for name, dst in p32.named_parameters():
-            dst.copy_(getattr(runner.params, name))
+    p32 = Upcast(runner.params)
     g = torch.Generator(device=dev).manual_seed(3)
     prompt = torch.randint(0, cfg.vocab_size, (1, P), generator=g,
                            device=dev)
@@ -1911,17 +2073,35 @@ def reference_phase(engine, path: str, surface: dict):
                                for n, (a, b) in rows.items()},
                     lora_scaling=runner._lora_scaling)
 
+    routed = {}
+
+    @contextmanager
+    def first_routing(key):
+        """routed[key] = (hidden, router) of the first MoE call inside:
+        layer 0 of the first prefill chunk."""
+        call = moe.moe_mlp
+
+        def capture(x, router_w, *a, **kw):
+            routed.setdefault(key, (x.float(), router_w.float()))
+            return call(x, router_w, *a, **kw)
+        moe.moe_mlp = capture
+        try:
+            yield
+        finally:
+            moe.moe_mlp = call
+
     def run(params, mcfg, mode, lora=None):
         """Logits at the compared positions, the verify segments' logits
         {T: [T, V]} as one forward and (not in "plain") as T
         single-token forwards over the same positions, and the pool's
         int8 K/V (None over a float pool); mode "plain", "kernels" or
         "checked"; lora: an adapter id whose factors join every
-        forward."""
+        forward. On a MoE model the first layer's routing input of the
+        run is kept in routed[(dtype, mode)]."""
         cache, tables = pool(mcfg, max_len)
         out, ver, single = [], {}, {}
         ad = adapter(lora, mcfg.dtype)
-        with attention(mode):
+        with attention(mode), first_routing((str(mcfg.dtype), mode)):
             for lo in range(0, P, chunk):
                 hi = min(lo + chunk, P)
                 logits, _ = llama.forward(
@@ -2062,6 +2242,10 @@ def reference_phase(engine, path: str, surface: dict):
                 lora_rows.append((name, tail_logits(
                     p32, cfg32, lora["prompt"] + row["solo"],
                     len(row["solo"]), lora=lora["ids"][name])))
+    roll = surface.get("roll")
+    if roll:
+        roll["f32"] = tail_logits(p32, cfg32, roll["prompt"] + roll["tokens"],
+                                  len(roll["tokens"]))
     del p32
     free_memory()
     got16, ver16, single16, _ = run(runner.params, cfg, "kernels")
@@ -2157,6 +2341,18 @@ def reference_phase(engine, path: str, surface: dict):
             chk = near_tie_check(row["solo"], row["mixed"], l32, l16)
             extra["lora"]["rows"][name] = chk
             ok = ok and chk["ok"]
+    if cfg.num_experts:
+        extra["routing"] = routing_check(
+            routed[(str(torch.float32), "plain")],
+            routed[(str(cfg.dtype), "kernels")], cfg.num_experts_per_tok)
+        ok = ok and extra["routing"]["ok"]
+    if roll:
+        l16 = tail_logits(runner.params, cfg, roll["prompt"] + roll["tokens"],
+                          len(roll["tokens"]))
+        extra["roll"] = near_tie_check(
+            roll["tokens"], roll["f32"].argmax(dim=-1).tolist(),
+            roll["f32"], l16)
+        ok = ok and extra["roll"]["ok"]
     if echo32 is not None:
         served = torch.tensor(surface["echo"]["logprobs"], device=dev)
         plain16 = prompt_lps(runner.params, cfg, surface["echo"]["prompt"])
@@ -2180,6 +2376,62 @@ def reference_phase(engine, path: str, surface: dict):
     if not ok:
         raise AssertionError("served logits disagree with the float32 "
                              "reference beyond the stated bounds")
+
+
+class Upcast:
+    """A Llama module's weights read as float32 a leaf at a time: a
+    layer-stacked weight upcasts one layer when the forward indexes it,
+    the others (embedding, final norm, head) whole at each read; int8
+    leaves come as they are (the f32 forward dequantizes them in f32).
+    The upcast is exact, and the f32 reference never holds more than a
+    layer's f32 copy beside the served weights: a whole f32 copy of
+    Qwen1.5-MoE-A2.7B (57.2 GB) beside its 28.6 GB of bf16 weights would
+    not fit the card."""
+
+    def __init__(self, model):
+        self._model = model
+
+    def __getattr__(self, name):
+        from production_stack_tpu_torch.models.llama import LAYER_KEYS
+        from production_stack_tpu_torch.models.quant import is_quantized
+        w = getattr(self._model, name)
+        if is_quantized(w):
+            return w
+        return _UpcastLayers(w) if name in LAYER_KEYS else w.float()
+
+
+class _UpcastLayers:
+    def __init__(self, stacked):
+        self._stacked = stacked
+
+    def __getitem__(self, layer):
+        return self._stacked[layer].float()
+
+
+def routing_check(ref, got, k: int) -> dict:
+    """The experts the served bf16 path routes each token of the first
+    prefill chunk to at the first layer, against the f32 reference's:
+    ref and got are (routing input [N, H], router [H, E]) in f32. A
+    token whose set of k experts differs is allowed only where the f32
+    gap between its k-th and (k+1)-th router logits is within twice the
+    bf16 router logits' largest error on that token (two logits, each
+    off by at most that, can swap there)."""
+    import torch
+    l32 = ref[0] @ ref[1]
+    l16 = got[0] @ got[1]
+    top32 = l32.topk(k + 1, dim=-1)
+    ids32 = top32.indices[:, :k].sort(dim=-1).values
+    ids16 = l16.topk(k, dim=-1).indices.sort(dim=-1).values
+    differ = (ids32 != ids16).any(dim=-1)
+    gap = top32.values[:, k - 1] - top32.values[:, k]
+    err = (l16 - l32).abs().amax(dim=-1)
+    allowed = gap <= 2 * err
+    n = int(differ.sum().item())
+    return {"tokens": l32.shape[0], "experts": l32.shape[1], "top_k": k,
+            "tokens_routed_differently": n,
+            "router_logit_err_max": err.max().item(),
+            "differing_gap_max": (gap[differ].max().item() if n else None),
+            "ok": bool((allowed | ~differ).all().item())}
 
 
 def near_tie_check(want, got, logits32, logits16) -> dict:
@@ -2416,6 +2668,8 @@ def breakdown_phase(engine, path: str):
                device_profile(window), W, step_ms),
            "prefill_profile_per_chunk": profile_summary(
                device_profile(chunk), 1, chunk_ms)}
+    if runner.model_cfg.num_experts:
+        out.update(moe_breakdown(runner, p, out))
     if path in PLAIN_DECODE_LAUNCHES:
         out.update(shaped_breakdown(runner, sp, window, W, kv_len, starts))
         out.update(guided_breakdown(engine, sp, W, kv_len, starts))
@@ -2430,6 +2684,43 @@ def breakdown_phase(engine, path: str):
                 f"not the {PLAIN_DECODE_LAUNCHES[path]} it launched "
                 f"before logit shaping existed")
     log(json.dumps({"breakdown": out}))
+    return out
+
+
+def moe_breakdown(runner, p: dict, plain: dict) -> dict:
+    """The MoE MLP's share of the decode step and of the prefill chunk
+    that breakdown_phase measured: the device time (CUDA graph replay,
+    device_ms) of one layer's MoE block (the routed experts and the
+    shared expert, llama._moe_block) at the step's shape (B tokens: the
+    exact path) and at the chunk's (B x 512 tokens, one row live: the
+    dispatch), on normal(0, 1) activations, the layers taken in turn;
+    times the layer count, over the step's and the chunk's device busy
+    time and their CUDA-event time."""
+    import torch
+    from production_stack_tpu_torch.models import llama
+    cfg = runner.model_cfg
+    B, H, L = p["serve"]["max_num_seqs"], cfg.hidden_size, cfg.num_layers
+    dev = runner.device
+    g = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for name, T, live, key, ms_key in (
+            ("decode", 1, B, "decode_profile_per_step", "decode_step_ms"),
+            ("prefill", 512, 1, "prefill_profile_per_chunk",
+             "prefill_chunk_ms")):
+        hidden = torch.randn((B, T, H), generator=g, device=dev).to(
+            cfg.dtype)
+        valid = torch.zeros((B, T), dtype=torch.bool, device=dev)
+        valid[:live] = True
+
+        def block(i=0):
+            return llama._moe_block(cfg, runner.params, i % L, hidden,
+                                    valid)
+        ms = device_ms(block, 2 * L)
+        busy = plain[key].get("device_busy_ms")
+        out[f"moe_{name}_layer_ms"] = ms
+        out[f"moe_{name}_ms"] = ms * L
+        out[f"moe_share_of_{name}_busy"] = ms * L / busy if busy else None
+        out[f"moe_share_of_{name}_event_ms"] = ms * L / plain[ms_key]
     return out
 
 
@@ -2557,6 +2848,69 @@ def guided_breakdown(engine, sp, W, kv_len, starts) -> dict:
                 device_profile(guided_window), W, step_ms)}
 
 
+def roll_phase(engine, path: str) -> dict:
+    """Rolling KV on a model windowed on every layer, through the engine
+    itself (its server has stopped): one greedy request of long_tokens
+    random prompt ids (seed 13) and ROLL_TOKENS new tokens. At the first
+    decode dispatch the engine frees the blocks wholly behind the
+    window, (long_tokens - W + 1) // Bs of them, and the pool's free
+    blocks rise by as many (read around _roll_windows, before the same
+    dispatch grows the row); both paged kernels launched, every launch
+    windowed. Returns the prompt and the served tokens for
+    reference_phase, which holds them against the f32 teacher-forced
+    argmax (near_tie_check)."""
+    import random
+    from production_stack_tpu_torch.engine.scheduler import SamplingOptions
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    eng = engine.engine
+    cfg = eng.model_cfg
+    P, W = PATHS[path]["long_tokens"], cfg.sliding_window
+    Bs = eng.cfg.kv_block_size
+    rnd = random.Random(13)
+    prompt = [rnd.randrange(cfg.vocab_size) for _ in range(P)]
+    rolls = []
+    roll = eng._roll_windows
+
+    def observed(decode_seqs):
+        before = eng.block_mgr.available
+        roll(decode_seqs)
+        rolls.append({"free_before": before,
+                      "free_after": eng.block_mgr.available,
+                      "rolled": [s.rolled_blocks for s in decode_seqs]})
+    eng._roll_windows = observed
+    pa.reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        sid = eng.add_request(prompt, SamplingOptions(
+            temperature=0.0, max_tokens=ROLL_TOKENS, ignore_eos=True))
+        while eng.has_work:
+            eng.step()
+    finally:
+        del eng._roll_windows
+    seq = eng.seqs[sid]
+    want = (P - W + 1) // Bs
+    first = rolls[0] if rolls else {}
+    out = {"path": path, "prompt_tokens": P, "window": W,
+           "block_size": Bs, "tokens": len(seq.output_tokens),
+           "first_window": first, "rolls": len(rolls),
+           "rolled_blocks_at_finish": seq.rolled_blocks,
+           "want_first_rolled": want,
+           "launches": dict(pa.launch_counts),
+           "window_launches": dict(pa.window_launches),
+           "seconds": time.monotonic() - t0}
+    out["ok"] = (bool(first) and first["rolled"] == [want]
+                 and first["free_after"] - first["free_before"] == want
+                 and len(seq.output_tokens) == ROLL_TOKENS
+                 and all(out["launches"][n] > 0
+                         and out["window_launches"][n] == out["launches"][n]
+                         for n in pa.launch_counts))
+    log(json.dumps({"roll": out}))
+    if not out["ok"]:
+        raise AssertionError(f"rolling KV did not free the blocks behind "
+                             f"the window as expected: {out}")
+    return {"prompt": prompt, "tokens": list(seq.output_tokens)}
+
+
 def model_phase(path: str):
     """Serve one path's model at full width and depth, then its breakdown
     and its reference; returns the kernels' launch counts of the serving
@@ -2587,6 +2941,8 @@ def model_phase(path: str):
                     "mem_gib": torch.cuda.memory_allocated() / 2**30}))
     t0 = time.monotonic()
     counts, surface = asyncio.run(serve_phase(engine, path))
+    if cfg.sliding_window and not cfg.alternating_sliding:
+        surface["roll"] = roll_phase(engine, path)
     plain = breakdown_phase(engine, path)
     surface.update(asyncio.run(feature_phase(engine, path)))
     if path in PLAIN_DECODE_LAUNCHES:

@@ -2,7 +2,8 @@
 plus ``device``.
 
 The fields keep their names and meaning, so a JAX-package config maps
-onto this one field by field. Weight-only int8 (``quantization="int8"``),
+onto this one field by field. The MoE capacity factor
+(``moe_capacity_factor``), weight-only int8 (``quantization="int8"``),
 the int8 KV pool (``kv_dtype="int8"``), n-gram speculation
 (``speculative_ngram_tokens`` in 0..16), multi-LoRA (``lora_adapters``
 with ``lora_rank``, ``lora_alpha`` and ``lora_targets``) and an HF
@@ -53,6 +54,9 @@ class EngineConfig:
     tensor_parallel_size: int = 1
     pipeline_parallel_size: int = 1
     expert_parallel_size: int = 1
+    # MoE prefill capacity factor override (ops/moe.py): None keeps the
+    # model family default (ModelConfig.moe_capacity_factor)
+    moe_capacity_factor: Optional[float] = None
     quantization: Optional[str] = None
     # n-gram (prompt-lookup) speculative decoding: draft length per
     # macro-step (0 = off). Only greedy, unguided, unshaped,

@@ -53,6 +53,16 @@ composition changes only; ``_process_window`` walks the macro-steps, dropping th
 of one where its row stops, and counts rejected draft positions as dead
 token-steps.
 
+Rolling KV (JAX ``engine.py:228-239,1905-1927``): on a model whose
+every layer is windowed (Mistral v0.1), no query attends a position
+behind the window again, so before each decode dispatch
+``_roll_windows`` frees the blocks wholly behind every running
+sequence's window (their table entries point at trash block 0, which
+the kernels never read there), and the freed blocks feed the same
+window's growth: live KV is bounded by the window, not by the length. A
+rolled sequence registers no prefix chain (its early blocks are gone);
+preemption recomputes it from position 0.
+
 ``embed_tokens`` serves the pooling routes (/v1/embeddings, rerank,
 score) with the serving model's mean-pooled final hidden states
 (``runner.embed``, no cache), beside the engine loop.
@@ -135,6 +145,11 @@ class LLMEngine:
         self.cfg = engine_cfg
         self.model_cfg = dataclasses.replace(
             get_config(engine_cfg.model), dtype=_DTYPES[engine_cfg.dtype])
+        if engine_cfg.moe_capacity_factor is not None:
+            # the engine's override of the family's MoE capacity factor
+            self.model_cfg = dataclasses.replace(
+                self.model_cfg,
+                moe_capacity_factor=engine_cfg.moe_capacity_factor)
         self.tokenizer = load_tokenizer(engine_cfg.model,
                                         engine_cfg.tokenizer,
                                         engine_cfg.chat_template)
@@ -205,6 +220,10 @@ class LLMEngine:
             self.metrics.kvpool_occ_hist.observe
         self.scheduler.can_admit = self._try_admit
         self.scheduler.on_admit = self._set_slot_table
+        # rolling KV: a window on every layer (not Gemma-2's alternating
+        # one, whose global layers read the whole prefix)
+        self._roll_window = (mc.sliding_window if mc.sliding_window
+                             and not mc.alternating_sliding else None)
         self.seqs: Dict[str, Sequence] = {}
         self._finished_order: List[str] = []
         self._id_counter = itertools.count()
@@ -532,7 +551,8 @@ class LLMEngine:
                 self.scheduler.on_prefill_done(w)
                 self.metrics.prompt_tokens.inc(len(w.chunk))
                 seq = w.seq
-                if self.cfg.enable_prefix_caching:
+                if (self.cfg.enable_prefix_caching
+                        and not seq.rolled_blocks):
                     # a full block is final once its last position is
                     # written: register it for concurrent sharers now
                     seq.reg_state = self.block_mgr.register_incremental(
@@ -670,6 +690,10 @@ class LLMEngine:
         (recomputed later)."""
         W = self.cfg.decode_window
         horizon = W * (self.cfg.speculative_ngram_tokens + 1) + 1
+        if self._roll_window:
+            # free behind-window blocks before growing coverage: the
+            # reclaimed blocks feed this very window's growth
+            self._roll_windows(decode_seqs)
         for s in list(decode_seqs):
             if s.status is not SeqStatus.RUNNING:
                 continue   # already preempted as a victim this pass
@@ -837,10 +861,12 @@ class LLMEngine:
             return [StepOutput(seq.seq_id, token, text_delta, False, None,
                                logprob, top_alts)]
         # prefix caching: full blocks stay in the pool under their chain
-        # keys; register BEFORE free so they land in the evictable LRU
-        self.block_mgr.register(
-            (seq.prompt_tokens + seq.output_tokens)[:-1], seq.block_ids,
-            salt=self._adapter_salt(seq.adapter_id))
+        # keys; register BEFORE free so they land in the evictable LRU. A
+        # rolled sequence's chain lost its early blocks: none registers
+        if not seq.rolled_blocks:
+            self.block_mgr.register(
+                (seq.prompt_tokens + seq.output_tokens)[:-1],
+                seq.block_ids, salt=self._adapter_salt(seq.adapter_id))
         self._free_seq_blocks(seq)
         slot = seq.slot
         self.scheduler.finish(seq, reason)
@@ -1002,14 +1028,41 @@ class LLMEngine:
         self._set_table_row(seq.slot, seq.block_ids)
 
     def _set_table_row(self, slot: int, block_ids) -> None:
+        """A slot's table row: its blocks, rolled (None) entries and the
+        rest at trash block 0."""
         self._tables[slot, :] = 0
         if block_ids:
-            self._tables[slot, :len(block_ids)] = block_ids
+            self._tables[slot, :len(block_ids)] = [b or 0 for b in block_ids]
         self.runner.set_block_tables(self._tables)
 
     def _free_seq_blocks(self, seq: Sequence) -> None:
-        self.block_mgr.free(seq.block_ids)
+        """Release a sequence's live blocks (rolled entries are None,
+        freed already)."""
+        self.block_mgr.free([b for b in seq.block_ids if b])
         seq.block_ids = []
+
+    def _roll_windows(self, decode_seqs) -> None:
+        """Free the blocks no future query of a running sequence can
+        attend: those wholly before its window, positions <=
+        next_position - W. Safe against the window being dispatched:
+        its queries start at next_position or later, so their windows
+        begin no earlier."""
+        W = self._roll_window
+        Bs = self.cfg.kv_block_size
+        for s in decode_seqs:
+            if s.status is not SeqStatus.RUNNING:
+                continue
+            keep_from = min(max(s.next_position - W + 1, 0) // Bs,
+                            len(s.block_ids))
+            if keep_from <= s.rolled_blocks:
+                continue
+            dead = [b for b in s.block_ids[s.rolled_blocks:keep_from] if b]
+            if dead:
+                self.block_mgr.free(dead)
+            for i in range(s.rolled_blocks, keep_from):
+                s.block_ids[i] = None
+            s.rolled_blocks = keep_from
+            self._set_table_row(s.slot, s.block_ids)
 
     def _ensure_blocks(self, seq: Sequence, upto_tokens: int) -> bool:
         """Grow a live sequence's blocks to cover positions
@@ -1047,6 +1100,7 @@ class LLMEngine:
                        len(seq.block_ids), seq.num_tokens)
         slot = seq.slot
         self._free_seq_blocks(seq)
+        seq.rolled_blocks = 0   # recompute re-prefills from position 0
         seq.reg_state = None    # re-register the recomputed blocks
         self.scheduler.preempt(seq)
         self._park_slot(slot)

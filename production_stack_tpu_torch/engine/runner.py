@@ -538,7 +538,9 @@ class ModelRunner:
         lens = self._upload(lengths)
         mask = (torch.arange(toks.shape[1], device=self.device)[None]
                 < lens[:, None])
-        h = llama.encode(self.params, self.model_cfg, toks, rope=self.rope)
+        # the mask also keeps a MoE model's padding out of routing
+        h = llama.encode(self.params, self.model_cfg, toks, rope=self.rope,
+                         token_valid=mask)
         pooled = (h.float() * mask[..., None]).sum(dim=1)
         return pooled / lens.clamp(min=1)[:, None]
 
@@ -591,7 +593,9 @@ class ModelRunner:
         """One parked decode step and one parked prefill chunk: loads
         the kernels (building them if needed) and initialises the
         libraries the forward uses, so the first request pays none of
-        it. Returns seconds spent."""
+        it. On a MoE model the step takes the exact all-expert path and
+        the chunk (B x the largest bucket tokens) the capacity dispatch,
+        the two shapes serving runs. Returns seconds spent."""
         t0 = time.time()
         cfg = self.engine_cfg
         B, S = cfg.max_num_seqs, cfg.max_model_len

@@ -1,7 +1,6 @@
 """Continuous-batching scheduler: waiting queue -> slots -> decode batch
 (``production_stack_tpu/engine/scheduler.py``, without the state of
-features the port has not taken yet: KV tiering, LoRA, sliding-window
-block rolling).
+the one feature the port has not taken yet: KV tiering).
 
 Policy (round-robin between admission and decode):
 - A waiting sequence is admitted when a slot is free; its prompt is
@@ -78,8 +77,13 @@ class Sequence:
     slot: int = -1
     adapter_id: int = 0      # LoRA adapter (0 = base model, models/lora.py)
     # paged-KV blocks this sequence owns, table order (engine/
-    # block_manager.py); prefix-shared blocks lead, exclusive ones follow
-    block_ids: List[int] = field(default_factory=list)
+    # block_manager.py); prefix-shared blocks lead, exclusive ones
+    # follow. Rolled (freed behind the sliding window) entries are None
+    # placeholders, so a block's index stays its virtual position
+    block_ids: List[Optional[int]] = field(default_factory=list)
+    # blocks freed behind the sliding window (engine._roll_windows);
+    # prefix registration is skipped once any block rolled
+    rolled_blocks: int = 0
     # live progressive-registration hasher chain state
     # (block_manager.register_incremental); reset on preemption
     reg_state: object = None

@@ -1115,6 +1115,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="weight-only int8: projections, embedding and LM "
                         "head stored int8 with per-channel scales; norms "
                         "stay in --dtype (models/quant.py)")
+    p.add_argument("--moe-capacity-factor", type=float, default=None,
+                   help="MoE prefill capacity factor (ops/moe.py): >= "
+                        "num_experts/top_k disables token dropping at "
+                        "dense-compute cost; default keeps the model "
+                        "family value")
     p.add_argument("--max-num-seqs", type=int, default=8)
     p.add_argument("--max-waiting-seqs", type=int, default=None,
                    help="bounded admission: shed (503 + Retry-After) "
@@ -1162,6 +1167,7 @@ def main(argv=None) -> None:
         chat_template=args.chat_template, device=args.device,
         max_model_len=args.max_model_len, dtype=args.dtype,
         kv_dtype=args.kv_cache_dtype, quantization=args.quantization,
+        moe_capacity_factor=args.moe_capacity_factor,
         max_num_seqs=args.max_num_seqs,
         max_waiting_seqs=args.max_waiting_seqs,
         max_queue_delay_ms=args.max_queue_delay_ms,

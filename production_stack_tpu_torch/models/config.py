@@ -49,9 +49,8 @@ class ModelConfig:
     rms_norm_eps: float = 1e-5
     max_position_embeddings: int = 4096
     tie_word_embeddings: bool = False
-    # family variations beyond the Llama baseline (see the JAX module);
-    # the port's forward serves the dense Llama path and refuses the
-    # rest (models/llama.check_supported)
+    # family variations beyond the Llama baseline (see the JAX module),
+    # all served by the port's forward (models/llama.py)
     sliding_window: Optional[int] = None
     alternating_sliding: bool = False
     attn_logit_softcap: Optional[float] = None

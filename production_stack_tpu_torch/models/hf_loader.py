@@ -13,9 +13,13 @@ HF stores projections ``[out, in]``; the port, like the JAX package,
 and per-layer tensors fill the leading layer axis of the stacked
 parameters one layer at a time. Values are cast straight to the model
 dtype, which rounds as the JAX loader's cast through float32 does
-(bf16 -> bf16 is exact). Dense Llama, Gemma-1 and Gemma-2 (sandwich-norm
-names) load; a configuration with experts or attention biases raises
-before any file is read (``llama.check_supported``).
+(bf16 -> bf16 is exact). The families are the JAX loader's
+(``hf_loader.py:69-118``): dense Llama, Mistral (its ``sliding_window``
+comes with the config), Gemma-1, Gemma-2 (sandwich-norm names), Qwen2's
+q/k/v biases, Mixtral's ``block_sparse_moe.{gate, experts.N.w1/w3/w2}``
+and Qwen2-MoE's ``mlp.{gate, experts.N.gate_proj/up_proj/down_proj,
+shared_expert.*, shared_expert_gate}`` (``moe_naming``), each expert
+filling its row of the stacked ``[L, E, in, out]`` parameters.
 """
 
 import glob
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.models.config import ModelConfig
-from production_stack_tpu_torch.models.llama import Llama, check_supported
+from production_stack_tpu_torch.models.llama import Llama
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -70,9 +74,11 @@ def _to_tensor(t: Any) -> torch.Tensor:
 @torch.no_grad()
 def params_from_state_dict(cfg: ModelConfig, sd: Mapping[str, Any],
                            device="cuda") -> Llama:
-    """The Llama module of an HF LlamaForCausalLM / GemmaForCausalLM /
-    Gemma2ForCausalLM state dict, in cfg.dtype on `device`."""
-    model = Llama(cfg, device=device)   # check_supported runs here
+    """The Llama module of an HF LlamaForCausalLM / MistralForCausalLM /
+    Qwen2ForCausalLM / GemmaForCausalLM / Gemma2ForCausalLM /
+    MixtralForCausalLM / Qwen2MoeForCausalLM state dict, in cfg.dtype on
+    `device`."""
+    model = Llama(cfg, device=device)
 
     def put(dst: torch.Tensor, name: str, transpose: bool,
             bare: bool = False) -> None:
@@ -94,6 +100,36 @@ def params_from_state_dict(cfg: ModelConfig, sd: Mapping[str, Any],
                                        False)
         layer_map["post_mlp_norm"] = ("post_feedforward_layernorm.weight",
                                       False)
+    if cfg.attention_bias:
+        # Qwen2: q/k/v projection biases ([out] vectors)
+        layer_map.update({
+            "q_bias": ("self_attn.q_proj.bias", False),
+            "k_bias": ("self_attn.k_proj.bias", False),
+            "v_bias": ("self_attn.v_proj.bias", False),
+        })
+    if cfg.num_experts:
+        # the routed experts replace the dense MLP
+        for name in ("gate", "up", "down"):
+            del layer_map[name]
+        qwen_moe = cfg.moe_naming == "qwen2"
+        prefix = "mlp" if qwen_moe else "block_sparse_moe"
+        layer_map["router"] = (f"{prefix}.gate.weight", True)
+        if qwen_moe and cfg.shared_expert_size:
+            layer_map.update({
+                "s_gate": ("mlp.shared_expert.gate_proj.weight", True),
+                "s_up": ("mlp.shared_expert.up_proj.weight", True),
+                "s_down": ("mlp.shared_expert.down_proj.weight", True),
+                "s_gate_w": ("mlp.shared_expert_gate.weight", True),
+            })
+        moe_map = ({"gate": "gate_proj", "up": "up_proj",
+                    "down": "down_proj"} if qwen_moe
+                   else {"gate": "w1", "up": "w3", "down": "w2"})
+        for ours, hf in moe_map.items():
+            stacked = getattr(model, ours)          # [L, E, in, out]
+            for i in range(cfg.num_layers):
+                for e in range(cfg.num_experts):
+                    put(stacked[i, e],
+                        f"layers.{i}.{prefix}.experts.{e}.{hf}.weight", True)
     for ours, (suffix, transpose) in layer_map.items():
         stacked = getattr(model, ours)
         for i in range(cfg.num_layers):
@@ -189,7 +225,5 @@ def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_checkpoint(cfg: ModelConfig, path: str, device="cuda") -> Llama:
-    """The Llama module of an HF checkpoint directory on disk; a family
-    the port does not implement raises before any file is read."""
-    check_supported(cfg)
+    """The Llama module of an HF checkpoint directory on disk."""
     return params_from_state_dict(cfg, read_state_dict(path), device=device)

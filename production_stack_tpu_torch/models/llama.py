@@ -30,9 +30,20 @@ embeddings scaled by sqrt(hidden) in f32, the attention scale from
 ``query_pre_attn_scalar``, a tanh softcap on the attention scores and
 on the f32 logits, sandwich norms after attention and MLP, gelu_tanh,
 and a sliding window on the even layers (``alternating_sliding``).
-MoE, attention biases and a sliding window on every layer (Mistral
-v0.1, whose engine frees blocks behind the window) raise
-(check_supported) instead of being ignored.
+
+The other family variations are the JAX forward's too
+(``llama.py:45-97,131-135,247-270``):
+- Qwen2's q/k/v biases (``attention_bias``), added to the projection
+  before any LoRA delta;
+- a sliding window on every layer (Mistral v0.1: ``sliding_window``
+  without ``alternating_sliding``; the engine frees the blocks behind
+  the window, engine.py ``_roll_windows``);
+- mixture-of-experts MLPs (ops/moe.py): stacked experts ``gate``/``up``
+  ``[L, E, h, mi]`` and ``down`` ``[L, E, mi, h]`` behind a ``router``
+  ``[L, h, E]``; the tokens' valid mask keeps padding out of routing and
+  capacity; decode (T = 1) takes the exact all-expert path. Qwen2-MoE
+  adds an always-on shared expert (``s_gate``/``s_up`` ``[L, h, si]``,
+  ``s_down`` ``[L, si, h]``) scaled by ``sigmoid(hidden @ s_gate_w)``.
 
 Multi-LoRA (models/lora.py, JAX ``proj`` at ``llama.py:130-138``):
 ``forward`` and ``hidden`` take a batch's gathered adapter factors
@@ -59,6 +70,7 @@ from production_stack_tpu_torch.models.kv import (KVCache, chunk_addresses,
 from production_stack_tpu_torch.models.quant import (dequant_matmul,
                                                      dequant_rows,
                                                      is_quantized)
+from production_stack_tpu_torch.ops import moe
 from production_stack_tpu_torch.ops import paged_attention as pa
 from production_stack_tpu_torch.ops.attention import causal_attention
 from production_stack_tpu_torch.ops.norms import rms_norm
@@ -66,35 +78,32 @@ from production_stack_tpu_torch.ops.rope import rope_rows, rope_table, rotate
 from production_stack_tpu_torch.utils import resolve_device
 
 # per-layer weights, stacked on axis 0; the post norms exist only with
-# sandwich_norms (Gemma-2)
+# sandwich norms (Gemma-2), the biases with attention_bias (Qwen2), the
+# router and the stacked experts with num_experts, the shared expert with
+# shared_expert_size (Qwen2-MoE)
 LAYER_KEYS = ("attn_norm", "q", "k", "v", "o", "mlp_norm", "gate", "up",
-              "down", "post_attn_norm", "post_mlp_norm")
+              "down", "post_attn_norm", "post_mlp_norm", "q_bias",
+              "k_bias", "v_bias", "router", "s_gate", "s_up", "s_down",
+              "s_gate_w")
 NORM_KEYS = ("attn_norm", "mlp_norm", "post_attn_norm", "post_mlp_norm",
              "final_norm")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Refuse the family variations this port does not implement."""
-    unsupported = {
-        "num_experts": cfg.num_experts,
-        "attention_bias": cfg.attention_bias,
-        "sliding_window": (cfg.sliding_window
-                           and not cfg.alternating_sliding),
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"model {cfg.name!r} needs {', '.join(bad)}, which the port "
-            f"does not implement yet (dense models; a sliding window only "
-            f"on alternating layers)")
-
-
 def layer_window(cfg: ModelConfig, layer: int) -> int:
-    """Sliding window of one layer, 0 = full causal: Gemma-2's even
-    layers slide, its odd layers are global (JAX llama.py:361-363)."""
-    if cfg.sliding_window and layer % 2 == 0:
+    """Sliding window of one layer, 0 = full causal: every layer of a
+    model with a window (Mistral v0.1), or Gemma-2's even layers while
+    its odd layers are global (JAX llama.py:157-165,361-363)."""
+    if cfg.sliding_window and (not cfg.alternating_sliding
+                               or layer % 2 == 0):
         return cfg.sliding_window
     return 0
+
+
+def activation(cfg: ModelConfig):
+    """The MLP's gate activation: silu, or Gemma's gelu_tanh."""
+    if cfg.activation == "silu":
+        return F.silu
+    return lambda t: F.gelu(t, approximate="tanh")
 
 
 def attn_scale(cfg: ModelConfig) -> float:
@@ -105,18 +114,20 @@ def attn_scale(cfg: ModelConfig) -> float:
 
 
 class Llama(nn.Module):
-    """Parameters of one dense Llama-family model, JAX layout, no
-    gradients; the module-level ``forward`` runs them.
+    """Parameters of one Llama-family model, JAX layout, no gradients;
+    the module-level ``forward`` runs them.
 
     embed [V, H]; per layer (stacked on axis 0): attn_norm/mlp_norm
-    [L, H], q [L, H, NH*D], k/v [L, H, NKV*D], o [L, NH*D, H],
-    gate/up [L, H, I], down [L, I, H], and with sandwich norms
-    post_attn_norm/post_mlp_norm [L, H]; final_norm [H]; lm_head [H, V]
-    unless the embeddings are tied."""
+    [L, H], q [L, H, NH*D], k/v [L, H, NKV*D], o [L, NH*D, H]; a dense
+    MLP gate/up [L, H, I], down [L, I, H], or with experts gate/up
+    [L, E, H, MI], down [L, E, MI, H], router [L, H, E] and with a shared
+    expert s_gate/s_up [L, H, SI], s_down [L, SI, H], s_gate_w [L, H, 1];
+    with sandwich norms post_attn_norm/post_mlp_norm [L, H]; with
+    attention biases q_bias [L, NH*D], k_bias/v_bias [L, NKV*D];
+    final_norm [H]; lm_head [H, V] unless the embeddings are tied."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -125,11 +136,28 @@ class Llama(nn.Module):
         shapes = {
             "embed": (v, h), "attn_norm": (L, h), "q": (L, h, nh * hd),
             "k": (L, h, nkv * hd), "v": (L, h, nkv * hd),
-            "o": (L, nh * hd, h), "mlp_norm": (L, h), "gate": (L, h, i),
-            "up": (L, h, i), "down": (L, i, h), "final_norm": (h,),
+            "o": (L, nh * hd, h), "mlp_norm": (L, h),
         }
+        # insertion order is init_params' draw order: a dense model's
+        # leaves keep the order they had before the other families
+        E = cfg.num_experts
+        if E:
+            mi = cfg.moe_intermediate_size or i
+            shapes.update({"gate": (L, E, h, mi), "up": (L, E, h, mi),
+                           "down": (L, E, mi, h), "router": (L, h, E)})
+            if cfg.shared_expert_size:
+                si = cfg.shared_expert_size
+                shapes.update({"s_gate": (L, h, si), "s_up": (L, h, si),
+                               "s_down": (L, si, h), "s_gate_w": (L, h, 1)})
+        else:
+            shapes.update({"gate": (L, h, i), "up": (L, h, i),
+                           "down": (L, i, h)})
+        shapes["final_norm"] = (h,)
         if cfg.sandwich_norms:
             shapes["post_attn_norm"] = shapes["post_mlp_norm"] = (L, h)
+        if cfg.attention_bias:
+            shapes.update({"q_bias": (L, nh * hd), "k_bias": (L, nkv * hd),
+                           "v_bias": (L, nkv * hd)})
         if not cfg.tie_word_embeddings:
             shapes["lm_head"] = (h, v)
         for name, shape in shapes.items():
@@ -145,7 +173,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     (which must live on `device`) one layer at a time so the f32 draw
     never holds more than one layer's matrix. Norm gains are ones, or
     zeros where they are stored around an implicit 1 (rms_norm_offset),
-    as in the JAX init."""
+    as in the JAX init. Attention biases are drawn like the matrices
+    (the JAX init zeroes them), so a random model exercises them."""
     model = Llama(cfg, device=device)
     for name, p in model.named_parameters():
         if name in NORM_KEYS:
@@ -162,11 +191,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
            rows: Tuple[torch.Tensor, torch.Tensor], starts,
            cache: KVCache, block_tables, nb: int,
-           addresses: Tuple[torch.Tensor, torch.Tensor], lora=None):
+           addresses: Tuple[torch.Tensor, torch.Tensor], lora=None,
+           valid: Optional[torch.Tensor] = None):
     """One transformer block over the paged pool; rows = this chunk's
     rope rows and addresses = its KV write addresses, both shared by
     every layer. The chunk's K/V are written first, then the paged
-    kernels attend. lora: (gathered factors, scaling) or None."""
+    kernels attend. lora: (gathered factors, scaling) or None; valid:
+    the chunk's token mask [B,T] (MoE routing), or None."""
     def paged(q, k, v):
         if cache.quantized:
             k_pool, k_scales = write_at_q(cache.k[l], cache.ks[l], k,
@@ -183,15 +214,18 @@ def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
         return attn_fn(q, k_pool, v_pool, block_tables, starts, nb=nb,
                        scale=attn_scale(cfg), window=layer_window(cfg, l),
                        softcap=cfg.attn_logit_softcap or 0.0, **scales)
-    return _block(cfg, model, l, x, rows, paged, lora)
+    return _block(cfg, model, l, x, rows, paged, lora, valid)
 
 
 def _block(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
-           rows: Tuple[torch.Tensor, torch.Tensor], attend, lora=None):
+           rows: Tuple[torch.Tensor, torch.Tensor], attend, lora=None,
+           valid: Optional[torch.Tensor] = None):
     """Layer l on the residual stream x [B,T,H]: attend(q, k, v) ->
     [B,T,nh,hd] is the attention (the paged kernels in serving, the
     plain causal attention in encode). lora: (factors gathered for the
-    batch's rows, scaling), whose deltas join each targeted product."""
+    batch's rows, scaling), whose deltas join each targeted product;
+    valid [B,T] bool marks real tokens, which alone route to experts and
+    take their capacity (None: every token)."""
     B, T, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     eps = cfg.rms_norm_eps
@@ -199,6 +233,9 @@ def _block(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
 
     def proj(h, name):
         out = dequant_matmul(h, getattr(model, name)[l])
+        if cfg.attention_bias and name in ("q", "k", "v"):
+            # Qwen2: the bias comes before the adapter's delta
+            out = out + getattr(model, name + "_bias")[l]
         if lora is not None and name in lora[0]:
             a, b = lora[0][name]
             out = lora_mod.apply(h, out, a[l], b[l], lora[1])
@@ -214,13 +251,36 @@ def _block(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
         o_out = rms_norm(o_out, model.post_attn_norm[l], eps, off)
     x = x + o_out
     hidden = rms_norm(x, model.mlp_norm[l], eps, off)
-    gate = proj(hidden, "gate")
-    act = (F.silu(gate) if cfg.activation == "silu"
-           else F.gelu(gate, approximate="tanh"))
-    mlp_out = proj(act * proj(hidden, "up"), "down")
+    if cfg.num_experts:
+        return x + _moe_block(cfg, model, l, hidden, valid)
+    act = activation(cfg)
+    mlp_out = proj(act(proj(hidden, "gate")) * proj(hidden, "up"), "down")
     if cfg.sandwich_norms:
         mlp_out = rms_norm(mlp_out, model.post_mlp_norm[l], eps, off)
     return x + mlp_out
+
+
+def _moe_block(cfg: ModelConfig, model: Llama, l: int, hidden: torch.Tensor,
+               valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """The MoE MLP of layer l on the normed stream hidden [B,T,H] (JAX
+    llama.py:247-270): the routed experts over all B*T tokens at once,
+    exact at T == 1 (a decode step must never drop a live token), plus
+    Qwen2-MoE's shared expert scaled by sigmoid(hidden @ s_gate_w)."""
+    B, T, H = hidden.shape
+    act = activation(cfg)
+    y = moe.moe_mlp(
+        hidden.reshape(B * T, H), model.router[l], model.gate[l],
+        model.up[l], model.down[l], top_k=cfg.num_experts_per_tok,
+        capacity_factor=cfg.moe_capacity_factor, act=act,
+        valid=None if valid is None else valid.reshape(B * T),
+        renormalize=cfg.norm_topk_prob,
+        exact=True if T == 1 else None).reshape(B, T, H)
+    if cfg.shared_expert_size:
+        shared = dequant_matmul(
+            act(dequant_matmul(hidden, model.s_gate[l]))
+            * dequant_matmul(hidden, model.s_up[l]), model.s_down[l])
+        y = y + torch.sigmoid(hidden @ model.s_gate_w[l]) * shared
+    return y
 
 
 def forward(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
@@ -288,7 +348,7 @@ def hidden(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
     lora = None if lora_rows is None else (lora_rows, lora_scaling)
     for l in range(cfg.num_layers):
         x = _layer(cfg, model, l, x, rows, starts, cache, block_tables, nb,
-                   addresses, lora)
+                   addresses, lora, token_valid)
     return x
 
 
@@ -302,17 +362,17 @@ def final_logits(model: Llama, cfg: ModelConfig,
 
 
 def encode(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
-           rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-           ) -> torch.Tensor:
+           rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+           token_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence causal forward without the LM head (JAX
     ``llama.encode``): the final-normed hidden states [B,T,H] of tokens
     [B,T] at positions 0..T-1, no cache. The pooling routes mean-pool
     them (runner.embed). Attention is ops/attention.causal_attention,
-    plain PyTorch with Gemma-2's window and softcap, as the JAX encode
-    never reaches a Pallas kernel. Right padding needs no mask here: in
-    a dense model a pad token after the real ones cannot reach them
-    through causal attention (the JAX function's token_valid only
-    routes MoE experts), and the pooling leaves the pads out."""
+    plain PyTorch with the window and Gemma-2's softcap, as the JAX
+    encode never reaches a Pallas kernel. token_valid [B,T] marks the
+    real tokens of right-padded rows: a pad after the real tokens cannot
+    reach them through causal attention, but on a MoE model it would
+    route and take expert capacity, so the mask keeps it out of both."""
     device = tokens.device
     if rope is None:
         rope = rope_tensors(cfg, cfg.max_position_embeddings, device)
@@ -325,7 +385,7 @@ def encode(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
         def attend(q, k, v, w=layer_window(cfg, l)):
             return causal_attention(q, k, v, scale=scale, sliding_window=w,
                                     logit_softcap=cfg.attn_logit_softcap)
-        x = _block(cfg, model, l, x, rows, attend)
+        x = _block(cfg, model, l, x, rows, attend, valid=token_valid)
     return rms_norm(x, model.final_norm, cfg.rms_norm_eps,
                     1.0 if cfg.rms_norm_offset else 0.0)
 

@@ -2,10 +2,13 @@
 (``production_stack_tpu/models/quant.py:36-97``).
 
 - Symmetric per-output-channel int8 on every large matrix: q/k/v/o,
-  gate/up/down, lm_head, and the embedding per row (``quantize_embed``:
+  gate/up/down (a MoE model's expert stacks per expert, scale
+  ``[L, E, out]``), the shared expert, lm_head, and the embedding per
+  row (``quantize_embed``:
   one scale per vocab entry serves both the token gather and the tied
-  lm_head, where it lands on the logit axis). Norm gains stay in the
-  model dtype (``_SKIP_LAYER``, the JAX set).
+  lm_head, where it lands on the logit axis). Norm gains, the q/k/v
+  biases, the MoE router and the shared expert's gate vector stay in
+  the model dtype (``_SKIP_LAYER``, the JAX set).
 - Weight-only: activations stay in the model dtype. A projection
   computes ``(x @ w8.to(dtype)) * scale.to(dtype)``, which equals
   ``x @ (w8 * scale)``. XLA fuses the convert into the dot; here the
@@ -78,10 +81,14 @@ def is_quantized(w) -> bool:
 
 
 def dequant_matmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
-    """x @ w for a raw or quantized w, in x.dtype."""
+    """x @ w for a raw or quantized w, in x.dtype. A stack of matrices
+    (w8 [E, in, out] with scale [E, out], the MoE experts) takes x
+    [E or 1, C, in] to [E, C, out], each matrix's scale on its own
+    product (JAX ops/moe.py ``_edot``)."""
     if not is_quantized(w):
-        return x @ w
-    return (x @ w.w8.to(x.dtype)) * w.scale.to(x.dtype)
+        return torch.matmul(x, w)
+    return (torch.matmul(x, w.w8.to(x.dtype))
+            * w.scale.to(x.dtype).unsqueeze(-2))
 
 
 def dequant_rows(w: Weight, rows: torch.Tensor, dtype) -> torch.Tensor:

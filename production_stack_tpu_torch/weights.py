@@ -38,10 +38,12 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig,
                     device="cuda") -> Llama:
     """The JAX params pytree ({"embed", "layers": {...}, "final_norm",
     ["lm_head"]}, numpy leaves; the layers carry post_attn_norm and
-    post_mlp_norm with sandwich norms) as the port's Llama module in
-    cfg.dtype on `device`. A quantized leaf ({"w8", "scale"}) replaces
-    its parameter with a QuantizedWeight of the same int8 and f32
-    values."""
+    post_mlp_norm with sandwich norms, q_bias/k_bias/v_bias with
+    attention biases, router and the [L, E, ...] expert stacks with
+    experts, s_gate/s_up/s_down/s_gate_w with a shared expert) as the
+    port's Llama module in cfg.dtype on `device`. A quantized leaf
+    ({"w8", "scale"}, an expert stack's scale [L, E, out]) replaces its
+    parameter with a QuantizedWeight of the same int8 and f32 values."""
     model = Llama(cfg, device=device)
     with torch.no_grad():
         for name, p in list(model.named_parameters()):

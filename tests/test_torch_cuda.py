@@ -467,3 +467,114 @@ def test_mixed_adapter_batch_on_the_card_equals_the_cpu(cuda):
     assert (c[2] - g[2]).abs().max().item() <= 1e-4
     assert torch.equal(g[1][1], g[1][3])
     assert not torch.equal(g[1][1], g[1][2])
+
+
+# ------------------------- MHA, seven groups, rolled tables and the MoE
+
+def _geometry_case(dev, T, Hkv, G, D, dtype, lens, Bs=64, seed=0):
+    """_case with Hkv kv heads: B = len(lens) + 1 rows, the last parked."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lens) + 1
+    MB = -(-(max(lens) + T + 1) // Bs) + 1
+    N = B * MB + 2
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    k, v = rnd(N, Hkv, Bs, D), rnd(N, Hkv, Bs, D)
+    tables = (torch.randperm(N - 1, generator=g, device=dev)[:B * MB]
+              + 1).reshape(B, MB).to(torch.int32)
+    starts = torch.tensor(list(lens) + [MB * Bs + 1], dtype=torch.int32,
+                          device=dev)
+    pos = starts[:, None].long() + torch.arange(T, device=dev)
+    write_chunk(k, rnd(B, T, Hkv, D), tables, pos)
+    write_chunk(v, rnd(B, T, Hkv, D), tables, pos)
+    nb = min(-(-(max(lens) + T) // Bs), MB)
+    return rnd(B, T, Hkv * G, D), k, v, tables, starts, nb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn,T,Hkv,G,D", [
+    # G = 1: Qwen1.5-MoE (16 kv heads, D = 128), Gemma-7B (D = 256); the
+    # bf16 prefill tile holds 64 positions of one head
+    (pa.paged_decode_attention, 1, 16, 1, 128),
+    (pa.paged_decode_attention, 8, 16, 1, 128),
+    (pa.paged_attention, 130, 16, 1, 128),
+    (pa.paged_decode_attention, 1, 4, 1, 256),
+    (pa.paged_attention, 100, 4, 1, 256),
+    # G = 7: Qwen2-7B; 63 live rows of the prefill tile (block_q 9)
+    (pa.paged_decode_attention, 1, 4, 7, 128),
+    (pa.paged_decode_attention, 8, 4, 7, 128),
+    (pa.paged_attention, 9, 4, 7, 128),
+    (pa.paged_attention, 100, 4, 7, 128),
+])
+def test_kernels_at_mha_and_seven_groups_match_plain_version(cuda, fn, T,
+                                                             Hkv, G, D,
+                                                             dtype):
+    q, k, v, tables, starts, nb = _geometry_case(cuda, T, Hkv, G, D, dtype,
+                                                 (70, 5, 300))
+    got = fn(q, k, v, tables, starts, nb=nb)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(q, k, v, tables, starts, nb)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn,T,G,Bs,lens,window", [
+    (pa.paged_decode_attention, 1, 4, 16, (300, 170, 517), 40),
+    (pa.paged_decode_attention, 8, 4, 16, (300, 170, 517), 40),
+    (pa.paged_attention, 9, 4, 16, (300, 170, 517), 40),
+    (pa.paged_attention, 70, 4, 16, (300, 170, 517), 40),
+    (pa.paged_decode_attention, 1, 4, 64, (4600, 10, 2000), 4096),
+])
+def test_kernels_over_rolled_tables_match_the_intact_ones(cuda, fn, T, G,
+                                                          Bs, lens, window,
+                                                          dtype):
+    """The engine's rolling points the table entries of blocks wholly
+    behind a row's window at trash block 0 (engine._roll_windows): over
+    such a table, with the trash block full of 1e4, the kernels give the
+    plain version's output over the intact table."""
+    q, k, v, tables, starts, nb = _geometry_case(cuda, T, 2, G, 128, dtype,
+                                                 lens, Bs=Bs)
+    k[0] = 1.0e4
+    v[0] = 1.0e4
+    rolled = tables.clone()
+    MB = tables.shape[1]
+    for b, s in enumerate(starts.tolist()):
+        rolled[b, :MB if s >= MB * Bs else max(s - window + 1, 0) // Bs] = 0
+    assert (rolled[0] == 0).any()
+    got = fn(q, k, v, rolled, starts, nb=nb, window=window)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(q, k, v, tables, starts, nb,
+                                    window=window)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_moe_on_the_card_equals_the_cpu(cuda, exact):
+    """ops/moe.moe_mlp in float32 on the card against the same call on
+    the CPU (1e-5): the same expert ids, and in the dispatch (factor 0.5,
+    padding masked) the same drop set."""
+    from production_stack_tpu_torch.ops import moe
+    g = torch.Generator().manual_seed(3)
+    N, h, E, i = 96, 32, 4, 64
+    x = torch.randn((N, h), generator=g)
+    rw = torch.randn((h, E), generator=g) * 0.2
+    gate, up = (torch.randn((E, h, i), generator=g) * 0.1 for _ in range(2))
+    down = torch.randn((E, i, h), generator=g) * 0.1
+    valid = torch.arange(N) < 80
+    kw = dict(top_k=2, capacity_factor=0.5,
+              dense_threshold=1000 if exact else 1)
+    args = (x, rw, gate, up, down)
+    want = moe.moe_mlp(*args, valid=valid, **kw)
+    got = moe.moe_mlp(*(t.to(cuda) for t in args), valid=valid.to(cuda),
+                      **kw)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+    ids_c = moe.route(x, rw, 2)[1]
+    ids_g = moe.route(x.to(cuda), rw.to(cuda), 2)[1]
+    assert torch.equal(ids_g.cpu(), ids_c)
+    cap = moe.capacity_for(N, E, 2, 0.5)
+    assert torch.equal(moe.dispatch_plan(ids_g, E, cap, valid.to(cuda)).cpu(),
+                       moe.dispatch_plan(ids_c, E, cap, valid))

@@ -3,12 +3,14 @@ params from random-init ``transformers`` models (Llama and Gemma-2,
 the configurations of tests/test_model_numerics.py and
 tests/test_gemma2.py) equal the JAX loader's bit for bit in float32,
 and the port's logits equal HF's within JAX's tolerance there (1e-2);
-the port's own safetensors reader and writer against the
-``safetensors`` package (F32, F16, BF16, two shards); the .bin
-fallback, the errors; an engine started on a checkpoint directory
-(greedy tokens equal the JAX engine's on the same directory, exactly);
-and the families the port does not implement refused before any file
-is read.
+Mixtral, Qwen2 (q/k/v biases), Qwen2-MoE (shared expert) and Mistral
+with a sliding window, saved by ``transformers`` and read back through
+the port's reader, equal the JAX loader's output on the same files (and
+their logits JAX's to 1e-4, HF's to 1e-2); the port's own safetensors
+reader and writer against the ``safetensors`` package (F32, F16, BF16,
+two shards); the .bin fallback, the errors; an engine started on a
+checkpoint directory (greedy tokens equal the JAX engine's on the same
+directory, exactly).
 """
 
 import os
@@ -28,6 +30,7 @@ from production_stack_tpu.engine import engine as jengine
 from production_stack_tpu.engine.scheduler import (
     SamplingOptions as JSamplingOptions)
 from production_stack_tpu.models import hf_loader as jloader
+from production_stack_tpu.models import llama as jllama
 from production_stack_tpu.models.config import ModelConfig as JModelConfig
 from production_stack_tpu_torch.engine import config as tec
 from production_stack_tpu_torch.engine import engine as tengine
@@ -187,14 +190,127 @@ def test_bin_fallback_and_errors(tmp_path):
 
 @pytest.mark.parametrize("preset", ["qwen2-7b", "debug-moe"])
 def test_unported_families_refused_before_reading(tmp_path, preset):
-    """Qwen2's q/k/v bias and MoE raise NotImplementedError before any
-    file is read (the directory does not even exist)."""
-    cfg = tconfig.get_config(preset)
-    with pytest.raises(NotImplementedError):
-        tloader.load_checkpoint(cfg, str(tmp_path / "missing"),
+    """Qwen2's q/k/v bias and MoE are no longer refused before reading:
+    a missing directory raises FileNotFoundError from the reader, and a
+    checkpoint of the family without its bias or expert tensors raises
+    KeyError naming the first one missing, as the JAX loader does."""
+    family = {"qwen2-7b": "qwen2", "debug-moe": "mixtral"}[preset]
+    hf_cfg, model = FAMILIES[family]()
+    tcfg = tconfig.ModelConfig.from_hf_config(hf_cfg.to_dict(),
+                                              dtype=torch.float32)
+    assert tcfg.attention_bias if family == "qwen2" else tcfg.num_experts
+    with pytest.raises(FileNotFoundError):
+        tloader.load_checkpoint(tcfg, str(tmp_path / "missing"),
                                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        tloader.params_from_state_dict(cfg, {}, device="cpu")
+    gone = "q_proj.bias" if family == "qwen2" else "experts.1.w3"
+    partial = {k: v for k, v in model.state_dict().items() if gone not in k}
+    with pytest.raises(KeyError, match=gone):
+        tloader.params_from_state_dict(tcfg, partial, device="cpu")
+    with pytest.raises(KeyError, match=gone):
+        jloader.params_from_state_dict(
+            JModelConfig.from_hf_config(hf_cfg.to_dict(),
+                                        dtype=jnp.float32), partial)
+
+
+# ----------------------------------------------- MoE, bias, window families
+
+def _mixtral_hf():
+    hf_cfg = transformers.MixtralConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128, rms_norm_eps=1e-5, rope_theta=10000.0,
+        num_local_experts=4, num_experts_per_tok=2,
+        tie_word_embeddings=False, attn_implementation="eager")
+    torch.manual_seed(3)
+    return hf_cfg, transformers.MixtralForCausalLM(hf_cfg).eval().float()
+
+
+def _qwen2_hf():
+    hf_cfg = transformers.Qwen2Config(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128, rms_norm_eps=1e-6, rope_theta=10000.0,
+        tie_word_embeddings=False, attn_implementation="eager")
+    torch.manual_seed(5)
+    return hf_cfg, _random_biases(
+        transformers.Qwen2ForCausalLM(hf_cfg).eval().float())
+
+
+def _qwen2_moe_hf():
+    hf_cfg = transformers.Qwen2MoeConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        moe_intermediate_size=48, shared_expert_intermediate_size=96,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128, rms_norm_eps=1e-5, rope_theta=10000.0,
+        num_experts=4, num_experts_per_tok=2, norm_topk_prob=False,
+        decoder_sparse_step=1, mlp_only_layers=[],
+        tie_word_embeddings=False, attn_implementation="eager")
+    torch.manual_seed(4)
+    return hf_cfg, _random_biases(
+        transformers.Qwen2MoeForCausalLM(hf_cfg).eval().float())
+
+
+def _mistral_hf():
+    hf_cfg = transformers.MistralConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=128, rms_norm_eps=1e-5, rope_theta=10000.0,
+        sliding_window=16, tie_word_embeddings=False,
+        attn_implementation="eager")
+    torch.manual_seed(6)
+    return hf_cfg, transformers.MistralForCausalLM(hf_cfg).eval().float()
+
+
+def _random_biases(model):
+    """HF initialises the q/k/v biases to zero: draw them, so the bias
+    path moves the logits."""
+    with torch.no_grad():
+        for layer in model.model.layers:
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                getattr(layer.self_attn, proj).bias.normal_(0.0, 0.1)
+    return model
+
+
+FAMILIES = {"mixtral": _mixtral_hf, "qwen2": _qwen2_hf,
+            "qwen2_moe": _qwen2_moe_hf, "mistral": _mistral_hf}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_family_checkpoint_loads_as_the_jax_loader_reads_it(tmp_path,
+                                                            family):
+    """transformers writes the model (config.json + model.safetensors);
+    the port's reader and the JAX loader (the safetensors package) read
+    the same files: every parameter bit-equal in float32, the port's
+    logits of a 40-token prompt (past Mistral's 16-token window) within
+    1e-4 of the JAX forward's and 1e-2 of HF's."""
+    hf_cfg, model = FAMILIES[family]()
+    model.save_pretrained(str(tmp_path))
+    d = hf_cfg.to_dict()
+    jcfg = JModelConfig.from_hf_config(d, name=family, dtype=jnp.float32)
+    tcfg = tconfig.ModelConfig.from_hf_config(d, name=family,
+                                              dtype=torch.float32)
+    if family == "mistral":
+        assert tcfg.sliding_window == 16 and not tcfg.alternating_sliding
+    jparams = jloader.load_checkpoint(jcfg, str(tmp_path))
+    tparams = tloader.load_checkpoint(tcfg, str(tmp_path), device="cpu")
+    for name, p in tparams.named_parameters():
+        src = (jparams["layers"][name] if name in tllama.LAYER_KEYS
+               else jparams[name])
+        np.testing.assert_array_equal(p.numpy(), np.asarray(src))
+    toks = np.random.default_rng(4).integers(0, 256, size=(2, 40))
+    with torch.no_grad():
+        ref = model(torch.tensor(toks)).logits.numpy()
+    cache, tables = make_slot_cache(
+        tcfg.num_layers, 2, 48, tcfg.num_kv_heads, tcfg.head_dim_,
+        dtype=torch.float32, block_size=16, device="cpu")
+    logits, _ = tllama.forward(
+        tparams, tcfg, torch.from_numpy(toks).to(torch.int32),
+        torch.arange(40, dtype=torch.int32)[None].expand(2, -1), cache,
+        block_tables=tables, kv_len=48)
+    want = np.asarray(jllama.forward_train(jparams, jcfg,
+                                           jnp.asarray(toks)))
+    np.testing.assert_allclose(logits.numpy(), want, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(logits.numpy(), ref, atol=1e-2, rtol=0)
 
 
 def test_checkpoint_engine_tokens_equal_jax(tmp_path):

@@ -96,22 +96,45 @@ def test_gemma2_params_from_jax_round_trip():
 
 
 def test_unsupported_families_raise():
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        tllama.Llama(tconfig.get_config("debug-sliding"))
-    with pytest.raises(NotImplementedError, match="num_experts"):
-        tllama.Llama(tconfig.get_config("debug-moe"))
+    """The port builds every family the JAX package serves (MoE, q/k/v
+    biases, a window on every layer); what both refuse, a family outside
+    the Llama line or a Qwen2-MoE with dense layers between its sparse
+    ones, raises in the port's config as in the JAX one."""
+    for preset in ("debug-sliding", "debug-moe", "qwen2-7b",
+                   "qwen1.5-moe-a2.7b", "mixtral-8x7b", "mistral-7b-v0.1"):
+        full = tconfig.get_config(preset)
+        cfg = dataclasses.replace(
+            full, num_layers=1, vocab_size=64, hidden_size=32,
+            intermediate_size=32, head_dim=8,
+            moe_intermediate_size=16 if full.moe_intermediate_size else None,
+            shared_expert_size=16 if full.shared_expert_size else 0)
+        names = dict(tllama.Llama(cfg, device="cpu").named_parameters())
+        assert ("router" in names) == bool(cfg.num_experts)
+        assert ("q_bias" in names) == cfg.attention_bias
+    for bad in ({"model_type": "bert", "vocab_size": 64, "hidden_size": 32,
+                 "intermediate_size": 64, "num_hidden_layers": 2,
+                 "num_attention_heads": 2},
+                {"model_type": "qwen2_moe", "vocab_size": 64,
+                 "hidden_size": 32, "intermediate_size": 64,
+                 "num_hidden_layers": 4, "num_attention_heads": 2,
+                 "num_experts": 4, "decoder_sparse_step": 2}):
+        for mc in (tconfig.ModelConfig, jconfig.ModelConfig):
+            with pytest.raises(ValueError):
+                mc.from_hf_config(bad)
 
 
 def test_gemma2_served_and_every_layer_window_refused():
-    """Gemma-2 (a window on alternating layers) builds; the same model
-    with a window on every layer (Mistral v0.1's pattern, whose engine
-    frees blocks behind the window) is refused by name."""
+    """Gemma-2 (a window on alternating layers) builds with its window
+    on the even layers only; the same model with a window on every layer
+    (Mistral v0.1's pattern, whose engine frees blocks behind the
+    window) is no longer refused: every layer takes the window, as the
+    JAX forward windows it."""
     cfg = tconfig.get_config("debug-gemma2")
     tllama.Llama(cfg, device="cpu")
     assert [tllama.layer_window(cfg, l) for l in range(4)] == [64, 0, 64, 0]
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        tllama.Llama(dataclasses.replace(cfg, alternating_sliding=False),
-                     device="cpu")
+    every = dataclasses.replace(cfg, alternating_sliding=False)
+    tllama.Llama(every, device="cpu")
+    assert [tllama.layer_window(every, l) for l in range(4)] == [64] * 4
 
 
 @pytest.mark.parametrize("dtype,tie", [("float32", False),
