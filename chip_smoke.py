@@ -116,7 +116,24 @@
      encode and padding-independent; with adapters, the .npz adapter's
      bf16 logits through the kernels against an f32 forward with the
      same adapter, and each adapter row of the mixed batch against the
-     same request served alone (equal, or parting at a near-tie).
+     same request served alone (equal, or parting at a near-tie);
+5. kvtier: KV tiering and disaggregated prefill at Llama-3-8B's full
+   width and depth (KVTIER; one weight set shared by five engines):
+   the port's cache server as a subprocess; a producer with a host and
+   the remote tier serves a 3,000-token and a 2,048-token prompt through
+   its HTTP server with max_tokens = 1 (the router's prefill stage);
+   a consumer on the remote tier serves each with 24 greedy tokens
+   from hits of 2,816 and 2,047 tokens (its injected blocks, re-extracted,
+   equal the producer's chunk bytes bit for bit; the suffix through the
+   prefill kernel, the 1-token suffix at its 16-token bucket, decode
+   over the injected blocks), its tokens against a recompute engine's
+   (equal, or parting at a near-tie); an int8-pool consumer takes the
+   same bf16 chunks; migrate_out of a decoding sequence on the producer
+   and warm of its keys on the consumer, the victim re-admitted by
+   injection; then extract_chunk / inject_chunk per chunk (bf16 and
+   int8 pools), pinned D2H / H2D, each tier's put and get rates and
+   each codec's times and ratio on one chunk, and TTFT with the hit
+   and without it.
 
 Progress goes to stdout; the line before the last two is the kernels'
 JSON record, then the card's name and power limit, then the result.
@@ -2152,29 +2169,12 @@ def reference_phase(engine, path: str, surface: dict):
         return logits[0]
 
     def tail_logits(params, mcfg, ids, n, lora=None):
-        """f32 logits [n, V] of the distributions of the last n tokens of
-        `ids` (positions len-1-n .. len-2), through a pool of its own,
-        prefill_chunk at a time, and the plain attention; lora: an
+        """plain_tail_logits over a pool of the path's KV dtype; lora: an
         adapter id whose factors join the forward."""
-        T = len(ids)
-        cache, tables = pool(mcfg, -(-T // Bs) * Bs)
-        t = torch.tensor([ids], device=dev)
-        rows = []
-        ad = adapter(lora, mcfg.dtype)
-        with attention("plain"):
-            for lo in range(0, T - 1, chunk):
-                hi = min(lo + chunk, T - 1)
-                x = llama.hidden(params, mcfg, t[:, lo:hi],
-                                 torch.arange(lo, hi, device=dev)[None],
-                                 cache, block_tables=tables,
-                                 rope=runner.rope, kv_len=-(-T // Bs) * Bs,
-                                 **ad)
-                first = max(lo, T - 1 - n)
-                if first < hi:
-                    rows.append(llama.final_logits(
-                        params, mcfg, x[:, first - lo:])[0])
-        del cache
-        return torch.cat(rows).float()
+        return plain_tail_logits(
+            runner, params, mcfg, ids, n,
+            kv_dtype if kv_dtype == torch.int8 else mcfg.dtype,
+            **adapter(lora, mcfg.dtype))
 
     def pooled_plain(params, mcfg, ids):
         """The mean over `ids` of the final-normed hidden states of one
@@ -3097,6 +3097,514 @@ def checkpoint_phase(device="cuda"):
 
 # ------------------------------------------------------------ main
 
+# ------------------------------------------------------------ kvtier
+
+# the KV-tier phase: Llama-3-8B at full width and depth, one weight set
+# shared by every engine of the phase. The prompts: long_tokens = 3,000
+# (11 chunks of 256: 2,816 cached tokens, 352 MiB of bf16 chunks on the
+# wire, a 184-token suffix through the prefill kernel) and whole_tokens
+# = 2,048 (8 whole chunks, hits capped at 2,047: a 1-token suffix,
+# padded to the 16-token prefill bucket, then decode at T = 1 over the
+# injected blocks); migrate_tokens = 1,100 for the kvplane migration
+KVTIER = dict(
+    model="llama-3-8b",
+    serve=dict(max_num_seqs=4, max_model_len=4096, prefill_chunk=512,
+               decode_window=8, kv_block_size=64, seed=0),
+    chunk_size=256, long_tokens=3000, whole_tokens=2048,
+    migrate_tokens=1100, gen_tokens=24, local_cpu_gb=2.0,
+    server_capacity_gb=4.0, store_chunks=4)
+
+
+def kvtier_prompt(n: int, seed: int, vocab: int) -> list:
+    import random
+    rnd = random.Random(seed)
+    return [rnd.randrange(vocab) for _ in range(n)]
+
+
+def _start_cache_server(capacity_gb: float):
+    """The port's cache server as a subprocess (the native pskv-server
+    where native/ builds, else the asyncio server); (process, url)."""
+    from production_stack_tpu_torch.kvcache.store import RemoteStore
+    port = free_port()
+    # its log goes to a file: a pipe nobody drains could stall it
+    log_path = os.path.join(REPO, "build", "kvtier_cache_server.log")
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    with open(log_path, "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "production_stack_tpu_torch.kvcache.server", "--host",
+             "127.0.0.1", "--port", str(port), "--capacity-gb",
+             str(capacity_gb)], cwd=REPO, stdout=subprocess.DEVNULL,
+            stderr=err)
+    url = f"tpukv://127.0.0.1:{port}"
+    t0 = time.monotonic()
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), 0.5).close()
+            break
+        except OSError:
+            if proc.poll() is not None or time.monotonic() - t0 > 150:
+                proc.kill()
+                proc.wait(timeout=10)
+                with open(log_path, "rb") as f:
+                    tail = f.read()[-2000:].decode(errors="replace")
+                raise AssertionError(f"the cache server did not start: "
+                                     f"{tail}")
+            time.sleep(0.1)
+    probe = RemoteStore(url)
+    if not probe.ping():
+        proc.kill()
+        proc.wait(timeout=10)
+        raise AssertionError("the cache server does not answer a ping")
+    probe.close()
+    return proc, url
+
+
+def plain_tail_logits(runner, params, mcfg, ids, n, pool_dtype, **lora):
+    """f32 logits [n, V] of the distributions of the last n tokens of
+    `ids` (positions len-1-n .. len-2), teacher-forced through the plain
+    attention over a pool of its own (pool_dtype: the model's, or
+    torch.int8), prefill_chunk at a time; lora: llama.hidden's
+    lora_rows and lora_scaling. near_tie_check's inputs."""
+    import torch
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.kv import make_slot_cache
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    dev = runner.device
+    chunk, Bs = runner.engine_cfg.prefill_chunk, 64
+    T = len(ids)
+    span = -(-T // Bs) * Bs
+    cache, tables = make_slot_cache(
+        mcfg.num_layers, 1, span, mcfg.num_kv_heads, mcfg.head_dim_,
+        dtype=pool_dtype, block_size=Bs, device=dev)
+
+    def plain(q, k, v, tables, starts, *, nb, scale=None, window=0,
+              softcap=0.0, k_scales=None, v_scales=None):
+        return pa.paged_attention_plain(q, k, v, tables, starts, nb, scale,
+                                        window, softcap, k_scales, v_scales)
+    saved = (pa.paged_attention, pa.paged_decode_attention)
+    pa.paged_attention = pa.paged_decode_attention = plain
+    rows = []
+    try:
+        t = torch.tensor([ids], device=dev)
+        with torch.no_grad():
+            for lo in range(0, T - 1, chunk):
+                hi = min(lo + chunk, T - 1)
+                x = llama.hidden(params, mcfg, t[:, lo:hi],
+                                 torch.arange(lo, hi, device=dev)[None],
+                                 cache, block_tables=tables,
+                                 rope=runner.rope, kv_len=span, **lora)
+                first = max(lo, T - 1 - n)
+                if first < hi:
+                    rows.append(llama.final_logits(
+                        params, mcfg, x[:, first - lo:])[0])
+    finally:
+        pa.paged_attention, pa.paged_decode_attention = saved
+    del cache
+    return torch.cat(rows).float()
+
+
+def _tokens_check(served, recompute_eng, prompt, want_tokens):
+    """served tokens against the recompute engine's (the same weights and
+    pool dtype, no tiers): equal, or parting at a near-tie within the
+    bf16 bound (near_tie_check over f32 and served-dtype teacher-forced
+    logits of the recompute sequence, computed only where they part)."""
+    import dataclasses
+
+    import torch
+    if served == want_tokens:
+        return {"tokens": len(served), "differ_at": None, "ok": True}
+    eng = recompute_eng
+    runner, mcfg = eng.runner, eng.model_cfg
+    pool = torch.int8 if runner.cache.quantized else mcfg.dtype
+    ids = prompt + want_tokens
+    l32 = plain_tail_logits(
+        runner, Upcast(runner.params),
+        dataclasses.replace(mcfg, dtype=torch.float32), ids,
+        len(want_tokens), torch.int8 if pool == torch.int8
+        else torch.float32)
+    l16 = plain_tail_logits(runner, runner.params, mcfg, ids,
+                             len(want_tokens), pool)
+    return near_tie_check(want_tokens, served, l32, l16)
+
+
+def _serve_direct(eng, prompt, max_tokens):
+    """One greedy request through the engine loop, driven here: (tokens,
+    TTFT seconds from add_request, which pays the tier prefetch, to the
+    first token; the sequence)."""
+    from production_stack_tpu_torch.engine.scheduler import SamplingOptions
+    t0 = time.monotonic()
+    sid = eng.add_request(list(prompt), SamplingOptions(
+        temperature=0.0, max_tokens=max_tokens, ignore_eos=True))
+    ttft = None
+    while eng.has_work:
+        outs = eng.step()
+        if ttft is None and any(o.seq_id == sid and o.new_token is not None
+                                for o in outs):
+            ttft = time.monotonic() - t0
+    seq = eng.seqs[sid]
+    return list(seq.output_tokens), ttft, seq
+
+
+def _counted(fn):
+    """(fn's result, the paged kernels' launches and prefill launches at
+    T = 16 while it ran): the counts are zeroed just before."""
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    pa.reset_launch_counts()
+    out = fn()
+    return out, {"launches": dict(pa.launch_counts),
+                 "int8_launches": dict(pa.int8_launches),
+                 "prefill_T16": pa.verify_launches["paged_attention"].get(
+                     16, 0)}
+
+
+def kvtier_measure(device, consumer, consumer8, url) -> dict:
+    """The tier path's pieces on one Llama chunk (256 tokens, 32 MiB of
+    bf16 K and V): extract_chunk and inject_chunk over the bf16 and the
+    int8 pool (four slots on distinct blocks in turn, 128 MiB, so the L2
+    holds no chunk of the previous call), the pinned D2H and H2D copies,
+    each tier's put and get rates (host, disk, remote; host clock), and
+    each codec's encode and decode time and ratio; which backend the
+    host tier runs on."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+    from production_stack_tpu_torch.kvcache import codec as kvcodec
+    from production_stack_tpu_torch.kvcache.connector import tensor_bytes
+    from production_stack_tpu_torch.kvcache.store import (DiskStore,
+                                                          HostMemoryStore,
+                                                          RemoteStore)
+    C = KVTIER["chunk_size"]
+    out = {}
+    for name, eng in (("bf16", consumer), ("int8", consumer8)):
+        runner = eng.runner
+        B, MB = eng._tables.shape
+        nblk = C // eng.cfg.kv_block_size
+        tables = np.zeros((B, MB), np.int32)
+        for s in range(B):
+            tables[s, :nblk] = 1 + s * nblk + np.arange(nblk)
+        runner.set_block_tables(tables)
+        k, v = runner.extract_chunk(0, 0, C)
+        out[f"extract_ms_{name}"] = time_ms(
+            lambda i=0: runner.extract_chunk(i % B, 0, C), 16)
+        out[f"inject_ms_{name}"] = time_ms(
+            lambda i=0: runner.inject_chunk(i % B, 0, k, v), 16)
+        runner.set_block_tables(eng._tables)
+        wire = k.nbytes + v.nbytes
+        # the pool side: bf16 K and V, or int8 K and V with an f32 scale
+        # per (layer, token, head)
+        pool = wire if name == "bf16" else wire // 2 + 2 * (
+            k.numel() // k.shape[-1]) * 4
+        # either way the chunk's pool bytes cross HBM one way and its
+        # wire bytes the other: the least time at the card's HBM rate
+        out[f"bound_ms_{name}"] = 1e3 * (wire + pool) / HBM_BPS
+        if name == "bf16":
+            chunk_k, chunk_v = k, v
+    out["chunk_bytes"] = wire
+    if chunk_k.is_cuda:
+        host = torch.empty(chunk_k.shape, dtype=chunk_k.dtype,
+                           pin_memory=True)
+        dev = torch.empty_like(chunk_k)
+        d2h = time_ms(lambda i=0: host.copy_(chunk_k, non_blocking=True),
+                      16)
+        h2d = time_ms(lambda i=0: dev.copy_(host, non_blocking=True), 16)
+        out["d2h_gbps"] = chunk_k.nbytes / d2h / 1e6
+        out["h2d_gbps"] = chunk_k.nbytes / h2d / 1e6
+    body = tensor_bytes(chunk_k.cpu()) + tensor_bytes(chunk_v.cpu())
+    value = body + hashlib.blake2b(body, digest_size=8).digest()
+    disk_dir = os.path.join(REPO, "build", "kvtier_disk")
+    shutil.rmtree(disk_dir, ignore_errors=True)
+    tiers = {"cpu": HostMemoryStore(1 << 32),
+             "disk": DiskStore(disk_dir, 1 << 34),
+             "remote": RemoteStore(url, io_timeout=30.0)}
+    out["host_store_backend"] = tiers["cpu"].backend
+    m = KVTIER["store_chunks"]
+    for name, st in tiers.items():
+        keys = [b"kvtier-%s-%d" % (name.encode(), i) for i in range(m)]
+        t0 = time.perf_counter()
+        for key in keys:
+            assert st.put(key, value), name
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for key in keys:
+            assert st.get(key) == value, name
+        get_s = time.perf_counter() - t0
+        out[f"{name}_put_gbps"] = m * len(value) / put_s / 1e9
+        out[f"{name}_get_gbps"] = m * len(value) / get_s / 1e9
+        for key in keys:
+            st.delete(key)
+        st.close()
+    shutil.rmtree(disk_dir, ignore_errors=True)
+    codecs = {}
+    for name in kvcodec.codec_names():
+        c = kvcodec.make_codec(name, dtype="bfloat16",
+                               head_dim=chunk_k.shape[-1])
+        t0 = time.perf_counter()
+        payload = kvcodec.encode_payload(c, body)
+        enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = kvcodec.decode_payload(c, payload, len(body))
+        dec = time.perf_counter() - t0
+        assert back is not None and len(back) == len(body), name
+        codecs[name] = {"encode_ms": 1e3 * enc, "decode_ms": 1e3 * dec,
+                        "ratio": len(body) / len(payload)}
+    out["codecs"] = codecs
+    return out
+
+
+def kvtier_phase(device="cuda", cfg=None):
+    """KV tiering and disaggregated prefill on the card (KVTIER): the
+    port's cache server as a subprocess; a producer (kv_both: a host
+    tier and the remote tier; a kv_producer's migrated victim could not
+    re-admit from the tiers, since prefetch is a consumer's), a consumer
+    (the remote tier), a second consumer over an int8 pool, and two
+    recompute engines without tiers (bf16 and int8 pools), all on one
+    Llama-3-8B weight set.
+
+    - kvplane first, on the producer driven here: migrate_out of a
+      decoding sequence publishes and preempts it; the consumer warms
+      its keys; the victim re-admits by injection and finishes.
+    - The producer serves the 3,000-token and the 2,048-token prompts
+      through the port's HTTP server with max_tokens = 1, as the
+      router's prefill stage sends them: chunks reach the tiers while
+      later chunks still prefill (progress_published_chunks > 0).
+    - The consumer serves each with 24 greedy tokens: hits of 2,816 and
+      2,047 tokens; the injected blocks, re-extracted, equal the
+      producer's chunk bytes (its host tier's copy) bit for bit; the
+      suffix launches the prefill kernel (the 1-token suffix at T = 16,
+      its bucket) and decode the decode kernel over the injected
+      blocks; the tokens equal the recompute engine's or part at a
+      near-tie (near_tie_check). TTFT with the hit and without it (the
+      recompute engine), and the prefetch wait.
+    - The int8 consumer takes the bf16 producer's chunks (the namespace
+      is the wire dtype's) into its int8 pool: hit 2,816, tokens against
+      the int8 recompute engine by the same rule.
+    - kvtier_measure's rates.
+
+    The engines and the server process are released before returning;
+    any failed check raises."""
+    import hashlib
+
+    from aiohttp import web
+    from production_stack_tpu_torch.engine.async_engine import \
+        AsyncLLMEngine
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.scheduler import SamplingOptions
+    from production_stack_tpu_torch.engine.server import build_app
+    from production_stack_tpu_torch.kvcache._native import server_binary
+    from production_stack_tpu_torch.kvcache.connector import tensor_bytes
+    cfg = cfg or KVTIER
+    t_phase = time.monotonic()
+    C, G = cfg["chunk_size"], cfg["gen_tokens"]
+    proc, url = _start_cache_server(cfg["server_capacity_gb"])
+    engines = []
+    try:
+        def engine(kv=None, params=None, **kw):
+            e = AsyncLLMEngine(EngineConfig(
+                model=cfg["model"], device=device,
+                **dict(cfg["serve"], **kw), kv_transfer_config=kv),
+                params=params)
+            e.engine.runner.warmup()
+            engines.append(e)
+            return e
+        tier = {"chunk_size": C, "remote_url": url,
+                "remote_io_timeout_s": 30.0, "prefetch_timeout_s": 30.0}
+        t0 = time.monotonic()
+        prod = engine(dict(tier, kv_role="kv_both",
+                           local_cpu_gb=cfg["local_cpu_gb"]))
+        params = prod.engine.runner.params
+        cons = engine(dict(tier, kv_role="kv_consumer"), params)
+        cons8 = engine(dict(tier, kv_role="kv_consumer"), params,
+                       kv_dtype="int8")
+        rec = engine(None, params)
+        rec8 = engine(None, params, kv_dtype="int8")
+        ready_s = time.monotonic() - t0
+        V = prod.engine.model_cfg.vocab_size
+        long_p = kvtier_prompt(cfg["long_tokens"], 31, V)
+        whole_p = kvtier_prompt(cfg["whole_tokens"], 32, V)
+        peng, pconn = prod.engine, prod.engine.connector
+        cconn = cons.engine.connector
+
+        # kvplane: migrate a decoding sequence off the producer, warm
+        # its keys on the consumer; the victim re-admits by injection
+        sid = peng.add_request(
+            kvtier_prompt(cfg["migrate_tokens"], 33, V),
+            SamplingOptions(temperature=0.0, max_tokens=G,
+                            ignore_eos=True))
+        while not peng.seqs[sid].output_tokens:
+            peng.step()
+        h0 = pconn.hit_tokens
+        moved = peng.migrate_out(max_seqs=1)
+        warm = cons.engine.warm_chunks(moved.get("keys", []))
+        while peng.has_work:
+            peng.step()
+        victim = peng.seqs[sid]
+        migrate = dict(migrated=moved.get("migrated") == [sid],
+                       freed_blocks=moved.get("freed_blocks"),
+                       keys=len(moved.get("keys", [])), warm=warm,
+                       readmit_hit=pconn.hit_tokens - h0,
+                       tokens=len(victim.output_tokens),
+                       finish=victim.finish_reason)
+
+        async def produce():
+            import aiohttp
+            runner = web.AppRunner(build_app(prod))
+            await runner.setup()
+            port = free_port()
+            await web.TCPSite(runner, "127.0.0.1", port).start()
+            walls = []
+            try:
+                async with aiohttp.ClientSession() as http:
+                    for p in (long_p, whole_p):
+                        t = time.monotonic()
+                        async with http.post(
+                                f"http://127.0.0.1:{port}/v1/completions",
+                                json={"model": cfg["model"], "prompt": p,
+                                      "max_tokens": 1,
+                                      "temperature": 0.0}) as r:
+                            body = await r.json()
+                            assert r.status == 200, body
+                            assert body["usage"]["completion_tokens"] == 1
+                        walls.append(time.monotonic() - t)
+            finally:
+                # stops the engine loop and closes the connector, which
+                # flushes the queued saves first
+                await runner.cleanup()
+            return walls
+        p0 = pconn.stats_report()
+        produce_walls = asyncio.run(produce())
+        produced = {k: pconn.stats_report()[k] - p0[k] for k in (
+            "published_chunks", "progress_published_chunks",
+            "bytes_saved")}
+        host_tier = pconn.store.tiers[0]
+
+        # the consumer: its injected blocks, re-extracted right after
+        # the injection, against the producer's host-tier copies
+        checked = {}
+        inject = cconn.inject
+
+        def inject_and_check(pf, slot):
+            inject(pf, slot)
+            same = True
+            for i, key in enumerate(pf.keys):
+                k, v = cons.engine.runner.extract_chunk(slot, i * C, C)
+                val = host_tier.get(key)
+                same = same and val is not None and val[:-8] == (
+                    tensor_bytes(k.cpu()) + tensor_bytes(v.cpu()))
+            checked.update(chunks=len(pf.keys), bit_equal=same)
+        cconn.inject = inject_and_check
+        results = {}
+        try:
+            for name, p, hit in (("long", long_p, len(long_p) // C * C),
+                                 ("whole", whole_p, len(whole_p) - 1)):
+                h0 = cconn.hit_tokens
+                (toks, ttft, seq), counts = _counted(
+                    lambda: _serve_direct(cons.engine, p, G))
+                # this serve's TTFT holds the check's copies
+                results[name] = dict(
+                    hit=cconn.hit_tokens - h0, want_hit=hit,
+                    want_chunks=len(p) // C, checked_ttft_s=ttft,
+                    prefetch_wait_s=seq.kv_prefetch_wait_s,
+                    cached_tokens=seq.kv_cached_tokens,
+                    injected=dict(checked), tokens=toks, **counts)
+                checked.clear()
+        finally:
+            cconn.inject = inject
+        # the long prompt again, unchecked: the hit path's TTFT
+        _, ttft_hit, seq = _serve_direct(cons.engine, long_p, G)
+        results["long"].update(ttft_s=ttft_hit,
+                               prefetch_wait_s=seq.kv_prefetch_wait_s)
+        # where the prefetch wait goes: the 11 chunks read one after
+        # another from the remote tier, and one chunk's digest
+        from production_stack_tpu_torch.kvcache.store import RemoteStore
+        keys = cconn.hasher.chunk_keys(long_p)
+        client = RemoteStore(url, io_timeout=30.0)
+        t = time.perf_counter()
+        vals = [client.get(k) for k in keys]
+        results["long"]["serial_remote_read_s"] = time.perf_counter() - t
+        client.close()
+        t = time.perf_counter()
+        hashlib.blake2b(vals[0][:-8], digest_size=8).digest()
+        results["long"]["chunk_digest_s"] = time.perf_counter() - t
+        del vals
+        (want_long, ttft_rec, _), _ = _counted(
+            lambda: _serve_direct(rec.engine, long_p, G))
+        want_whole, _, _ = _serve_direct(rec.engine, whole_p, G)
+        results["long"]["recompute_ttft_s"] = ttft_rec
+        results["long"]["vs_recompute"] = _tokens_check(
+            results["long"]["tokens"], rec.engine, long_p, want_long)
+        results["whole"]["vs_recompute"] = _tokens_check(
+            results["whole"]["tokens"], rec.engine, whole_p, want_whole)
+
+        # the mixed-pool handoff: bf16 chunks into an int8 pool
+        h0 = cons8.engine.connector.hit_tokens
+        (toks8, ttft8, seq8), counts8 = _counted(
+            lambda: _serve_direct(cons8.engine, long_p, G))
+        want8, ttft8_rec, _ = _serve_direct(rec8.engine, long_p, G)
+        int8 = dict(hit=cons8.engine.connector.hit_tokens - h0,
+                    want_hit=len(long_p) // C * C, ttft_s=ttft8,
+                    recompute_ttft_s=ttft8_rec,
+                    prefetch_wait_s=seq8.kv_prefetch_wait_s,
+                    vs_recompute=_tokens_check(toks8, rec8.engine, long_p,
+                                               want8),
+                    tokens=toks8, **counts8)
+        measured = kvtier_measure(device, cons.engine, cons8.engine, url)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+        for e in engines:
+            e.engine.close()
+            release(e)
+        engines.clear()
+    ok = {}
+    for name in ("long", "whole"):
+        r = results[name]
+        ok[name] = (r["hit"] == r["want_hit"] == r["cached_tokens"]
+                    and r["injected"].get("bit_equal") is True
+                    and r["injected"]["chunks"] == r["want_chunks"]
+                    and r["vs_recompute"]["ok"]
+                    and len(r["tokens"]) == G
+                    and r["launches"]["paged_decode_attention"] > 0
+                    and r["launches"]["paged_attention"] > 0)
+    # the 1-token suffix: every prefill launch at its 16-token bucket
+    ok["whole"] = ok["whole"] and (results["whole"]["prefill_T16"]
+                                   == results["whole"]["launches"][
+                                       "paged_attention"])
+    ok["int8"] = (int8["hit"] == int8["want_hit"]
+                  and int8["vs_recompute"]["ok"] and len(toks8) == G
+                  and int8["int8_launches"]["paged_attention"] > 0
+                  and int8["int8_launches"]["paged_decode_attention"] > 0)
+    ok["publish"] = (produced["published_chunks"]
+                     >= len(long_p) // C + len(whole_p) // C
+                     and produced["progress_published_chunks"] > 0)
+    ok["migrate"] = (migrate["migrated"] and migrate["keys"] > 0
+                     and migrate["warm"] == {"warmed": migrate["keys"],
+                                             "missed": 0}
+                     and migrate["readmit_hit"] >= C
+                     and migrate["tokens"] == G)
+    for r in (results["long"], results["whole"], int8):
+        r.pop("tokens")
+    out = {"kvtier": {
+        "model": cfg["model"], "device": str(device),
+        "engines_ready_s": ready_s, "produce_wall_s": produce_walls,
+        "published": produced, "long": results["long"],
+        "whole": results["whole"], "int8_consumer": int8,
+        "migrate": migrate,
+        "server_backend": "native" if server_binary() else "python",
+        **measured, "checks": ok, "ok": all(ok.values()),
+        "seconds": time.monotonic() - t_phase}}
+    log(json.dumps(out))
+    if not out["kvtier"]["ok"]:
+        raise AssertionError(f"the kvtier phase failed: {ok}")
+    return out["kvtier"]
+
+
 def build_phase(kernels) -> dict:
     """Build every source (in parallel) and report, per kernel, what
     ptxas gave it: registers, static shared memory, spill bytes; the
@@ -3175,6 +3683,8 @@ def main() -> int:
     checkpoint_phase()
 
     counts = {path: model_phase(path) for path in PATHS}
+
+    kvtier_phase()
 
     for rec in records:
         name = rec["name"]

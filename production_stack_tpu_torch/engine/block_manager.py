@@ -1,6 +1,7 @@
 """Host-side allocator + prefix cache for the paged KV pool: a copy of
-``production_stack_tpu/engine/block_manager.py``, with the chunk hasher
-of ``production_stack_tpu/kvcache/chunks.py`` it keys prefixes by.
+``production_stack_tpu/engine/block_manager.py``. Prefixes are keyed by
+the KV tiers' chunk hasher (kvcache/chunks.py), whose
+``model_fingerprint`` the engine namespaces them with.
 
 Pure bookkeeping over the block pool in models/kv.py — never touches the
 device. Called only under the engine lock (admission, decode-window
@@ -24,59 +25,10 @@ Invariants:
 """
 
 import collections
-import hashlib
-import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
-
-def model_fingerprint(cfg, kv_dtype: str = "bfloat16") -> str:
-    """Cache-key namespace: everything the KV layout/values depend on
-    (the same digest as the JAX package's, so keys agree across the
-    two)."""
-    raw = (f"{cfg.name}|L{cfg.num_layers}|H{cfg.num_kv_heads}"
-           f"|D{cfg.head_dim_}|rope{cfg.rope_theta}|{kv_dtype}")
-    return hashlib.blake2b(raw.encode(), digest_size=8).hexdigest()
-
-
-class ChunkHasher:
-    """Chained blake2b keys over full token chunks: chunk i's key digests
-    its tokens (little-endian int32) and chunk i-1's digest, so equal
-    keys imply an identical whole prefix."""
-
-    def __init__(self, chunk_size: int, namespace: str = ""):
-        if chunk_size <= 0:
-            raise ValueError("chunk_size must be positive")
-        self.chunk_size = chunk_size
-        self.namespace = namespace
-
-    def chunk_keys(self, tokens: Sequence[int],
-                   salt: str = "") -> List[bytes]:
-        """Keys for every *full* chunk of `tokens`, in order."""
-        keys, _ = self.chain_keys(tokens, salt=salt)
-        return keys
-
-    def chain_keys(self, tokens: Sequence[int], salt: str = "",
-                   state: Optional[Tuple[int, bytes]] = None,
-                   ) -> Tuple[List[bytes], Tuple[int, bytes]]:
-        """Incremental chunk_keys: (new_keys, state'), where state =
-        (chunks_already_keyed, previous_digest) from an earlier call
-        over a PREFIX of the same token stream."""
-        start = 0
-        prev = (self.namespace + ("|" + salt if salt else "")).encode()
-        if state is not None:
-            start, prev = state
-        keys: List[bytes] = []
-        n = len(tokens) // self.chunk_size
-        for i in range(start, n):
-            chunk = tokens[i * self.chunk_size:(i + 1) * self.chunk_size]
-            h = hashlib.blake2b(digest_size=16)
-            h.update(prev)
-            h.update(struct.pack(f"<{len(chunk)}i", *chunk))
-            digest = h.digest()
-            keys.append(self.namespace.encode() + b":"
-                        + digest.hex().encode())
-            prev = digest
-        return keys, (max(n, start), prev)
+from production_stack_tpu_torch.kvcache.chunks import (  # noqa: F401
+    ChunkHasher, model_fingerprint)
 
 
 class BlockManager:
@@ -108,6 +60,10 @@ class BlockManager:
         self.alloc_failures_exhausted = 0
         self.alloc_failures_fragmented = 0
         self.cache_evictions = 0
+        # kvplane intra-replica defrag: the engine runs defrag() between
+        # steps when fragmented failures rose
+        self.defrag_runs = 0
+        self.defrag_block_moves = 0
         # optional observer called with the pool usage at every
         # allocation attempt (the metrics layer's occupancy histogram)
         self.on_alloc_occupancy = None
@@ -149,6 +105,8 @@ class BlockManager:
             "alloc_failures_fragmented": self.alloc_failures_fragmented,
             "cache_evictions": self.cache_evictions,
             "free_contiguity": round(self.free_contiguity(), 4),
+            "defrag_runs": self.defrag_runs,
+            "defrag_block_moves": self.defrag_block_moves,
         }
 
     def free_contiguity(self) -> float:
@@ -159,6 +117,20 @@ class BlockManager:
         s = sorted(self._free)
         runs = sum(1 for a, b in zip(s, s[1:]) if b == a + 1)
         return runs / (len(s) - 1)
+
+    def defrag(self) -> int:
+        """Compact the free list: reorder it so later pops hand out
+        ascending, maximally dense block-id runs (pops take from the
+        list's tail). Bookkeeping over indices only: KV bytes never
+        move, refcounts and the prefix cache are untouched, so this is
+        safe between any two steps. Returns the list positions that
+        changed."""
+        self.defrag_runs += 1
+        target = sorted(self._free, reverse=True)
+        moved = sum(1 for a, b in zip(self._free, target) if a != b)
+        self._free = target
+        self.defrag_block_moves += moved
+        return moved
 
     def blocks_for(self, num_tokens: int) -> int:
         return -(-num_tokens // self.block_size)

@@ -6,16 +6,17 @@ onto this one field by field. The MoE capacity factor
 (``moe_capacity_factor``), weight-only int8 (``quantization="int8"``),
 the int8 KV pool (``kv_dtype="int8"``), n-gram speculation
 (``speculative_ngram_tokens`` in 0..16), multi-LoRA (``lora_adapters``
-with ``lora_rank``, ``lora_alpha`` and ``lora_targets``) and an HF
-checkpoint directory (``checkpoint``) are taken as the JAX config takes
+with ``lora_rank``, ``lora_alpha`` and ``lora_targets``), an HF
+checkpoint directory (``checkpoint``), KV tiering and disaggregated
+prefill (``kv_transfer_config``, kvcache/connector.py) and the kvplane's
+free-list defrag (``kvplane_defrag``) are taken as the JAX config takes
 them. Options the port does not implement yet raise here instead of
-being ignored: KV tiering, an embedding encoder
-(``embedding_model``; the pooling routes serve the causal model's
-mean-pooled hidden states), multi-device parallelism, adaptive decode
-windows and pipelined windows (the last two default to off here, where
-the JAX engine turns them on; speculation pins the adaptive windows off
-in the JAX engine too). They arrive with the slices that need them
-(ROADMAP.md, Queue A).
+being ignored: an embedding encoder (``embedding_model``; the pooling
+routes serve the causal model's mean-pooled hidden states), multi-device
+parallelism, adaptive decode windows and pipelined windows (the last two
+default to off here, where the JAX engine turns them on; speculation
+pins the adaptive windows off in the JAX engine too). They arrive with
+the slices that need them (ROADMAP.md, Queue A).
 """
 
 import dataclasses
@@ -69,7 +70,13 @@ class EngineConfig:
     checkpoint: Optional[str] = None
     embedding_model: Optional[str] = None
     enable_prefix_caching: bool = False
+    # KV tiering (kvcache/connector.KVTransferConfig's fields): the
+    # engine publishes and consumes KV chunks through host, disk and
+    # remote tiers as its kv_role says
     kv_transfer_config: Optional[Dict[str, Any]] = None
+    # kvplane intra-replica defrag: compact the free block list between
+    # steps after fragmented allocation failures
+    kvplane_defrag: bool = True
     # multi-LoRA: name -> .npz path (models/lora.py format) or
     # "random:SEED"; each adapter is served as its own model id. Rank,
     # alpha and targets are shared by every adapter of an engine,
@@ -115,7 +122,6 @@ class EngineConfig:
             "pipeline_parallel_size": self.pipeline_parallel_size != 1,
             "expert_parallel_size": self.expert_parallel_size != 1,
             "embedding_model": self.embedding_model is not None,
-            "kv_transfer_config": bool(self.kv_transfer_config),
             "window_adapt": self.window_adapt,
             "pipeline_depth": self.pipeline_depth != 1,
         }

@@ -66,6 +66,21 @@ preemption recomputes it from position 0.
 ``embed_tokens`` serves the pooling routes (/v1/embeddings, rerank,
 score) with the serving model's mean-pooled final hidden states
 (``runner.embed``, no cache), beside the engine loop.
+
+KV tiering and disaggregated prefill (JAX ``engine.py:213-239,477-484,
+980-984,1455-1458,1867-1887``): with ``kv_transfer_config`` the engine
+owns a ``kvcache.connector.KVConnector``. ``add_request`` prefetches the
+prompt's cached chunk-prefix from the tiers on the caller's thread; at
+slot assignment (``_on_admit``) the chunks are injected into the slot's
+blocks when the tiers cover more than the HBM prefix cache does, and
+prefill starts at the cached length. A producer publishes each full
+prompt chunk as soon as it is prefilled and a finished sequence's
+chunks before its slot is released. Rolling KV is off under a connector
+(publishing reads from position 0). The kvplane's calls:
+``migrate_out`` publishes and preempts the least recently active
+sequences, ``warm_chunks`` pulls keys into this replica's fastest tier,
+and ``_maybe_defrag`` compacts the free block list after fragmented
+allocation failures. Chunk keys carry the adapter salt.
 """
 
 import dataclasses
@@ -79,8 +94,7 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine import guided
-from production_stack_tpu_torch.engine.block_manager import (
-    BlockManager, model_fingerprint)
+from production_stack_tpu_torch.engine.block_manager import BlockManager
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.efficiency import EngineEffAccounting
 from production_stack_tpu_torch.engine.metrics import EngineMetrics
@@ -94,6 +108,9 @@ from production_stack_tpu_torch.engine.scheduler import (SamplingOptions,
                                                          Sequence)
 from production_stack_tpu_torch.engine.tokenizer import (DetokenizeStream,
                                                          load_tokenizer)
+from production_stack_tpu_torch.kvcache.chunks import model_fingerprint
+from production_stack_tpu_torch.kvcache.connector import (KVConnector,
+                                                          KVTransferConfig)
 from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.config import get_config
 from production_stack_tpu_torch.models.hf_loader import load_checkpoint
@@ -184,6 +201,16 @@ class LLMEngine:
         self.runner.eos_id = int(self.tokenizer.eos_token_id or 0)
         self.metrics = EngineMetrics(engine_cfg.model)
         self.metrics.adapters_loaded.set(len(self.lora_ids))
+        # KV tiering (kvcache/connector.py). A config without a tier
+        # raises the connector's ValueError rather than serving without
+        # the tiers it asked for
+        self.connector: Optional[KVConnector] = None
+        if engine_cfg.kv_transfer_config:
+            self.connector = KVConnector(
+                self.runner, self.model_cfg, engine_cfg,
+                KVTransferConfig.from_dict(engine_cfg.kv_transfer_config))
+            # kv_prefetch / kv_publish land beside the request phases
+            self.connector.phase_recorder = self.metrics.engine_phases
         # the byte model of the efficiency gauges: the whole parameter
         # set, and what one cache position costs one attention read
         # (K and V over layers and kv-heads, plus the int8 pool's f32
@@ -219,11 +246,15 @@ class LLMEngine:
         self.block_mgr.on_alloc_occupancy = \
             self.metrics.kvpool_occ_hist.observe
         self.scheduler.can_admit = self._try_admit
-        self.scheduler.on_admit = self._set_slot_table
+        self.scheduler.on_admit = self._on_admit
         # rolling KV: a window on every layer (not Gemma-2's alternating
-        # one, whose global layers read the whole prefix)
+        # one, whose global layers read the whole prefix), and no KV
+        # tiers (publishing reads a sequence's blocks from position 0)
         self._roll_window = (mc.sliding_window if mc.sliding_window
-                             and not mc.alternating_sliding else None)
+                             and not mc.alternating_sliding
+                             and self.connector is None else None)
+        # fragmented allocation failures already answered by a defrag
+        self._defrag_seen_failures = 0
         self.seqs: Dict[str, Sequence] = {}
         self._finished_order: List[str] = []
         self._id_counter = itertools.count()
@@ -382,6 +413,14 @@ class LLMEngine:
             # pattern raises here, on the caller's thread, as ValueError
             seq.grammar = guided.compile_grammar(options.guided_regex,
                                                  self.tokenizer)
+        if self.connector is not None:
+            # the tier walk and the host copies run here, on the
+            # caller's thread, never on the engine loop
+            seq.kv_prefetch = self.connector.prefetch(
+                seq.prompt_tokens, salt=self._adapter_salt(seq.adapter_id))
+            if seq.kv_prefetch is not None:
+                seq.kv_prefetch_wait_s = seq.kv_prefetch.wait_s
+                seq.kv_cached_tokens = seq.kv_prefetch.cached_tokens
         with self._lock:
             # bounded admission: a fresh submit always lands in waiting
             # first, so the bound is on waiting beyond what the free
@@ -472,8 +511,82 @@ class LLMEngine:
                 decode_seqs = list(self.scheduler.running.values())
                 if decode_seqs:
                     self._dispatch_decode(decode_seqs)
+            self._maybe_defrag()
             self._refresh_gauges()
             return outputs
+
+    def _maybe_defrag(self) -> None:
+        """kvplane intra-replica defrag, at the end of a step (no
+        allocation is mid-flight): when this step's admissions met
+        fragmented failures, compact the free list so the next
+        allocations take dense block-id runs."""
+        if not self.cfg.kvplane_defrag:
+            return
+        frag = self.block_mgr.alloc_failures_fragmented
+        if frag > self._defrag_seen_failures:
+            self._defrag_seen_failures = frag
+            self.block_mgr.defrag()
+
+    def migrate_out(self, max_seqs: int = 2,
+                    target_blocks: int = 0) -> Dict[str, object]:
+        """kvplane live migration, source side: publish the victims'
+        computed chunks to the shared tiers, preempt them (freeing their
+        blocks), flush the write-through, and return the chunk keys so
+        the planner can warm the destination and re-home routing.
+        Victims are the least recently active sequences first (arrival
+        time breaks ties). Each victim is prefetched again from the
+        tiers, so its re-admission injects instead of recomputing."""
+        if self.connector is None or not self.connector.cfg.is_producer:
+            return {"migrated": [], "freed_blocks": 0, "keys": [],
+                    "error": "kv tiering with a producer role is "
+                             "required for migration"}
+        keys: List[bytes] = []
+        victims = []
+        freed = 0
+        with self._lock:
+            candidates = list(self.scheduler.running.values()) \
+                + list(self.scheduler._prefilling.values())
+            candidates.sort(key=lambda s: (s.last_active, s.arrival_time))
+            for seq in candidates:
+                if len(victims) >= max(1, max_seqs):
+                    break
+                if target_blocks and freed >= target_blocks:
+                    break
+                held = len([b for b in seq.block_ids if b])
+                if held == 0:
+                    continue
+                keys.extend(self.connector.on_migrate(
+                    seq, salt=self._adapter_salt(seq.adapter_id)))
+                self._preempt(seq)
+                freed += held
+                victims.append(seq)
+            self.metrics.kvplane_migrations.inc(len(victims))
+            self.metrics.kvplane_migrated_blocks.inc(freed)
+        # outside the lock: the published chunks become tier-visible
+        # before the planner acts on the keys; a victim admitted before
+        # its prefetch lands recomputes, as before migration
+        self.connector.flush(timeout=10.0)
+        for seq in victims:
+            pf = self.connector.prefetch(
+                seq.prompt_tokens, salt=self._adapter_salt(seq.adapter_id))
+            if pf is not None and seq.kv_prefetch is None:
+                seq.kv_prefetch = pf
+        return {"migrated": [s.seq_id for s in victims],
+                "freed_blocks": freed,
+                "keys": [k.hex() for k in keys]}
+
+    def warm_chunks(self, hex_keys: List[str]) -> Dict[str, int]:
+        """kvplane migration, destination side: pull the chunk keys
+        through the tier walk so hits promote into this replica's
+        fastest tier. Runs on the caller's thread."""
+        if self.connector is None:
+            return {"warmed": 0, "missed": 0}
+        try:
+            keys = [bytes.fromhex(k) for k in hex_keys]
+        except ValueError:
+            return {"warmed": 0, "missed": len(hex_keys)}
+        warmed, missed = self.connector.warm_keys(keys)
+        return {"warmed": warmed, "missed": missed}
 
     def _expire_waiting(self) -> List[StepOutput]:
         """Drop expired-deadline and over-delayed sequences from the
@@ -559,6 +672,11 @@ class LLMEngine:
                         seq.prefill_tokens[:seq.num_prefilled],
                         seq.block_ids, seq.reg_state,
                         salt=self._adapter_salt(seq.adapter_id))
+                if self.connector is not None:
+                    # progressive publish: a decode engine can pull the
+                    # prefix while later chunks still prefill
+                    self.connector.on_prefill_progress(
+                        seq, salt=self._adapter_salt(seq.adapter_id))
                 if not w.is_last:
                     continue
                 if seq.output_tokens:
@@ -782,7 +900,11 @@ class LLMEngine:
         self.metrics.engine_phases.observe("decode_window",
                                            self._last_sync_t - t0)
         outputs: List[StepOutput] = []
-        alive = [s for s in seqs if s.status is not SeqStatus.FINISHED]
+        # a row whose sequence finished, was aborted or was preempted
+        # (migrate_out preempts between steps, with this window in
+        # flight) is discarded: only a sequence still RUNNING holds the
+        # slot it was dispatched from
+        alive = [s for s in seqs if s.status is SeqStatus.RUNNING]
         accepted = steps_walked = 0
         for j in range(W):
             steps_walked = j + 1
@@ -834,6 +956,7 @@ class LLMEngine:
                       logprob: Optional[float] = None,
                       top_alts=None) -> List[StepOutput]:
         seq.output_tokens.append(token)
+        seq.last_active = time.monotonic()
         seq.output_logprobs.append(logprob)
         if seq.options.top_logprobs:
             seq.output_top.append(top_alts)
@@ -860,6 +983,11 @@ class LLMEngine:
             self._sync_slot(seq)
             return [StepOutput(seq.seq_id, token, text_delta, False, None,
                                logprob, top_alts)]
+        if self.connector is not None:
+            # extract while the slot still holds this sequence's KV:
+            # enqueued before scheduler.finish can recycle the slot
+            self.connector.on_finish(
+                seq, salt=self._adapter_salt(seq.adapter_id))
         # prefix caching: full blocks stay in the pool under their chain
         # keys; register BEFORE free so they land in the evictable LRU. A
         # rolled sequence's chain lost its early blocks: none registers
@@ -1022,10 +1150,26 @@ class LLMEngine:
         seq.num_prefilled = covered
         return True
 
-    def _set_slot_table(self, seq: Sequence) -> None:
+    def _on_admit(self, seq: Sequence) -> None:
         """Scheduler hook (slot assigned): point the slot's table row at
-        the sequence's blocks."""
+        the sequence's blocks, then inject the tiers' cached prefix where
+        it covers more than the HBM prefix cache does; prefill then
+        starts at the cached length."""
         self._set_table_row(seq.slot, seq.block_ids)
+        pf = seq.kv_prefetch
+        seq.kv_prefetch = None   # release the host buffers either way
+        if pf is None:
+            return
+        if pf.cached_tokens > seq.num_prefilled:
+            # the injected range may overlap prefix-shared blocks: the
+            # bytes are identical by key construction, so sharers read
+            # the same values
+            self.connector.inject(pf, seq.slot)
+            seq.num_prefilled = pf.cached_tokens
+        else:
+            # block sharing covers as much already; the tier holds these
+            # chunks, so they are not extracted again at finish
+            self.connector.mark_seen(pf.keys)
 
     def _set_table_row(self, slot: int, block_ids) -> None:
         """A slot's table row: its blocks, rolled (None) entries and the
@@ -1156,6 +1300,8 @@ class LLMEngine:
         pool totals folded in as counter deltas."""
         with self._lock:
             self._refresh_gauges()
+            if self.connector is not None:
+                self.metrics.sync_kv(self.connector.stats_report())
             self.metrics.sync_eff(self.eff.report(), self.eff.rates())
             self.metrics.sync_kvpool(self.block_mgr.frag_report())
         return self.metrics.render()
@@ -1187,7 +1333,7 @@ class LLMEngine:
         cap = None
         if self.cfg.max_waiting_seqs is not None:
             cap = self.cfg.max_num_seqs + self.cfg.max_waiting_seqs
-        return {
+        report = {
             "queue_depth": len(sched.waiting),
             "running": len(sched.running) + len(sched._prefilling),
             "max_num_seqs": self.cfg.max_num_seqs,
@@ -1203,6 +1349,11 @@ class LLMEngine:
             "perf": self.eff.perf_block(),
             "kv_pool": self.block_mgr.frag_report(),
         }
+        if self.connector is not None:
+            # in-memory totals, no I/O: the cache-aware router scores
+            # endpoints on them, the disagg and kvshare rigs read them
+            report["kv_cache"] = self.connector.stats_report()
+        return report
 
     def _refresh_gauges(self) -> None:
         m = self.metrics
@@ -1214,7 +1365,17 @@ class LLMEngine:
         m.hbm_kv_usage.set(usage)
         if self.cfg.enable_prefix_caching:
             m.hbm_prefix_hit_rate.set(self.block_mgr.hit_rate)
+        # the tiers' token-weighted hit rate where there are tiers, else
+        # the block pool's per-request one
+        if self.connector is not None:
+            m.prefix_hit_rate.set(self.connector.hit_rate)
+        elif self.cfg.enable_prefix_caching:
             m.prefix_hit_rate.set(self.block_mgr.hit_rate)
+
+    def close(self) -> None:
+        """Flush the KV writer and release the tiers' connections."""
+        if self.connector is not None:
+            self.connector.close()
 
     # ------------------------------------------------------------------
 

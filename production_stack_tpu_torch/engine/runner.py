@@ -37,6 +37,11 @@ carries each row's DFA state on the device (``_pick``).
   full ``_pick`` treatment.
 - ``embed``: mean-pooled final hidden states of padded prompts
   (``llama.encode``, no cache) for the pooling routes.
+- ``extract_chunk`` / ``inject_chunk``: a slot's KV positions as a
+  [L, size, Hkv, D] chunk out of the pool and back (JAX
+  ``runner.py:937-1018``), the KV tiers' device side
+  (kvcache/connector.py). Plain PyTorch indexing, as the JAX runner's
+  are plain gathers and scatters.
 
 Multi-LoRA (models/lora.py): the runner holds the engine's adapter
 stack layer-first (``set_lora``, swapped whole at a runtime load) and
@@ -68,7 +73,8 @@ from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.kv import (KVCache, make_cache,
-                                                  make_slot_cache)
+                                                  make_slot_cache,
+                                                  quantize_chunk)
 from production_stack_tpu_torch.models.quant import quantize_params
 from production_stack_tpu_torch.utils import init_logger
 
@@ -588,6 +594,71 @@ class ModelRunner:
             return torch.zeros((N, 0), dtype=torch.float32,
                                device=self.device)
         return torch.cat(out, dim=1)
+
+    # ----------------------------------------------------- KV tier chunks
+
+    def _slot_block_offsets(self, slot: int, start: int, size: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(block ids [size], intra-block offsets [size]) of a slot's
+        virtual positions start..start+size-1, through its table row,
+        the block index clamped to MB - 1 (JAX
+        ``_slot_block_offsets``)."""
+        Bs = self.engine_cfg.kv_block_size
+        MB = self.engine_cfg.max_blocks_per_seq
+        pos = start + torch.arange(size, device=self.device)
+        row = self._dev_tables()[slot]
+        blk = row[torch.clamp(torch.div(pos, Bs, rounding_mode="floor"),
+                              0, MB - 1)].long()
+        return blk, torch.remainder(pos, Bs)
+
+    @torch.no_grad()
+    def extract_chunk(self, slot: int, start: int, size: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gather k, v [L, size, Hkv, D] (C-contiguous) out of a slot's
+        blocks into fresh device tensors, enqueued on the current
+        stream: ordered after the forwards that wrote them and before
+        any later step reuses the blocks. An int8 pool is dequantized
+        in f32 (int8 x scale), THEN rounded to bf16, the wire dtype
+        (JAX ``extract_chunk``)."""
+        blk, off = self._slot_block_offsets(slot, start, size)
+        c = self.cache
+        # advanced indices on the block and offset axes come first:
+        # [size, L, Hkv, D] -> the chunk layout [L, size, Hkv, D]
+        k = c.k[:, blk, :, off, :].permute(1, 0, 2, 3)
+        v = c.v[:, blk, :, off, :].permute(1, 0, 2, 3)
+        if c.quantized:
+            ks = c.ks[:, blk, :, off].permute(1, 0, 2)
+            vs = c.vs[:, blk, :, off].permute(1, 0, 2)
+            k = (k.float() * ks[..., None]).to(torch.bfloat16)
+            v = (v.float() * vs[..., None]).to(torch.bfloat16)
+        return k.contiguous(), v.contiguous()
+
+    @torch.no_grad()
+    def inject_chunk(self, slot: int, start: int, k_chunk: torch.Tensor,
+                     v_chunk: torch.Tensor) -> None:
+        """Scatter k, v [L, size, Hkv, D] (host or device tensors in the
+        wire dtype) into a slot's blocks, in place. Host tensors are
+        copied to the engine's device first (asynchronously from pinned
+        memory). The slot's table must already cover start + size
+        positions (admission allocates the whole prompt's blocks before
+        injection). An int8 pool re-quantizes the chunk with
+        models/kv.quantize_chunk, the recipe of serving writes (JAX
+        ``inject_chunk``)."""
+        size = k_chunk.shape[1]
+        blk, off = self._slot_block_offsets(slot, start, size)
+        c = self.cache
+        k = k_chunk.to(self.device, non_blocking=True)
+        v = v_chunk.to(self.device, non_blocking=True)
+        if c.quantized:
+            kq, ksc = quantize_chunk(k)
+            vq, vsc = quantize_chunk(v)
+            c.k[:, blk, :, off, :] = kq.permute(1, 0, 2, 3)
+            c.v[:, blk, :, off, :] = vq.permute(1, 0, 2, 3)
+            c.ks[:, blk, :, off] = ksc.permute(1, 0, 2)
+            c.vs[:, blk, :, off] = vsc.permute(1, 0, 2)
+            return
+        c.k[:, blk, :, off, :] = k.permute(1, 0, 2, 3).to(c.k.dtype)
+        c.v[:, blk, :, off, :] = v.permute(1, 0, 2, 3).to(c.v.dtype)
 
     def warmup(self) -> float:
         """One parked decode step and one parked prefill chunk: loads

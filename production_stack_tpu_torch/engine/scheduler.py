@@ -1,6 +1,5 @@
 """Continuous-batching scheduler: waiting queue -> slots -> decode batch
-(``production_stack_tpu/engine/scheduler.py``, without the state of
-the one feature the port has not taken yet: KV tiering).
+(``production_stack_tpu/engine/scheduler.py``).
 
 Policy (round-robin between admission and decode):
 - A waiting sequence is admitted when a slot is free; its prompt is
@@ -96,6 +95,10 @@ class Sequence:
     output_top: List[Optional[list]] = field(default_factory=list)
     num_prefilled: int = 0
     arrival_time: float = field(default_factory=time.monotonic)
+    # last forward progress (a prefill chunk landed, a token emitted):
+    # kvplane migration retires the least recently active sequence
+    # first. Set from arrival in __post_init__
+    last_active: float = 0.0
     # phase attribution: queue time accumulates across admissions, so a
     # preempted-and-requeued sequence never counts an interval twice —
     # enqueued_time stamps each entry into the waiting queue, schedule()
@@ -110,6 +113,17 @@ class Sequence:
     # by expire_waiting() before any prefill. None = no deadline
     deadline: Optional[float] = None
     finish_reason: Optional[str] = None
+    # KV-tier prefetch of this request at add time
+    # (kvcache/connector.py): wall seconds of the tier walk and the
+    # prompt tokens it served
+    kv_prefetch_wait_s: float = 0.0
+    kv_cached_tokens: int = 0
+    # host-side KV of a cached prompt prefix, fetched off the engine
+    # loop at add time (connector.Prefetch); injected at admission
+    kv_prefetch: object = None
+    # incremental chunk-key chain state of the progressive KV publish
+    # (connector._publish)
+    kv_publish_state: object = None
     # cached prefix-cache chain keys: (salt, prefill_len, keys) — an
     # admission deferred by pool pressure retries every scheduler pass
     # and must not re-hash the prompt (or re-count hit/miss) each time
@@ -125,6 +139,7 @@ class Sequence:
 
     def __post_init__(self):
         self.enqueued_time = self.arrival_time
+        self.last_active = self.arrival_time
 
     @property
     def num_tokens(self) -> int:
@@ -166,7 +181,7 @@ class Scheduler:
         self.free_slots: List[int] = list(range(max_num_seqs - 1, -1, -1))
         self._prefilling: Dict[int, Sequence] = {}    # slot -> seq
         # invoked right after a slot is assigned, before the first prefill
-        # chunk is cut
+        # chunk is cut: may advance seq.num_prefilled past a cached prefix
         self.on_admit: Optional[object] = None
         # admission gate: called with the head-of-queue sequence BEFORE a
         # slot is taken; returning False defers admission (the engine's
@@ -206,6 +221,7 @@ class Scheduler:
                 self.waiting.remove(seq)
                 seq.status = SeqStatus.FINISHED
                 seq.finish_reason = "abort"
+                seq.kv_prefetch = None   # release host KV buffers
                 return True
         for slot, seq in list(self.running.items()):
             if seq.seq_id == seq_id:
@@ -246,6 +262,7 @@ class Scheduler:
                 continue
             seq.status = SeqStatus.FINISHED
             seq.finish_reason = reason
+            seq.kv_prefetch = None   # release host KV buffers
             dropped.append(seq)
         if dropped:
             self.waiting.clear()
@@ -289,6 +306,7 @@ class Scheduler:
     def on_prefill_done(self, work: PrefillWork) -> None:
         seq = work.seq
         seq.num_prefilled += len(work.chunk)
+        seq.last_active = time.monotonic()
         if work.is_last:
             seq.status = SeqStatus.RUNNING
             self._prefilling.pop(seq.slot, None)
@@ -323,6 +341,7 @@ class Scheduler:
     def _release(self, slot: int, seq: Sequence, reason: str) -> None:
         seq.status = SeqStatus.FINISHED
         seq.finish_reason = reason
+        seq.kv_prefetch = None   # finished seqs are retained; drop host KV
         if slot >= 0:
             self.running.pop(slot, None)
             self._free_slot(slot)

@@ -1,7 +1,8 @@
 """OpenAI-compatible HTTP server for the PyTorch engine (aiohttp)
-(``production_stack_tpu/engine/server.py``, without the routes of
-features the port has not taken: kvplane admin, trace and perf
-debugging).
+(``production_stack_tpu/engine/server.py``). Left out, with what they
+belong to: ``/debug/traces`` and ``/debug/perf``, the trace middleware
+and API-key enforcement (not yet queued), and an embedding encoder
+(``--embedding-model``).
 
 Endpoints: ``/v1/completions`` and ``/v1/chat/completions`` (streamed
 as SSE or not; ``n`` choices, several prompts per completion request,
@@ -11,8 +12,9 @@ shaping, guided decoding), the pooling routes ``/v1/embeddings``,
 mean-pooled hidden states, flagged ``embedding_source``
 ``causal-mean-pool``), ``/v1/models``, ``/health``, ``/load``,
 ``/metrics``, ``/version``, ``/tokenize`` and ``/detokenize``, and the
-runtime adapter verbs ``/admin/lora/load`` and ``/admin/lora/evict``.
-Every reply carries the engine's ``x-engine-*`` load headers. Overload answers
+runtime adapter verbs ``/admin/lora/load`` and ``/admin/lora/evict``,
+and the kvplane's ``/admin/kvplane/migrate_out`` and
+``/admin/kvplane/warm``. Every reply carries the engine's ``x-engine-*`` load headers. Overload answers
 as the JAX server does: 503 + Retry-After when bounded admission sheds a
 request or the queue-delay cap drops it, 504 + ``x-deadline-expired``
 when the client's ``x-request-deadline-ms`` elapses before admission.
@@ -33,6 +35,17 @@ runtime with ``POST /admin/lora/load {"name", "src"}``), listed on
 + Retry-After (a shed: the engine serves on), an unknown evict 404; the
 pooling routes serve the base model only (400 for an adapter).
 ``--checkpoint DIR`` serves an HF checkpoint's weights.
+
+KV tiering and disaggregated prefill: ``--kv-transfer-config JSON``
+(kvcache/connector.KVTransferConfig's fields, e.g. ``{"kv_role":
+"kv_producer", "local_disk_path": "/tmp/tier", "remote_url":
+"tpukv://host:port"}``) makes the engine publish and consume KV chunks
+through host, disk and remote tiers, byte-compatible with the JAX
+engine's, so a port engine serves in the JAX router's
+``--prefill-backends`` (producer) or decode (consumer) pool. ``/load``
+then carries the ``kv_cache`` block and ``/metrics`` the
+``tpu:kvcache_*`` series; ``--no-kvplane-defrag`` turns off the free
+list's defrag after fragmented allocation failures.
 
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b
 
@@ -980,6 +993,36 @@ async def _admin_body(request: web.Request) -> dict:
     return body if isinstance(body, dict) else {}
 
 
+async def admin_kvplane_migrate_out(request: web.Request) -> web.Response:
+    """kvplane planner entry point: publish victim sequences' chunks to
+    the tiers and preempt them (body: {"max_seqs": n, "target_blocks":
+    n}); 409 with an "error" field where the engine has no producer
+    role."""
+    engine = request.app[ENGINE_KEY]
+    body = await _admin_body(request)
+    max_seqs = int(body.get("max_seqs", 2))
+    target_blocks = int(body.get("target_blocks", 0))
+    # takes the engine lock, then flushes the KV writer: off the loop
+    result = await asyncio.to_thread(
+        engine.engine.migrate_out, max_seqs=max_seqs,
+        target_blocks=target_blocks)
+    return web.json_response(result, status=409 if "error" in result
+                             else 200)
+
+
+async def admin_kvplane_warm(request: web.Request) -> web.Response:
+    """kvplane planner destination side: pull the named chunk keys
+    through the tiers so the fastest one holds them (body: {"keys":
+    ["<hex>", ...]})."""
+    engine = request.app[ENGINE_KEY]
+    body = await _admin_body(request)
+    keys = body.get("keys") or []
+    if not isinstance(keys, list):
+        return _error(400, "keys must be a list of hex strings")
+    result = await asyncio.to_thread(engine.engine.warm_chunks, keys)
+    return web.json_response(result)
+
+
 async def admin_lora_load(request: web.Request) -> web.Response:
     """Load a LoRA adapter at runtime and serve it as its own model id.
     Body: {"name": "sql-adapter", "src": "random:7" | "/path.npz"}. A
@@ -1070,6 +1113,9 @@ def build_app(engine: AsyncLLMEngine) -> web.Application:
     app.router.add_post("/v1/rerank", rerank)
     app.router.add_post("/v2/rerank", rerank)
     app.router.add_post("/v1/score", score)
+    app.router.add_post("/admin/kvplane/migrate_out",
+                        admin_kvplane_migrate_out)
+    app.router.add_post("/admin/kvplane/warm", admin_kvplane_warm)
     app.router.add_post("/admin/lora/load", admin_lora_load)
     app.router.add_post("/admin/lora/evict", admin_lora_evict)
 
@@ -1079,6 +1125,8 @@ def build_app(engine: AsyncLLMEngine) -> web.Application:
 
     async def on_cleanup(app):
         engine.stop()
+        # flush the queued KV-tier saves and close the tier sockets
+        engine.engine.close()
 
     app.on_startup.append(on_startup)
     app.on_cleanup.append(on_cleanup)
@@ -1155,6 +1203,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--lora-targets", default="q,v",
                    help="comma-separated projections to adapt "
                         "(q,k,v,o,gate,up,down)")
+    p.add_argument("--kv-transfer-config", default=None,
+                   help="JSON dict enabling KV tiering, e.g. "
+                        '\'{"kv_role": "kv_both", "local_cpu_gb": 4, '
+                        '"remote_url": "tpukv://cache:8100"}\' '
+                        "(kvcache/connector.py)")
+    p.add_argument("--no-kvplane-defrag", action="store_true",
+                   help="disable the free-list defrag the engine runs "
+                        "after fragmented allocation failures")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-warmup", action="store_true")
     return p.parse_args(argv)
@@ -1176,6 +1232,9 @@ def main(argv=None) -> None:
         if args.kv_len_buckets else (),
         kv_block_size=args.kv_block_size, kv_pool_tokens=args.kv_pool_tokens,
         enable_prefix_caching=args.enable_prefix_caching,
+        kv_transfer_config=json.loads(args.kv_transfer_config)
+        if args.kv_transfer_config else None,
+        kvplane_defrag=not args.no_kvplane_defrag,
         speculative_ngram_tokens=args.speculative_ngram_tokens,
         hbm_peak_gbps=args.hbm_peak_gbps, seed=args.seed,
         checkpoint=args.checkpoint,

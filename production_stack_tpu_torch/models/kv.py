@@ -145,7 +145,11 @@ def quantize_chunk(new: torch.Tensor
     scale (models/quant.quantize_tensor's recipe, one scale per cached
     vector)."""
     f = new.float()
-    scale = torch.clamp(f.abs().amax(dim=-1), min=1e-8) / 127.0
+    amax = torch.clamp(f.abs().amax(dim=-1), min=1e-8)
+    # a true division on every device: CUDA divides by a Python scalar
+    # as a multiply by its f32 reciprocal, which puts ~2 % of the scales
+    # one ulp from the CPU's and from the JAX source's recipe
+    scale = amax / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(f / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 

@@ -578,3 +578,93 @@ def test_moe_on_the_card_equals_the_cpu(cuda, exact):
     cap = moe.capacity_for(N, E, 2, 0.5)
     assert torch.equal(moe.dispatch_plan(ids_g, E, cap, valid.to(cuda)).cpu(),
                        moe.dispatch_plan(ids_c, E, cap, valid))
+
+
+def _tier_runner(dev, kv_dtype):
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.runner import ModelRunner
+    from production_stack_tpu_torch.models import config as tconfig
+    from production_stack_tpu_torch.models.kv import KVCache
+    cfg = EngineConfig(model="debug-tiny", device=str(dev),
+                       kv_dtype=kv_dtype, max_model_len=256,
+                       max_num_seqs=3, kv_block_size=16)
+    runner = ModelRunner(tconfig.get_config("debug-tiny"), cfg)
+    g = torch.Generator().manual_seed(4)
+    shape = runner.cache.k.shape
+    if kv_dtype == "int8":
+        k, v = (torch.randint(-127, 128, shape, generator=g,
+                              dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1], generator=g) * 0.05 + 1e-3
+                  for _ in range(2))
+        runner.cache = KVCache(k.to(dev), v.to(dev), ks.to(dev), vs.to(dev))
+    else:
+        runner.cache = KVCache(*(torch.randn(shape, generator=g).to(
+            torch.bfloat16).to(dev) for _ in range(2)))
+    MB = cfg.max_blocks_per_seq
+    runner.set_block_tables(
+        (torch.randperm(3 * MB, generator=g) + 1).reshape(3, MB).to(
+            torch.int32).numpy())
+    return runner
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_tier_chunks_on_the_card_equal_the_cpu(cuda, kv_dtype):
+    """runner.extract_chunk / inject_chunk on the card against the CPU on
+    the same pool and tables: equal bf16 chunks out (an int8 pool
+    dequantized in f32, then rounded), and after injecting a chunk equal
+    pools (an int8 pool re-quantized: equal int8 payload and scales)."""
+    c, d = _tier_runner("cpu", kv_dtype), _tier_runner(cuda, kv_dtype)
+    for slot, start in ((1, 32), (2, 40), (0, 240)):
+        kc, vc = c.extract_chunk(slot, start, 32)
+        kd, vd = d.extract_chunk(slot, start, 32)
+        assert kd.is_cuda and kd.is_contiguous()
+        assert torch.equal(kd.cpu().view(torch.int16),
+                           kc.view(torch.int16))
+        assert torch.equal(vd.cpu().view(torch.int16),
+                           vc.view(torch.int16))
+    g = torch.Generator().manual_seed(5)
+    chunk = [torch.randn(kc.shape, generator=g).to(torch.bfloat16)
+             for _ in range(2)]
+    c.inject_chunk(1, 64, *chunk)
+    d.inject_chunk(1, 64, *(t.pin_memory() for t in chunk))
+    for name in ("k", "v", "ks", "vs"):
+        want, got = getattr(c.cache, name), getattr(d.cache, name)
+        if want is not None:
+            assert torch.equal(got.cpu(), want), name
+
+
+def test_tier_round_trip_on_the_card_equals_the_cpu(cuda):
+    """The connector on the card: a slot's prompt chunks published
+    (gathered, copied into pinned memory behind an event, serialized by
+    the writer thread) and fetched back (into pinned memory, copied to
+    the card asynchronously) into another slot, whose blocks then hold
+    the same chunks; the tier values equal the CPU run's byte for
+    byte."""
+    from types import SimpleNamespace
+
+    from production_stack_tpu_torch.kvcache.connector import (
+        KVConnector, KVTransferConfig)
+
+    def run(dev):
+        r = _tier_runner(dev, "bfloat16")
+        conn = KVConnector(r, r.model_cfg, r.engine_cfg, KVTransferConfig(
+            local_cpu_gb=0.01, chunk_size=32))
+        prompt = list(range(100))
+        seq = SimpleNamespace(prompt_tokens=prompt, output_tokens=[],
+                              num_prefilled=100, slot=1,
+                              kv_publish_state=None)
+        conn.on_prefill_progress(seq)
+        conn.flush()
+        pf = conn.prefetch(prompt)
+        assert pf is not None and pf.cached_tokens == 96
+        assert all(k.is_pinned() == (r.device.type == "cuda")
+                   for k, _ in pf.chunks)
+        conn.inject(pf, 2)
+        for i in range(3):
+            for a, b in zip(r.extract_chunk(1, 32 * i, 32),
+                            r.extract_chunk(2, 32 * i, 32)):
+                assert torch.equal(a, b)
+        values = [conn.store.get(k) for k in pf.keys]
+        conn.close()
+        return values
+    assert run(cuda) == run("cpu")

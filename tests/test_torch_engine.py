@@ -309,11 +309,22 @@ def test_engine_refuses_unported_options():
 @pytest.mark.parametrize("kw", [
     dict(embedding_model="bge-small"), dict(tensor_parallel_size=2),
     dict(window_adapt=True), dict(pipeline_depth=2),
-    dict(expert_parallel_size=2),
-    dict(kv_transfer_config={"kv_role": "kv_both"})])
+    dict(expert_parallel_size=2)])
 def test_engine_config_pins_unported_options(kw):
     with pytest.raises(NotImplementedError):
         tec.EngineConfig(model="debug-tiny", device="cpu", **kw)
+
+
+def test_engine_config_accepts_kv_transfer_config():
+    """KV tiering is ported: the config takes kv_transfer_config, and an
+    engine given one without any tier raises the JAX connector's
+    ValueError instead of serving without the tiers it asked for."""
+    cfg = tec.EngineConfig(model="debug-tiny", device="cpu",
+                           max_model_len=64, max_num_seqs=1,
+                           kv_transfer_config={"kv_role": "kv_both"})
+    assert cfg.kv_transfer_config == {"kv_role": "kv_both"}
+    with pytest.raises(ValueError, match="no tier configured"):
+        tengine.LLMEngine(cfg)
 
 
 @pytest.mark.parametrize("kw", [dict(quantization="int8"),
@@ -516,13 +527,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     guided decoding (engine/guided.py), the pooling path (encode,
     causal_attention, the routes), multi-LoRA (models/lora.py) and the
     checkpoint loader (models/hf_loader.py, whose own reader then reads
-    back a file its writer wrote) included."""
+    back a file its writer wrote) included; and with ml_dtypes blocked
+    too, the KV-tier modules (kvcache/), whose codecs then encode and
+    decode bf16-free f32 bodies through every codec, fp8 included."""
     code = textwrap.dedent("""
         import sys
         import tempfile
 
         ROOTS = ("jax", "production_stack_tpu", "safetensors",
-                 "transformers", "peft")
+                 "transformers", "peft", "ml_dtypes")
 
         def blocked(name):
             return any(name == r or name.startswith(r + ".")
@@ -548,6 +561,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import production_stack_tpu_torch.engine.runner
         import production_stack_tpu_torch.models.lora
         import production_stack_tpu_torch.models.hf_loader
+        import production_stack_tpu_torch.kvcache
+        import production_stack_tpu_torch.kvcache.chunks
+        import production_stack_tpu_torch.kvcache.codec
+        import production_stack_tpu_torch.kvcache.connector
+        import production_stack_tpu_torch.kvcache.pipeline
+        import production_stack_tpu_torch.kvcache.protocol
+        import production_stack_tpu_torch.kvcache.server
+        import production_stack_tpu_torch.kvcache.store
+        import production_stack_tpu_torch.kvcache._native
         from production_stack_tpu_torch.models.llama import encode
         from production_stack_tpu_torch.ops.attention import (
             causal_attention)
@@ -559,6 +581,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             t = {"w": torch.arange(6, dtype=torch.bfloat16).reshape(2, 3)}
             hf_loader.save_safetensors(t, d + "/m.safetensors")
             assert torch.equal(hf_loader.read_state_dict(d)["w"], t["w"])
+        # the fp8 and bf16 tier codecs without ml_dtypes
+        import numpy as np
+        from production_stack_tpu_torch.kvcache import codec
+        body = np.array([1.5, -465.0, 0.25, 3.0], np.float32).tobytes()
+        for name in ("fp8", "int8", "int4", "raw"):
+            c = codec.make_codec(name, dtype="float32", head_dim=4)
+            assert codec.decode_payload(
+                c, codec.encode_payload(c, body * 8), len(body) * 8)
         assert not any(blocked(m) for m in sys.modules)
         print("ok")
     """)

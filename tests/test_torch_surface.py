@@ -141,8 +141,9 @@ def test_load_and_metrics_read_by_the_router_parsers(engine):
 def test_load_and_metrics_shapes_equal_the_jax_engines(engine):
     """The port's /load has the JAX engine's keys (less kv_cache, which
     only a KV-tier connector adds) in its top level, perf and kv_pool
-    blocks, and every /metrics family the port exports exists in the
-    JAX engine's exposition under the same name and type."""
+    blocks (the kvplane's defrag_runs and defrag_block_moves included),
+    and every /metrics family the port exports exists in the JAX
+    engine's exposition under the same name and type."""
     je = jengine.LLMEngine(jec.EngineConfig(model="debug-tiny",
                                            max_model_len=64,
                                            max_num_seqs=1))
@@ -151,8 +152,7 @@ def test_load_and_metrics_shapes_equal_the_jax_engines(engine):
     assert set(got["perf"]) == set(want["perf"])
     assert set(got["perf"]["token_steps"]) == \
         set(want["perf"]["token_steps"])
-    assert set(got["kv_pool"]) == set(want["kv_pool"]) - {
-        "defrag_runs", "defrag_block_moves"}
+    assert set(got["kv_pool"]) == set(want["kv_pool"])
     jfams = {f.name: f.type for f in text_string_to_metric_families(
         je.render_metrics().decode())}
     tfams = {f.name: f.type for f in text_string_to_metric_families(
