@@ -34,7 +34,16 @@
    loads through the port's reader (bytes, seconds, GB/s), and an
    engine started on it serves and matches, bit for bit, an engine
    given the same weights in memory; the directory is deleted;
-4. then for each served path — llama-3-8b, gemma-2-9b, llama-3-8b
+4. encoder: the BERT encoder of --embedding-model at full width,
+   bert-base and minilm-l6 (random f32 weights from the engine's seed):
+   pooled vectors on the card against the same weights on the CPU (rows
+   of 512, 100 and 7 tokens), a row alone against itself batched beside
+   the 512-token row, the time of one batch of max_num_seqs x 512 tokens
+   beside its bound, and /v1/embeddings from an HF-named directory of
+   the same weights (--embedding-model <dir>) bit for bit equal to the
+   in-memory preset's on the same token ids, with no paged or flash
+   kernel launched;
+5. then for each served path — llama-3-8b, gemma-2-9b, llama-3-8b
    with int8 weights and an int8 KV pool (llama-3-8b-int8),
    qwen1.5-moe-a2.7b (60 experts, top-4, a shared expert, q/k/v biases)
    and mistral-7b-v0.1 (a 4096 window on every layer, rolling KV) — at
@@ -53,6 +62,16 @@
    - roll (mistral-7b-v0.1): a 4,600-token prompt through the engine;
      at the first decode window 7 blocks behind the window are freed
      and the pool's free blocks rise by 7;
+   - trace and auth (llama-3-8b; the trace with its own kernel counts):
+     a streamed and a non-streamed completion with an inbound sampled
+     traceparent keep its trace id (x-trace-id), /debug/traces returns
+     the engine's trace parented on the inbound span with the phases
+     preprocess, queue_wait, prefill, decode and postprocess (printed
+     beside the client's TTFT and wall, with the unattributed time),
+     /debug/perf read under the engine lock holds the efficiency ring's
+     newest windows and the pool's census; then an application with an
+     API key answers 401 without it on /v1/completions and /debug/traces
+     and 200 on the probe routes, and 200 with it;
    - surface (its own kernel counts): on llama-3-8b, /load against the
      engine while a request is in flight, /metrics with the router's
      gauges, the x-engine-* headers on every reply, a 504 for an elapsed
@@ -117,7 +136,7 @@
      bf16 logits through the kernels against an f32 forward with the
      same adapter, and each adapter row of the mixed batch against the
      same request served alone (equal, or parting at a near-tie);
-5. kvtier: KV tiering and disaggregated prefill at Llama-3-8B's full
+6. kvtier: KV tiering and disaggregated prefill at Llama-3-8B's full
    width and depth (KVTIER; one weight set shared by five engines):
    the port's cache server as a subprocess; a producer with a host and
    the remote tier serves a 3,000-token and a 2,048-token prompt through
@@ -126,8 +145,10 @@
    from hits of 2,816 and 2,047 tokens (its injected blocks, re-extracted,
    equal the producer's chunk bytes bit for bit; the suffix through the
    prefill kernel, the 1-token suffix at its 16-token bucket, decode
-   over the injected blocks), its tokens against a recompute engine's
-   (equal, or parting at a near-tie); an int8-pool consumer takes the
+   over the injected blocks; the terminal output's timing carries the
+   prefetch wait and the hit as the trace's kv_prefetch event reads
+   them), its tokens against a recompute engine's (equal, or parting at
+   a near-tie); an int8-pool consumer takes the
    same bf16 chunks; migrate_out of a decoding sequence on the producer
    and warm of its keys on the consumer, the victim re-admitted by
    injection; then extract_chunk / inject_chunk per chunk (bf16 and
@@ -344,6 +365,7 @@ def release(engine) -> None:
     eng.runner = eng._guided_table = eng._dev_sampling = None
     eng._inflight = None
     eng._lora_rows = []
+    eng._enc_params = None
     free_memory()
 
 
@@ -1024,7 +1046,7 @@ async def serve_phase(engine, path: str):
         return call
     moe._moe_exact, moe._moe_dispatch = counted("exact"), counted("dispatch")
     port = free_port()
-    runner = web.AppRunner(build_app(engine))
+    runner = web.AppRunner(build_app(engine, api_key=""))
     await runner.setup()
     site = web.TCPSite(runner, "127.0.0.1", port)
     await site.start()
@@ -1078,6 +1100,9 @@ async def serve_phase(engine, path: str):
                       "softcap_launches": dict(pa.softcap_launches),
                       "int8_launches": dict(pa.int8_launches)}
             surface = await surface_phase(http, base, engine, path)
+            if path == "llama-3-8b":
+                surface["trace"] = await trace_phase(http, base, engine,
+                                                     path)
             # last: a wrong index rule is a device-side assert that ends
             # the process
             await fault_probe(http, base, engine, path)
@@ -1085,6 +1110,10 @@ async def serve_phase(engine, path: str):
         await runner.cleanup()
         moe._moe_exact, moe._moe_dispatch = (originals["exact"],
                                              originals["dispatch"])
+    if path == "llama-3-8b":
+        # its own application over the engine, once the first is gone
+        # (an application starts and stops the engine loop)
+        await auth_phase(engine, path)
 
     want = [24, 16, 16, 20]
     for (url, body), res, n in zip(reqs, results, want):
@@ -1345,6 +1374,155 @@ async def surface_phase(http, base, engine, path: str) -> dict:
     return out
 
 
+# the engine-side phases of a traced request, in order
+TRACE_PHASES = ["preprocess", "queue_wait", "prefill", "decode",
+                "postprocess"]
+
+
+async def trace_phase(http, base, engine, path: str) -> dict:
+    """Request tracing on the served model, the kernel counts zeroed
+    before and read after (both paged kernels must launch): one
+    non-streamed and one streamed completion, each with an inbound
+    sampled traceparent. The non-streamed reply's x-trace-id (the
+    stream's SSE headers) is the inbound trace id; /debug/traces?trace_id
+    returns the engine's trace, parented on the inbound span, with the
+    five phases in order and the tokenize event; the phase durations are
+    printed beside the client's own TTFT (the stream's first token) and
+    wall, with the unattributed time. /debug/perf?limit=5, read under the
+    engine lock, holds the newest windows of the efficiency ring, which
+    include these requests' windows, and a kv_pool equal to the block
+    manager's frag_report() at that moment."""
+    from production_stack_tpu_torch import tracing
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    eng = engine.engine
+    model = path_model(path)
+    windows0 = eng.eff.report()["decode"]["windows"]
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    t_phase = time.monotonic()
+    rows = []
+    for stream in (False, True):
+        tid, sid = tracing.new_trace_id(), tracing.new_span_id()
+        # logprobs: every token is a chunk of the stream, text or not
+        # (random weights pick ids the byte tokenizer gives no text)
+        body = {"model": model, "prompt": long_prompt_text(300),
+                "max_tokens": 24, "temperature": 0.0, "ignore_eos": True,
+                "logprobs": 0, "stream": stream}
+        t0 = time.monotonic()
+        ttft = None
+        async with http.post(base + "/v1/completions", json=body, headers={
+                "traceparent": tracing.format_traceparent(tid, sid)}) as r:
+            if r.status != 200:
+                raise AssertionError(f"traced completion -> {r.status}: "
+                                     f"{await r.text()}")
+            got_tid = r.headers.get("x-trace-id")
+            async for line in r.content:
+                if ttft is None and line.startswith(b"data: "):
+                    ttft = time.monotonic() - t0
+        wall = time.monotonic() - t0
+        async with http.get(base + "/debug/traces",
+                            params={"trace_id": tid}) as r:
+            traces = (await r.json())["traces"]
+        if got_tid != tid or len(traces) != 1:
+            raise AssertionError(f"trace {tid}: x-trace-id {got_tid}, "
+                                 f"{len(traces)} traces in the ring")
+        t = traces[0]
+        phases = [x for x in t["spans"] if x["kind"] == "phase"]
+        events = sorted(x["name"] for x in t["spans"]
+                        if x["kind"] == "event")
+        row = {"stream": stream, "trace_id": tid,
+               "parent_ok": t["parent_id"] == sid, "status": t["status"],
+               "phases_ms": {x["name"]: x["duration_ms"] for x in phases},
+               "events": events, "duration_ms": t["duration_ms"],
+               "unattributed_s": t["unattributed_ms"] / 1e3,
+               "client_ttft_s": ttft if stream else None,
+               "client_wall_s": wall,
+               "output_tokens": t["attrs"].get("output_tokens")}
+        rows.append(row)
+        if (not row["parent_ok"] or row["status"] != "ok"
+                or [x["name"] for x in phases] != TRACE_PHASES
+                or events != ["tokenize"] or row["output_tokens"] != 24
+                or row["duration_ms"] > 1e3 * wall):
+            raise AssertionError(f"engine trace: {row}")
+    launches = {**pa.launch_counts, **fa.launch_counts}
+    with eng._lock:
+        async with http.get(base + "/debug/perf?limit=5") as r:
+            perf = await r.json()
+        pool = eng.block_mgr.frag_report()
+        ring = eng.eff.recent_windows(5)
+    new_windows = perf["totals"]["decode"]["windows"] - windows0
+    ring = [{k: round(v, 4) if isinstance(v, float) else v
+             for k, v in w.items()} for w in ring]
+    got = [{k: round(v, 4) if isinstance(v, float) else v
+            for k, v in w.items()} for w in perf["windows"]]
+    perf_ok = (perf["kv_pool"] == pool and got == ring and new_windows >= 1
+               and len(got) == min(5, perf["totals"]["decode"]["windows"])
+               and sum(w["real"] for w in got[-min(5, new_windows):]) > 0
+               and perf["compiles"] == [])
+    rec = {"path": path, "requests": rows, "launches": launches,
+           "perf": {"windows_during": new_windows,
+                    "returned": len(got), "kv_pool_equal":
+                        perf["kv_pool"] == pool, "ring_equal": got == ring},
+           "seconds": time.monotonic() - t_phase}
+    log(json.dumps({"trace": rec}))
+    if not perf_ok:
+        raise AssertionError(f"/debug/perf {perf} against the engine's "
+                             f"ring {ring} and pool {pool}")
+    for name in pa.launch_counts:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"traced requests: {launches}")
+    return rec
+
+
+async def auth_phase(engine, path: str) -> dict:
+    """API-key enforcement on the served engine: an application built
+    with api_key="k" answers 401 on /v1/completions and /debug/traces
+    without the key (no x-engine-* header, no trace id), 200 on /health,
+    /metrics, /version and /load, and 200 with Authorization: Bearer k
+    (a completion included)."""
+    import aiohttp
+    from aiohttp import web
+    from production_stack_tpu_torch.engine.server import build_app
+    port = free_port()
+    runner = web.AppRunner(build_app(engine, api_key="k"))
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    base = f"http://127.0.0.1:{port}"
+    body = {"model": path_model(path), "prompt": "Hello", "max_tokens": 4,
+            "temperature": 0.0}
+    got = {}
+    try:
+        async with aiohttp.ClientSession() as http:
+            for key, headers in (("none", {}), ("right", {
+                    "Authorization": "Bearer k"})):
+                for method, url in (("POST", "/v1/completions"),
+                                    ("GET", "/debug/traces"),
+                                    ("GET", "/health"), ("GET", "/metrics"),
+                                    ("GET", "/version"), ("GET", "/load")):
+                    async with http.request(
+                            method, base + url, headers=headers,
+                            json=body if method == "POST" else None) as r:
+                        await r.read()
+                        got[f"{key} {url}"] = (
+                            r.status, "x-engine-running" in r.headers,
+                            "x-trace-id" in r.headers)
+    finally:
+        await runner.cleanup()
+    want = {f"{key} {url}": ((401, False, False) if key == "none"
+                             and url in ("/v1/completions", "/debug/traces")
+                             else (200, True, url == "/v1/completions"))
+            for key in ("none", "right")
+            for url in ("/v1/completions", "/debug/traces", "/health",
+                        "/metrics", "/version", "/load")}
+    log(json.dumps({"auth": {"path": path, "statuses": {
+        k: v[0] for k, v in got.items()}, "ok": got == want}}))
+    if got != want:
+        raise AssertionError(f"auth: {got} against {want}")
+    return got
+
+
 async def feature_phase(engine, path: str) -> dict:
     """The OpenAI server in-process on `engine` again, after the
     breakdown: guided_phase, spec_phase, embed_phase and lora_phase,
@@ -1357,7 +1535,7 @@ async def feature_phase(engine, path: str) -> dict:
     from aiohttp import web
     from production_stack_tpu_torch.engine.server import build_app
     port = free_port()
-    runner = web.AppRunner(build_app(engine))
+    runner = web.AppRunner(build_app(engine, api_key=""))
     await runner.setup()
     await web.TCPSite(runner, "127.0.0.1", port).start()
     base = f"http://127.0.0.1:{port}"
@@ -1593,7 +1771,7 @@ async def spec_phase(http, base, engine, path) -> dict:
                          **PATHS[path]["serve"]),
             params=engine.engine.runner.params)
         port = free_port()
-        runner = web.AppRunner(build_app(spec_engine))
+        runner = web.AppRunner(build_app(spec_engine, api_key=""))
         await runner.setup()
         await web.TCPSite(runner, "127.0.0.1", port).start()
         base2 = f"http://127.0.0.1:{port}"
@@ -3095,6 +3273,257 @@ def checkpoint_phase(device="cuda"):
                              f"in-memory one: {out}")
 
 
+# ------------------------------------------------------------ encoder
+
+# the encoder phase: each preset served beside debug-tiny (the causal
+# model the pooling routes do not use), random f32 weights from the
+# engine's seed, batches of max_num_seqs rows up to the 512-position
+# table; ENCODER_DIR holds each preset's HF-named directory while the
+# phase runs
+ENCODER_PRESETS = ("bert-base", "minilm-l6")
+ENCODER_SERVE = dict(model="debug-tiny", max_model_len=512, max_num_seqs=4,
+                     prefill_chunk=512, seed=0)
+ENCODER_DIR = os.path.join(REPO, "build", "encoder")
+# H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet): the
+# encoder's products are f32 with TF32 off, as PyTorch defaults
+F32_FLOPS = 67e12
+# card against CPU on the same weights: max |delta| over a pooled vector
+# within this fraction of its norm (f32 products summed in another
+# order, through 12 post-LN layers); a row alone against the same row
+# batched beside a 512-token one
+ENCODER_REL_TOL = 1e-4
+ENCODER_PAD_TOL = 1e-5
+
+
+def encoder_hf_tensors(params, cfg) -> dict:
+    """The encoder's weights under HF BertModel names (``bert.``
+    prefixed, Linear weights [out, in]) for save_safetensors."""
+    e, out = "bert.embeddings.", {}
+    for name, hf in (("word_emb", "word_embeddings.weight"),
+                     ("pos_emb", "position_embeddings.weight"),
+                     ("type_emb", "token_type_embeddings.weight"),
+                     ("emb_ln_w", "LayerNorm.weight"),
+                     ("emb_ln_b", "LayerNorm.bias")):
+        out[e + hf] = getattr(params, name)
+    per_layer = {"q": "attention.self.query", "k": "attention.self.key",
+                 "v": "attention.self.value", "o": "attention.output.dense",
+                 "up": "intermediate.dense", "down": "output.dense"}
+    norms = {"attn_ln": "attention.output.LayerNorm",
+             "out_ln": "output.LayerNorm"}
+    for l in range(cfg.num_layers):
+        pre = f"bert.encoder.layer.{l}."
+        for name, hf in per_layer.items():
+            out[pre + hf + ".weight"] = getattr(params, name)[l].T
+            out[pre + hf + ".bias"] = getattr(params, name + "_b")[l]
+        for name, hf in norms.items():
+            out[pre + hf + ".weight"] = getattr(params, name + "_w")[l]
+            out[pre + hf + ".bias"] = getattr(params, name + "_b")[l]
+    return out
+
+
+def write_encoder_tokenizer(path: str) -> int:
+    """A BERT WordPiece tokenizer's files in `path` (vocab.txt, one
+    token a line, and a tokenizer_config.json naming BertTokenizer): the
+    special tokens, then letters, digits, punctuation and their ##
+    continuations, then the words of the phase's texts. Returns its
+    size. An engine given the directory refuses it without them
+    (engine._build_encoder)."""
+    chars = list("abcdefghijklmnopqrstuvwxyz0123456789.,!?")
+    words = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + chars
+             + ["##" + c for c in chars]
+             + ["in", "the", "beginning", "engine", "read", "every",
+                "block", "of", "pool", "once", "and", "was", "paged",
+                "rivers", "run", "to", "sea", "is", "never", "full",
+                "tea"])
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(words) + "\n")
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "BertTokenizer",
+                   "do_lower_case": True, "model_max_length": 512}, f)
+    return len(words)
+
+
+def encoder_work(cfg, B: int, T: int, param_bytes: int):
+    """(operations, bytes) of one encode of B rows of T tokens: the
+    products (q, k, v, o, up, down) and the attention's two (scores and
+    values over T keys), 2 operations a multiply-add; the weights read
+    once, the tokens in and the pooled vectors out."""
+    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    per_token = L * (2 * (4 * H * H + 2 * H * I) + 2 * 2 * T * H)
+    return B * T * per_token, param_bytes + B * T * 8 + B * H * 4
+
+
+async def _embeddings(engine, *inputs) -> list:
+    """/v1/embeddings over each of `inputs` (texts or token-id lists)
+    through the port's server in-process: the replies."""
+    import aiohttp
+    from aiohttp import web
+    from production_stack_tpu_torch.engine.server import build_app
+    port = free_port()
+    runner = web.AppRunner(build_app(engine, api_key=""))
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    try:
+        async with aiohttp.ClientSession() as http:
+            return [await _post_json(
+                http, f"http://127.0.0.1:{port}/v1/embeddings",
+                {"model": ENCODER_SERVE["model"], "input": x})
+                for x in inputs]
+    finally:
+        await runner.cleanup()
+
+
+def encoder_phase(device="cuda"):
+    """The BERT encoder of --embedding-model on the card, for bert-base
+    and minilm-l6 at full width (random f32 weights drawn by the engine
+    from its seed):
+    - pooled vectors of rows of 512, 100 and 7 tokens in one batch on the
+      card against the same weights on the CPU, within ENCODER_REL_TOL of
+      each vector's norm; the 7-token row alone against itself batched
+      beside the 512-token row, within ENCODER_PAD_TOL;
+    - the device time of one batch of max_num_seqs x 512 tokens (CUDA
+      graph replay; and eager calls back to back, the host's dispatch
+      included where it outlasts the device) with its bound: the f32
+      operations over F32_FLOPS, the bytes over HBM_BPS;
+    - an HF-named directory written from those weights (the port's
+      save_safetensors, a config.json and a small WordPiece tokenizer,
+      write_encoder_tokenizer) and served by a second engine through
+      --embedding-model <dir>: its weights equal the preset's, its
+      tokenizer is the directory's (its ids of a text logged), and
+      /v1/embeddings of the same token ids (the preset's tokenizer's
+      ids of the texts) from both servers is bit for bit equal,
+      embedding_source encoder:<preset> and encoder:<preset>-hf (the
+      directory's name); the preset's server also takes the texts; no
+      paged or flash kernel launched (the encoder attends with plain
+      ops, as in the JAX package).
+    The engines are freed and the directories deleted before returning."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from production_stack_tpu_torch.engine.async_engine import \
+        AsyncLLMEngine
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.models import encoder as enc
+    from production_stack_tpu_torch.models.hf_loader import save_safetensors
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    t_phase = time.monotonic()
+    B = ENCODER_SERVE["max_num_seqs"]
+    inputs = [long_prompt_text(512), "Rivers run to the sea, and the sea "
+              "is never full.", "Tea."]
+    out, ok = {}, True
+    for preset in ENCODER_PRESETS:
+        t0 = time.monotonic()
+        engine = AsyncLLMEngine(EngineConfig(
+            device=device, embedding_model=preset, **ENCODER_SERVE))
+        eng = engine.engine
+        params, cfg = eng._enc_params, eng._enc_cfg
+        ready_s = time.monotonic() - t0
+        cpu = enc.Encoder(cfg, device="cpu")
+        cpu.load_state_dict(params.state_dict())
+        g = torch.Generator().manual_seed(1)
+        lens = torch.tensor([512, 100, 7])
+        toks = torch.randint(0, cfg.vocab_size, (3, 512), generator=g)
+        t0 = time.monotonic()
+        want = enc.encode(cpu, cfg, toks, lens)
+        cpu_s = time.monotonic() - t0
+        del cpu
+        got = enc.encode(params, cfg, toks.to(device), lens.to(device)).cpu()
+        rel = float(((got - want).abs().amax(dim=1)
+                     / want.norm(dim=1)).max())
+        alone = enc.encode(params, cfg, toks[2:, :7].to(device),
+                           lens[2:].to(device)).cpu()
+        pad = float((alone[0] - got[2]).abs().max())
+        tb = torch.randint(0, cfg.vocab_size, (B, 512), generator=g).to(
+            device)
+        lb = torch.full((B,), 512, device=device)
+        ms = device_ms(lambda i=0: enc.encode(params, cfg, tb, lb), iters=5)
+        eager_ms = time_ms(lambda i=0: enc.encode(params, cfg, tb, lb),
+                           iters=10)
+        param_bytes = sum(p.nbytes for p in params.parameters())
+        flops, nbytes = encoder_work(cfg, B, 512, param_bytes)
+        t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+        # the directory, served by a second engine
+        path = os.path.join(ENCODER_DIR, f"{preset}-hf")
+        shutil.rmtree(path, ignore_errors=True)
+        os.makedirs(path)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump({"model_type": "bert", "vocab_size": cfg.vocab_size,
+                       "hidden_size": cfg.hidden_size,
+                       "intermediate_size": cfg.intermediate_size,
+                       "num_hidden_layers": cfg.num_layers,
+                       "num_attention_heads": cfg.num_heads,
+                       "max_position_embeddings":
+                           cfg.max_position_embeddings,
+                       "type_vocab_size": cfg.type_vocab_size,
+                       "layer_norm_eps": cfg.layer_norm_eps}, f)
+        save_safetensors(encoder_hf_tensors(params, cfg),
+                         os.path.join(path, "model.safetensors"))
+        write_encoder_tokenizer(path)
+        from_dir = AsyncLLMEngine(EngineConfig(
+            device=device, embedding_model=path, **ENCODER_SERVE))
+        weights_equal = all(
+            torch.equal(t, getattr(from_dir.engine._enc_params, n))
+            for n, t in params.named_parameters())
+        dir_tok = from_dir.engine.embedding_tokenizer
+        token_lists = [eng.embedding_tokenizer.encode(x) for x in inputs]
+        pa.reset_launch_counts()
+        fa.reset_launch_counts()
+        t0 = time.monotonic()
+        served, texts = asyncio.run(_embeddings(engine, token_lists,
+                                                inputs))
+        served_dir, = asyncio.run(_embeddings(from_dir, token_lists))
+        serve_s = time.monotonic() - t0
+        launches = {**pa.launch_counts, **fa.launch_counts}
+        vecs = np.array([d["embedding"] for d in served["data"]])
+        vecs_dir = np.array([d["embedding"] for d in served_dir["data"]])
+        vecs_text = np.array([d["embedding"] for d in texts["data"]])
+        rec = {"layers": cfg.num_layers, "hidden": cfg.hidden_size,
+               "heads": cfg.num_heads, "engine_ready_s": ready_s,
+               "card_vs_cpu_rel": rel, "cpu_encode_s": cpu_s,
+               "padding_max_abs": pad,
+               "batch": [B, 512], "ms": ms, "eager_ms": eager_ms,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "flops": flops, "bytes": nbytes,
+               "tflops_per_s": flops / ms / 1e9,
+               "served": {"source": served["embedding_source"],
+                          "dir_source": served_dir["embedding_source"],
+                          "vectors": vecs.shape, "bit_equal":
+                              bool(np.array_equal(vecs, vecs_dir)),
+                          "weights_equal": weights_equal,
+                          "texts_equal_ids": bool(np.array_equal(
+                              vecs_text, vecs)),
+                          "dir_tokenizer": [type(dir_tok).__name__,
+                                            dir_tok.vocab_size,
+                                            dir_tok.encode(inputs[2])],
+                          "finite": bool(np.isfinite(vecs).all()),
+                          "input_tokens": served["usage"]["prompt_tokens"],
+                          "seconds": serve_s, "launches": launches}}
+        out[preset] = rec
+        ok = ok and (rel <= ENCODER_REL_TOL and pad <= ENCODER_PAD_TOL
+                     and rec["served"]["bit_equal"] and weights_equal
+                     and rec["served"]["texts_equal_ids"]
+                     and rec["served"]["finite"]
+                     and vecs.shape == (3, cfg.hidden_size)
+                     and served["embedding_source"] == f"encoder:{preset}"
+                     and served_dir["embedding_source"]
+                     == f"encoder:{preset}-hf"
+                     and not any(launches.values()))
+        for e in (engine, from_dir):
+            release(e)
+        del params, tb, engine, from_dir, eng, dir_tok
+        free_memory()
+        shutil.rmtree(path)
+    out["seconds"] = time.monotonic() - t_phase
+    out["ok"] = ok
+    log(json.dumps({"encoder": out}))
+    if not ok:
+        raise AssertionError(f"the encoder phase failed: {out}")
+    return out
+
+
 # ------------------------------------------------------------ main
 
 # ------------------------------------------------------------ kvtier
@@ -3231,19 +3660,21 @@ def _tokens_check(served, recompute_eng, prompt, want_tokens):
 def _serve_direct(eng, prompt, max_tokens):
     """One greedy request through the engine loop, driven here: (tokens,
     TTFT seconds from add_request, which pays the tier prefetch, to the
-    first token; the sequence)."""
+    first token; the sequence; its terminal output's timing)."""
     from production_stack_tpu_torch.engine.scheduler import SamplingOptions
     t0 = time.monotonic()
     sid = eng.add_request(list(prompt), SamplingOptions(
         temperature=0.0, max_tokens=max_tokens, ignore_eos=True))
-    ttft = None
+    ttft = timing = None
     while eng.has_work:
         outs = eng.step()
         if ttft is None and any(o.seq_id == sid and o.new_token is not None
                                 for o in outs):
             ttft = time.monotonic() - t0
+        timing = next((o.timing for o in outs
+                       if o.seq_id == sid and o.finished), timing)
     seq = eng.seqs[sid]
-    return list(seq.output_tokens), ttft, seq
+    return list(seq.output_tokens), ttft, seq, timing
 
 
 def _counted(fn):
@@ -3450,7 +3881,7 @@ def kvtier_phase(device="cuda", cfg=None):
 
         async def produce():
             import aiohttp
-            runner = web.AppRunner(build_app(prod))
+            runner = web.AppRunner(build_app(prod, api_key=""))
             await runner.setup()
             port = free_port()
             await web.TCPSite(runner, "127.0.0.1", port).start()
@@ -3500,20 +3931,27 @@ def kvtier_phase(device="cuda", cfg=None):
             for name, p, hit in (("long", long_p, len(long_p) // C * C),
                                  ("whole", whole_p, len(whole_p) - 1)):
                 h0 = cconn.hit_tokens
-                (toks, ttft, seq), counts = _counted(
+                (toks, ttft, seq, timing), counts = _counted(
                     lambda: _serve_direct(cons.engine, p, G))
-                # this serve's TTFT holds the check's copies
+                # this serve's TTFT holds the check's copies; the
+                # terminal timing (the trace's kv_prefetch event) carries
+                # the prefetch the sequence measured
                 results[name] = dict(
                     hit=cconn.hit_tokens - h0, want_hit=hit,
                     want_chunks=len(p) // C, checked_ttft_s=ttft,
                     prefetch_wait_s=seq.kv_prefetch_wait_s,
                     cached_tokens=seq.kv_cached_tokens,
+                    kv_prefetch_timing=dict(
+                        wait_s=timing["kv_prefetch_wait_s"],
+                        cached_tokens=timing["kv_cached_tokens"],
+                        equal=(timing["kv_prefetch_wait_s"]
+                               == seq.kv_prefetch_wait_s > 0)),
                     injected=dict(checked), tokens=toks, **counts)
                 checked.clear()
         finally:
             cconn.inject = inject
         # the long prompt again, unchecked: the hit path's TTFT
-        _, ttft_hit, seq = _serve_direct(cons.engine, long_p, G)
+        _, ttft_hit, seq, _ = _serve_direct(cons.engine, long_p, G)
         results["long"].update(ttft_s=ttft_hit,
                                prefetch_wait_s=seq.kv_prefetch_wait_s)
         # where the prefetch wait goes: the 11 chunks read one after
@@ -3529,9 +3967,9 @@ def kvtier_phase(device="cuda", cfg=None):
         hashlib.blake2b(vals[0][:-8], digest_size=8).digest()
         results["long"]["chunk_digest_s"] = time.perf_counter() - t
         del vals
-        (want_long, ttft_rec, _), _ = _counted(
+        (want_long, ttft_rec, _, _), _ = _counted(
             lambda: _serve_direct(rec.engine, long_p, G))
-        want_whole, _, _ = _serve_direct(rec.engine, whole_p, G)
+        want_whole, _, _, _ = _serve_direct(rec.engine, whole_p, G)
         results["long"]["recompute_ttft_s"] = ttft_rec
         results["long"]["vs_recompute"] = _tokens_check(
             results["long"]["tokens"], rec.engine, long_p, want_long)
@@ -3540,9 +3978,9 @@ def kvtier_phase(device="cuda", cfg=None):
 
         # the mixed-pool handoff: bf16 chunks into an int8 pool
         h0 = cons8.engine.connector.hit_tokens
-        (toks8, ttft8, seq8), counts8 = _counted(
+        (toks8, ttft8, seq8, _), counts8 = _counted(
             lambda: _serve_direct(cons8.engine, long_p, G))
-        want8, ttft8_rec, _ = _serve_direct(rec8.engine, long_p, G)
+        want8, ttft8_rec, _, _ = _serve_direct(rec8.engine, long_p, G)
         int8 = dict(hit=cons8.engine.connector.hit_tokens - h0,
                     want_hit=len(long_p) // C * C, ttft_s=ttft8,
                     recompute_ttft_s=ttft8_rec,
@@ -3566,6 +4004,8 @@ def kvtier_phase(device="cuda", cfg=None):
     for name in ("long", "whole"):
         r = results[name]
         ok[name] = (r["hit"] == r["want_hit"] == r["cached_tokens"]
+                    == r["kv_prefetch_timing"]["cached_tokens"]
+                    and r["kv_prefetch_timing"]["equal"]
                     and r["injected"].get("bit_equal") is True
                     and r["injected"]["chunks"] == r["want_chunks"]
                     and r["vs_recompute"]["ok"]
@@ -3681,6 +4121,8 @@ def main() -> int:
     log(json.dumps({"kernel_phase_s": time.monotonic() - t0}))
 
     checkpoint_phase()
+
+    encoder_phase()
 
     counts = {path: model_phase(path) for path in PATHS}
 

@@ -8,15 +8,16 @@ the int8 KV pool (``kv_dtype="int8"``), n-gram speculation
 (``speculative_ngram_tokens`` in 0..16), multi-LoRA (``lora_adapters``
 with ``lora_rank``, ``lora_alpha`` and ``lora_targets``), an HF
 checkpoint directory (``checkpoint``), KV tiering and disaggregated
-prefill (``kv_transfer_config``, kvcache/connector.py) and the kvplane's
-free-list defrag (``kvplane_defrag``) are taken as the JAX config takes
-them. Options the port does not implement yet raise here instead of
-being ignored: an embedding encoder (``embedding_model``; the pooling
-routes serve the causal model's mean-pooled hidden states), multi-device
-parallelism, adaptive decode windows and pipelined windows (the last two
-default to off here, where the JAX engine turns them on; speculation
-pins the adaptive windows off in the JAX engine too). They arrive with
-the slices that need them (ROADMAP.md, Queue A).
+prefill (``kv_transfer_config``, kvcache/connector.py), the kvplane's
+free-list defrag (``kvplane_defrag``), the BERT encoder of the pooling
+routes (``embedding_model``: a preset of models/encoder.py or an HF
+BertModel directory) and the efficiency ring's size
+(``perf_ring_entries``) are taken as the JAX config takes them. Options
+the port does not implement yet raise here instead of being ignored:
+multi-device parallelism, adaptive decode windows and pipelined windows
+(the last two default to off here, where the JAX engine turns them on;
+speculation pins the adaptive windows off in the JAX engine too). They
+arrive with the slices that need them (ROADMAP.md, Queue A).
 """
 
 import dataclasses
@@ -68,6 +69,9 @@ class EngineConfig:
     # HF checkpoint directory (*.safetensors, else *.bin) loaded in
     # place of random weights (models/hf_loader.py)
     checkpoint: Optional[str] = None
+    # the pooling routes' encoder (models/encoder.py): a preset name or
+    # an HF BertModel checkpoint directory. None pools the serving
+    # model's hidden states (embedding_source "causal-mean-pool")
     embedding_model: Optional[str] = None
     enable_prefix_caching: bool = False
     # KV tiering (kvcache/connector.KVTransferConfig's fields): the
@@ -96,6 +100,9 @@ class EngineConfig:
     # the device-memory peak the MBU gauge normalizes against (GB/s):
     # an NVIDIA H100 SXM's 3,350 GB/s of HBM3 (NVIDIA's data sheet)
     hbm_peak_gbps: float = 3350.0
+    # decode windows kept in the efficiency ring (GET /debug/perf and
+    # the recent rates of /load and /metrics)
+    perf_ring_entries: int = 256
     # the device every tensor of the engine lives on. "cuda" runs the
     # hand-written kernels; "cpu" runs their plain versions and must be
     # asked for. CUDA requested where there is none raises.
@@ -121,7 +128,6 @@ class EngineConfig:
             "tensor_parallel_size": self.tensor_parallel_size != 1,
             "pipeline_parallel_size": self.pipeline_parallel_size != 1,
             "expert_parallel_size": self.expert_parallel_size != 1,
-            "embedding_model": self.embedding_model is not None,
             "window_adapt": self.window_adapt,
             "pipeline_depth": self.pipeline_depth != 1,
         }
@@ -145,6 +151,8 @@ class EngineConfig:
             raise ValueError("max_queue_delay_ms must be positive")
         if self.hbm_peak_gbps <= 0:
             raise ValueError("hbm_peak_gbps must be positive")
+        if self.perf_ring_entries < 1:
+            raise ValueError("perf_ring_entries must be >= 1")
         self.prefill_chunk = min(self.prefill_chunk, self.max_model_len)
         buckets = sorted(b for b in self.prefill_buckets
                          if b <= self.prefill_chunk)

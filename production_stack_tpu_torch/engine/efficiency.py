@@ -15,21 +15,27 @@ mean nothing, but the fractions (live / pad / dead) are exact.
 The engine loop calls ``note_window`` once per window and
 ``note_prefill`` once per prefill bucket group: integer adds and one
 bounded-ring append under a lock held only for them. ``perf_block`` (the
-``/load`` ``perf`` block) takes only that lock, never the engine's.
+``/load`` ``perf`` block) takes only that lock, never the engine's. The
+ring (``EngineConfig.perf_ring_entries`` windows) is served on ``GET
+/debug/perf`` by ``recent_windows``.
+
+The JAX package also rings its XLA compile events and attaches those
+that overlap a request to its trace. An eager PyTorch engine compiles
+no executable, so here the compile ring is always empty:
+``recent_compiles`` and ``compile_events_between`` return nothing, as
+``/load``'s compile counters read 0, and keep their shapes for the
+readers of ``/debug/perf`` and the trace middleware.
 """
 
 import collections
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 # KV-pool occupancy observed at allocation time (fraction of non-trash
 # blocks held by live sequences)
 OCCUPANCY_BUCKETS: Tuple[float, ...] = (
     0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
-
-# decode windows the recent rates are taken over (the JAX default)
-RING_ENTRIES = 256
 
 
 class EngineEffAccounting:
@@ -38,10 +44,13 @@ class EngineEffAccounting:
     ``kv_position_bytes``: the bytes one cache position costs one
     attention read (2 x layers x kv-heads x head-dim x itemsize, plus
     the int8 pool's f32 scales); ``weight_bytes``: the whole parameter
-    set."""
+    set; ``ring_entries``: the windows kept for the recent rates and
+    ``/debug/perf``. Ring entries carry the wall clock (``at_unix``)
+    beside the monotonic ``at``, so a reader in another process can line
+    them up with trace spans."""
 
     def __init__(self, *, weight_bytes: int, kv_position_bytes: int,
-                 hbm_peak_bytes_per_s: float):
+                 hbm_peak_bytes_per_s: float, ring_entries: int = 256):
         self.weight_bytes = int(weight_bytes)
         self.kv_position_bytes = int(kv_position_bytes)
         self.hbm_peak_bytes_per_s = float(hbm_peak_bytes_per_s)
@@ -58,14 +67,14 @@ class EngineEffAccounting:
         self.bytes_total = 0
         self.bytes_effective = 0
         self._windows: "collections.deque[dict]" = collections.deque(
-            maxlen=RING_ENTRIES)
+            maxlen=max(1, ring_entries))
         self._lock = threading.Lock()
 
     # -- step-loop writes ------------------------------------------------
 
-    def note_window(self, *, steps: int, batch: int, kv_len: int,
-                    real: int, pad: int, dead: int, window_s: float,
-                    positions: int = 1) -> None:
+    def note_window(self, *, steps: int, batch: int, live_rows: int,
+                    kv_len: int, real: int, pad: int, dead: int,
+                    window_s: float, positions: int = 1) -> None:
         """One decode window: ``batch * steps * positions`` token-step
         computations (``positions`` = spec + 1 per speculative
         macro-step), of which ``real`` emitted tokens the client keeps,
@@ -76,8 +85,12 @@ class EngineEffAccounting:
         win_bytes = steps * (self.weight_bytes
                              + batch * self.kv_position_bytes * kv_len)
         eff_bytes = int(win_bytes * useful)
-        entry = {"at": time.monotonic(), "real": real, "pad": pad,
-                 "dead": dead, "bytes": win_bytes,
+        entry = {"at": time.monotonic(),
+                 "at_unix": round(time.time(), 4),
+                 "steps": steps, "positions": positions, "batch": batch,
+                 "live_rows": live_rows, "kv_len": kv_len, "real": real,
+                 "pad": pad, "dead": dead,
+                 "window_s": round(window_s, 6), "bytes": win_bytes,
                  "effective_bytes": eff_bytes}
         with self._lock:
             self.decode_real += real
@@ -103,10 +116,11 @@ class EngineEffAccounting:
 
     def report(self) -> Dict[str, object]:
         """Cumulative totals (the scrape-time delta-sync source).
-        ``compiles_total``, ``compile_s_total`` and
-        ``compile_in_flight`` are XLA's compile counters in the JAX
-        package: an eager PyTorch engine compiles nothing, so they read
-        0 here and keep their keys for the readers of ``/load``."""
+        ``compiles_total``, ``compile_s_total``, ``compile_in_flight``
+        and ``compiles`` (per executable) are XLA's compile counters in
+        the JAX package: an eager PyTorch engine compiles nothing, so
+        they read 0 (empty) here and keep their keys for the readers of
+        ``/load`` and ``/debug/perf``."""
         with self._lock:
             return {
                 "decode": {"real": self.decode_real,
@@ -124,6 +138,7 @@ class EngineEffAccounting:
                 "compiles_total": 0,
                 "compile_s_total": 0.0,
                 "compile_in_flight": 0,
+                "compiles": {},
                 "weight_bytes": self.weight_bytes,
                 "kv_position_bytes": self.kv_position_bytes,
                 "hbm_peak_bytes_per_s": self.hbm_peak_bytes_per_s,
@@ -181,3 +196,19 @@ class EngineEffAccounting:
         }
         out.update(self.rates(horizon_s))
         return out
+
+    def recent_windows(self, limit: int = 50) -> List[dict]:
+        """The newest ``limit`` window entries (``/debug/perf``)."""
+        with self._lock:
+            return list(self._windows)[-max(1, limit):]
+
+    def recent_compiles(self, limit: int = 50) -> List[dict]:
+        """Compile events for ``/debug/perf``: none (module docstring)."""
+        return []
+
+    def compile_events_between(self, t0: float, t1: float
+                               ) -> List[Tuple[float, float, str, int,
+                                               int, int]]:
+        """Compile events overlapping ``[t0, t1]`` for a request's trace:
+        none (module docstring)."""
+        return []

@@ -64,8 +64,19 @@ rolled sequence registers no prefix chain (its early blocks are gone);
 preemption recomputes it from position 0.
 
 ``embed_tokens`` serves the pooling routes (/v1/embeddings, rerank,
-score) with the serving model's mean-pooled final hidden states
-(``runner.embed``, no cache), beside the engine loop.
+score) beside the engine loop: with ``embedding_model`` through the BERT
+encoder of models/encoder.py (a preset with random weights, or an HF
+BertModel directory with its own tokenizer; built in ``__init__`` so a
+bad preset or checkpoint fails at startup, JAX ``engine.py:1625-1747``),
+which runs on a CUDA stream of its own, so a pooling request waits for
+its own work and not behind a decode window, and the loop never behind
+it; otherwise with the serving model's mean-pooled final hidden states
+(``runner.embed``, no cache).
+
+Every terminal ``StepOutput`` carries the sequence's phase timeline
+(``timing``: arrival, admission, first token, the cumulative queue wait,
+the end, token counts and the KV-tier prefetch), which the server turns
+into the request's trace spans (server.py, JAX ``engine.py:1406-1421``).
 
 KV tiering and disaggregated prefill (JAX ``engine.py:213-239,477-484,
 980-984,1455-1458,1867-1887``): with ``kv_transfer_config`` the engine
@@ -83,8 +94,11 @@ and ``_maybe_defrag`` compacts the free block list after fragmented
 allocation failures. Chunk keys carry the adapter salt.
 """
 
+import contextlib
 import dataclasses
 import itertools
+import json
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -107,10 +121,12 @@ from production_stack_tpu_torch.engine.scheduler import (SamplingOptions,
                                                          SeqStatus,
                                                          Sequence)
 from production_stack_tpu_torch.engine.tokenizer import (DetokenizeStream,
+                                                         HFTokenizer,
                                                          load_tokenizer)
 from production_stack_tpu_torch.kvcache.chunks import model_fingerprint
 from production_stack_tpu_torch.kvcache.connector import (KVConnector,
                                                           KVTransferConfig)
+from production_stack_tpu_torch.models import encoder as enc
 from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.config import get_config
 from production_stack_tpu_torch.models.hf_loader import load_checkpoint
@@ -122,6 +138,11 @@ logger = init_logger(__name__)
 _FINISHED_RETENTION = 1024
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# a vocabulary an embedding checkpoint's tokenizer is built from
+TOKENIZER_FILES = ("tokenizer.json", "vocab.txt", "vocab.json",
+                   "tokenizer.model", "spiece.model",
+                   "sentencepiece.bpe.model")
 
 
 @dataclass
@@ -136,6 +157,9 @@ class StepOutput:
     logprob: Optional[float] = None
     # top_logprobs alternatives [(token_id, logprob)] when requested
     top_alts: Optional[list] = None
+    # terminal outputs only: the sequence's phase timeline (_seq_timing),
+    # the server's trace spans
+    timing: Optional[dict] = None
 
 
 class AdmissionRejected(Exception):
@@ -227,7 +251,8 @@ class LLMEngine:
             weight_bytes=sum(t.nbytes for t in (*params_.parameters(),
                                                 *params_.buffers())),
             kv_position_bytes=kv_pos_bytes,
-            hbm_peak_bytes_per_s=engine_cfg.hbm_peak_gbps * 1e9)
+            hbm_peak_bytes_per_s=engine_cfg.hbm_peak_gbps * 1e9,
+            ring_entries=engine_cfg.perf_ring_entries)
         # advertised once: the router's per-endpoint concurrency cap
         # reads it (0 = unbounded admission)
         self.metrics.capacity.set(
@@ -302,6 +327,15 @@ class LLMEngine:
         # time, spec_ok or None, kv_len) or None
         self._inflight: Optional[tuple] = None
         self._last_sync_t = 0.0
+        # the pooling routes' encoder (models/encoder.py), built here so
+        # a bad preset or checkpoint fails at startup, never at the first
+        # request
+        self._enc_cfg: Optional[enc.EncoderConfig] = None
+        self._enc_params: Optional[enc.Encoder] = None
+        self._enc_stream = None
+        self._embed_tok = None
+        if engine_cfg.embedding_model:
+            self._build_encoder()
 
     # ------------------------------------------------------------------
 
@@ -612,7 +646,8 @@ class LLMEngine:
             self.metrics.engine_phases.observe("queue_wait",
                                                seq.queue_wait_s)
             outputs.append(StepOutput(seq.seq_id, None, "", True,
-                                      seq.finish_reason))
+                                      seq.finish_reason,
+                                      timing=self._seq_timing(seq, now)))
         return outputs
 
     def _do_prefill(self, works) -> List[StepOutput]:
@@ -947,9 +982,10 @@ class LLMEngine:
         B = self.cfg.max_num_seqs
         P = ids.shape[2] if counts is not None else 1
         pad = (B - len(seqs)) * W * P
-        self.eff.note_window(steps=W, batch=B, kv_len=kv_len, real=accepted,
-                             pad=pad, dead=B * W * P - pad - accepted,
-                             window_s=dt, positions=P)
+        self.eff.note_window(steps=W, batch=B, live_rows=len(seqs),
+                             kv_len=kv_len, real=accepted, pad=pad,
+                             dead=B * W * P - pad - accepted, window_s=dt,
+                             positions=P)
         return outputs
 
     def _accept_token(self, seq: Sequence, token: int,
@@ -1017,7 +1053,25 @@ class LLMEngine:
         phases.observe("prefill", max(0.0, first - admit))
         phases.observe("decode", max(0.0, now - max(first, admit)))
         return [StepOutput(seq.seq_id, token, text_delta, True, reason,
-                           logprob, top_alts)]
+                           logprob, top_alts,
+                           timing=self._seq_timing(seq, now))]
+
+    @staticmethod
+    def _seq_timing(seq: Sequence, end: float) -> dict:
+        """A terminal output's timing: the monotonic phase stamps the
+        server turns into the request's trace spans (it holds the HTTP
+        context, the traceparent, which this layer must not)."""
+        return {
+            "arrival": seq.arrival_time,
+            "admit": seq.admit_time,
+            "first_token": seq.first_token_time,
+            "queue_wait_s": seq.queue_wait_s,
+            "end": end,
+            "prompt_tokens": len(seq.prompt_tokens),
+            "output_tokens": len(seq.output_tokens),
+            "kv_prefetch_wait_s": seq.kv_prefetch_wait_s,
+            "kv_cached_tokens": seq.kv_cached_tokens,
+        }
 
     def _stop_reason(self, seq: Sequence, token: int,
                      delta: str) -> Optional[str]:
@@ -1255,28 +1309,107 @@ class LLMEngine:
 
     @property
     def embedding_source(self) -> str:
-        """What the pooling routes serve: the serving model's mean-pooled
-        final hidden states (an encoder, ``embedding_model``, is not
-        ported)."""
+        """What the pooling routes serve: ``encoder:<name>`` with an
+        embedding encoder, else ``causal-mean-pool`` (the serving
+        model's mean-pooled hidden states: the API's shape, not a
+        validated embedding)."""
+        if self.cfg.embedding_model:
+            return f"encoder:{self._enc_cfg.name}"
         return "causal-mean-pool"
 
     @property
     def embedding_tokenizer(self):
-        """The tokenizer of the pooling routes: the serving one."""
-        return self.tokenizer
+        """The pooling routes' tokenizer: an encoder checkpoint's own
+        (BERT vocabularies are not the chat model's), else the serving
+        one."""
+        return self._embed_tok or self.tokenizer
 
     @property
     def max_embed_len(self) -> int:
-        """Length cap of a pooling input: the serving cache length."""
+        """Length cap of a pooling input: the encoder's position table,
+        else the serving cache length."""
+        if self.cfg.embedding_model:
+            return self._enc_cfg.max_position_embeddings
         return self.cfg.max_model_len
+
+    def _build_encoder(self) -> None:
+        """Build the embedding encoder (JAX ``_ensure_encoder``): a
+        preset name (random weights from a torch.Generator seeded
+        seed ^ 0xE9C0DE, other values than the JAX engine's threefry
+        draw) or an HF BertModel checkpoint directory, which must ship its own tokenizer (a vocabulary file,
+        loaded by transformers) within the encoder's vocabulary: the
+        serving tokenizer's ids, or the byte fallback's, would index the
+        encoder's embedding table meaninglessly. The JAX engine checks
+        only the vocabulary's size, so it takes the byte fallback of a
+        directory without tokenizer files, and with some transformers
+        versions a tokenizer of the five special tokens that reads every
+        word as [UNK] (ROADMAP Queue C item 13)."""
+        spec = self.cfg.embedding_model
+        dev = self.cfg.torch_device
+        if os.path.isdir(spec):
+            with open(os.path.join(spec, "config.json")) as f:
+                cfg = enc.config_from_hf_json(json.load(f),
+                                              name=os.path.basename(spec))
+            params = enc.load_checkpoint(cfg, spec, device=dev)
+            tok = load_tokenizer(spec, None)
+            tok_vocab = getattr(tok, "vocab_size", None)
+            own = isinstance(tok, HFTokenizer) and any(
+                os.path.exists(os.path.join(spec, f))
+                for f in TOKENIZER_FILES)
+            if not own or tok_vocab is None or tok_vocab > cfg.vocab_size:
+                raise ValueError(
+                    f"embedding checkpoint {spec} has no usable tokenizer "
+                    f"(got {type(tok).__name__} with vocab {tok_vocab} vs "
+                    f"encoder vocab {cfg.vocab_size}); ship the model's "
+                    f"tokenizer files ({', '.join(TOKENIZER_FILES)}) in "
+                    f"the checkpoint dir")
+            self._embed_tok = tok
+        else:
+            cfg = enc.get_encoder_config(spec)
+            gen = torch.Generator(device=dev).manual_seed(
+                self.cfg.seed ^ 0xE9C0DE)
+            params = enc.init_params(cfg, gen, device=dev)
+            logger.info("random-initialized embedding encoder %s (preset; "
+                        "pass a checkpoint dir for real embeddings)",
+                        cfg.name)
+        if dev.type == "cuda":
+            # the pooling routes' own stream, ordered after the weights'
+            # writes on this thread's stream
+            self._enc_stream = torch.cuda.Stream(device=dev)
+            self._enc_stream.wait_stream(torch.cuda.current_stream(dev))
+        self._enc_cfg, self._enc_params = cfg, params
+
+    def _embed_batch(self, tokens: np.ndarray,
+                     lengths: np.ndarray) -> np.ndarray:
+        """One padded batch -> pooled [B, H] f32 on the host, through the
+        encoder (on its own stream, whose sync alone the copy waits for)
+        or the serving model."""
+        if not self.cfg.embedding_model:
+            return self.runner.embed(tokens, lengths).cpu().numpy()
+        dev = self.cfg.torch_device
+        with (torch.cuda.stream(self._enc_stream)
+              if self._enc_stream is not None else contextlib.nullcontext()):
+            toks = torch.from_numpy(tokens.astype(np.int64)).to(dev)
+            lens = torch.from_numpy(lengths.astype(np.int64)).to(dev)
+            pooled = enc.encode(self._enc_params, self._enc_cfg, toks, lens)
+            return pooled.cpu().numpy()
 
     def embed_tokens(self, token_lists: List[List[int]]) -> np.ndarray:
         """Pooled embeddings [n, H] f32 of token lists (JAX
         ``embed_tokens``): batches of max_num_seqs rows, each padded to
         the smallest prefill or kv-length bucket that holds its longest
-        input. Reads the weights only, so the server runs it beside the
-        engine loop."""
+        input (with an encoder, at most its position table). Reads the
+        weights only, so the server runs it beside the engine loop. An
+        encoder refuses ids outside its vocabulary (ValueError)."""
         B = self.cfg.max_num_seqs
+        if self.cfg.embedding_model:
+            V = self._enc_cfg.vocab_size
+            for toks in token_lists:
+                bad = [t for t in toks if not 0 <= t < V]
+                if bad:
+                    raise ValueError(
+                        f"token id {bad[0]} out of range for the "
+                        f"embedding encoder vocab ({V})")
         buckets = sorted(set(self.cfg.prefill_buckets)
                          | set(self.cfg.kv_len_buckets))
         out: List[np.ndarray] = []
@@ -1284,12 +1417,16 @@ class LLMEngine:
             group = token_lists[i:i + B]
             need = max(len(t) for t in group)
             tb = next((b for b in buckets if b >= need), need)
+            if self.cfg.embedding_model:
+                # serving buckets can pass the encoder's position table;
+                # callers are capped at max_embed_len
+                tb = min(tb, self.max_embed_len)
             tokens = np.zeros((B, tb), np.int32)
             lengths = np.ones((B,), np.int32)
             for j, toks in enumerate(group):
                 tokens[j, :len(toks)] = toks
                 lengths[j] = len(toks)
-            pooled = self.runner.embed(tokens, lengths).cpu().numpy()
+            pooled = self._embed_batch(tokens, lengths)
             out.append(pooled[:len(group)])
         return np.concatenate(out, axis=0)
 

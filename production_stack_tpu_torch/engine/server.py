@@ -1,8 +1,8 @@
 """OpenAI-compatible HTTP server for the PyTorch engine (aiohttp)
-(``production_stack_tpu/engine/server.py``). Left out, with what they
-belong to: ``/debug/traces`` and ``/debug/perf``, the trace middleware
-and API-key enforcement (not yet queued), and an embedding encoder
-(``--embedding-model``).
+(``production_stack_tpu/engine/server.py``): every route of the JAX
+engine's server, and its flags but those of multi-device parallelism,
+adaptive decode windows and pipelined windows (engine/config.py), plus
+``--device``.
 
 Endpoints: ``/v1/completions`` and ``/v1/chat/completions`` (streamed
 as SSE or not; ``n`` choices, several prompts per completion request,
@@ -13,11 +13,34 @@ mean-pooled hidden states, flagged ``embedding_source``
 ``causal-mean-pool``), ``/v1/models``, ``/health``, ``/load``,
 ``/metrics``, ``/version``, ``/tokenize`` and ``/detokenize``, and the
 runtime adapter verbs ``/admin/lora/load`` and ``/admin/lora/evict``,
-and the kvplane's ``/admin/kvplane/migrate_out`` and
-``/admin/kvplane/warm``. Every reply carries the engine's ``x-engine-*`` load headers. Overload answers
-as the JAX server does: 503 + Retry-After when bounded admission sheds a
+the kvplane's ``/admin/kvplane/migrate_out`` and
+``/admin/kvplane/warm``, and ``/debug/traces`` and ``/debug/perf``. With
+``--embedding-model`` (a preset of models/encoder.py or an HF BertModel
+directory) the pooling routes serve that encoder's vectors, flagged
+``embedding_source`` ``encoder:<name>``. Every reply carries the
+engine's ``x-engine-*`` load headers. Overload answers as the JAX
+server does: 503 + Retry-After when bounded admission sheds a
 request or the queue-delay cap drops it, 504 + ``x-deadline-expired``
 when the client's ``x-request-deadline-ms`` elapses before admission.
+
+API keys, as the JAX server enforces them: ``build_app(api_key=None)``
+reads ``ENGINE_API_KEY`` (the chart's secret); set and not empty, every
+route but ``/health``, ``/metrics``, ``/version`` and ``/load`` (probes
+and scrapers carry no credentials) needs ``Authorization: Bearer
+<key>``, else 401. ``/debug/*`` is not exempt. The check runs before the
+load headers and the trace, so a 401 carries neither.
+
+Tracing (tracing.py): a completion or chat request continues an inbound
+W3C ``traceparent`` (or starts a trace), answers with ``x-trace-id`` (a
+stream in its SSE headers), and on completion seals the engine-side
+spans into a ring served on ``GET /debug/traces``: the phases
+preprocess (HTTP entry to engine arrival), queue_wait, prefill, decode
+and postprocess, from the terminal output's timing (engine.py), and the
+events tokenize and kv_prefetch. ``GET /debug/perf`` serves the
+efficiency ring (``--perf-ring-entries`` windows), its totals and
+rates, and the block pool's census. ``--trace-ring-entries`` and
+``--trace-sample-rate`` size and sample the trace ring; an inbound
+sampled flag wins.
 
 Guided decoding takes vLLM's fields — ``guided_regex``,
 ``guided_choice``, ``guided_json`` — and ``response_format``
@@ -57,6 +80,8 @@ import asyncio
 import dataclasses
 import json
 import math
+import os
+import secrets
 import time
 from contextlib import aclosing
 from typing import List, Optional
@@ -73,12 +98,18 @@ from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import (AdmissionRejected,
                                                       DeadlineExceeded)
 from production_stack_tpu_torch.engine.scheduler import SamplingOptions
+from production_stack_tpu_torch.tracing import (TraceRecorder,
+                                                debug_traces_handler)
 from production_stack_tpu_torch.utils import init_logger
 from production_stack_tpu_torch.version import __version__
 
 logger = init_logger(__name__)
 
 ENGINE_KEY = web.AppKey("engine", AsyncLLMEngine)
+
+# the paths whose requests get an engine-side trace: the generation
+# routes the router's span chain continues into
+TRACED_PATHS = frozenset({"/v1/chat/completions", "/v1/completions"})
 
 # relative per-request budget in milliseconds (the router sets it)
 DEADLINE_HEADER = "x-request-deadline-ms"
@@ -87,6 +118,95 @@ DEADLINE_HEADER = "x-request-deadline-ms"
 DEADLINE_MARKER = "x-deadline-expired"
 # OpenAI's bound on n, and on len(prompt) * n
 MAX_CHOICES = 128
+
+
+def _stash_timing(request: web.Request, out) -> None:
+    """Keep a terminal output's phase timeline for the trace middleware
+    (the last choice to finish supplies it for n > 1 and several
+    prompts)."""
+    if out.finished and out.timing is not None:
+        request["seq_timing"] = out.timing
+
+
+def _seal_engine_trace(tracer: TraceRecorder, trace, request: web.Request,
+                       status: str) -> None:
+    """The engine-side spans from what the handlers kept:
+
+    - ``preprocess``: HTTP entry to engine arrival (parse, chat
+      template, tokenize, guided compile, KV-tier prefetch), with
+      tokenize and kv_prefetch inside it as events, so the phase sum
+      never counts them twice;
+    - ``queue_wait`` / ``prefill`` / ``decode``: the terminal output's
+      timing (engine._seq_timing);
+    - ``postprocess``: the last engine output to the response.
+
+    A request that never made a sequence (a 400, a shed, a deadline
+    504) gets one ``preprocess`` phase over its whole life. Compile
+    events overlapping the request become ``xla_compile`` events, as in
+    the JAX server; the port compiles none (engine/efficiency.py)."""
+    now = time.monotonic()
+    engine = request.app.get(ENGINE_KEY)
+    if engine is not None:
+        for (start, dur, kind, window, kv, batch) in \
+                engine.engine.eff.compile_events_between(trace.t0, now):
+            trace.add_event("xla_compile", start, dur,
+                            attrs={"kind": kind, "window": window,
+                                   "kv_bucket": kv, "batch": batch})
+    timing = request.get("seq_timing")
+    tok_s = request.get("trace_tokenize_s")
+    if timing is not None:
+        arrival = timing["arrival"]
+        admit = timing["admit"]
+        end = timing["end"]
+        trace.add_phase("preprocess", trace.t0, arrival)
+        if admit is None:
+            # never admitted (a deadline or queue-delay drop): its whole
+            # engine life was queue wait, never prefill
+            trace.add_phase("queue_wait", arrival, end)
+        else:
+            # queue_wait_s sums every wait (a preempted sequence waits
+            # again); drawn from arrival, the durations stay honest
+            qw = timing.get("queue_wait_s") or max(0.0, admit - arrival)
+            trace.add_span("queue_wait", arrival, qw, "phase")
+            first = timing["first_token"] if timing["first_token"] \
+                is not None else end
+            trace.add_phase("prefill", admit, max(admit, first))
+            trace.add_phase("decode", max(admit, first), end)
+        trace.add_phase("postprocess", end, now)
+        if timing.get("kv_prefetch_wait_s"):
+            trace.add_event(
+                "kv_prefetch", None, timing["kv_prefetch_wait_s"],
+                attrs={"cached_tokens": timing.get("kv_cached_tokens",
+                                                   0)})
+        trace.attrs["prompt_tokens"] = timing.get("prompt_tokens")
+        trace.attrs["output_tokens"] = timing.get("output_tokens")
+    else:
+        trace.add_phase("preprocess", trace.t0, now)
+    if tok_s:
+        trace.add_event("tokenize", None, tok_s)
+    tracer.finish(trace, status)
+
+
+def _trace_middleware(tracer: TraceRecorder):
+    @web.middleware
+    async def record_trace(request: web.Request, handler):
+        if request.path not in TRACED_PATHS:
+            return await handler(request)
+        trace = tracer.begin(request.headers.get("traceparent"),
+                             name=request.path)
+        request["trace"] = trace
+        try:
+            resp = await handler(request)
+        except BaseException:
+            _seal_engine_trace(tracer, trace, request, "exception")
+            raise
+        if not resp.prepared:
+            resp.headers["x-trace-id"] = trace.trace_id
+        status = request.get("trace_status") or (
+            "ok" if resp.status < 400 else f"http_{resp.status}")
+        _seal_engine_trace(tracer, trace, request, status)
+        return resp
+    return record_trace
 
 
 def _error(status: int, message: str,
@@ -394,10 +514,15 @@ async def _sse_stream(request: web.Request, gen) -> web.StreamResponse:
     async def ensure_prepared() -> web.StreamResponse:
         nonlocal resp
         if resp is None:
-            resp = web.StreamResponse(status=200, headers={
-                "Content-Type": "text/event-stream",
-                "Cache-Control": "no-cache", "X-Accel-Buffering": "no",
-                **_load_headers(engine)})
+            headers = {"Content-Type": "text/event-stream",
+                       "Cache-Control": "no-cache",
+                       "X-Accel-Buffering": "no", **_load_headers(engine)}
+            trace = request.get("trace")
+            if trace is not None:
+                # a stream takes its trace id here: the middleware can
+                # no longer add headers once it is prepared
+                headers["x-trace-id"] = trace.trace_id
+            resp = web.StreamResponse(status=200, headers=headers)
             await resp.prepare(request)
         return resp
 
@@ -414,6 +539,7 @@ async def _sse_stream(request: web.Request, gen) -> web.StreamResponse:
         await resp.write_eof()
     except (ConnectionResetError, ConnectionError):
         # the client went away; closing the generator aborts the request
+        request["trace_status"] = "client_disconnect"
         await gen.aclose()
         if resp is None:
             resp = web.Response(status=500)   # never reaches the client
@@ -560,8 +686,10 @@ async def chat_completions(request: web.Request) -> web.StreamResponse:
         # refuse before the template and tokenizer work
         return _shed_error(engine)
     tok = engine.tokenizer
+    t_tok = time.monotonic()
     prompt_ids = tok.encode(tok.apply_chat_template(
         [m.model_dump() for m in req.messages]))
+    request["trace_tokenize_s"] = time.monotonic() - t_tok
     bad = _too_long(engine, len(prompt_ids))
     if bad is not None:
         return bad
@@ -581,6 +709,7 @@ async def chat_completions(request: web.Request) -> web.StreamResponse:
 
             def chunk_for(i, out):
                 nonlocal num_tokens
+                _stash_timing(request, out)
                 if out.new_token is not None:
                     num_tokens += 1
                 lp_block = None
@@ -629,6 +758,7 @@ async def chat_completions(request: web.Request) -> web.StreamResponse:
                 deadline=deadline)) as it:
             async for out in it:
                 _check_overload_finish(out)
+                _stash_timing(request, out)
                 parts.append(out.text_delta)
                 if out.new_token is not None:
                     tokens += 1
@@ -700,7 +830,9 @@ async def completions(request: web.Request) -> web.StreamResponse:
             and len(prompt) * req.n > MAX_CHOICES):
         return _error(400, f"len(prompt) * n must be <= {MAX_CHOICES}")
     try:
+        t_tok = time.monotonic()
         prompts = _as_token_lists(tok, prompt)
+        request["trace_tokenize_s"] = time.monotonic() - t_tok
     except ValueError as e:
         return _error(400, str(e))
     if not prompts or any(not p for p in prompts):
@@ -729,6 +861,7 @@ async def completions(request: web.Request) -> web.StreamResponse:
 
             def chunk_for(i, out):
                 nonlocal num_tokens
+                _stash_timing(request, out)
                 if out.new_token is not None:
                     num_tokens += 1
                 lp_block = None
@@ -774,6 +907,7 @@ async def completions(request: web.Request) -> web.StreamResponse:
                                           deadline=deadline)) as it:
             async for out in it:
                 _check_overload_finish(out)
+                _stash_timing(request, out)
                 parts.append(out.text_delta)
                 if out.new_token is not None:
                     tokens += 1
@@ -854,10 +988,11 @@ async def _pool_body(request: web.Request):
 
 
 async def embeddings(request: web.Request) -> web.Response:
-    """OpenAI /v1/embeddings: one vector per input, the mean of the
-    serving model's final hidden states over the input's tokens
-    (``embedding_source`` says so: an approximation of an embedding
-    model whose quality nothing here validates)."""
+    """OpenAI /v1/embeddings: one vector per input, the embedding
+    encoder's mean-pooled output, or without one the mean of the serving
+    model's final hidden states over the input's tokens
+    (``embedding_source`` says which: the second is an approximation of
+    an embedding model whose quality nothing here validates)."""
     try:
         engine, body, bad = await _pool_body(request)
         if bad is not None:
@@ -979,6 +1114,25 @@ async def version(request: web.Request) -> web.Response:
     return web.json_response({"version": __version__})
 
 
+async def debug_perf(request: web.Request) -> web.Response:
+    """``GET /debug/perf``: the efficiency ring's newest windows
+    (``limit=N``, default 50), its compile events (none: the port
+    compiles no executable), the totals and recent rates, and the block
+    pool's census. Read without the engine lock."""
+    eng = request.app[ENGINE_KEY].engine
+    try:
+        limit = max(1, int(request.query.get("limit", "50")))
+    except ValueError:
+        limit = 50
+    return web.json_response({
+        "totals": eng.eff.report(),
+        "rates": eng.eff.rates(),
+        "windows": eng.eff.recent_windows(limit),
+        "compiles": eng.eff.recent_compiles(limit),
+        "kv_pool": eng.block_mgr.frag_report(),
+    })
+
+
 async def metrics(request: web.Request) -> web.Response:
     engine = request.app[ENGINE_KEY]
     return web.Response(body=engine.engine.render_metrics(),
@@ -1086,7 +1240,48 @@ async def detokenize(request: web.Request) -> web.Response:
         {"prompt": engine.tokenizer.decode(body.get("tokens", []))})
 
 
-def build_app(engine: AsyncLLMEngine) -> web.Application:
+# probes and the Prometheus scraper carry no credentials: these stay
+# open under an API key. The /debug namespace is not exempt: its traces
+# carry per-request data
+AUTH_EXEMPT_PATHS = frozenset({"/health", "/metrics", "/version",
+                               "/load"})
+
+
+def _auth_middleware(api_key: str):
+    # compare bytes: compare_digest on a non-ASCII str raises TypeError,
+    # which would answer a malformed credential with 500, not 401
+    expected = f"Bearer {api_key}".encode("utf-8", "surrogateescape")
+
+    @web.middleware
+    async def check_auth(request: web.Request, handler):
+        if request.path in AUTH_EXEMPT_PATHS:
+            return await handler(request)
+        provided = request.headers.get("Authorization", "").encode(
+            "utf-8", "surrogateescape")
+        if not secrets.compare_digest(provided, expected):
+            return _error(401, "invalid or missing API key "
+                               "(Authorization: Bearer ...)")
+        return await handler(request)
+
+    return check_auth
+
+
+def build_app(engine: AsyncLLMEngine, api_key: Optional[str] = None,
+              trace_ring_entries: int = 2048,
+              trace_sample_rate: float = 1.0) -> web.Application:
+    """api_key None reads ENGINE_API_KEY (the chart's secret); empty or
+    unset turns enforcement off. Middlewares run auth, then the load
+    headers, then the trace, so a 401 carries no x-engine-* header and
+    opens no trace."""
+    if api_key is None:
+        api_key = os.environ.get("ENGINE_API_KEY", "")
+    tracer = TraceRecorder("engine", ring_entries=trace_ring_entries,
+                           sample_rate=trace_sample_rate)
+    middlewares = [_auth_middleware(api_key)] if api_key else []
+    if middlewares:
+        logger.info("API-key enforcement on: every route needs Bearer "
+                    "auth but %s", ", ".join(sorted(AUTH_EXEMPT_PATHS)))
+
     @web.middleware
     async def stamp_load_headers(request: web.Request, handler):
         # every reply carries the engine's load (SSE streams take theirs
@@ -1098,8 +1293,12 @@ def build_app(engine: AsyncLLMEngine) -> web.Application:
         return resp
 
     app = web.Application(client_max_size=32 * 1024 * 1024,
-                          middlewares=[stamp_load_headers])
+                          middlewares=[*middlewares, stamp_load_headers,
+                                       _trace_middleware(tracer)])
     app[ENGINE_KEY] = engine
+    app.router.add_get("/debug/traces",
+                       debug_traces_handler(lambda: tracer))
+    app.router.add_get("/debug/perf", debug_perf)
     app.router.add_post("/v1/chat/completions", chat_completions)
     app.router.add_post("/v1/completions", completions)
     app.router.add_get("/v1/models", list_models)
@@ -1193,6 +1392,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--hbm-peak-gbps", type=float, default=3350.0,
                    help="device-memory peak the MBU gauge normalizes "
                         "against (GB/s; default an H100 SXM's)")
+    p.add_argument("--perf-ring-entries", type=int, default=256,
+                   help="decode windows kept in memory (bounded ring on "
+                        "GET /debug/perf)")
+    p.add_argument("--trace-ring-entries", type=int, default=2048,
+                   help="completed request traces kept in memory "
+                        "(bounded ring on GET /debug/traces)")
+    p.add_argument("--trace-sample-rate", type=float, default=1.0,
+                   help="fraction of direct requests traced into the "
+                        "ring; an inbound traceparent's sampled flag "
+                        "always wins")
+    p.add_argument("--embedding-model", default=None,
+                   help="the pooling routes' encoder (models/encoder.py): "
+                        "a preset (debug-encoder, minilm-l6, bert-base) "
+                        "or an HF BertModel checkpoint dir. Default: the "
+                        "serving model's mean-pooled hidden states, "
+                        "embedding_source causal-mean-pool")
     p.add_argument("--lora-adapters", default=None,
                    help="comma-separated name=source pairs; source is an "
                         ".npz adapter checkpoint (models/lora.py) or "
@@ -1236,8 +1451,9 @@ def main(argv=None) -> None:
         if args.kv_transfer_config else None,
         kvplane_defrag=not args.no_kvplane_defrag,
         speculative_ngram_tokens=args.speculative_ngram_tokens,
-        hbm_peak_gbps=args.hbm_peak_gbps, seed=args.seed,
-        checkpoint=args.checkpoint,
+        hbm_peak_gbps=args.hbm_peak_gbps,
+        perf_ring_entries=args.perf_ring_entries, seed=args.seed,
+        checkpoint=args.checkpoint, embedding_model=args.embedding_model,
         lora_adapters=dict(pair.split("=", 1)
                            for pair in args.lora_adapters.split(","))
         if args.lora_adapters else None,
@@ -1247,8 +1463,10 @@ def main(argv=None) -> None:
         engine.engine.runner.warmup()
     logger.info("engine serving %s on %s:%d (%s)", args.model, args.host,
                 args.port, args.device)
-    web.run_app(build_app(engine), host=args.host, port=args.port,
-                handler_cancellation=True)
+    web.run_app(build_app(engine,
+                          trace_ring_entries=args.trace_ring_entries,
+                          trace_sample_rate=args.trace_sample_rate),
+                host=args.host, port=args.port, handler_cancellation=True)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ carrying them is a copy, never a transpose. Leaves the JAX package
 quantized (``{"w8": int8, "scale": f32}``, models/quant.py) and an int8
 pool with its ``ks``/``vs`` scales come across bit for bit. A LoRA
 adapter (``{proj: {"a": [L, in, r], "b": [L, r, out]}}``, models/lora.py)
-keeps the JAX layout too.
+keeps the JAX layout too, and so does the BERT encoder of the pooling
+routes (models/encoder.py: the embeddings and ``{"layers": {...}}``
+stacked on a leading layer axis).
 """
 
 from typing import Mapping, Optional, Tuple
@@ -19,6 +21,8 @@ import torch
 
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models import lora as lora_mod
+from production_stack_tpu_torch.models.encoder import (EMBED_KEYS, Encoder,
+                                                       EncoderConfig)
 from production_stack_tpu_torch.models.kv import KVCache
 from production_stack_tpu_torch.models.llama import LAYER_KEYS, Llama
 from production_stack_tpu_torch.models.quant import QuantizedWeight
@@ -61,6 +65,23 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig,
                     _tensor(src["scale"], torch.float32, device)))
             else:
                 p.copy_(_tensor(src, cfg.dtype, device))
+    return model
+
+
+def encoder_params_from_jax(np_params: Mapping, cfg: EncoderConfig,
+                            device="cuda") -> Encoder:
+    """The JAX encoder's params ({"word_emb", "pos_emb", "type_emb",
+    "emb_ln_w", "emb_ln_b", "layers": {...}}, numpy leaves) as the
+    port's Encoder in cfg.dtype on `device`, every shape checked."""
+    model = Encoder(cfg, device=device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            src = np_params[name] if name in EMBED_KEYS \
+                else np_params["layers"][name]
+            if tuple(np.shape(src)) != tuple(p.shape):
+                raise ValueError(f"{name}: JAX shape {np.shape(src)} != "
+                                 f"port shape {tuple(p.shape)}")
+            p.copy_(_tensor(src, cfg.dtype, device))
     return model
 
 

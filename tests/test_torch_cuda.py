@@ -668,3 +668,86 @@ def test_tier_round_trip_on_the_card_equals_the_cpu(cuda):
         conn.close()
         return values
     assert run(cuda) == run("cpu")
+
+
+@pytest.mark.parametrize("preset", ["minilm-l6", "bert-base"])
+def test_encoder_on_the_card_equals_the_cpu(cuda, preset):
+    """The BERT encoder at full width on the card (f32 weights from a
+    seeded generator) against the same weights on the CPU: pooled
+    vectors within 1e-4 of each vector's norm, over rows of 512, 100 and
+    7 tokens in one batch; a row alone equals itself batched beside the
+    512-token row within 1e-5."""
+    from production_stack_tpu_torch.models import encoder as enc
+    cfg = enc.get_encoder_config(preset)
+    params = enc.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    cpu = enc.Encoder(cfg, device="cpu")
+    cpu.load_state_dict(params.state_dict())
+    g = torch.Generator().manual_seed(1)
+    lens = torch.tensor([512, 100, 7])
+    toks = torch.randint(0, cfg.vocab_size, (3, 512), generator=g)
+    want = enc.encode(cpu, cfg, toks, lens)
+    got = enc.encode(params, cfg, toks.to(cuda), lens.to(cuda)).cpu()
+    err = ((got - want).abs().amax(dim=1) / want.norm(dim=1)).max()
+    assert err <= 1e-4, err
+    alone = enc.encode(params, cfg, toks[2:, :7].to(cuda),
+                       lens[2:].to(cuda)).cpu()
+    assert (alone[0] - got[2]).abs().max() <= 1e-5
+
+
+def test_encoder_engine_on_the_card_equals_the_cpu(cuda):
+    """embed_tokens of an engine with embedding_model on the card (the
+    encoder on its own stream) against a CPU engine given the same
+    encoder weights."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    kw = dict(model="debug-tiny", max_model_len=128, max_num_seqs=2,
+              prefill_chunk=32, prefill_buckets=(16, 32),
+              embedding_model="debug-encoder")
+    gpu = LLMEngine(EngineConfig(device="cuda", **kw))
+    cpu = LLMEngine(EngineConfig(device="cpu", **kw))
+    cpu._enc_params.load_state_dict(gpu._enc_params.state_dict())
+    lists = [[1, 2, 3], list(range(5, 105)), [7] * 40]
+    a, b = gpu.embed_tokens(lists), cpu.embed_tokens(lists)
+    assert a.shape == (3, 64) and np.isfinite(a).all()
+    assert np.abs(a - b).max() <= 1e-4 * np.linalg.norm(b, axis=1).min()
+
+
+def test_trace_middleware_on_a_card_engine(cuda):
+    """A traced completion on a card engine: the inbound trace id on the
+    reply, the parent span and the five phases in /debug/traces, and the
+    paged kernels launched."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from production_stack_tpu_torch import tracing
+    from production_stack_tpu_torch.engine.async_engine import AsyncLLMEngine
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.server import build_app
+    # TinyLlama's head dim 64: the kernels take D = 64, 128 and 256
+    engine = AsyncLLMEngine(EngineConfig(
+        model="tinyllama-1.1b", device="cuda", max_model_len=256,
+        max_num_seqs=2, prefill_chunk=64, kv_block_size=64))
+    tid, sid = tracing.new_trace_id(), tracing.new_span_id()
+
+    async def body():
+        async with TestClient(TestServer(build_app(engine,
+                                                   api_key=""))) as c:
+            r = await c.post("/v1/completions", json={
+                "model": "tinyllama-1.1b", "prompt": "trace me on the card",
+                "max_tokens": 6, "temperature": 0.0, "ignore_eos": True},
+                headers={"traceparent": tracing.format_traceparent(
+                    tid, sid)})
+            assert r.status == 200 and r.headers["x-trace-id"] == tid
+            r = await c.get("/debug/traces", params={"trace_id": tid})
+            return (await r.json())["traces"]
+    pa.reset_launch_counts()
+    rows = asyncio.run(body())
+    assert len(rows) == 1 and rows[0]["parent_id"] == sid
+    assert [s["name"] for s in rows[0]["spans"] if s["kind"] == "phase"] \
+        == ["preprocess", "queue_wait", "prefill", "decode", "postprocess"]
+    assert rows[0]["attrs"]["output_tokens"] == 6
+    assert all(pa.launch_counts[n] > 0 for n in pa.launch_counts)

@@ -42,7 +42,8 @@ def test_jax_router_disagg_stage_serves_port_engines(tmp_path):
            "max_tokens": 8, "temperature": 0.0}
 
     async def body():
-        servers = [TestServer(build_app(e)) for e in (producer, consumer)]
+        servers = [TestServer(build_app(e, api_key=""))
+                   for e in (producer, consumer)]
         for srv in servers:
             await srv.start_server()
         args = parse_args([
@@ -63,7 +64,8 @@ def test_jax_router_disagg_stage_serves_port_engines(tmp_path):
                     f"http://127.0.0.1:{servers[0].port}/load")).json()
                 c_load = await (await client.session.get(
                     f"http://127.0.0.1:{servers[1].port}/load")).json()
-            async with TestClient(TestServer(build_app(fresh))) as fc:
+            async with TestClient(TestServer(
+                    build_app(fresh, api_key=""))) as fc:
                 r = await fc.post("/v1/chat/completions", json=req)
                 assert r.status == 200
                 want = await r.json()

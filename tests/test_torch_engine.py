@@ -307,12 +307,27 @@ def test_engine_refuses_unported_options():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(embedding_model="bge-small"), dict(tensor_parallel_size=2),
-    dict(window_adapt=True), dict(pipeline_depth=2),
-    dict(expert_parallel_size=2)])
+    dict(tensor_parallel_size=2), dict(window_adapt=True),
+    dict(pipeline_depth=2), dict(expert_parallel_size=2)])
 def test_engine_config_pins_unported_options(kw):
     with pytest.raises(NotImplementedError):
         tec.EngineConfig(model="debug-tiny", device="cpu", **kw)
+
+
+def test_engine_config_takes_embedding_model():
+    """The encoder is ported: the config takes embedding_model, and a
+    name that is neither a preset nor a directory fails at engine start
+    with the JAX engine's ValueError."""
+    cfg = tec.EngineConfig(model="debug-tiny", device="cpu",
+                           max_model_len=64, max_num_seqs=1,
+                           embedding_model="bge-small")
+    assert cfg.embedding_model == "bge-small"
+    with pytest.raises(ValueError, match="unknown encoder preset"):
+        tengine.LLMEngine(cfg)
+    with pytest.raises(ValueError, match="unknown encoder preset"):
+        jengine.LLMEngine(jec.EngineConfig(
+            model="debug-tiny", max_model_len=64, max_num_seqs=1,
+            embedding_model="bge-small"))
 
 
 def test_engine_config_accepts_kv_transfer_config():
@@ -384,7 +399,8 @@ _SERVER_CFG = dict(model="debug-tiny", device="cpu", max_model_len=128,
 
 def _with_client(engine, coro):
     async def runner():
-        async with TestClient(TestServer(build_app(engine))) as client:
+        async with TestClient(TestServer(
+                build_app(engine, api_key=""))) as client:
             return await coro(client)
     return asyncio.run(runner())
 
@@ -561,6 +577,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import production_stack_tpu_torch.engine.runner
         import production_stack_tpu_torch.models.lora
         import production_stack_tpu_torch.models.hf_loader
+        import production_stack_tpu_torch.models.encoder
         import production_stack_tpu_torch.kvcache
         import production_stack_tpu_torch.kvcache.chunks
         import production_stack_tpu_torch.kvcache.codec

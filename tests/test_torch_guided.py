@@ -246,7 +246,7 @@ def test_server_guided_fields_answer_as_jax(servers, path, body, status):
         return r.status, await r.json()
     je, te = servers
     (ws, want), (gs, got) = (_serve(jserver.build_app(je, api_key=""), call),
-                             _serve(build_app(te), call))
+                             _serve(build_app(te, api_key=""), call))
     assert gs == ws == status, got
     if status != 200:
         return
@@ -276,7 +276,7 @@ def test_server_guided_top_logprobs_have_no_minus_infinity(servers):
              "top_logprobs": 5}))
         assert r.status == 200
         return json.loads(await r.text())
-    out = _serve(build_app(te), call)
+    out = _serve(build_app(te, api_key=""), call)
     content = out["choices"][0]["logprobs"]["content"]
     assert content
     for e in content:

@@ -590,7 +590,7 @@ def test_admin_kvplane_routes_answer_as_jax(tmp_path, weights):
     async def both(pair, key):
         got = []
         for eng, app in zip(pair, (jserver.build_app(pair[0]),
-                                   build_app(pair[1]))):
+                                   build_app(pair[1], api_key=""))):
             if key is not None:
                 eng.engine.connector.store.put(key, b"chunk")
             async with TestClient(TestServer(app)) as client:

@@ -91,7 +91,7 @@ def _both(pair, coro):
     """coro's result against the JAX server, then against the port's."""
     je, te = pair
     return [_serve(jserver.build_app(je, api_key=""), coro),
-            _serve(build_app(te), coro)]
+            _serve(build_app(te, api_key=""), coro)]
 
 
 async def _answer(r):
@@ -254,7 +254,7 @@ def test_lora_routing_through_router(pair):
     _, te = pair
 
     async def body():
-        engine_server = TestServer(build_app(te))
+        engine_server = TestServer(build_app(te, api_key=""))
         await engine_server.start_server()
         url = f"http://127.0.0.1:{engine_server.port}"
         router_app = build_router_app(router_args([

@@ -97,7 +97,7 @@ def _both(servers, coro):
             return await coro(client)
     je, te = servers
     return (asyncio.run(run(jserver.build_app(je, api_key=""))),
-            asyncio.run(run(build_app(te))))
+            asyncio.run(run(build_app(te, api_key=""))))
 
 
 _DOCS = ["Rivers run to the sea.", "The engine reads every block once.",

@@ -435,7 +435,8 @@ def test_server_accepts_int8_flags_and_serves():
     assert eng.engine.runner.cache.k.dtype == torch.int8
 
     async def body():
-        async with TestClient(TestServer(build_app(eng))) as client:
+        async with TestClient(TestServer(
+                build_app(eng, api_key=""))) as client:
             r = await client.post("/v1/completions", json={
                 "model": "debug-tiny", "prompt": "int8 weights and kv",
                 "max_tokens": 5, "temperature": 0.0, "ignore_eos": True})

@@ -135,7 +135,7 @@ def test_load_and_metrics_read_by_the_router_parsers(engine):
             for sid in ids:
                 assert eng.abort(sid)
         hold.close()
-    _serve(build_app(engine), body)
+    _serve(build_app(engine, api_key=""), body)
 
 
 def test_load_and_metrics_shapes_equal_the_jax_engines(engine):
@@ -229,7 +229,7 @@ def test_overload_answers_503_and_504_as_jax(engine):
         totals = _totals(await r.text())
         assert totals["tpu:deadline_expired_total"] >= 2
         assert totals["tpu:queue_delay_shed_total"] >= 1
-    _serve(build_app(engine), body)
+    _serve(build_app(engine, api_key=""), body)
 
 
 # ------------------------------------------------ the JAX server beside
@@ -264,7 +264,7 @@ def _both(pair, coro):
     """coro's result against the JAX server, then against the port's."""
     je, te = pair
     return [_serve(jserver.build_app(je, api_key=""), coro),
-            _serve(build_app(te), coro)]
+            _serve(build_app(te, api_key=""), coro)]
 
 
 @pytest.mark.parametrize("path,body", [
@@ -371,7 +371,7 @@ def test_out_of_vocab_ids_answer_as_jax(pair):
             "model": "debug-tiny", "max_tokens": 2, "prompt": "after"})
         assert r.status == 200
         return lp
-    lp = _serve(build_app(pair[1]), negative)
+    lp = _serve(build_app(pair[1], api_key=""), negative)
     assert lp[0] is None and not math.isnan(lp[1])
     assert math.isnan(lp[2]) and not math.isnan(lp[3])
 
