@@ -25,7 +25,11 @@
    kernels over a bf16 and over an int8 pool; the speculative verify
    windows, the decode kernel at T = 4 and the prefill kernel at
    T = 9; Qwen1.5-MoE's G = 1, Mistral's window on every layer, and
-   Qwen2-7B's G = 7, which no path serves), holding each kernel against
+   Qwen2-7B's G = 7, which no path serves; one tensor-parallel rank's
+   heads: Llama-3-8B at tp 2 over bf16 and int8 pools, at tp 4 and 8,
+   Gemma-2-9B at tp 2 and Qwen1.5-MoE at ep 2 and ep 2 x tp 2, checked
+   among the cases above too), holding
+   each kernel against
    its plain version on the timed inputs too; Gemma-2's bf16 rows, which
    SDPA cannot compute (no softcap), take flex_attention with a tanh
    softcap and a window mask as their library call;
@@ -154,7 +158,28 @@
    injection; then extract_chunk / inject_chunk per chunk (bf16 and
    int8 pools), pinned D2H / H2D, each tier's put and get rates and
    each codec's times and ratio on one chunk, and TTFT with the hit
-   and without it.
+   and without it;
+7. parallel: tensor- and expert-parallel serving at full width and
+   depth (PARALLEL), every rank on the one card, where gloo stages each
+   collective through the host (its step times measure that rig, not a
+   multi-GPU speed). Llama-3-8B: a one-rank engine serves greedy
+   prompts of 300 and 1,000 tokens, a shaped, a guided and a
+   repetitive (n-gram speculating) request through its server, then an
+   engine at tensor_parallel_size = 2 on the same weights (random, from
+   the seed; each rank draws every layer whole and keeps its slice)
+   serves them, and its tokens equal the one-rank engine's or part at a
+   near-tie against the f32 teacher-forced logits (the shaped row:
+   shaped_check); a greedy request over the int8 pool likewise.
+   Qwen1.5-MoE-A2.7B at expert_parallel_size = 2 and at ep = 2 x tp = 2:
+   a 1,100-token prompt whose prefill takes the capacity dispatch and
+   decode the exact path, its tokens against the one-rank engine's
+   (near_tie_check), layer 0's routing against f32 (routing_check).
+   Each world prints its backend and rank->device map, every rank's
+   memory, the first step's log-softmax and the prompt's
+   log-probabilities against the one-rank engine (max |diff|), a decode
+   step's wall and its collectives beside the
+   one-rank step, /load, the paged kernels' launches of every rank, and
+   that the workers sampled rank 0's tokens.
 
 Progress goes to stdout; the line before the last two is the kernels'
 JSON record, then the card's name and power limit, then the result.
@@ -164,6 +189,7 @@ printed. Needs CUDA and this repository's sources beside the script.
 
 import asyncio
 import gc
+from contextlib import contextmanager
 import json
 import math
 import os
@@ -616,6 +642,22 @@ def paged_checks(pa):
         ("decode", 1, 8, 4, 128, 64, gemma_rows, 4096, 0.0, 1.0, 1.0),
         ("prefill", 96, 8, 4, 128, 64, [4550, 4100, 300, 0], 4096, 0.0,
          1.0, 1.0),
+        # one tensor-parallel rank's heads: Llama-3-8B at tp 2, 4 and 8
+        # (Hkv 4, 2, 1 at G = 4, D = 128: a decode grid of (B, 1,
+        # splits) at tp 8), Gemma-2-9B at tp 2 (Hkv 4, G = 2, D = 256,
+        # window and softcap)
+        ("decode", 1, 4, 4, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 512, 4, 4, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("decode", 1, 2, 4, 128, 64, gemma_rows, 0, 0.0, 1.0, 1.0),
+        ("decode", 1, 1, 4, 128, 64, gemma_rows, 0, 0.0, 1.0, 1.0),
+        ("decode", 8, 1, 4, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 512, 1, 4, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("decode", 1, 4, 2, 256, 64, gemma_rows, 4096, 50.0, 30.0, 0.5),
+        ("prefill", 100, 4, 2, 256, 64, [4550, 4100, 300, 0], 4096, 50.0,
+         30.0, 0.5),
+        # Qwen1.5-MoE at ep 2 x tp 2: 8 heads a rank, G = 1
+        ("decode", 1, 8, 1, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
+        ("prefill", 130, 8, 1, 128, 64, llama_rows, 0, 0.0, 1.0, 1.0),
     ]
     # every case over a pool of q's dtype, then over an int8 pool with its
     # scales (V's scales times the case's V scale)
@@ -812,7 +854,7 @@ REPLACES = {
 }
 
 
-def paged_timings(pa, model, kv, path, verify=False):
+def paged_timings(pa, model, kv, path, verify=False, tp=1):
     """Both paged kernels at one served model's shapes: a decode step of
     the whole batch (T=1) and a 512-token prefill chunk of one row with
     the others parked, at the model's softcap and scale, bf16 q over a
@@ -829,13 +871,15 @@ def paged_timings(pa, model, kv, path, verify=False):
     verify: the speculative verify windows instead — the decode kernel
     at T = 4 (spec 3) over the whole batch and, for Llama-3-8B, the
     prefill kernel at T = 9 (spec 8), rows at decode_starts; their
-    launches come from the speculative serving run (spec_phase)."""
+    launches come from the speculative serving run (spec_phase).
+    tp: one tensor-parallel rank's shapes, H / tp q heads over Hkv / tp
+    kv heads (the parallel phase's; G unchanged)."""
     import torch
     from production_stack_tpu_torch.models.config import get_config
     from production_stack_tpu_torch.models.llama import attn_scale
     cfg, p = get_config(model), PATHS.get(model) or KERNEL_ONLY[model]
     B, Bs = p["serve"]["max_num_seqs"], p["serve"]["kv_block_size"]
-    Hkv, G, D = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+    Hkv, G, D = cfg.num_kv_heads // tp, cfg.num_heads // cfg.num_kv_heads, \
         cfg.head_dim_
     L = p["timing_layers"]
     # Gemma-2's two layer kinds; a window on every layer (Mistral) is
@@ -922,6 +966,7 @@ def paged_timings(pa, model, kv, path, verify=False):
             rec["layers"] = layers
             rec["kv_dtype"] = kv
             rec["shapes_of"] = model
+            rec["tp"] = tp
             if verify:
                 rec["verify_T"] = T
             # the yardstick where library_ms is null: SDPA without the
@@ -1001,6 +1046,24 @@ def kernel_phase():
     # the speculative verify windows the spec phase serves
     for model in SPEC:
         records += paged_timings(pa, model, "bfloat16", model, verify=True)
+    # one rank's shapes in the parallel phase: Llama-3-8B at tp 2 (served
+    # over a bf16 and an int8 pool), 4 and 8 (no path); Gemma-2-9B at
+    # tp 2 (no path); Qwen1.5-MoE at ep 2, whose ranks keep every head,
+    # and at ep 2 x tp 2 (8 heads a rank, G = 1)
+    llama2 = dict(tensor_parallel_size=2)
+    records += paged_timings(pa, "llama-3-8b", "bfloat16",
+                             parallel_label("llama-3-8b", llama2), tp=2)
+    records += paged_timings(pa, "llama-3-8b", "int8",
+                             parallel_label("llama-3-8b", llama2, "int8"),
+                             tp=2)
+    for tp in (4, 8):
+        records += paged_timings(pa, "llama-3-8b", "bfloat16", None, tp=tp)
+    records += paged_timings(pa, "gemma-2-9b", "bfloat16", None, tp=2)
+    for tp in (1, 2):
+        records += paged_timings(
+            pa, "qwen1.5-moe-a2.7b", "bfloat16",
+            parallel_label("qwen1.5-moe-a2.7b", dict(
+                expert_parallel_size=2, tensor_parallel_size=tp)), tp=tp)
     records += flash_timing(fa)
     free_memory()
     return records
@@ -2572,8 +2635,9 @@ class Upcast:
     def __getattr__(self, name):
         from production_stack_tpu_torch.models.llama import LAYER_KEYS
         from production_stack_tpu_torch.models.quant import is_quantized
+        import torch
         w = getattr(self._model, name)
-        if is_quantized(w):
+        if is_quantized(w) or not isinstance(w, torch.Tensor):
             return w
         return _UpcastLayers(w) if name in LAYER_KEYS else w.float()
 
@@ -4045,6 +4109,493 @@ def kvtier_phase(device="cuda", cfg=None):
     return out["kvtier"]
 
 
+# ------------------------------------------------------------ parallel
+
+# the parallel phase: Llama-3-8B at tp = 2 and Qwen1.5-MoE-A2.7B at
+# ep = 2 and ep = 2 x tp = 2, at full width and depth, every rank on the
+# one card, so gloo stages each collective through the host. It holds
+# the per-rank shapes, shards and kernels on the card against the
+# single-rank engine on the same weights (random, from the seed); its
+# step times measure this rig, not a multi-GPU speed. meshes: the
+# worlds served after the single-rank engine; serve: both engines'
+# geometry; greedy: the plain greedy prompts' lengths (token ids from a
+# seed); int8: the length of the one greedy request over the int8 pool
+# (None: no int8 run); features: a shaped, a guided and a repetitive
+# (speculating) request besides
+PARALLEL = {
+    "llama-3-8b": dict(
+        meshes=(dict(tensor_parallel_size=2),),
+        serve=dict(max_num_seqs=4, max_model_len=2048, prefill_chunk=512,
+                   decode_window=8, kv_block_size=64, seed=0,
+                   speculative_ngram_tokens=3),
+        greedy=(300, 1000), tokens=24, int8=300, features=True),
+    "qwen1.5-moe-a2.7b": dict(
+        meshes=(dict(expert_parallel_size=2),
+                dict(expert_parallel_size=2, tensor_parallel_size=2)),
+        serve=dict(max_num_seqs=2, max_model_len=2048, prefill_chunk=512,
+                   decode_window=8, kv_block_size=64, seed=0),
+        greedy=(1100,), tokens=24, int8=None, features=False),
+}
+# the decode window parallel_step_timing times: rows at these positions
+PARALLEL_STARTS = [200, 431, 57, 400]
+
+
+def parallel_label(model: str, mesh: dict, kv: str = "bfloat16") -> str:
+    """The counts key of one parallel serving run (a kernel row's path)."""
+    tp = mesh.get("tensor_parallel_size", 1)
+    ep = mesh.get("expert_parallel_size", 1)
+    return f"parallel:{model}:tp{tp}ep{ep}" + (":int8kv" if kv == "int8"
+                                               else "")
+
+
+def parallel_requests(cfg, p: dict) -> list:
+    """(name, body) of the phase's completions: greedy prompts of token
+    ids from a seed, and with features a shaped, a guided and a
+    repetitive (n-gram speculating) one."""
+    import random
+    rnd = random.Random(11)
+
+    def ids(n):
+        return [rnd.randrange(3, cfg.vocab_size) for _ in range(n)]
+    base = {"model": cfg.name, "max_tokens": p["tokens"], "temperature": 0.0,
+            "ignore_eos": True}
+    reqs = [(f"greedy{n}", dict(base, prompt=ids(n))) for n in p["greedy"]]
+    if p["features"]:
+        reqs += [
+            ("shaped", dict(base, prompt=ids(40), **SHAPED)),
+            ("guided", dict(base, prompt=ids(40), max_tokens=12,
+                            guided_regex=SPEC_GUIDED)),
+            ("spec", dict(base, prompt=[9, 17, 33, 65] * 60)),
+        ]
+    return reqs
+
+
+async def parallel_serve(engine, reqs, inside) -> dict:
+    """The requests through the OpenAI server in-process on `engine`,
+    concurrently: {name: (prompt, output ids)}, /load's body, the MoE
+    calls of the serving (moe_capture) and what inside(engine) returns,
+    called (off the event loop) once they are served and before the
+    application's cleanup closes the engine (a closed parallel engine
+    has stopped its workers)."""
+    import aiohttp
+    from aiohttp import web
+    from production_stack_tpu_torch.engine.server import build_app
+    port = free_port()
+    app = web.AppRunner(build_app(engine, api_key=""))
+    await app.setup()
+    await web.TCPSite(app, "127.0.0.1", port).start()
+    base = f"http://127.0.0.1:{port}"
+    try:
+        async with aiohttp.ClientSession() as http:
+            async def post(body):
+                async with http.post(base + "/v1/completions",
+                                     json=body) as r:
+                    if r.status != 200:
+                        raise AssertionError(
+                            f"/v1/completions -> {r.status}: "
+                            f"{await r.text()}")
+                    return await r.json()
+            with moe_capture() as moe_seen:
+                await asyncio.gather(*(post(b) for _, b in reqs))
+            async with http.get(base + "/load") as r:
+                load = await r.json()
+            tokens = {name: (body["prompt"], served_ids(
+                engine, body["prompt"], 0)) for name, body in reqs}
+            after = await asyncio.get_running_loop().run_in_executor(
+                None, inside, engine.engine)
+    finally:
+        await app.cleanup()
+    return {"tokens": tokens, "load": load, "inside": after,
+            "moe": moe_seen}
+
+
+def parallel_step_timing(eng, steps: int = 8) -> dict:
+    """One greedy decode window of `steps` steps over max_num_seqs rows
+    at PARALLEL_STARTS through the runner (every rank): its wall time
+    per step (a host sync at its end) and the collectives each step
+    issued. Run on an idle engine: the window writes into the pool."""
+    import numpy as np
+    import torch
+    from production_stack_tpu_torch.engine.sampler import SamplingParams
+    runner, cfg = eng.runner, eng.cfg
+    B, MB = cfg.max_num_seqs, cfg.max_blocks_per_seq
+    runner.set_block_tables(
+        (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB))
+    starts = np.array(PARALLEL_STARTS[:B], np.int32)
+    sampling = SamplingParams.filled(B, temperature=0.0,
+                                     device=runner.device)
+    kv_len = cfg.kv_bucket_for(int(starts.max()) + steps + 1)
+
+    def window(n):
+        runner.set_decode_state(np.zeros((B,), np.int32), starts)
+        return runner.decode(sampling, steps=n, kv_len=kv_len,
+                             greedy=True)[0].cpu()
+    window(1)
+    mesh = getattr(runner, "mesh", None)
+    before = dict(mesh.calls) if mesh is not None else {}
+    torch.cuda.synchronize(runner.device)
+    t0 = time.monotonic()
+    window(steps)
+    wall = time.monotonic() - t0
+    after = dict(mesh.calls) if mesh is not None else {}
+    runner.set_block_tables(eng._tables)
+    return {"step_wall_ms": wall / steps * 1e3, "kv_len": kv_len,
+            "collectives_per_step": {k: (after[k] - before.get(k, 0))
+                                     / steps for k in after}}
+
+
+def first_step_logprobs(eng, prompt) -> "torch.Tensor":
+    """The log-softmax of the first step's logits (f32 [V], on the host)
+    after the first prefill_chunk tokens of `prompt`, prefilled in one
+    chunk through the runner (every rank) as the only live row, its top
+    V alternatives put back in vocabulary order. Run on an idle engine:
+    the chunk writes into the pool."""
+    import numpy as np
+    import torch
+    from production_stack_tpu_torch.engine.sampler import SamplingParams
+    runner, cfg = eng.runner, eng.cfg
+    B, S, MB = cfg.max_num_seqs, cfg.max_model_len, cfg.max_blocks_per_seq
+    V = eng.model_cfg.vocab_size
+    ids = prompt[:cfg.prefill_chunk]
+    Tb = cfg.bucket_for(len(ids))
+    tokens = np.zeros((B, Tb), np.int32)
+    tokens[0, :len(ids)] = ids
+    starts = np.full((B,), S, np.int32)
+    starts[0] = 0
+    lengths = np.ones((B,), np.int32)
+    lengths[0] = len(ids)
+    runner.set_block_tables(
+        (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB))
+    _, _, (idx, vals) = runner.prefill(
+        tokens, starts, lengths, SamplingParams.filled(
+            B, temperature=0.0, device=runner.device),
+        cfg.kv_bucket_for(Tb), greedy=True, topk=V)
+    runner.set_block_tables(eng._tables)
+    out = torch.empty(V)
+    out[idx[0].long().cpu()] = vals[0].cpu()
+    return out
+
+
+def parallel_memory(eng) -> list:
+    """Each rank's device bytes: its shard's weights and pool (rank 0,
+    counted from its tensors: this process also holds the single-rank
+    engine) and each worker's allocated and peak bytes."""
+    runner = eng.runner
+    pool = runner.cache
+    own = {"weights": sum(t.nbytes for t in (*runner.params.parameters(),
+                                             *runner.params.buffers())),
+           "pool": sum(t.nbytes for t in (pool.k, pool.v, pool.ks, pool.vs)
+                       if t is not None)}
+    return [own] + runner.run_on_workers(
+        "production_stack_tpu_torch.parallel.workers:memory")
+
+
+def parallel_counts(eng) -> dict:
+    """The kernels' launches of every rank since the last reset, summed,
+    with the ranks' own (the flash kernel's among them: no path serves
+    it)."""
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    ops = "production_stack_tpu_torch.ops."
+    ranks = [pa.launch_report()] + eng.runner.run_on_workers(
+        ops + "paged_attention:launch_report")
+    flash = [fa.launch_report()] + eng.runner.run_on_workers(
+        ops + "flash_attention:launch_report")
+    for r, f in zip(ranks, flash):
+        r["launches"].update(f["launches"])
+    total = {}
+    for key in ("launches", "window_launches", "int8_launches"):
+        total[key] = {name: sum(r[key][name] for r in ranks)
+                      for name in ranks[0][key]}
+    total["per_rank"] = [r["launches"] for r in ranks]
+    return total
+
+
+def parallel_reset(eng) -> None:
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    for mod in (pa, fa):
+        mod.reset_launch_counts()
+        eng.runner.run_on_workers(f"{mod.__name__}:reset_launch_counts")
+
+
+def parallel_check(ref_async, name, prompt, want, got) -> dict:
+    """A parallel engine's tokens against the single-rank engine's on the
+    same weights: equal, or parting at a near-tie (near_tie_check over
+    the single-rank weights' f32 and bf16 teacher-forced logits; the
+    shaped row: shaped_check on the served sequence)."""
+    import dataclasses
+
+    import torch
+    if got == want:
+        return {"tokens": len(got), "differ_at": None, "ok": True}
+    eng = ref_async.engine
+    if name != "shaped":
+        return _tokens_check(got, eng, prompt, want)
+    runner, mcfg = eng.runner, eng.model_cfg
+    ids = prompt + got
+    l32 = plain_tail_logits(runner, Upcast(runner.params),
+                            dataclasses.replace(mcfg, dtype=torch.float32),
+                            ids, len(got), torch.float32)
+    l16 = plain_tail_logits(runner, runner.params, mcfg, ids, len(got),
+                            mcfg.dtype)
+    return shaped_check(ref_async, {"tokens": got, "prompt": prompt}, l32,
+                        l16)
+
+
+@contextmanager
+def moe_capture():
+    """{"exact", "dispatch"}: the MoE calls of this process by path, and
+    "routed": (routing input of the real tokens, router) in f32 of the
+    first prefill call (N > 64) inside."""
+    from production_stack_tpu_torch.ops import moe
+    seen = {"exact": 0, "dispatch": 0}
+    saved = (moe.moe_mlp, moe._moe_exact, moe._moe_dispatch)
+
+    def mlp(x, router_w, *a, valid=None, **kw):
+        if "routed" not in seen and valid is not None and x.shape[0] > 64:
+            seen["routed"] = (x[valid].float(), router_w.float())
+        return saved[0](x, router_w, *a, valid=valid, **kw)
+
+    def counted(kind, fn):
+        def call(*a, **kw):
+            seen[kind] += 1
+            return fn(*a, **kw)
+        return call
+    moe.moe_mlp = mlp
+    moe._moe_exact = counted("exact", saved[1])
+    moe._moe_dispatch = counted("dispatch", saved[2])
+    try:
+        yield seen
+    finally:
+        moe.moe_mlp, moe._moe_exact, moe._moe_dispatch = saved
+
+
+def first_routing_f32(runner, ids) -> tuple:
+    """Layer 0's MoE input (f32) and router of the first prefill chunk
+    of `ids`, through the f32 weights (Upcast) and the plain attention:
+    routing_check's reference."""
+    import dataclasses
+
+    import torch
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.kv import make_slot_cache
+    from production_stack_tpu_torch.ops import moe
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    mcfg = dataclasses.replace(runner.model_cfg, dtype=torch.float32,
+                               num_layers=1)
+    T = min(len(ids), runner.engine_cfg.prefill_chunk)
+    dev = runner.device
+    cache, tables = make_slot_cache(1, 1, -(-T // 64) * 64,
+                                    mcfg.num_kv_heads, mcfg.head_dim_,
+                                    dtype=torch.float32, block_size=64,
+                                    device=dev)
+    got = {}
+    saved = (pa.paged_attention, pa.paged_decode_attention, moe.moe_mlp)
+
+    def plain(q, k, v, tables, starts, *, nb, scale=None, window=0,
+              softcap=0.0, k_scales=None, v_scales=None):
+        return pa.paged_attention_plain(q, k, v, tables, starts, nb, scale,
+                                        window, softcap)
+
+    def capture(x, router_w, *a, **kw):
+        got.setdefault("routed", (x.float(), router_w.float()))
+        return saved[2](x, router_w, *a, **kw)
+    pa.paged_attention = pa.paged_decode_attention = plain
+    moe.moe_mlp = capture
+    try:
+        with torch.no_grad():
+            llama.hidden(Upcast(runner.params), mcfg,
+                         torch.tensor([ids[:T]], device=dev),
+                         torch.arange(T, device=dev)[None], cache,
+                         block_tables=tables, rope=runner.rope,
+                         kv_len=-(-T // 64) * 64)
+    finally:
+        pa.paged_attention, pa.paged_decode_attention, moe.moe_mlp = saved
+    return got["routed"]
+
+
+def moe_reference(runner, prompt, want) -> dict:
+    """The single-rank engine's reference data: f32 and bf16
+    teacher-forced logits of its greedy sequence (near_tie_check's) and
+    the f32 routing input of its first chunk (routing_check's)."""
+    import dataclasses
+
+    import torch
+    cfg, ids = runner.model_cfg, prompt + want
+    return {"l32": plain_tail_logits(
+                runner, Upcast(runner.params),
+                dataclasses.replace(cfg, dtype=torch.float32), ids,
+                len(want), torch.float32),
+            "l16": plain_tail_logits(runner, runner.params, cfg, ids,
+                                     len(want), cfg.dtype),
+            "routing": first_routing_f32(runner, prompt)}
+
+
+def parallel_model(model: str, device: str, p: dict) -> dict:
+    """One model of PARALLEL: the single-rank engine serves the requests
+    (and its reference data is taken), then each mesh's engine serves
+    them and is held to it; returns the kernels' launch counts of each
+    parallel serving run by parallel_label."""
+    import numpy as np
+    import torch
+    from production_stack_tpu_torch.engine.async_engine import \
+        AsyncLLMEngine
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    counts = {}
+    t0 = time.monotonic()
+    mem0 = torch.cuda.memory_allocated() if device == "cuda" else 0
+    ref = AsyncLLMEngine(EngineConfig(model=model, device=device,
+                                      **p["serve"]))
+    ref.engine.runner.warmup()
+    cfg = ref.engine.model_cfg
+    reqs = parallel_requests(cfg, p)
+    logp_prompt = np.array([reqs[0][1]["prompt"]], np.int32)
+
+    def measure(eng):
+        """The first greedy prompt's teacher-forced log-probabilities and
+        its first step's log-softmax (first_step_logprobs), a timed
+        decode window, and for a parallel engine every rank's last
+        decode ids, memory and launches."""
+        out = {}
+        if eng.cfg.world_size > 1:
+            # read before the comparisons below launch anything
+            out["counts"] = parallel_counts(eng)
+            ids = eng.runner.last_results("decode")
+            out["same_ranks"] = all(torch.equal(r[0], ids[0][0])
+                                    for r in ids[1:])
+            out["memory"] = parallel_memory(eng)
+        out["logp"] = eng.runner.prompt_logprobs(logp_prompt).cpu()
+        out["first"] = first_step_logprobs(eng, reqs[0][1]["prompt"])
+        out["step"] = parallel_step_timing(eng)
+        return out
+    ref_out = asyncio.run(parallel_serve(ref, reqs, measure))
+    ref_moe = ref_out["moe"]
+    ref_logp = ref_out["inside"]["logp"]
+    ref_first = ref_out["inside"]["first"]
+    ref_timing = ref_out["inside"]["step"]
+    moe_ref = {}
+    if cfg.num_experts:
+        # taken before the single-rank engine goes (its weights do not
+        # fit beside the parallel ranks')
+        moe_ref = moe_reference(ref.engine.runner,
+                                *ref_out["tokens"][reqs[0][0]])
+        moe_ref["served_routing"] = ref_moe.get("routed")
+    int8_ref = None
+    if p["int8"]:
+        # the single-rank engine's weights over an int8 pool
+        int8_ref = LLMEngine(EngineConfig(model=model, device=device,
+                                          **dict(p["serve"],
+                                                 kv_dtype="int8")),
+                             params=ref.engine.runner.params)
+        int8_prompt = reqs[0][1]["prompt"][:p["int8"]]
+        int8_want = _serve_direct(int8_ref, int8_prompt, p["tokens"])[0]
+    log(json.dumps({"parallel_reference": {
+        "model": model, "seconds": time.monotonic() - t0,
+        "mem_gib_before": mem0 / 2**30,
+        "step": ref_timing, "moe_paths": {k: ref_moe[k] for k in
+                                          ("exact", "dispatch")}}}))
+    if cfg.num_experts:
+        release(ref)
+        ref = None
+    for mesh in p["meshes"]:
+        t0 = time.monotonic()
+        par = AsyncLLMEngine(EngineConfig(model=model, device=device,
+                                          **p["serve"], **mesh))
+        ready_s = time.monotonic() - t0
+        par.engine.runner.warmup()
+        label = parallel_label(model, mesh)
+        parallel_reset(par.engine)
+        t1 = time.monotonic()
+        out = asyncio.run(parallel_serve(par, reqs, measure))
+        serve_s = time.monotonic() - t1
+        inside, moe_seen = out["inside"], out["moe"]
+        counts[label] = inside["counts"]
+        checks = {}
+        for name, body in reqs:
+            prompt, want = ref_out["tokens"][name]
+            got = out["tokens"][name][1]
+            if cfg.num_experts:
+                checks[name] = near_tie_check(want, got, moe_ref["l32"],
+                                              moe_ref["l16"])
+            else:
+                checks[name] = parallel_check(ref, name, prompt, want, got)
+        same_ranks = inside["same_ranks"]
+        rec = {"model": model, "mesh": mesh, "label": label,
+               "world": par.engine.runner.mesh.describe(),
+               "engine_ready_s": ready_s, "serve_s": serve_s,
+               "tokens": checks,
+               "workers_sampled_rank0_tokens": same_ranks,
+               "first_step_logprobs_max_abs_diff_vs_single": float(
+                   (inside["first"] - ref_first).abs().max()),
+               "first_step_argmax_equal": int(inside["first"].argmax())
+               == int(ref_first.argmax()),
+               "prompt_logprobs_max_abs_diff_vs_single": float(
+                   (inside["logp"] - ref_logp).abs().max()),
+               "memory_per_rank": inside["memory"],
+               "step": inside["step"], "single_rank_step": ref_timing,
+               "launches": counts[label], "load": out["load"]}
+        ok = same_ranks and all(c["ok"] for c in checks.values()) \
+            and counts[label]["launches"]["paged_attention"] > 0 \
+            and counts[label]["launches"]["paged_decode_attention"] > 0
+        if cfg.num_experts:
+            routing = routing_check(moe_ref["routing"], moe_seen["routed"],
+                                    cfg.num_experts_per_tok)
+            rec["routing"] = routing
+            rec["moe_paths"] = {k: moe_seen[k] for k in ("exact",
+                                                         "dispatch")}
+            served = moe_ref["served_routing"]
+            rec["routing_input_equal_single_rank"] = bool(
+                served is not None and served[0].shape
+                == moe_seen["routed"][0].shape
+                and torch.equal(served[0], moe_seen["routed"][0]))
+            ok = ok and routing["ok"] and moe_seen["dispatch"] > 0 \
+                and moe_seen["exact"] > 0
+        if p["int8"]:
+            release(par)
+            free_memory()
+            par = LLMEngine(EngineConfig(model=model, device=device,
+                                         **dict(p["serve"],
+                                                kv_dtype="int8"), **mesh))
+            label8 = parallel_label(model, mesh, "int8")
+            parallel_reset(par)
+            got8 = _serve_direct(par, int8_prompt, p["tokens"])[0]
+            counts[label8] = parallel_counts(par)
+            rec["int8_pool"] = {
+                "tokens": _tokens_check(got8, int8_ref, int8_prompt,
+                                        int8_want),
+                "launches": counts[label8]}
+            ok = ok and rec["int8_pool"]["tokens"]["ok"] \
+                and counts[label8]["int8_launches"]["paged_attention"] > 0
+            par.close()
+            par = None
+        else:
+            release(par)
+        free_memory()
+        rec["seconds"] = time.monotonic() - t0
+        rec["ok"] = bool(ok)
+        log(json.dumps({"parallel": rec}))
+        if not ok:
+            raise AssertionError(f"parallel {label}: {rec}")
+    if ref is not None:
+        release(ref)
+    int8_ref = None
+    free_memory()
+    return counts
+
+
+def parallel_phase(device="cuda") -> dict:
+    """Every model of PARALLEL (parallel_model); the launch counts of the
+    parallel serving runs by label."""
+    counts = {}
+    t0 = time.monotonic()
+    for model, p in PARALLEL.items():
+        counts.update(parallel_model(model, device, p))
+    log(json.dumps({"parallel_phase_s": time.monotonic() - t0}))
+    return counts
+
+
 def build_phase(kernels) -> dict:
     """Build every source (in parallel) and report, per kernel, what
     ptxas gave it: registers, static shared memory, spill bytes; the
@@ -4125,6 +4676,9 @@ def main() -> int:
     encoder_phase()
 
     counts = {path: model_phase(path) for path in PATHS}
+
+    # before kvtier, which leaves device memory allocated behind it
+    counts.update(parallel_phase())
 
     kvtier_phase()
 

@@ -14,10 +14,12 @@ routes (``embedding_model``: a preset of models/encoder.py or an HF
 BertModel directory) and the efficiency ring's size
 (``perf_ring_entries``) are taken as the JAX config takes them. Options
 the port does not implement yet raise here instead of being ignored:
-multi-device parallelism, adaptive decode windows and pipelined windows
-(the last two default to off here, where the JAX engine turns them on;
-speculation pins the adaptive windows off in the JAX engine too). They
-arrive with the slices that need them (ROADMAP.md, Queue A).
+adaptive decode windows and pipelined windows (both default to off here,
+where the JAX engine turns them on; speculation pins the adaptive
+windows off in the JAX engine too). They arrive with the slices that
+need them (ROADMAP.md, Queue A). ``tensor_parallel_size`` and
+``expert_parallel_size`` are served (parallel/); pipeline-parallel
+serving is refused with the JAX engine's message.
 """
 
 import dataclasses
@@ -122,12 +124,22 @@ class EngineConfig:
             raise ValueError(
                 f"quantization={self.quantization!r} unsupported: only "
                 f"weight-only 'int8' (models/quant.py) is implemented")
+        if self.pipeline_parallel_size != 1:
+            raise NotImplementedError(
+                "pipeline-parallel SERVING is not implemented: decode "
+                "would pipeline one token at a time (pure bubble) "
+                "without multi-batch in-flight scheduling. PP exists "
+                "for training (parallel/pipeline.py, GPipe over the "
+                "'pp' mesh axis); serving scales via tensor_parallel_"
+                "size/expert_parallel_size within a slice and "
+                "replicaCount across slices")
+        if self.tensor_parallel_size < 1:
+            raise ValueError("tensor_parallel_size must be >= 1")
+        if self.expert_parallel_size < 1:
+            raise ValueError("expert_parallel_size must be >= 1")
         if not 0 <= self.speculative_ngram_tokens <= 16:
             raise ValueError("speculative_ngram_tokens must be in 0..16")
         not_ported = {
-            "tensor_parallel_size": self.tensor_parallel_size != 1,
-            "pipeline_parallel_size": self.pipeline_parallel_size != 1,
-            "expert_parallel_size": self.expert_parallel_size != 1,
             "window_adapt": self.window_adapt,
             "pipeline_depth": self.pipeline_depth != 1,
         }
@@ -178,6 +190,11 @@ class EngineConfig:
     @property
     def torch_device(self) -> torch.device:
         return resolve_device(self.device)
+
+    @property
+    def world_size(self) -> int:
+        """Ranks of the serving world: tensor x expert parallel."""
+        return self.tensor_parallel_size * self.expert_parallel_size
 
     @property
     def max_blocks_per_seq(self) -> int:

@@ -73,6 +73,16 @@ its own work and not behind a decode window, and the loop never behind
 it; otherwise with the serving model's mean-pooled final hidden states
 (``runner.embed``, no cache).
 
+Tensor and expert parallelism (JAX ``engine.py:128-149``): with
+``world_size`` = ``tensor_parallel_size * expert_parallel_size`` > 1
+the runner is a ``parallel.workers.ParallelRunner``. This process is
+rank 0 — the scheduler, the block manager, the server and rank 0's
+shard — and the runner starts the other ranks, which run every runner
+call beside it on their shards (parallel/). The mesh is refused as the
+JAX engine refuses it (sharding.check_mesh: num_kv_heads % tp, ep on a
+dense model, num_experts % ep). Runtime adapter loads restack through
+``set_lora``, which reaches every rank; ``close`` joins the workers.
+
 Every terminal ``StepOutput`` carries the sequence's phase timeline
 (``timing``: arrival, admission, first token, the cumulative queue wait,
 the end, token counts and the KV-tier prefetch), which the server turns
@@ -219,9 +229,17 @@ class LLMEngine:
                 device=engine_cfg.torch_device)
             lora_scaling = lcfg.scaling
         self.served_models = [engine_cfg.model] + list(self.lora_ids)
-        self.runner = ModelRunner(self.model_cfg, engine_cfg, params=params,
-                                  lora_stacked=lora_stacked,
-                                  lora_scaling=lora_scaling)
+        if engine_cfg.world_size > 1:
+            from production_stack_tpu_torch.parallel.workers import \
+                ParallelRunner
+            self.runner = ParallelRunner(
+                self.model_cfg, engine_cfg, params=params,
+                lora_stacked=lora_stacked, lora_scaling=lora_scaling)
+        else:
+            self.runner = ModelRunner(self.model_cfg, engine_cfg,
+                                      params=params,
+                                      lora_stacked=lora_stacked,
+                                      lora_scaling=lora_scaling)
         self.runner.eos_id = int(self.tokenizer.eos_token_id or 0)
         self.metrics = EngineMetrics(engine_cfg.model)
         self.metrics.adapters_loaded.set(len(self.lora_ids))
@@ -238,14 +256,14 @@ class LLMEngine:
         # the byte model of the efficiency gauges: the whole parameter
         # set, and what one cache position costs one attention read
         # (K and V over layers and kv-heads, plus the int8 pool's f32
-        # scales)
+        # scales); under tp x ep, rank 0's shard and heads: one card's
         mc = self.model_cfg
         kv_itemsize = {"bfloat16": 2, "float32": 4,
                        "int8": 1}[engine_cfg.kv_dtype]
-        kv_pos_bytes = (2 * mc.num_layers * mc.num_kv_heads
-                        * mc.head_dim_ * kv_itemsize)
+        hkv = self.runner.kv_heads
+        kv_pos_bytes = 2 * mc.num_layers * hkv * mc.head_dim_ * kv_itemsize
         if engine_cfg.kv_dtype == "int8":
-            kv_pos_bytes += 2 * mc.num_layers * mc.num_kv_heads * 4
+            kv_pos_bytes += 2 * mc.num_layers * hkv * 4
         params_ = self.runner.params
         self.eff = EngineEffAccounting(
             weight_bytes=sum(t.nbytes for t in (*params_.parameters(),
@@ -1510,9 +1528,12 @@ class LLMEngine:
             m.prefix_hit_rate.set(self.block_mgr.hit_rate)
 
     def close(self) -> None:
-        """Flush the KV writer and release the tiers' connections."""
+        """Flush the KV writer and release the tiers' connections; stop
+        and join the worker ranks of a tp x ep engine."""
         if self.connector is not None:
             self.connector.close()
+        if self.cfg.world_size > 1:
+            self.runner.close()
 
     # ------------------------------------------------------------------
 

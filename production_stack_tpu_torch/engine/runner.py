@@ -58,6 +58,21 @@ model's in both packages.
 after they are made or handed in (the given module is quantized in
 place, as JAX consumes its donated params); ``kv_dtype="int8"``
 allocates the int8 pool with its scales.
+
+Under tensor and expert parallelism (``mesh``, a parallel/mesh.py
+``ServingMesh``; JAX ``runner.py:105-185``) the runner is one rank's:
+it holds the rank's slice of every weight (parallel/sharding.py; random
+weights are drawn whole a layer at a time and cut, int8 weights are
+quantized whole and then cut), a pool of Hkv / tp kv heads, and its
+slice of the adapter stack, and the forward calls the mesh's
+collectives (models/llama.py). Every rank runs the same calls with the
+same arguments (parallel/workers.py carries rank 0's to the others).
+Every rank samples for itself: the gathered logits are the same bytes
+on every rank and the generators are seeded alike, so every rank draws
+the same tokens and keeps the same decode carry without a broadcast.
+``extract_chunk`` gathers the tp ranks' heads into the whole chunk, and
+``inject_chunk`` writes the rank's heads of a whole chunk, so the tiers
+see the single-device wire layout.
 """
 
 import time
@@ -76,6 +91,7 @@ from production_stack_tpu_torch.models.kv import (KVCache, make_cache,
                                                   make_slot_cache,
                                                   quantize_chunk)
 from production_stack_tpu_torch.models.quant import quantize_params
+from production_stack_tpu_torch.parallel import sharding
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -195,30 +211,48 @@ def _target_logprobs(logits: torch.Tensor,
 class ModelRunner:
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params: Optional[llama.Llama] = None, lora_stacked=None,
-                 lora_scaling: float = 1.0):
+                 lora_scaling: float = 1.0, mesh=None):
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
-        self.device = engine_cfg.torch_device
+        # a rank of a tp x ep serving world (parallel/mesh.ServingMesh),
+        # or None for the whole model on one device
+        self.mesh = mesh
+        self.shard = mesh.shard if mesh is not None else None
+        self.device = (mesh.device if mesh is not None
+                       else engine_cfg.torch_device)
         # the rope table covers the cache length, not just the model's
         # native maximum
         self.rope = llama.rope_tensors(model_cfg, engine_cfg.max_model_len,
                                        self.device)
+        int8 = engine_cfg.quantization == "int8"
         if params is None:
             t0 = time.time()
             gen = torch.Generator(device=self.device).manual_seed(
                 engine_cfg.seed)
-            params = llama.init_params(model_cfg, gen, device=self.device)
+            # int8 weights are quantized whole (a row-parallel scale
+            # reduces over the axis tp cuts), so they are drawn whole
+            params = llama.init_params(
+                model_cfg, gen, device=self.device,
+                shard=None if int8 else self.shard)
             logger.info("random-initialized %s on %s (%.2fs)",
                         model_cfg.name, self.device, time.time() - t0)
-        if engine_cfg.quantization == "int8":
+        if int8 and params.shard is None:
             t0 = time.time()
             params = quantize_params(params)
             logger.info("quantized %s to int8 weights (%.2fs)",
                         model_cfg.name, time.time() - t0)
+        if self.shard is not None:
+            if params.shard is None:
+                params = sharding.shard_params(params, self.shard)
+            elif params.shard != self.shard:
+                raise ValueError(f"params sharded for {params.shard}, "
+                                 f"runner is {self.shard}")
+            params.mesh = mesh
         self.params = params
+        self.kv_heads = sharding.kv_heads(model_cfg, self.shard)
         self.cache: KVCache = make_cache(
             model_cfg.num_layers, engine_cfg.num_kv_blocks,
-            engine_cfg.kv_block_size, model_cfg.num_kv_heads,
+            engine_cfg.kv_block_size, self.kv_heads,
             model_cfg.head_dim_, dtype=_KV_DTYPES[engine_cfg.kv_dtype],
             device=self.device)
         shape = (engine_cfg.max_num_seqs, engine_cfg.max_blocks_per_seq)
@@ -255,7 +289,10 @@ class ModelRunner:
         """Swap the adapter stack ({proj: {a: [N+1, L, in, r], b: ...}},
         row 0 zero; None = no adapter) whole (JAX ``set_lora``: a runtime
         load restacks). Adapter ids are append-only, so a row keeps its
-        index; the next dispatch regathers the batch's factors."""
+        index; the next dispatch regathers the batch's factors. A rank
+        keeps its slice of the stack (sharding.shard_lora)."""
+        if self.shard is not None:
+            lora_stacked = sharding.shard_lora(lora_stacked, self.shard)
         self._lora = lora_mod.layer_slice(lora_stacked)
         if lora_scaling is not None:
             self._lora_scaling = lora_scaling
@@ -571,7 +608,7 @@ class ModelRunner:
                              f"{ecfg.max_model_len}")
         Bs = ecfg.kv_block_size
         cache, tables = make_slot_cache(
-            cfg.num_layers, N, -(-T // Bs) * Bs, cfg.num_kv_heads,
+            cfg.num_layers, N, -(-T // Bs) * Bs, self.kv_heads,
             cfg.head_dim_, dtype=self.cache.k.dtype, block_size=Bs,
             device=self.device)
         toks = self._upload(tokens)
@@ -619,7 +656,8 @@ class ModelRunner:
         stream: ordered after the forwards that wrote them and before
         any later step reuses the blocks. An int8 pool is dequantized
         in f32 (int8 x scale), THEN rounded to bf16, the wire dtype
-        (JAX ``extract_chunk``)."""
+        (JAX ``extract_chunk``). Under tp the ranks' heads are gathered
+        into the whole [L, size, Hkv, D] chunk on every tp rank."""
         blk, off = self._slot_block_offsets(slot, start, size)
         c = self.cache
         # advanced indices on the block and offset axes come first:
@@ -631,6 +669,9 @@ class ModelRunner:
             vs = c.vs[:, blk, :, off].permute(1, 0, 2)
             k = (k.float() * ks[..., None]).to(torch.bfloat16)
             v = (v.float() * vs[..., None]).to(torch.bfloat16)
+        if self.mesh is not None:
+            k = self.mesh.all_gather(k.contiguous(), dim=2)
+            v = self.mesh.all_gather(v.contiguous(), dim=2)
         return k.contiguous(), v.contiguous()
 
     @torch.no_grad()
@@ -643,7 +684,11 @@ class ModelRunner:
         positions (admission allocates the whole prompt's blocks before
         injection). An int8 pool re-quantizes the chunk with
         models/kv.quantize_chunk, the recipe of serving writes (JAX
-        ``inject_chunk``)."""
+        ``inject_chunk``). A tp rank writes its heads of the whole
+        chunk."""
+        if self.shard is not None:
+            hs = sharding.head_slice(self.shard, k_chunk.shape[2])
+            k_chunk, v_chunk = k_chunk[:, :, hs], v_chunk[:, :, hs]
         size = k_chunk.shape[1]
         blk, off = self._slot_block_offsets(slot, start, size)
         c = self.cache

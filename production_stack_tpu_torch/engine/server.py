@@ -1,8 +1,12 @@
 """OpenAI-compatible HTTP server for the PyTorch engine (aiohttp)
 (``production_stack_tpu/engine/server.py``): every route of the JAX
-engine's server, and its flags but those of multi-device parallelism,
-adaptive decode windows and pipelined windows (engine/config.py), plus
-``--device``.
+engine's server, and its flags but those of adaptive decode windows and
+pipelined windows (engine/config.py), plus ``--device``.
+``--tensor-parallel-size`` and ``--expert-parallel-size`` start a
+``tp x ep`` world (parallel/workers.py: this process is rank 0, the
+other ranks are worker processes; NCCL where every rank has a card of
+its own, gloo where ranks share a card and on the CPU);
+``--pipeline-parallel-size`` above 1 is refused as in JAX.
 
 Endpoints: ``/v1/completions`` and ``/v1/chat/completions`` (streamed
 as SSE or not; ``n`` choices, several prompts per completion request,
@@ -1367,6 +1371,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "num_experts/top_k disables token dropping at "
                         "dense-compute cost; default keeps the model "
                         "family value")
+    p.add_argument("--tensor-parallel-size", type=int, default=1)
+    p.add_argument("--pipeline-parallel-size", type=int, default=1,
+                   help="multi-slice DCN passthrough knob (must be 1; "
+                        "see EngineConfig)")
+    p.add_argument("--expert-parallel-size", type=int, default=1,
+                   help="shard a MoE model's experts over the mesh's ep "
+                        "axis (must divide num_experts; composes with "
+                        "--tensor-parallel-size)")
     p.add_argument("--max-num-seqs", type=int, default=8)
     p.add_argument("--max-waiting-seqs", type=int, default=None,
                    help="bounded admission: shed (503 + Retry-After) "
@@ -1439,6 +1451,9 @@ def main(argv=None) -> None:
         max_model_len=args.max_model_len, dtype=args.dtype,
         kv_dtype=args.kv_cache_dtype, quantization=args.quantization,
         moe_capacity_factor=args.moe_capacity_factor,
+        tensor_parallel_size=args.tensor_parallel_size,
+        pipeline_parallel_size=args.pipeline_parallel_size,
+        expert_parallel_size=args.expert_parallel_size,
         max_num_seqs=args.max_num_seqs,
         max_waiting_seqs=args.max_waiting_seqs,
         max_queue_delay_ms=args.max_queue_delay_ms,
@@ -1463,10 +1478,15 @@ def main(argv=None) -> None:
         engine.engine.runner.warmup()
     logger.info("engine serving %s on %s:%d (%s)", args.model, args.host,
                 args.port, args.device)
-    web.run_app(build_app(engine,
-                          trace_ring_entries=args.trace_ring_entries,
-                          trace_sample_rate=args.trace_sample_rate),
-                host=args.host, port=args.port, handler_cancellation=True)
+    try:
+        web.run_app(build_app(engine,
+                              trace_ring_entries=args.trace_ring_entries,
+                              trace_sample_rate=args.trace_sample_rate),
+                    host=args.host, port=args.port,
+                    handler_cancellation=True)
+    finally:
+        # the worker ranks of a tp x ep engine stop with the server
+        engine.engine.close()
 
 
 if __name__ == "__main__":

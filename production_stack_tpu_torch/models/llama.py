@@ -75,6 +75,7 @@ from production_stack_tpu_torch.ops import paged_attention as pa
 from production_stack_tpu_torch.ops.attention import causal_attention
 from production_stack_tpu_torch.ops.norms import rms_norm
 from production_stack_tpu_torch.ops.rope import rope_rows, rope_table, rotate
+from production_stack_tpu_torch.parallel import sharding
 from production_stack_tpu_torch.utils import resolve_device
 
 # per-layer weights, stacked on axis 0; the post norms exist only with
@@ -126,66 +127,98 @@ class Llama(nn.Module):
     attention biases q_bias [L, NH*D], k_bias/v_bias [L, NKV*D];
     final_norm [H]; lm_head [H, V] unless the embeddings are tied."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", shard=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-        nh, nkv, hd, L = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
-                          cfg.num_layers)
-        shapes = {
-            "embed": (v, h), "attn_norm": (L, h), "q": (L, h, nh * hd),
-            "k": (L, h, nkv * hd), "v": (L, h, nkv * hd),
-            "o": (L, nh * hd, h), "mlp_norm": (L, h),
-        }
-        # insertion order is init_params' draw order: a dense model's
-        # leaves keep the order they had before the other families
-        E = cfg.num_experts
-        if E:
-            mi = cfg.moe_intermediate_size or i
-            shapes.update({"gate": (L, E, h, mi), "up": (L, E, h, mi),
-                           "down": (L, E, mi, h), "router": (L, h, E)})
-            if cfg.shared_expert_size:
-                si = cfg.shared_expert_size
-                shapes.update({"s_gate": (L, h, si), "s_up": (L, h, si),
-                               "s_down": (L, si, h), "s_gate_w": (L, h, 1)})
-        else:
-            shapes.update({"gate": (L, h, i), "up": (L, h, i),
-                           "down": (L, i, h)})
-        shapes["final_norm"] = (h,)
-        if cfg.sandwich_norms:
-            shapes["post_attn_norm"] = shapes["post_mlp_norm"] = (L, h)
-        if cfg.attention_bias:
-            shapes.update({"q_bias": (L, nh * hd), "k_bias": (L, nkv * hd),
-                           "v_bias": (L, nkv * hd)})
-        if not cfg.tie_word_embeddings:
-            shapes["lm_head"] = (h, v)
-        for name, shape in shapes.items():
+        # a rank of a serving mesh (parallel/mesh.Shard) holds its slice
+        # of every leaf (parallel/sharding.py) and calls its collectives
+        # through `mesh` (the runner sets it); None: the whole model
+        self.shard = shard
+        self.mesh = None
+        for name, shape in leaf_shapes(cfg).items():
+            if shard is not None:
+                shape = sharding.local_shape(
+                    shape, sharding.leaf_spec(cfg, name), shard)
             self.register_parameter(name, nn.Parameter(
                 torch.empty(shape, dtype=cfg.dtype, device=device),
                 requires_grad=False))
 
 
+def leaf_shapes(cfg: ModelConfig) -> dict:
+    """name -> full shape of every leaf, in init_params' draw order."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    nh, nkv, hd, L = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+                      cfg.num_layers)
+    shapes = {
+        "embed": (v, h), "attn_norm": (L, h), "q": (L, h, nh * hd),
+        "k": (L, h, nkv * hd), "v": (L, h, nkv * hd),
+        "o": (L, nh * hd, h), "mlp_norm": (L, h),
+    }
+    # insertion order is init_params' draw order: a dense model's
+    # leaves keep the order they had before the other families
+    E = cfg.num_experts
+    if E:
+        mi = cfg.moe_intermediate_size or i
+        shapes.update({"gate": (L, E, h, mi), "up": (L, E, h, mi),
+                       "down": (L, E, mi, h), "router": (L, h, E)})
+        if cfg.shared_expert_size:
+            si = cfg.shared_expert_size
+            shapes.update({"s_gate": (L, h, si), "s_up": (L, h, si),
+                           "s_down": (L, si, h), "s_gate_w": (L, h, 1)})
+    else:
+        shapes.update({"gate": (L, h, i), "up": (L, h, i),
+                       "down": (L, i, h)})
+    shapes["final_norm"] = (h,)
+    if cfg.sandwich_norms:
+        shapes["post_attn_norm"] = shapes["post_mlp_norm"] = (L, h)
+    if cfg.attention_bias:
+        shapes.update({"q_bias": (L, nh * hd), "k_bias": (L, nkv * hd),
+                       "v_bias": (L, nkv * hd)})
+    if not cfg.tie_word_embeddings:
+        shapes["lm_head"] = (h, v)
+    return shapes
+
+
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Llama:
+                device="cuda", shard=None) -> Llama:
     """Random init (normal 0.02) in cfg.dtype, drawn from `generator`
     (which must live on `device`) one layer at a time so the f32 draw
     never holds more than one layer's matrix. Norm gains are ones, or
     zeros where they are stored around an implicit 1 (rms_norm_offset),
     as in the JAX init. Attention biases are drawn like the matrices
-    (the JAX init zeroes them), so a random model exercises them."""
-    model = Llama(cfg, device=device)
+    (the JAX init zeroes them), so a random model exercises them.
+    shard: a rank's coordinates; every layer is drawn whole, as the
+    unsharded init draws it, and only the rank's slice is kept, so each
+    rank holds its block of the very weights a single device would."""
+    model = Llama(cfg, device=device, shard=shard)
+    full = leaf_shapes(cfg)
     for name, p in model.named_parameters():
         if name in NORM_KEYS:
             p.fill_(0.0 if cfg.rms_norm_offset else 1.0)
             continue
-        rows = p if name in LAYER_KEYS else p.unsqueeze(0)
+        layered = name in LAYER_KEYS
+        rows = p if layered else p.unsqueeze(0)
+        shape = full[name][1:] if layered else full[name]
+        spec = sharding.leaf_spec(cfg, name)[1 if layered else 0:]
         for row in rows:
-            row.copy_(torch.randn(row.shape, generator=generator,
-                                  device=device, dtype=torch.float32)
-                      * 0.02)
+            draw = torch.randn(shape, generator=generator, device=device,
+                               dtype=torch.float32) * 0.02
+            if shard is not None:
+                draw = sharding.slice_spec(draw.to(cfg.dtype), spec, shard,
+                                           name)
+            row.copy_(draw)
     return model
+
+
+def _tp(model: Llama) -> int:
+    return model.shard.tp if model.shard is not None else 1
+
+
+def _reduce(model: Llama, t: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+    """A rank's partial sum summed over `axis` (a whole model: t)."""
+    return t if model.mesh is None else model.mesh.all_reduce(t, axis)
 
 
 def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
@@ -209,11 +242,15 @@ def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
             k_pool = write_at(cache.k[l], k, *addresses)
             v_pool = write_at(cache.v[l], v, *addresses)
             scales = {}
+        kw = dict(nb=nb, scale=attn_scale(cfg), window=layer_window(cfg, l),
+                  softcap=cfg.attn_logit_softcap or 0.0, **scales)
+        if model.shard is not None:
+            return pa.paged_attention_sharded(
+                q, k_pool, v_pool, block_tables, starts, model.shard,
+                num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, **kw)
         attn_fn = (pa.paged_decode_attention if q.shape[1] <= pa.DECODE_T_MAX
                    else pa.paged_attention)
-        return attn_fn(q, k_pool, v_pool, block_tables, starts, nb=nb,
-                       scale=attn_scale(cfg), window=layer_window(cfg, l),
-                       softcap=cfg.attn_logit_softcap or 0.0, **scales)
+        return attn_fn(q, k_pool, v_pool, block_tables, starts, **kw)
     return _block(cfg, model, l, x, rows, paged, lora, valid)
 
 
@@ -227,7 +264,9 @@ def _block(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
     valid [B,T] bool marks real tokens, which alone route to experts and
     take their capacity (None: every token)."""
     B, T, _ = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    # a tp rank's heads: H / tp q heads over Hkv / tp kv heads
+    tp = _tp(model)
+    nh, nkv, hd = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim_
     eps = cfg.rms_norm_eps
     off = 1.0 if cfg.rms_norm_offset else 0.0
 
@@ -246,7 +285,9 @@ def _block(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
     k = rotate(proj(hidden, "k").reshape(B, T, nkv, hd), *rows)
     v = proj(hidden, "v").reshape(B, T, nkv, hd)
     attn = attend(q, k, v)
-    o_out = proj(attn.reshape(B, T, nh * hd), "o")
+    # row-parallel: the rank's partial sum (its adapter delta included)
+    # is summed over tp before the norm and the residual
+    o_out = _reduce(model, proj(attn.reshape(B, T, nh * hd), "o"))
     if cfg.sandwich_norms:
         o_out = rms_norm(o_out, model.post_attn_norm[l], eps, off)
     x = x + o_out
@@ -254,7 +295,8 @@ def _block(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
     if cfg.num_experts:
         return x + _moe_block(cfg, model, l, hidden, valid)
     act = activation(cfg)
-    mlp_out = proj(act(proj(hidden, "gate")) * proj(hidden, "up"), "down")
+    mlp_out = _reduce(model, proj(act(proj(hidden, "gate"))
+                                  * proj(hidden, "up"), "down"))
     if cfg.sandwich_norms:
         mlp_out = rms_norm(mlp_out, model.post_mlp_norm[l], eps, off)
     return x + mlp_out
@@ -268,19 +310,28 @@ def _moe_block(cfg: ModelConfig, model: Llama, l: int, hidden: torch.Tensor,
     Qwen2-MoE's shared expert scaled by sigmoid(hidden @ s_gate_w)."""
     B, T, H = hidden.shape
     act = activation(cfg)
+    # a rank applies its E / ep experts (their inner dimension over tp)
+    # and the shared expert's tp slice; the partials are summed over the
+    # world once, the shared expert's by the first ep slice only, so it
+    # is counted once, not ep times
+    ep_rank, _ = (model.shard.axis("ep") if model.shard is not None
+                  else (0, 1))
+    gate = model.gate[l]
+    n_local = (gate.w8 if is_quantized(gate) else gate).shape[0]
     y = moe.moe_mlp(
-        hidden.reshape(B * T, H), model.router[l], model.gate[l],
+        hidden.reshape(B * T, H), model.router[l], gate,
         model.up[l], model.down[l], top_k=cfg.num_experts_per_tok,
         capacity_factor=cfg.moe_capacity_factor, act=act,
         valid=None if valid is None else valid.reshape(B * T),
         renormalize=cfg.norm_topk_prob,
-        exact=True if T == 1 else None).reshape(B, T, H)
-    if cfg.shared_expert_size:
+        exact=True if T == 1 else None,
+        first_expert=ep_rank * n_local).reshape(B, T, H)
+    if cfg.shared_expert_size and ep_rank == 0:
         shared = dequant_matmul(
             act(dequant_matmul(hidden, model.s_gate[l]))
             * dequant_matmul(hidden, model.s_up[l]), model.s_down[l])
         y = y + torch.sigmoid(hidden @ model.s_gate_w[l]) * shared
-    return y
+    return _reduce(model, y, "world")
 
 
 def forward(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
@@ -401,7 +452,20 @@ def _embed(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
     if not sampled_ids:
         V = cfg.vocab_size
         ids = torch.remainder(torch.clamp(ids, -V, V - 1), V)
-    x = dequant_rows(model.embed, ids, cfg.dtype)
+    tp = _tp(model)
+    if tp > 1:
+        # vocab-parallel: the rank looks up the ids of its vocabulary
+        # block, zeros elsewhere, and the sum over tp is exact (one
+        # rank's row plus zeros)
+        Vl = cfg.vocab_size // tp
+        local = ids - model.shard.tp_rank * Vl
+        inside = (local >= 0) & (local < Vl)
+        x = dequant_rows(model.embed, local.clamp(0, Vl - 1), cfg.dtype)
+        x = _reduce(model, torch.where(inside[..., None], x,
+                                       torch.zeros((), dtype=x.dtype,
+                                                   device=x.device)))
+    else:
+        x = dequant_rows(model.embed, ids, cfg.dtype)
     if cfg.embed_scale:
         # Gemma: sqrt(hidden) in f32, then cast, as the JAX forward does
         # (HF multiplies in bf16)
@@ -433,6 +497,10 @@ def _lm_head(model: Llama, cfg: ModelConfig,
         logits = x2.float() @ head.float()
     if vocab_scale is not None:
         logits = logits * vocab_scale
+    if _tp(model) > 1:
+        # vocab-parallel head: every rank gathers the [B*T, V] f32
+        # logits of all vocabulary blocks, so all hold the same bytes
+        logits = model.mesh.all_gather(logits, dim=-1)
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)

@@ -42,6 +42,12 @@ def reset_launch_counts() -> None:
     launch_counts["flash_attention_with_cache"] = 0
 
 
+def launch_report() -> dict:
+    """A copy of the launch counter (a parallel engine's worker ranks
+    answer theirs through ParallelRunner.run_on_workers)."""
+    return {"launches": dict(launch_counts)}
+
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib_handle = None
 

@@ -26,6 +26,16 @@ ranks follow the token-major order of the k choices. Only the trash row
 receives duplicate scatter indices, so the scatter is deterministic
 where it matters.
 
+Under expert parallelism (parallel/sharding.py) a rank holds E / ep
+consecutive experts from ``first_expert`` on: every rank routes every
+token with the replicated router and plans the capacity dispatch over
+all E experts, identically, then applies only its own experts. The
+exact path keeps its experts' columns of the routing matrix; the
+dispatch maps the plan's rows of its experts into a local buffer and
+every other assignment (other ranks' experts, drops, padding) onto the
+local trash row, so the drop set is the single-device one. The rank's
+output is a partial sum that the caller sums over the ranks.
+
 Routing is Mixtral's: a float32 softmax over all experts, ``torch.topk``,
 then the selected probabilities renormalized to sum to 1, or kept raw
 (Qwen2-MoE's ``norm_topk_prob=False``). Weight-only int8 expert stacks
@@ -81,12 +91,15 @@ def _expert_ffn(xb: torch.Tensor, gate, up, down,
     return edot(act(edot(xb, gate)) * edot(xb, up), down)
 
 
-def _moe_exact(x, top_p, top_i, gate, up, down, act) -> torch.Tensor:
-    """All experts over all tokens, combined by routing weight."""
+def _moe_exact(x, top_p, top_i, gate, up, down, act, num_experts: int,
+               first_expert: int = 0) -> torch.Tensor:
+    """All (local) experts over all tokens, combined by routing weight."""
     N = x.shape[0]
     E = _num_experts(gate)
-    combine = torch.zeros((N, E), dtype=torch.float32, device=x.device)
+    combine = torch.zeros((N, num_experts), dtype=torch.float32,
+                          device=x.device)
     combine.scatter_(1, top_i.long(), top_p)
+    combine = combine[:, first_expert:first_expert + E]
     y_e = _expert_ffn(x[None], gate, up, down, act)          # [E, N, h]
     return torch.einsum("enh,ne->nh", y_e, combine.to(x.dtype))
 
@@ -120,12 +133,18 @@ def dispatch_plan(top_i: torch.Tensor, num_experts: int, capacity: int,
 
 
 def _moe_dispatch(x, top_p, top_i, gate, up, down, act, capacity,
-                  valid=None) -> torch.Tensor:
+                  num_experts: int, valid=None,
+                  first_expert: int = 0) -> torch.Tensor:
     """Scatter-based capacity dispatch (see the module doc)."""
     N, h = x.shape
     E = _num_experts(gate)
     k = top_i.shape[1]
-    dest = dispatch_plan(top_i, E, capacity, valid)
+    dest = dispatch_plan(top_i, num_experts, capacity, valid)
+    if E != num_experts:
+        # this rank's experts' rows, the rest onto the local trash row
+        dest = dest - first_expert * capacity
+        dest = torch.where((dest >= 0) & (dest < E * capacity), dest,
+                           torch.full_like(dest, E * capacity))
     buf = torch.zeros((E * capacity + 1, h), dtype=x.dtype, device=x.device)
     buf[dest] = x.repeat_interleave(k, dim=0)
     y_e = _expert_ffn(buf[:-1].reshape(E, capacity, h), gate, up, down, act)
@@ -141,10 +160,12 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate, up, down, *,
             dense_threshold: int = 64, act: Callable = F.silu,
             valid: Optional[torch.Tensor] = None,
             exact: Optional[bool] = None,
-            renormalize: bool = True) -> torch.Tensor:
-    """MoE feed-forward. x [N, h]; router_w [h, E]; gate/up [E, h, i];
-    down [E, i, h] (each a tensor or an Int8Weight). Returns [N, h] in
-    x's dtype.
+            renormalize: bool = True,
+            first_expert: int = 0) -> torch.Tensor:
+    """MoE feed-forward. x [N, h]; router_w [h, E]; gate/up [E', h, i];
+    down [E', i, h] (each a tensor or an Int8Weight): all E experts, or
+    under expert parallelism the E' experts from first_expert on, whose
+    partial output this is. Returns [N, h] in x's dtype.
 
     valid [N] bool marks real tokens: padding rows contribute nothing and
     never take expert capacity. exact=True forces the all-expert path
@@ -152,7 +173,7 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate, up, down, *,
     token's MLP); exact=None takes it for N <= dense_threshold or when
     capacity covers every assignment."""
     N = x.shape[0]
-    E = _num_experts(gate)
+    E = router_w.shape[-1]
     top_p, top_i = route(x, router_w, top_k, renormalize=renormalize)
     if valid is not None:
         top_p = top_p * valid.to(top_p.dtype)[:, None]
@@ -160,6 +181,7 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, gate, up, down, *,
     if exact is None:
         exact = N <= dense_threshold or capacity >= N
     if exact:
-        return _moe_exact(x, top_p, top_i, gate, up, down, act)
+        return _moe_exact(x, top_p, top_i, gate, up, down, act, E,
+                          first_expert)
     return _moe_dispatch(x, top_p, top_i, gate, up, down, act, capacity,
-                         valid=valid)
+                         E, valid=valid, first_expert=first_expert)

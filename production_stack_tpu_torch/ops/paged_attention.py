@@ -31,6 +31,14 @@ gathers through ``gather_view_q`` (f32 dequant, the product cast to q's
 dtype). Scales go with an int8 pool and only with one: any other mix
 raises, on both devices.
 
+Under tensor parallelism (``paged_attention_sharded``, JAX
+``pallas_paged.py:513-549``) each rank runs the same kernels on its own
+heads: q of H / tp heads over a pool of Hkv / tp kv heads, the tables
+and starts whole, with no collective. JAX's ``shard_map`` takes the
+kernel shard-local on tp-only meshes only (``mesh_tp_only``); here an
+ep slice is a full replica of the attention, so every ``tp x ep``
+serving mesh keeps the kernels.
+
 A row parked at ``start >= MB*Bs`` (an idle slot of the full-batch
 forward, whose output the engine discards) comes back as zeros from both
 the kernels and the plain version, which do no work for it. The Pallas
@@ -76,6 +84,15 @@ def reset_launch_counts() -> None:
     for counts in (verify_launches, verify_window_launches):
         for by_t in counts.values():
             by_t.clear()
+
+
+def launch_report() -> dict:
+    """Copies of the launch counters (a parallel engine's worker ranks
+    answer theirs through ParallelRunner.run_on_workers)."""
+    return {"launches": dict(launch_counts),
+            "window_launches": dict(window_launches),
+            "softcap_launches": dict(softcap_launches),
+            "int8_launches": dict(int8_launches)}
 
 
 # element types of q / out (0, 1) and of the pool (0, 1, or 2 = int8)
@@ -323,3 +340,24 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _check_scales(k_pool, v_pool, k_scales, v_scales)
     return _launch("paged_attention", q, k_pool, v_pool, tables, starts,
                    nb, scale, window, softcap, k_scales, v_scales)
+
+
+def paged_attention_sharded(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, tables: torch.Tensor,
+                            starts: torch.Tensor, shard, *, nb: int,
+                            num_heads: int, num_kv_heads: int,
+                            **kw) -> torch.Tensor:
+    """One tp rank's paged attention (parallel/mesh.Shard `shard`): its
+    H / tp query heads over its Hkv / tp pool heads, through the decode
+    kernel for T <= DECODE_T_MAX and the prefill kernel above, as the
+    unsharded forward chooses. num_heads / num_kv_heads: the model's
+    whole counts, which the rank's shapes are checked against."""
+    tp = shard.tp
+    if (num_heads % tp or num_kv_heads % tp or q.shape[2] != num_heads // tp
+            or k_pool.shape[1] != num_kv_heads // tp):
+        raise ValueError(f"tp rank {shard.tp_rank}/{tp}: q heads "
+                         f"{q.shape[2]} and pool heads {k_pool.shape[1]} "
+                         f"are not {num_heads} / {num_kv_heads} over tp")
+    fn = (paged_decode_attention if q.shape[1] <= DECODE_T_MAX
+          else paged_attention)
+    return fn(q, k_pool, v_pool, tables, starts, nb=nb, **kw)

@@ -12,6 +12,10 @@ adapter (``{proj: {"a": [L, in, r], "b": [L, r, out]}}``, models/lora.py)
 keeps the JAX layout too, and so does the BERT encoder of the pooling
 routes (models/encoder.py: the embeddings and ``{"layers": {...}}``
 stacked on a leading layer axis).
+
+``params_from_jax(..., shard=...)`` gives one rank of a ``tp x ep``
+serving mesh its slice of every leaf (parallel/sharding.py), so one JAX
+weight set feeds JAX's mesh engine and the port's ranks alike.
 """
 
 from typing import Mapping, Optional, Tuple
@@ -26,6 +30,7 @@ from production_stack_tpu_torch.models.encoder import (EMBED_KEYS, Encoder,
 from production_stack_tpu_torch.models.kv import KVCache
 from production_stack_tpu_torch.models.llama import LAYER_KEYS, Llama
 from production_stack_tpu_torch.models.quant import QuantizedWeight
+from production_stack_tpu_torch.parallel import sharding
 from production_stack_tpu_torch.utils import resolve_device
 
 
@@ -39,7 +44,7 @@ def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def params_from_jax(np_params: Mapping, cfg: ModelConfig,
-                    device="cuda") -> Llama:
+                    device="cuda", shard=None) -> Llama:
     """The JAX params pytree ({"embed", "layers": {...}, "final_norm",
     ["lm_head"]}, numpy leaves; the layers carry post_attn_norm and
     post_mlp_norm with sandwich norms, q_bias/k_bias/v_bias with
@@ -47,7 +52,9 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig,
     experts, s_gate/s_up/s_down/s_gate_w with a shared expert) as the
     port's Llama module in cfg.dtype on `device`. A quantized leaf
     ({"w8", "scale"}, an expert stack's scale [L, E, out]) replaces its
-    parameter with a QuantizedWeight of the same int8 and f32 values."""
+    parameter with a QuantizedWeight of the same int8 and f32 values.
+    shard (parallel/mesh.Shard): the rank's slice of every leaf
+    instead."""
     model = Llama(cfg, device=device)
     with torch.no_grad():
         for name, p in list(model.named_parameters()):
@@ -65,7 +72,7 @@ def params_from_jax(np_params: Mapping, cfg: ModelConfig,
                     _tensor(src["scale"], torch.float32, device)))
             else:
                 p.copy_(_tensor(src, cfg.dtype, device))
-    return model
+    return model if shard is None else sharding.shard_params(model, shard)
 
 
 def encoder_params_from_jax(np_params: Mapping, cfg: EncoderConfig,

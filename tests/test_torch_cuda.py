@@ -751,3 +751,94 @@ def test_trace_middleware_on_a_card_engine(cuda):
         == ["preprocess", "queue_wait", "prefill", "decode", "postprocess"]
     assert rows[0]["attrs"]["output_tokens"] == 6
     assert all(pa.launch_counts[n] > 0 for n in pa.launch_counts)
+
+
+# one tensor-parallel rank's heads (parallel/): Llama-3-8B at tp 2, 4 and
+# 8 (Hkv 4, 2, 1 at G = 4, D = 128; at tp 8 the decode grid is
+# (B, 1, splits)) and Gemma-2-9B at tp 2 (Hkv 4, G = 2, D = 256, window
+# and softcap), decode and prefill, over a pool of q's dtype and over an
+# int8 pool, through paged_attention_sharded
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,Hkv,G,D,lens,window,softcap", [
+    (1, 4, 4, 128, (70, 5, 300), 0, 0.0),
+    (512, 4, 4, 128, (70, 5, 300), 0, 0.0),
+    (1, 2, 4, 128, (4600, 10, 2000), 0, 0.0),
+    (100, 2, 4, 128, (70, 5, 300), 0, 0.0),
+    (1, 1, 4, 128, (4600, 10, 2000), 0, 0.0),
+    (8, 1, 4, 128, (70, 5, 300), 0, 0.0),
+    (512, 1, 4, 128, (70, 5, 300), 0, 0.0),
+    (1, 4, 2, 256, (4600, 10, 2000), 4096, 50.0),
+    (100, 4, 2, 256, (4550, 4100, 300), 4096, 50.0),
+])
+def test_kernels_at_one_tp_rank_match_plain_version(cuda, T, Hkv, G, D,
+                                                    lens, window, softcap,
+                                                    dtype, int8):
+    from production_stack_tpu_torch.parallel.mesh import Shard
+    q, k, v, tables, starts, nb = _geometry_case(
+        cuda, T, Hkv, G, D, torch.float32, lens, seed=T + Hkv)
+    sc = {}
+    if int8:
+        (k, ks), (v, vs) = quantize_chunk(k), quantize_chunk(v)
+        sc = dict(k_scales=ks, v_scales=vs)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    if softcap:
+        q = q * 30
+        v = v if int8 else (v.float() * 0.5).to(dtype)
+        if int8:
+            sc["v_scales"] = sc["v_scales"] * 0.5
+    q = q.to(dtype)
+    tp = 8 // Hkv if D == 128 else 2
+    shard = Shard(tp=tp, tp_rank=tp - 1)
+    got = pa.paged_attention_sharded(
+        q, k, v, tables, starts, shard, nb=nb, num_heads=Hkv * G * tp,
+        num_kv_heads=Hkv * tp, window=window, softcap=softcap, **sc)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(q.float() if int8 else q, k, v, tables,
+                                    starts, nb, D ** -0.5, window, softcap,
+                                    **sc)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_engine_on_the_card_equals_one_rank(cuda, tp):
+    """TinyLlama-1.1B (head dim 64, 4 kv heads) at tp = 2 and 4 in f32:
+    with one card every rank shares it (gloo stages the collectives
+    through the host), with a card per rank NCCL carries them; the
+    kernels launch at one rank's heads, greedy tokens of mixed prompts
+    equal the one-rank engine's on the same weights, and the workers
+    sample rank 0's tokens."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.scheduler import SamplingOptions
+    cfg = dict(model="tinyllama-1.1b", device="cuda", dtype="float32",
+               kv_dtype="float32", max_model_len=256, max_num_seqs=3,
+               prefill_chunk=64, prefill_buckets=(16, 64), decode_window=4,
+               kv_block_size=16)
+    prompts = [list(range(5, 45)), list(range(100, 107)),
+               list(range(200, 300))]
+
+    def run(engine):
+        ids = [engine.add_request(p, SamplingOptions(
+            temperature=0.0, max_tokens=12, ignore_eos=True))
+            for p in prompts]
+        while engine.has_work:
+            engine.step()
+        return [engine.seqs[i].output_tokens for i in ids]
+    want = run(LLMEngine(EngineConfig(**cfg)))
+    te = LLMEngine(EngineConfig(tensor_parallel_size=tp, **cfg))
+    try:
+        assert te.runner.mesh.backend == (
+            "nccl" if torch.cuda.device_count() >= tp else "gloo")
+        pa.reset_launch_counts()
+        assert run(te) == want
+        assert pa.launch_counts["paged_attention"] > 0
+        assert pa.launch_counts["paged_decode_attention"] > 0
+        ranks = te.runner.last_results("decode")
+        assert len(ranks) == tp
+        assert all(torch.equal(r[0], ranks[0][0]) for r in ranks[1:])
+    finally:
+        te.close()

@@ -307,8 +307,10 @@ def test_engine_refuses_unported_options():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tensor_parallel_size=2), dict(window_adapt=True),
-    dict(pipeline_depth=2), dict(expert_parallel_size=2)])
+    dict(pipeline_parallel_size=2), dict(window_adapt=True),
+    dict(pipeline_depth=2),
+    dict(expert_parallel_size=2, tensor_parallel_size=2,
+         window_adapt=True)])
 def test_engine_config_pins_unported_options(kw):
     with pytest.raises(NotImplementedError):
         tec.EngineConfig(model="debug-tiny", device="cpu", **kw)
@@ -577,6 +579,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import production_stack_tpu_torch.engine.runner
         import production_stack_tpu_torch.models.lora
         import production_stack_tpu_torch.models.hf_loader
+        import production_stack_tpu_torch.parallel.mesh
+        import production_stack_tpu_torch.parallel.sharding
+        import production_stack_tpu_torch.parallel.workers
         import production_stack_tpu_torch.models.encoder
         import production_stack_tpu_torch.kvcache
         import production_stack_tpu_torch.kvcache.chunks
