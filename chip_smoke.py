@@ -180,6 +180,29 @@
    step's wall and its collectives beside the
    one-rank step, /load, the paged kernels' launches of every rank, and
    that the workers sampled rank 0's tokens.
+8. train (after parallel, before kvtier; every engine freed first): the
+   training path (TRAIN). Llama-3-8B at full width and depth, bf16,
+   random weights from seed 0, one batch of 1 x 512 tokens from a
+   numpy seed: before any optimizer state, forward_train's f32 logits
+   against llama.forward through the paged prefill kernel (a 512-token
+   pool; max |diff|, and the argmax of each against an f32 forward of
+   the same weights, parting only at near-ties), then a forward and a
+   backward with every stacked leaf split once (layer_params) and read
+   per layer by select (select_layers), each timed with its peak memory;
+   then 3 train_steps, whose losses are finite and fall and which launch
+   no serving kernel, with the step's wall, one step timed part by part
+   (forward, backward, the clip's norm, AdamW), its FLOPs over the bf16
+   peak and AdamW's and the norm's bytes over HBM's, tokens/s, launches
+   and the idle share from a profiled step, and the peak memory beside
+   the state's bytes. At 2 layers of full width every leaf's bf16
+   gradient against f32's of the same weights (relative Frobenius
+   error, TRAIN_GRAD_TOL) and one bf16 AdamW step against the same
+   step in f32. Then parallel/dryrun.py's worlds, every rank a process
+   on the one card over gloo: dp 2 x sp 2 x tp 2 for 3 steps (losses
+   equal one rank's within 1e-4 and falling) and GPipe at pp = 2 over
+   4 microbatches (loss within 1e-4 of plain, gradients within atol
+   2e-4 / rtol 2e-3), with the backend, the rank -> device map and the
+   collectives a step.
 
 Progress goes to stdout; the line before the last two is the kernels'
 JSON record, then the card's name and power limit, then the result.
@@ -189,7 +212,7 @@ printed. Needs CUDA and this repository's sources beside the script.
 
 import asyncio
 import gc
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 import json
 import math
 import os
@@ -2944,6 +2967,7 @@ def moe_breakdown(runner, p: dict, plain: dict) -> dict:
     B, H, L = p["serve"]["max_num_seqs"], cfg.hidden_size, cfg.num_layers
     dev = runner.device
     g = torch.Generator(device=dev).manual_seed(17)
+    layers = llama.layer_params(runner.params)
     out = {}
     for name, T, live, key, ms_key in (
             ("decode", 1, B, "decode_profile_per_step", "decode_step_ms"),
@@ -2955,8 +2979,8 @@ def moe_breakdown(runner, p: dict, plain: dict) -> dict:
         valid[:live] = True
 
         def block(i=0):
-            return llama._moe_block(cfg, runner.params, i % L, hidden,
-                                    valid)
+            return llama._moe_block(cfg, runner.params, layers[i % L],
+                                    hidden, valid)
         ms = device_ms(block, 2 * L)
         busy = plain[key].get("device_busy_ms")
         out[f"moe_{name}_layer_ms"] = ms
@@ -4596,6 +4620,327 @@ def parallel_phase(device="cuda") -> dict:
     return counts
 
 
+# ------------------------------------------------------------- training
+
+# the train phase: Llama-3-8B at full width and depth, one batch of
+# B x T tokens drawn from a seed, `steps` train_steps; the gradient check
+# at full width and `grad_layers` layers; the training worlds at the JAX
+# dry run's size over `dryrun_ranks` ranks on the one card
+TRAIN = dict(model="llama-3-8b", batch=1, seq=512, steps=3, seed=0,
+             token_seed=13, grad_layers=2, dryrun_ranks=8)
+# bf16 gradients (and one bf16 AdamW step's moments) against float32's
+# on the same weights: relative Frobenius error per leaf
+TRAIN_GRAD_TOL = 3e-2
+
+
+@contextmanager
+def select_layers():
+    """encode reads every layer by indexing each stacked leaf (select),
+    as the forward did before layer_params split each leaf once: its
+    backward adds a zero-filled gradient of the whole leaf per layer."""
+    from production_stack_tpu_torch.models import llama
+
+    class Layer:
+        def __init__(self, model, l):
+            self.model, self.l = model, l
+
+        def __getitem__(self, name):
+            return getattr(self.model, name)[self.l]
+    split = llama.layer_params
+    llama.layer_params = lambda model: [
+        Layer(model, l) for l in range(model.cfg.num_layers)]
+    try:
+        yield
+    finally:
+        llama.layer_params = split
+
+
+def train_flops(cfg, B: int, T: int) -> dict:
+    """A train step's FLOPs: 6 per matmul parameter per token (forward
+    2, backward 4; the embedding is a lookup) plus the plain attention's
+    full T x T score and value products (4 B H T^2 D a layer forward,
+    twice that backward)."""
+    from production_stack_tpu_torch.models.llama import leaf_shapes
+    matmul = sum(math.prod(s) for n, s in leaf_shapes(cfg).items()
+                 if n in ("q", "k", "v", "o", "gate", "up", "down",
+                          "lm_head"))
+    attn = 3 * 4 * B * cfg.num_heads * T * T * cfg.head_dim_ \
+        * cfg.num_layers
+    return {"matmul_params": matmul, "flops": 6 * matmul * B * T + attn,
+            "attention_flops": attn}
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def train_forward_check(model, cfg, tokens) -> dict:
+    """forward_train's f32 logits against llama.forward through the paged
+    prefill kernel (a 512-token pool) on the same tokens, and the
+    argmax of each against an f32 forward of the same weights (upcast a
+    layer at a time): equal, or parting at near-ties (near_tie_check's
+    tolerance, from every position's gaps, held at every position where
+    they part)."""
+    import dataclasses
+    import torch
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.kv import make_slot_cache
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    B, T = tokens.shape
+    dev = tokens.device
+    with torch.no_grad():
+        train_logits = llama.forward_train(model, cfg, tokens)[0]
+        cache, tables = make_slot_cache(cfg.num_layers, B, T,
+                                        cfg.num_kv_heads, cfg.head_dim_,
+                                        cfg.dtype, 64, dev)
+        pa.reset_launch_counts()
+        positions = torch.arange(T, device=dev)[None].expand(B, T)
+        kernel_logits = llama.forward(model, cfg, tokens, positions, cache,
+                                      block_tables=tables)[0][0]
+        torch.cuda.synchronize()
+        launches = dict(pa.launch_counts)
+        pool_bytes = cache.k.nbytes + cache.v.nbytes
+        del cache
+        ref = llama.forward_train(
+            Upcast(model), dataclasses.replace(cfg, dtype=torch.float32),
+            tokens)[0]
+    if launches["paged_attention"] != cfg.num_layers:
+        raise AssertionError(f"the kernel forward launched {launches}")
+    want = kernel_logits.argmax(-1).tolist()
+    got = train_logits.argmax(-1).tolist()
+    tie = near_tie_check(want, got, ref, train_logits)
+    parted = [i for i in range(T) if want[i] != got[i]]
+    gaps = [(ref[i, want[i]] - ref[i, got[i]]).abs().item() for i in parted]
+    out = {"max_abs_diff": (train_logits - kernel_logits).abs().max().item(),
+           "max_abs_logit": kernel_logits.abs().max().item(),
+           "kernel_launches": launches, "pool_bytes": pool_bytes,
+           "positions": T, "argmax_parted": len(parted),
+           "parted_max_f32_gap": max(gaps, default=0.0),
+           "near_tie_tol": tie.get("tol"),
+           "f32_max_abs_diff": (train_logits - ref).abs().max().item()}
+    if parted and max(gaps) > tie["tol"]:
+        raise AssertionError(f"forward_train's argmax parts from the "
+                             f"kernel's beyond a near-tie: {out}")
+    return out
+
+
+def train_full(device="cuda") -> dict:
+    """TRAIN's model at full width and depth: the forward check, the
+    backward with each leaf split once (unbind) and read per layer
+    (select), then `steps` train_steps (their losses finite and
+    falling, their wall), one step timed part by part (forward,
+    backward, the norm of the clip, AdamW), one profiled (launches,
+    idle share), and the peak memory beside the state's bytes."""
+    import numpy as np
+    import torch
+    from production_stack_tpu_torch.models import config as tconfig
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    from production_stack_tpu_torch.parallel import train
+    cfg = tconfig.get_config(TRAIN["model"])
+    B, T = TRAIN["batch"], TRAIN["seq"]
+    t0 = time.monotonic()
+    model = llama.init_params(
+        cfg, torch.Generator(device=device).manual_seed(TRAIN["seed"]),
+        device=device)
+    tokens = torch.from_numpy(np.random.default_rng(
+        TRAIN["token_seed"]).integers(0, cfg.vocab_size, (B, T))).to(device)
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.nbytes for p in model.parameters())
+    out = {"model": cfg.name, "layers": cfg.num_layers,
+           "hidden": cfg.hidden_size, "params": n_params,
+           "tokens": [B, T], "init_s": time.monotonic() - t0}
+    out["forward_check"] = train_forward_check(model, cfg, tokens)
+    log(json.dumps({"train_forward_check": out["forward_check"]}))
+
+    train.trainable(model)
+    params = list(model.parameters())
+    # a first forward and backward, untimed: cuBLAS's workspaces and the
+    # allocator's pool are made here, not in the first timed pass
+    torch.autograd.grad(train.loss_fn(model, cfg, tokens), params)
+    for how in ("select", "unbind"):
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with (select_layers() if how == "select" else nullcontext()):
+            ev[0].record()
+            loss = train.loss_fn(model, cfg, tokens)
+            ev[1].record()
+            grads = torch.autograd.grad(loss, params)
+            ev[2].record()
+        torch.cuda.synchronize()
+        out[f"backward_{how}"] = {
+            "forward_ms": ev[0].elapsed_time(ev[1]),
+            "backward_ms": ev[1].elapsed_time(ev[2]),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del loss, grads
+    free_memory()
+
+    optimizer = train.make_optimizer()
+    state = train.init_train_state(model, optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(TRAIN["steps"]):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        state, loss = train.train_step(state, tokens, cfg, optimizer)
+        e1.record()
+        torch.cuda.synchronize()
+        walls.append(e0.elapsed_time(e1))
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**pa.launch_counts, **fa.launch_counts}
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train_step losses not finite and falling: "
+                             f"{losses}")
+    if any(launches.values()):
+        raise AssertionError(f"training launched a serving kernel: "
+                             f"{launches}")
+    out.update({"losses": losses, "step_ms": walls,
+                "kernel_launches": launches, "peak_gb": peak / 1e9,
+                "state_gb": 4 * param_bytes / 1e9,
+                "peak_over_state_gb": (peak - 4 * param_bytes) / 1e9})
+
+    # one step part by part: the calls train_step makes, in its order
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    named = dict(model.named_parameters())
+    ev[0].record()
+    loss = train.loss_fn(model, cfg, tokens)
+    ev[1].record()
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    ev[2].record()
+    g_norm = train.global_norm(grads)
+    ev[3].record()
+    opt_state = optimizer.update_(named, grads, state.opt_state, g_norm)
+    ev[4].record()
+    torch.cuda.synchronize()
+    del grads, loss
+    state = train.TrainState(model, opt_state, state.step + 1)
+    parts = dict(zip(("forward_ms", "backward_ms", "clip_norm_ms",
+                      "adamw_ms"),
+                     (ev[i].elapsed_time(ev[i + 1]) for i in range(4))))
+    parts["g_norm"] = g_norm.item()
+
+    def step():
+        nonlocal state
+        state, loss = train.train_step(state, tokens, cfg, optimizer)
+        loss.item()
+    prof = device_profile(step)
+    flops = train_flops(cfg, B, T)
+    step_ms = min(walls)
+    bound = {"flops": flops["flops"], "matmul_params": flops["matmul_params"],
+             "flop_bound_ms": flops["flops"] / BF16_FLOPS * 1e3,
+             "adamw_bytes": 14 * n_params,
+             "adamw_bound_ms": 14 * n_params / HBM_BPS * 1e3,
+             "norm_bytes": 2 * n_params,
+             "norm_bound_ms": 2 * n_params / HBM_BPS * 1e3}
+    out.update({"parts": parts, "bounds": bound,
+                "tokens_per_s": B * T / (step_ms / 1e3),
+                "flop_share": bound["flop_bound_ms"] / step_ms,
+                "profile": profile_summary(prof, 1, step_ms),
+                "steps_taken": state.step})
+    del state, model, named, opt_state, params
+    free_memory()
+    return out
+
+
+def train_grad_check(device="cuda") -> dict:
+    """TRAIN's model at full width and grad_layers layers: every leaf's
+    bf16 gradient against the float32 gradient of the same weights
+    upcast, and one bf16 AdamW step against the same step in float32 on
+    the same (bf16) gradients: the moments within TRAIN_GRAD_TOL, the
+    new weights within twice the error of rounding the f32 step's
+    weights to bf16."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from production_stack_tpu_torch.models import config as tconfig
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.parallel import train
+    cfg = dataclasses.replace(tconfig.get_config(TRAIN["model"]),
+                              num_layers=TRAIN["grad_layers"])
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    B, T = TRAIN["batch"], TRAIN["seq"]
+    m16 = train.trainable(llama.init_params(
+        cfg, torch.Generator(device=device).manual_seed(TRAIN["seed"]),
+        device=device))
+    m32 = llama.Llama(cfg32, device=device)
+    with torch.no_grad():
+        for (_, p32), p16 in zip(m32.named_parameters(), m16.parameters()):
+            p32.copy_(p16.float())
+    train.trainable(m32)
+    tokens = torch.from_numpy(np.random.default_rng(
+        TRAIN["token_seed"]).integers(0, cfg.vocab_size, (B, T))).to(device)
+    names = [n for n, _ in m16.named_parameters()]
+    g16 = dict(zip(names, torch.autograd.grad(
+        train.loss_fn(m16, cfg, tokens), list(m16.parameters()))))
+    g32 = dict(zip(names, torch.autograd.grad(
+        train.loss_fn(m32, cfg32, tokens), list(m32.parameters()))))
+    grad_err = {n: rel_err(g16[n], g32[n]) for n in names}
+    del g32
+    opt = train.make_optimizer()
+    p16, p32 = dict(m16.named_parameters()), dict(m32.named_parameters())
+    before = {n: p.detach().float().clone() for n, p in p16.items()}
+    s16 = opt.update_(p16, g16, opt.init(p16), train.global_norm(g16))
+    g16f = {n: g.float() for n, g in g16.items()}
+    s32 = opt.update_(p32, g16f, opt.init(p32), train.global_norm(g16f))
+    mu_err = {n: rel_err(s16.mu[n], s32.mu[n]) for n in names}
+    nu_err = {n: rel_err(s16.nu[n], s32.nu[n]) for n in names}
+    # the bf16 step's weights against the f32 step's, beside the error
+    # of rounding the f32 step's weights to bf16 (the floor)
+    w_err, floor, upd_err = {}, {}, {}
+    for n in names:
+        want = p32[n].detach()
+        w_err[n] = float((p16[n].detach().float() - want).norm())
+        floor[n] = float((want.to(torch.bfloat16).float() - want).norm())
+        upd_err[n] = rel_err(p16[n].detach().float() - before[n],
+                             want - before[n])
+    out = {"layers": cfg.num_layers, "grad_rel_err": grad_err,
+           "max_grad_rel_err": max(grad_err.values()),
+           "adamw": {"mu_rel_err": max(mu_err.values()),
+                     "nu_rel_err": max(nu_err.values()),
+                     "weights_err_over_rounding": max(
+                         w_err[n] / floor[n] for n in names if floor[n]),
+                     "update_rel_err": upd_err}}
+    bad = [n for n in names if grad_err[n] > TRAIN_GRAD_TOL
+           or mu_err[n] > TRAIN_GRAD_TOL or nu_err[n] > TRAIN_GRAD_TOL
+           or w_err[n] > 2 * floor[n] + 1e-12]
+    if bad:
+        raise AssertionError(f"bf16 training parts from f32 on {bad}: "
+                             f"{out}")
+    del m16, m32, g16, g16f, s16, s32, p16, p32, before
+    free_memory()
+    return out
+
+
+def train_phase(device="cuda") -> dict:
+    """The training path on the card (TRAIN): train_full, then
+    train_grad_check, then the training worlds of parallel/dryrun.py
+    (dp 2 x sp 2 x tp 2 and pp = 2, every rank a process on the one
+    card). Every engine is freed before it starts."""
+    import torch
+    from production_stack_tpu_torch.parallel import dryrun
+    free_memory()
+    t0 = time.monotonic()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    full = train_full(device)
+    log(json.dumps({"train": full}))
+    grad = train_grad_check(device)
+    log(json.dumps({"train_grad": grad}))
+    t1 = time.monotonic()
+    worlds = dryrun.dryrun_multichip(TRAIN["dryrun_ranks"], device)
+    worlds["seconds"] = time.monotonic() - t1
+    log(json.dumps({"train_worlds": worlds}))
+    out = {"train_phase_s": time.monotonic() - t0,
+           "memory_at_start_gb": start_gb}
+    log(json.dumps(out))
+    return out
+
+
 def build_phase(kernels) -> dict:
     """Build every source (in parallel) and report, per kernel, what
     ptxas gave it: registers, static shared memory, spill bytes; the
@@ -4679,6 +5024,8 @@ def main() -> int:
 
     # before kvtier, which leaves device memory allocated behind it
     counts.update(parallel_phase())
+
+    train_phase()
 
     kvtier_phase()
 

@@ -52,10 +52,24 @@ every product of a targeted projection (q, k, v, o, gate, up, down, on
 the bf16 and the int8 weight path alike) ``lora.apply`` adds the rows'
 deltas. Without factors nothing more is launched. ``encode`` takes no
 adapter, as in JAX.
+
+Training (JAX ``forward_train``, ``llama.py:406-416``): ``forward_train``
+is the LM head on ``encode``, whose ``attention_fn`` replaces the causal
+attention (ring attention, parallel/ring_attention.py) and whose
+``offset`` starts the RoPE positions of a sequence block. Autograd
+differentiates the same ops once parallel/train.py has turned the
+leaves' gradients on. Every layer reads its weights through
+``layer_params``, which splits each stacked leaf once. In a training
+world (``model.mesh`` a parallel/mesh.TrainWorld) ``_reduce`` and the
+logits gather are autograd Functions, and ``_enter`` marks each
+replicated activation ahead of a column-parallel product (q/k/v,
+gate/up, the vocab-parallel head), whose gradient the backward sums
+over tp. The bf16 head's f32 product is ``_HeadF32``: torch.mm's
+``out_dtype`` has no derivative.
 """
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +81,9 @@ from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.kv import (KVCache, chunk_addresses,
                                                   linear_tables, write_at,
                                                   write_at_q)
-from production_stack_tpu_torch.models.quant import (dequant_matmul,
+from production_stack_tpu_torch.models.quant import (Int8Weight,
+                                                     QuantizedWeight,
+                                                     dequant_matmul,
                                                      dequant_rows,
                                                      is_quantized)
 from production_stack_tpu_torch.ops import moe
@@ -115,8 +131,9 @@ def attn_scale(cfg: ModelConfig) -> float:
 
 
 class Llama(nn.Module):
-    """Parameters of one Llama-family model, JAX layout, no gradients;
-    the module-level ``forward`` runs them.
+    """Parameters of one Llama-family model, JAX layout, no gradients
+    (parallel/train.trainable turns them on for training); the
+    module-level ``forward`` runs them.
 
     embed [V, H]; per layer (stacked on axis 0): attn_norm/mlp_norm
     [L, H], q [L, H, NH*D], k/v [L, H, NKV*D], o [L, NH*D, H]; a dense
@@ -221,14 +238,51 @@ def _reduce(model: Llama, t: torch.Tensor, axis: str = "tp") -> torch.Tensor:
     return t if model.mesh is None else model.mesh.all_reduce(t, axis)
 
 
-def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
-           rows: Tuple[torch.Tensor, torch.Tensor], starts,
+def _enter(model: Llama, t: torch.Tensor) -> torch.Tensor:
+    """The replicated activation ahead of the column-parallel products:
+    itself in the forward; a training world sums its gradient, each
+    rank's partial from its own heads or features, over tp."""
+    return t if model.mesh is None else model.mesh.copy_to_tp(t)
+
+
+def layer_params(model: Llama) -> List["_Layer"]:
+    """Every layer's weights, read as lp[name] (an int8 leaf's layer an
+    Int8Weight): each stacked tensor is split once (unbind), so the
+    backward stacks a leaf's layer gradients once, where indexing each
+    layer (select) would add a zero-filled gradient of the whole [L, ...]
+    leaf per layer. A leaf that is neither a tensor nor an int8 leaf
+    (anything indexable by layer) is indexed when the layer reads it."""
+    cols = {}
+    for name in LAYER_KEYS:
+        leaf = getattr(model, name, None)
+        if isinstance(leaf, torch.Tensor):
+            cols[name] = leaf.unbind(0)
+        elif isinstance(leaf, QuantizedWeight):
+            cols[name] = [Int8Weight(w8, s) for w8, s in
+                          zip(leaf.w8.unbind(0), leaf.scale.unbind(0))]
+        elif leaf is not None:
+            cols[name] = leaf
+    return [_Layer(cols, l) for l in range(model.cfg.num_layers)]
+
+
+class _Layer:
+    """Layer l of every stacked leaf (layer_params)."""
+
+    def __init__(self, cols: Dict[str, object], l: int):
+        self._cols, self._l = cols, l
+
+    def __getitem__(self, name: str):
+        return self._cols[name][self._l]
+
+
+def _layer(cfg: ModelConfig, model: Llama, l: int, lp: "_Layer",
+           x: torch.Tensor, rows: Tuple[torch.Tensor, torch.Tensor], starts,
            cache: KVCache, block_tables, nb: int,
            addresses: Tuple[torch.Tensor, torch.Tensor], lora=None,
            valid: Optional[torch.Tensor] = None):
-    """One transformer block over the paged pool; rows = this chunk's
-    rope rows and addresses = its KV write addresses, both shared by
-    every layer. The chunk's K/V are written first, then the paged
+    """One transformer block (lp: layer l's weights, layer_params) over
+    the paged pool; rows = this chunk's rope rows and addresses = its KV
+    write addresses, both shared by every layer. The chunk's K/V are written first, then the paged
     kernels attend. lora: (gathered factors, scaling) or None; valid:
     the chunk's token mask [B,T] (MoE routing), or None."""
     def paged(q, k, v):
@@ -251,14 +305,14 @@ def _layer(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
         attn_fn = (pa.paged_decode_attention if q.shape[1] <= pa.DECODE_T_MAX
                    else pa.paged_attention)
         return attn_fn(q, k_pool, v_pool, block_tables, starts, **kw)
-    return _block(cfg, model, l, x, rows, paged, lora, valid)
+    return _block(cfg, model, l, lp, x, rows, paged, lora, valid)
 
 
-def _block(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
-           rows: Tuple[torch.Tensor, torch.Tensor], attend, lora=None,
-           valid: Optional[torch.Tensor] = None):
-    """Layer l on the residual stream x [B,T,H]: attend(q, k, v) ->
-    [B,T,nh,hd] is the attention (the paged kernels in serving, the
+def _block(cfg: ModelConfig, model: Llama, l: int, lp: "_Layer",
+           x: torch.Tensor, rows: Tuple[torch.Tensor, torch.Tensor], attend,
+           lora=None, valid: Optional[torch.Tensor] = None):
+    """Layer l (its weights lp, layer_params) on the residual stream x
+    [B,T,H]: attend(q, k, v) -> [B,T,nh,hd] is the attention (the paged kernels in serving, the
     plain causal attention in encode). lora: (factors gathered for the
     batch's rows, scaling), whose deltas join each targeted product;
     valid [B,T] bool marks real tokens, which alone route to experts and
@@ -271,16 +325,16 @@ def _block(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
     off = 1.0 if cfg.rms_norm_offset else 0.0
 
     def proj(h, name):
-        out = dequant_matmul(h, getattr(model, name)[l])
+        out = dequant_matmul(h, lp[name])
         if cfg.attention_bias and name in ("q", "k", "v"):
             # Qwen2: the bias comes before the adapter's delta
-            out = out + getattr(model, name + "_bias")[l]
+            out = out + lp[name + "_bias"]
         if lora is not None and name in lora[0]:
             a, b = lora[0][name]
             out = lora_mod.apply(h, out, a[l], b[l], lora[1])
         return out
 
-    hidden = rms_norm(x, model.attn_norm[l], eps, off)
+    hidden = _enter(model, rms_norm(x, lp["attn_norm"], eps, off))
     q = rotate(proj(hidden, "q").reshape(B, T, nh, hd), *rows)
     k = rotate(proj(hidden, "k").reshape(B, T, nkv, hd), *rows)
     v = proj(hidden, "v").reshape(B, T, nkv, hd)
@@ -289,23 +343,24 @@ def _block(cfg: ModelConfig, model: Llama, l: int, x: torch.Tensor,
     # is summed over tp before the norm and the residual
     o_out = _reduce(model, proj(attn.reshape(B, T, nh * hd), "o"))
     if cfg.sandwich_norms:
-        o_out = rms_norm(o_out, model.post_attn_norm[l], eps, off)
+        o_out = rms_norm(o_out, lp["post_attn_norm"], eps, off)
     x = x + o_out
-    hidden = rms_norm(x, model.mlp_norm[l], eps, off)
+    hidden = _enter(model, rms_norm(x, lp["mlp_norm"], eps, off))
     if cfg.num_experts:
-        return x + _moe_block(cfg, model, l, hidden, valid)
+        return x + _moe_block(cfg, model, lp, hidden, valid)
     act = activation(cfg)
     mlp_out = _reduce(model, proj(act(proj(hidden, "gate"))
                                   * proj(hidden, "up"), "down"))
     if cfg.sandwich_norms:
-        mlp_out = rms_norm(mlp_out, model.post_mlp_norm[l], eps, off)
+        mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"], eps, off)
     return x + mlp_out
 
 
-def _moe_block(cfg: ModelConfig, model: Llama, l: int, hidden: torch.Tensor,
+def _moe_block(cfg: ModelConfig, model: Llama, lp: "_Layer",
+               hidden: torch.Tensor,
                valid: Optional[torch.Tensor]) -> torch.Tensor:
-    """The MoE MLP of layer l on the normed stream hidden [B,T,H] (JAX
-    llama.py:247-270): the routed experts over all B*T tokens at once,
+    """The MoE MLP of a layer (its weights lp) on the normed stream
+    hidden [B,T,H] (JAX llama.py:247-270): the routed experts over all B*T tokens at once,
     exact at T == 1 (a decode step must never drop a live token), plus
     Qwen2-MoE's shared expert scaled by sigmoid(hidden @ s_gate_w)."""
     B, T, H = hidden.shape
@@ -316,11 +371,11 @@ def _moe_block(cfg: ModelConfig, model: Llama, l: int, hidden: torch.Tensor,
     # is counted once, not ep times
     ep_rank, _ = (model.shard.axis("ep") if model.shard is not None
                   else (0, 1))
-    gate = model.gate[l]
+    gate = lp["gate"]
     n_local = (gate.w8 if is_quantized(gate) else gate).shape[0]
     y = moe.moe_mlp(
-        hidden.reshape(B * T, H), model.router[l], gate,
-        model.up[l], model.down[l], top_k=cfg.num_experts_per_tok,
+        hidden.reshape(B * T, H), lp["router"], gate,
+        lp["up"], lp["down"], top_k=cfg.num_experts_per_tok,
         capacity_factor=cfg.moe_capacity_factor, act=act,
         valid=None if valid is None else valid.reshape(B * T),
         renormalize=cfg.norm_topk_prob,
@@ -328,9 +383,9 @@ def _moe_block(cfg: ModelConfig, model: Llama, l: int, hidden: torch.Tensor,
         first_expert=ep_rank * n_local).reshape(B, T, H)
     if cfg.shared_expert_size and ep_rank == 0:
         shared = dequant_matmul(
-            act(dequant_matmul(hidden, model.s_gate[l]))
-            * dequant_matmul(hidden, model.s_up[l]), model.s_down[l])
-        y = y + torch.sigmoid(hidden @ model.s_gate_w[l]) * shared
+            act(dequant_matmul(hidden, lp["s_gate"]))
+            * dequant_matmul(hidden, lp["s_up"]), lp["s_down"])
+        y = y + torch.sigmoid(hidden @ lp["s_gate_w"]) * shared
     return _reduce(model, y, "world")
 
 
@@ -397,9 +452,10 @@ def hidden(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
     addresses = chunk_addresses(block_tables, positions, Bs, token_valid)
     x = _embed(model, cfg, tokens, sampled_ids)
     lora = None if lora_rows is None else (lora_rows, lora_scaling)
-    for l in range(cfg.num_layers):
-        x = _layer(cfg, model, l, x, rows, starts, cache, block_tables, nb,
-                   addresses, lora, token_valid)
+    # cfg's layers: a reference may run the first layers of a model
+    for l, lp in enumerate(layer_params(model)[:cfg.num_layers]):
+        x = _layer(cfg, model, l, lp, x, rows, starts, cache, block_tables,
+                   nb, addresses, lora, token_valid)
     return x
 
 
@@ -414,13 +470,17 @@ def final_logits(model: Llama, cfg: ModelConfig,
 
 def encode(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
            rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-           token_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+           token_valid: Optional[torch.Tensor] = None,
+           attention_fn=None, offset: int = 0) -> torch.Tensor:
     """Full-sequence causal forward without the LM head (JAX
     ``llama.encode``): the final-normed hidden states [B,T,H] of tokens
-    [B,T] at positions 0..T-1, no cache. The pooling routes mean-pool
-    them (runner.embed). Attention is ops/attention.causal_attention,
-    plain PyTorch with the window and Gemma-2's softcap, as the JAX
-    encode never reaches a Pallas kernel. token_valid [B,T] marks the
+    [B,T] at positions offset..offset+T-1, no cache. The pooling routes
+    mean-pool them (runner.embed); forward_train puts the head on top.
+    Attention is ops/attention.causal_attention, plain PyTorch with the
+    window and Gemma-2's softcap, as the JAX encode never reaches a
+    Pallas kernel; attention_fn(q, k, v) replaces
+    it when given (JAX's override: ring attention over a sequence split
+    over sp, whose block starts at offset). token_valid [B,T] marks the
     real tokens of right-padded rows: a pad after the real tokens cannot
     reach them through causal attention, but on a MoE model it would
     route and take expert capacity, so the mask keeps it out of both."""
@@ -428,17 +488,31 @@ def encode(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
     if rope is None:
         rope = rope_tensors(cfg, cfg.max_position_embeddings, device)
     B, T = tokens.shape
-    positions = torch.arange(T, device=device)[None].expand(B, T)
+    positions = (offset + torch.arange(T, device=device))[None].expand(B, T)
     rows = rope_rows(positions, *rope)
     scale = attn_scale(cfg)
     x = _embed(model, cfg, tokens)
-    for l in range(cfg.num_layers):
+    for l, lp in enumerate(layer_params(model)[:cfg.num_layers]):
         def attend(q, k, v, w=layer_window(cfg, l)):
+            if attention_fn is not None:
+                return attention_fn(q, k, v)
             return causal_attention(q, k, v, scale=scale, sliding_window=w,
                                     logit_softcap=cfg.attn_logit_softcap)
-        x = _block(cfg, model, l, x, rows, attend, valid=token_valid)
+        x = _block(cfg, model, l, lp, x, rows, attend, valid=token_valid)
     return rms_norm(x, model.final_norm, cfg.rms_norm_eps,
                     1.0 if cfg.rms_norm_offset else 0.0)
+
+
+def forward_train(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
+                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  attention_fn=None, offset: int = 0) -> torch.Tensor:
+    """Full-sequence causal forward without a cache (JAX
+    ``llama.forward_train``): tokens [B,T] -> f32 logits [B,T,V], the LM
+    head on encode. Differentiable where the model's leaves require
+    gradients (parallel/train.py); int8 leaves take none."""
+    return _lm_head(model, cfg, encode(model, cfg, tokens, rope=rope,
+                                       attention_fn=attention_fn,
+                                       offset=offset))
 
 
 def _embed(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
@@ -487,11 +561,12 @@ def _lm_head(model: Llama, cfg: ModelConfig,
         w, vocab_scale = w.w8.to(x.dtype), w.scale
     head = w.t() if cfg.tie_word_embeddings else w
     B, T, H = x.shape
-    x2 = x.reshape(B * T, H)
+    # the vocab-parallel head is a column-parallel product
+    x2 = _enter(model, x).reshape(B * T, H)
     if x.dtype == torch.float32:
         logits = x2 @ head.float()
     elif x.is_cuda:
-        logits = torch.mm(x2, head, out_dtype=torch.float32)
+        logits = _HeadF32.apply(x2, head)
     else:
         # CPU has no mixed-precision mm: bf16 products are exact in f32
         logits = x2.float() @ head.float()
@@ -505,6 +580,25 @@ def _lm_head(model: Llama, cfg: ModelConfig,
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
     return logits.reshape(B, T, -1)
+
+
+class _HeadF32(torch.autograd.Function):
+    """x2 [N, H] @ head [H, V] of bf16 inputs into f32 logits: torch.mm's
+    out_dtype, which has no derivative. The backward's two products take
+    the f32 gradient rounded to the inputs' dtype and accumulate in
+    f32, as the forward does."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, head = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return (torch.mm(g, head.t()) if ctx.needs_input_grad[0] else None,
+                torch.mm(x2.t(), g) if ctx.needs_input_grad[1] else None)
 
 
 def rope_tensors(cfg: ModelConfig, max_positions: int,

@@ -16,9 +16,15 @@ stacked on a leading layer axis).
 ``params_from_jax(..., shard=...)`` gives one rank of a ``tp x ep``
 serving mesh its slice of every leaf (parallel/sharding.py), so one JAX
 weight set feeds JAX's mesh engine and the port's ranks alike.
+
+Training state goes both ways: ``opt_state_from_jax`` carries optax's
+``ScaleByAdamState(count, mu, nu)`` into the port's AdamState
+(parallel/train.py), and ``to_jax`` lays any {leaf name: tensor} of the
+port (parameters, gradients, moments) out as JAX's pytree of numpy
+float32 arrays, so the two can be compared leaf by leaf.
 """
 
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +37,7 @@ from production_stack_tpu_torch.models.kv import KVCache
 from production_stack_tpu_torch.models.llama import LAYER_KEYS, Llama
 from production_stack_tpu_torch.models.quant import QuantizedWeight
 from production_stack_tpu_torch.parallel import sharding
+from production_stack_tpu_torch.parallel.train import AdamState
 from production_stack_tpu_torch.utils import resolve_device
 
 
@@ -139,3 +146,51 @@ def cache_from_jax(k, v, tables=None, dtype: Optional[torch.dtype] = None,
     if tables is not None:
         t = torch.from_numpy(np.asarray(tables, np.int32).copy()).to(device)
     return cache, t
+
+
+def _flat(tree: Mapping, names, dtype: torch.dtype,
+          device) -> Dict[str, torch.Tensor]:
+    """{name: tensor} of a JAX params-layout pytree's leaves `names`."""
+    return {n: _tensor(tree["layers"][n] if n in LAYER_KEYS else tree[n],
+                       dtype, device) for n in names}
+
+
+def opt_state_from_jax(np_opt_state, model: Llama) -> AdamState:
+    """optax's state of the JAX make_optimizer (a tuple holding
+    ``ScaleByAdamState(count, mu, nu)``, numpy leaves; the Adam state
+    itself is taken too) as the port's AdamState for `model`: the count
+    and the moments in the model's dtype on its device, by leaf name."""
+    adam = _find_adam(np_opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the "
+                         "optimizer state")
+    names = [n for n, _ in model.named_parameters()]
+    p = next(model.parameters())
+    return AdamState(int(np.asarray(adam.count)),
+                     _flat(adam.mu, names, p.dtype, p.device),
+                     _flat(adam.nu, names, p.dtype, p.device))
+
+
+def _find_adam(state):
+    if all(hasattr(state, a) for a in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for item in state:
+            found = _find_adam(item)
+            if found is not None:
+                return found
+    return None
+
+
+def to_jax(leaves: Mapping[str, torch.Tensor]) -> dict:
+    """{leaf name: tensor} (a model's named_parameters, gradients, AdamW
+    moments) as JAX's params layout ({"embed", "layers": {...},
+    "final_norm", ["lm_head"]}) of numpy float32 arrays."""
+    out: dict = {"layers": {}}
+    for name, t in leaves.items():
+        arr = t.detach().float().cpu().numpy()
+        if name in LAYER_KEYS:
+            out["layers"][name] = arr
+        else:
+            out[name] = arr
+    return out

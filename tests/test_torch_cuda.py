@@ -842,3 +842,73 @@ def test_tp_engine_on_the_card_equals_one_rank(cuda, tp):
         assert all(torch.equal(r[0], ranks[0][0]) for r in ranks[1:])
     finally:
         te.close()
+
+
+# ------------------------------------------------------------- training
+
+def test_head_backward_on_the_card_matches_float_products(cuda):
+    """The bf16 head's f32 logits (models/llama._HeadF32: torch.mm's
+    out_dtype has no derivative) and its two backward products against
+    the same products in float32 of the bf16 values, the logits'
+    gradient rounded to bf16 as the backward rounds it."""
+    from production_stack_tpu_torch.models.llama import _HeadF32
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(64, 256, generator=g, device=cuda).to(
+        torch.bfloat16).requires_grad_()
+    head = torch.randn(256, 512, generator=g, device=cuda).to(
+        torch.bfloat16).requires_grad_()
+    dy = torch.randn(64, 512, generator=g, device=cuda)
+    y = _HeadF32.apply(x, head)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y.detach(), x.detach().float()
+                               @ head.detach().float(), atol=1e-3,
+                               rtol=1e-4)
+    gx, gh = torch.autograd.grad(y, (x, head), dy)
+    d16 = dy.to(torch.bfloat16).float()
+    x, head = x.detach(), head.detach()
+    for got, want in ((gx, d16 @ head.float().t()),
+                      (gh, x.float().t() @ d16)):
+        assert got.dtype == torch.bfloat16
+        assert float((got.float() - want).norm() / want.norm()) < 1e-2
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """Three train_steps of a small f32 model on the card and on the
+    CPU from the same weights and tokens: the losses within 1e-4."""
+    import numpy as np
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.config import ModelConfig
+    from production_stack_tpu_torch.parallel import train
+    cfg = ModelConfig(name="t", vocab_size=128, hidden_size=64,
+                      intermediate_size=128, num_layers=2, num_heads=8,
+                      num_kv_heads=4, max_position_embeddings=256,
+                      dtype=torch.float32)
+    base = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 128, (4, 32)))
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = llama.Llama(cfg, device=dev)
+        with torch.no_grad():
+            for p, q in zip(model.parameters(), base.parameters()):
+                p.copy_(q)
+        state = train.init_train_state(model)
+        opt = train.make_optimizer()
+        out = []
+        for _ in range(3):
+            state, loss = train.train_step(state, tokens.to(dev), cfg, opt)
+            out.append(loss.item())
+        losses[str(dev)] = out
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
+                               rtol=0)
+
+
+def test_training_worlds_on_the_card(cuda):
+    """parallel/dryrun.py on the card: dp 2 x sp 2 x tp 2 and pp = 2,
+    every rank a process (gloo where ranks share a card, NCCL where each
+    has its own); it raises on any miss."""
+    from production_stack_tpu_torch.parallel import dryrun
+    report = dryrun.dryrun_multichip(8, "cuda")
+    assert report["max_loss_diff"] < dryrun.LOSS_TOL
+    assert report["pp"]["loss_diff"] < dryrun.LOSS_TOL

@@ -539,8 +539,10 @@ def test_failed_step_fails_requests_and_stops_the_loop():
 # -------------------------------------------------------- import isolation
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """The port's server imports with jax and production_stack_tpu
-    blocked (a subprocess: this one has both loaded), and with them
+    """The port's server and its training path (parallel/train.py,
+    ring_attention.py, pipeline.py, dryrun.py) import with jax, optax and
+    production_stack_tpu blocked (a subprocess: this one has them
+    loaded), and with them
     safetensors, transformers and peft, which the card does not have:
     guided decoding (engine/guided.py), the pooling path (encode,
     causal_attention, the routes), multi-LoRA (models/lora.py) and the
@@ -552,7 +554,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import sys
         import tempfile
 
-        ROOTS = ("jax", "production_stack_tpu", "safetensors",
+        ROOTS = ("jax", "optax", "production_stack_tpu", "safetensors",
                  "transformers", "peft", "ml_dtypes")
 
         def blocked(name):
@@ -582,6 +584,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import production_stack_tpu_torch.parallel.mesh
         import production_stack_tpu_torch.parallel.sharding
         import production_stack_tpu_torch.parallel.workers
+        import production_stack_tpu_torch.parallel.train
+        import production_stack_tpu_torch.parallel.ring_attention
+        import production_stack_tpu_torch.parallel.pipeline
+        import production_stack_tpu_torch.parallel.dryrun
         import production_stack_tpu_torch.models.encoder
         import production_stack_tpu_torch.kvcache
         import production_stack_tpu_torch.kvcache.chunks
