@@ -15,7 +15,9 @@
    the split decode over a 72-block row beside a 1-block row, the wgmma
    prefill at G = 2, 4, 8 with T off its 64-row tile, G = 1 (MHA, D 128
    and 256) and G = 7 (63 live rows of the tile), Mistral's window of
-   4096; every paged case once more over an int8 pool with its scales;
+   4096; the decode kernel at batch 1 and 2 over the first rows of a
+   4-row table (the batch buckets of the engine's adaptive windows);
+   every paged case once more over an int8 pool with its scales;
    rolled tables (the entries behind each row's window at trash block 0,
    filled with 1e4) against the intact ones; for the flash kernel T
    and S that are not multiples of its tiles — and times kernel (a whole
@@ -24,7 +26,8 @@
    them (Gemma-2's at both layer kinds, sliding and global; the paged
    kernels over a bf16 and over an int8 pool; the speculative verify
    windows, the decode kernel at T = 4 and the prefill kernel at
-   T = 9; Qwen1.5-MoE's G = 1, Mistral's window on every layer, and
+   T = 9; the decode kernel at batch 1 and 2, the buckets of the
+   adaptive windows; Qwen1.5-MoE's G = 1, Mistral's window on every layer, and
    Qwen2-7B's G = 7, which no path serves; one tensor-parallel rank's
    heads: Llama-3-8B at tp 2 over bf16 and int8 pools, at tp 4 and 8,
    Gemma-2-9B at tp 2 and Qwen1.5-MoE at ep 2 and ep 2 x tp 2, checked
@@ -65,7 +68,8 @@
      exact path;
    - roll (mistral-7b-v0.1): a 4,600-token prompt through the engine;
      at the first decode window 7 blocks behind the window are freed
-     and the pool's free blocks rise by 7;
+     and the pool's free blocks rise by 7; served at pipeline_depth 2
+     with windows dispatched ahead, its tokens equal depth 1's;
    - trace and auth (llama-3-8b; the trace with its own kernel counts):
      a streamed and a non-streamed completion with an inbound sampled
      traceparent keep its trace id (x-trace-id), /debug/traces returns
@@ -123,6 +127,18 @@
      kernels; an evicted adapter answers 404 and a new load takes the
      next id; then lora_breakdown times a decode step of two adapter
      rows and two base rows beside the plain step;
+   - windows (llama-3-8b, after lora_breakdown): continuous batching
+     across decode windows at JAX's defaults — WINDOWS' mix of 8 greedy
+     requests in two waves through engines on the served weights, with
+     the fixed geometry at depth 1, then adaptive windows at depth 2
+     and at depth 1 (twice each): the windows reach batch buckets 4, 2
+     and 1 and the decode kernel launches at each, some windows are
+     dispatched ahead, and every request's tokens equal the fixed
+     geometry's or part at a near-tie; printed: the window geometries,
+     the windows ahead and their discarded rows, the decode kernel's
+     launches by batch, the mix's wall, each request's TTFT, the
+     delivery lag (a window's end on the card to step() handing its
+     tokens out) and a decode step at B = 1, 2 and 4;
    - reference: the served model's logits through the kernels agree
      with a float32 forward through the plain attention (on the int8
      path over the same int8 weights and an int8 pool; the f32 weights
@@ -412,7 +428,7 @@ def release(engine) -> None:
     nothing after its server has run."""
     eng = engine.engine
     eng.runner = eng._guided_table = eng._dev_sampling = None
-    eng._inflight = None
+    eng._inflight = []
     eng._lora_rows = []
     eng._enc_params = None
     free_memory()
@@ -473,10 +489,12 @@ def work(q, starts, nb, MB, Bs, Hkv, D, itemsize, window=0,
          kv_itemsize=None):
     """(bytes, flops) the paged call needs on this data. Every row:
     starts once and its output written once. A live row (start < MB*Bs)
-    also reads its q and the K/V blocks and table entries it attends
-    (blocks from its first query's window start to its last query's
-    block, within nb) — an int8 pool (kv_itemsize 1) also a 4-byte K and
-    V scale per attended (key, head) — and does 4*D flops per (query
+    also reads its q, the table entries of the blocks it attends (from
+    its first query's window start to its last query's block, within nb)
+    and the K/V of the keys it attends (from its first query's window
+    start to its last query's position, within those blocks), not the
+    rest of their blocks — an int8 pool (kv_itemsize 1) also a 4-byte K
+    and V scale per attended (key, head) — and does 4*D flops per (query
     head, attended key) for QK and PV, counting only the keys inside each
     query's window. A parked row needs nothing more: its output is zeros
     the engine discards. The softcap's tanh (one per score) is not
@@ -493,9 +511,10 @@ def work(q, starts, nb, MB, Bs, Hkv, D, itemsize, window=0,
         if s >= MB * Bs:
             continue
         jend = min((s + T - 1) // Bs, nb - 1)
-        jmin = max(s - (window - 1), 0) // Bs if window else 0
-        blocks = max(jend - jmin + 1, 0)
-        byts += row_q + 2 * blocks * Hkv * Bs * kv_row + 4 * blocks
+        first = max(s - (window - 1), 0) if window else 0
+        blocks = max(jend - first // Bs + 1, 0)
+        attended = max(min(s + T, (jend + 1) * Bs) - first, 0)
+        byts += row_q + 2 * attended * Hkv * kv_row + 4 * blocks
         for t in range(T):
             lo = max(s + t - window + 1, 0) if window else 0
             keys = max(min(s + t + 1, (jend + 1) * Bs) - lo, 0)
@@ -726,6 +745,56 @@ def paged_checks(pa):
                     raise AssertionError(f"{fn.__name__} disagrees with its "
                                          f"plain version: {rec}")
                 del q, k, v, sc
+    bucket_checks(pa)
+
+
+# the decode kernel at the batch buckets below max_num_seqs that the
+# engine's adaptive windows launch it at (B, T): Llama-3-8B's heads
+BUCKET_CASES = ((1, 1), (1, 8), (2, 1), (2, 8))
+
+
+def bucket_checks(pa) -> list:
+    """The decode kernel over the first B rows of a 4-row table (the
+    runner cuts the tables, q and the starts to the window's batch
+    bucket) against the plain version on the same rows, at TOL, over a
+    bf16, an f32 and an int8 pool; one row of the 2-row cases is
+    parked."""
+    import torch
+    out = []
+    i = 500
+    for kv in ("native", "int8"):
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            for B, T in BUCKET_CASES:
+                i += 1
+                q, k, v, tables, starts, nb = paged_case(
+                    4, T, 8, 4, 128, 64, [431, 57, 200, 400], dtype,
+                    parked=3 if B == 2 else 0, seed=i)
+                q, tables, starts = q[:B], tables[:B], starts[:B]
+                sc = {}
+                if kv == "int8":
+                    k, v, ks, vs = int8_pools(k, v, tables, starts, T, i)
+                    sc = dict(k_scales=ks[0], v_scales=vs[0])
+                got = pa.paged_decode_attention(q, k[0], v[0], tables,
+                                                starts, nb=nb, **sc)
+                torch.cuda.synchronize()
+                want = pa.paged_attention_plain(
+                    q.float() if sc else q, k[0], v[0], tables, starts, nb,
+                    128 ** -0.5, 0, 0.0, **sc)
+                err = (got.float() - want.float()).abs().max().item()
+                ok = bool(torch.isfinite(got).all()) and err <= TOL[dt]
+                rec = {"check": "paged_decode_attention", "batch": B,
+                       "table_rows": 4, "kv": kv, "T": T, "dtype": dt,
+                       "starts": starts.tolist(), "max_abs_err": err,
+                       "tol": TOL[dt], "ok": ok}
+                log(json.dumps(rec))
+                out.append(rec)
+                if not ok:
+                    raise AssertionError(f"the decode kernel at batch {B} "
+                                         f"disagrees with its plain "
+                                         f"version: {rec}")
+                del q, k, v, sc
+    return out
 
 
 # rolled-table cases (kernel, T, Hkv, G, D, Bs, rows, window): the
@@ -877,7 +946,7 @@ REPLACES = {
 }
 
 
-def paged_timings(pa, model, kv, path, verify=False, tp=1):
+def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None):
     """Both paged kernels at one served model's shapes: a decode step of
     the whole batch (T=1) and a 512-token prefill chunk of one row with
     the others parked, at the model's softcap and scale, bf16 q over a
@@ -896,12 +965,22 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1):
     prefill kernel at T = 9 (spec 8), rows at decode_starts; their
     launches come from the speculative serving run (spec_phase).
     tp: one tensor-parallel rank's shapes, H / tp q heads over Hkv / tp
-    kv heads (the parallel phase's; G unchanged)."""
+    kv heads (the parallel phase's; G unchanged).
+    batch: the decode kernel alone at a batch bucket of the engine's
+    adaptive windows (the first `batch` rows at decode_starts); its
+    launches are the windows phase's decode steps at that batch. Another
+    decode row's launches are its serving run's decode steps (T = 1) at
+    the row's batch (the wrapper's step_launches); a parallel serving
+    run's rows are at its engine's max_num_seqs."""
     import torch
     from production_stack_tpu_torch.models.config import get_config
     from production_stack_tpu_torch.models.llama import attn_scale
     cfg, p = get_config(model), PATHS.get(model) or KERNEL_ONLY[model]
-    B, Bs = p["serve"]["max_num_seqs"], p["serve"]["kv_block_size"]
+    # a parallel serving run's rows at its engine's batch
+    serve = (PARALLEL[model]["serve"] if str(path).startswith("parallel:")
+             else p["serve"])
+    B, Bs = batch or serve["max_num_seqs"], serve["kv_block_size"]
+    rows = p["decode_starts"][:B]
     Hkv, G, D = cfg.num_kv_heads // tp, cfg.num_heads // cfg.num_kv_heads, \
         cfg.head_dim_
     L = p["timing_layers"]
@@ -911,14 +990,15 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1):
              if cfg.alternating_sliding
              else [("all", cfg.sliding_window or 0)])
     shapes = {
-        "paged_decode_attention": (1, p["decode_starts"], 0, 64, 101),
+        "paged_decode_attention": (1, rows, 0, 64, 101),
         "paged_attention": (512, [p["chunk_start"]] * B, B - 1, 8, 102),
     }
+    if batch:
+        shapes = {"paged_decode_attention": (1, rows, 0, 64, 106 + batch)}
     if verify:
-        shapes = {"paged_decode_attention": (4, p["decode_starts"], 0, 64,
-                                             104)}
+        shapes = {"paged_decode_attention": (4, rows, 0, 64, 104)}
         if 8 in SPEC.get(model, ()):
-            shapes["paged_attention"] = (9, p["decode_starts"], 0, 64, 105)
+            shapes["paged_attention"] = (9, rows, 0, 64, 105)
     records = []
     for name, (T, lens, parked, it, seed) in shapes.items():
         q, k, v, tables, starts, nb = paged_case(
@@ -992,6 +1072,8 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1):
             rec["tp"] = tp
             if verify:
                 rec["verify_T"] = T
+            if batch:
+                rec["batch"] = batch
             # the yardstick where library_ms is null: SDPA without the
             # softcap, over the bf16 pool or the dequantized bf16 view
             rec["sdpa_ms"] = sdpa_ms
@@ -1066,6 +1148,11 @@ def kernel_phase():
     # with an int8 pool, so the Gemma-2 rows name no path (no launches)
     records += paged_timings(pa, "llama-3-8b", "int8", "llama-3-8b-int8")
     records += paged_timings(pa, "gemma-2-9b", "int8", None)
+    # the decode kernel at the batch buckets below max_num_seqs that the
+    # windows phase's adaptive windows launch it at
+    for batch in (1, 2):
+        records += paged_timings(pa, WINDOWS["path"], "bfloat16",
+                                 WINDOWS["path"], batch=batch)
     # the speculative verify windows the spec phase serves
     for model in SPEC:
         records += paged_timings(pa, model, "bfloat16", model, verify=True)
@@ -1184,7 +1271,8 @@ async def serve_phase(engine, path: str):
                                    **fa.launch_counts},
                       "window_launches": dict(pa.window_launches),
                       "softcap_launches": dict(pa.softcap_launches),
-                      "int8_launches": dict(pa.int8_launches)}
+                      "int8_launches": dict(pa.int8_launches),
+                      "step_launches": pa.launch_report()["step_launches"]}
             surface = await surface_phase(http, base, engine, path)
             if path == "llama-3-8b":
                 surface["trace"] = await trace_phase(http, base, engine,
@@ -2888,6 +2976,31 @@ def profile_summary(prof, divide: int, event_ms: float):
                              "count": c / divide} for n, (t, c) in top]}
 
 
+def decode_step_timing(runner, path: str, B: int, sp):
+    """One decode step at batch B: a greedy window of decode_window
+    steps through the runner at the first B rows of the path's
+    decode_starts and its kv_len, over linear block tables of
+    max_num_seqs rows, with sampling rows `sp` (max_num_seqs of them:
+    the runner cuts them to B). Returns its wall per step (CUDA events),
+    the profiler's summary per step (profile_summary) and the window."""
+    import numpy as np
+    p = PATHS[path]
+    serve = p["serve"]
+    n, W = serve["max_num_seqs"], serve["decode_window"]
+    MB = serve["max_model_len"] // serve["kv_block_size"]
+    runner.set_block_tables(
+        (1 + np.arange(n * MB, dtype=np.int32)).reshape(n, MB))
+    starts = np.array(p["decode_starts"][:B], np.int32)
+
+    def window(i=0):
+        runner.set_decode_state(np.zeros((B,), np.int32), starts)
+        return runner.decode(sp, steps=W, kv_len=p["kv_len"], greedy=True)
+
+    step_ms = time_ms(window, 3) / W
+    return (step_ms, profile_summary(device_profile(window), W, step_ms),
+            window)
+
+
 def breakdown_phase(engine, path: str):
     """Device time of one decode step of the whole batch (a window of
     decode_window steps, divided) at the rows decode_starts, and of one
@@ -2906,15 +3019,10 @@ def breakdown_phase(engine, path: str):
     serve, kv_len = p["serve"], p["kv_len"]
     B, W, S = serve["max_num_seqs"], serve["decode_window"], \
         serve["max_model_len"]
-    MB = S // serve["kv_block_size"]
-    runner.set_block_tables(
-        (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB))
     sp = SamplingParams.filled(B, temperature=0.0, device=dev)
     starts = np.array(p["decode_starts"], np.int32)
-
-    def window(i=0):
-        runner.set_decode_state(np.zeros((B,), np.int32), starts)
-        return runner.decode(sp, steps=W, kv_len=kv_len, greedy=True)
+    # also sets the tables the chunk reads
+    step_ms, step_prof, window = decode_step_timing(runner, path, B, sp)
 
     def chunk(i=0):
         return runner.prefill(
@@ -2923,14 +3031,12 @@ def breakdown_phase(engine, path: str):
             np.array([512] + [1] * (B - 1), np.int32), sp, kv_len,
             greedy=True)
 
-    step_ms = time_ms(window, 3) / W
     chunk_ms = time_ms(chunk, 3)
     out = {"path": path, "decode_step_ms": step_ms,
            "prefill_chunk_ms": chunk_ms, "batch": B, "kv_len": kv_len,
            "decode_starts": p["decode_starts"],
            "chunk_start": p["chunk_start"],
-           "decode_profile_per_step": profile_summary(
-               device_profile(window), W, step_ms),
+           "decode_profile_per_step": step_prof,
            "prefill_profile_per_chunk": profile_summary(
                device_profile(chunk), 1, chunk_ms)}
     if runner.model_cfg.num_experts:
@@ -3000,32 +3106,19 @@ def lora_breakdown(engine, path: str, plain: dict):
     sampling upload), as at an engine's composition change."""
     import dataclasses
 
-    import numpy as np
     import torch
     from production_stack_tpu_torch.engine.sampler import SamplingParams
     eng = engine.engine
     runner = eng.runner
-    p = PATHS[path]
-    serve, kv_len = p["serve"], p["kv_len"]
-    B, W, S = serve["max_num_seqs"], serve["decode_window"], \
-        serve["max_model_len"]
-    MB = S // serve["kv_block_size"]
-    runner.set_block_tables(
-        (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB))
+    serve = PATHS[path]["serve"]
+    B = serve["max_num_seqs"]
     dev = runner.device
     ids = [eng.lora_ids["ad-npz"], 0, eng.lora_ids["ad-three"], 0]
     sp = dataclasses.replace(
         SamplingParams.filled(B, temperature=0.0, device=dev),
         adapter=torch.tensor(ids, dtype=torch.int32, device=dev))
-    starts = np.array(p["decode_starts"], np.int32)
     t0 = time.monotonic()
-
-    def window(i=0):
-        runner.set_decode_state(np.zeros((B,), np.int32), starts)
-        return runner.decode(sp, steps=W, kv_len=kv_len, greedy=True)
-
-    step_ms = time_ms(window, 3) / W
-    prof = profile_summary(device_profile(window), W, step_ms)
+    step_ms, prof, _ = decode_step_timing(runner, path, B, sp)
     base = plain["decode_profile_per_step"]
     out = {"path": path, "adapter_ids": ids,
            "lora_rank": serve["lora_rank"], "targets": list(LORA_TARGETS),
@@ -3122,9 +3215,11 @@ def roll_phase(engine, path: str) -> dict:
     window, (long_tokens - W + 1) // Bs of them, and the pool's free
     blocks rise by as many (read around _roll_windows, before the same
     dispatch grows the row); both paged kernels launched, every launch
-    windowed. Returns the prompt and the served tokens for
-    reference_phase, which holds them against the f32 teacher-forced
-    argmax (near_tie_check)."""
+    windowed. The engine serves at its default pipeline_depth of 2 (some
+    window dispatched ahead while the blocks roll), and the same request
+    at depth 1 gives the same tokens. Returns the prompt and the served
+    tokens for reference_phase, which holds them against the f32
+    teacher-forced argmax (near_tie_check)."""
     import random
     from production_stack_tpu_torch.engine.scheduler import SamplingOptions
     from production_stack_tpu_torch.ops import paged_attention as pa
@@ -3134,8 +3229,8 @@ def roll_phase(engine, path: str) -> dict:
     Bs = eng.cfg.kv_block_size
     rnd = random.Random(13)
     prompt = [rnd.randrange(cfg.vocab_size) for _ in range(P)]
-    rolls = []
-    roll = eng._roll_windows
+    rolls, dispatches = [], []
+    roll, dispatch = eng._roll_windows, eng._dispatch_decode
 
     def observed(decode_seqs):
         before = eng.block_mgr.available
@@ -3143,17 +3238,35 @@ def roll_phase(engine, path: str) -> dict:
         rolls.append({"free_before": before,
                       "free_after": eng.block_mgr.available,
                       "rolled": [s.rolled_blocks for s in decode_seqs]})
-    eng._roll_windows = observed
-    pa.reset_launch_counts()
-    t0 = time.monotonic()
-    try:
+
+    def dispatched(decode_seqs, ahead=0):
+        ok = dispatch(decode_seqs, ahead)
+        dispatches.append(bool(ok and ahead))
+        return ok
+
+    def serve():
         sid = eng.add_request(prompt, SamplingOptions(
             temperature=0.0, max_tokens=ROLL_TOKENS, ignore_eos=True))
         while eng.has_work:
             eng.step()
+        return eng.seqs[sid]
+    eng._roll_windows = observed
+    eng._dispatch_decode = dispatched
+    pa.reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        seq = serve()
     finally:
-        del eng._roll_windows
-    seq = eng.seqs[sid]
+        del eng._roll_windows, eng._dispatch_decode
+    depth = eng.cfg.pipeline_depth
+    ahead_windows = sum(dispatches)
+    # the same request with no window dispatched ahead: the engine reads
+    # pipeline_depth at every step
+    eng.cfg.pipeline_depth = 1
+    try:
+        depth1 = serve()
+    finally:
+        eng.cfg.pipeline_depth = depth
     want = (P - W + 1) // Bs
     first = rolls[0] if rolls else {}
     out = {"path": path, "prompt_tokens": P, "window": W,
@@ -3163,8 +3276,12 @@ def roll_phase(engine, path: str) -> dict:
            "want_first_rolled": want,
            "launches": dict(pa.launch_counts),
            "window_launches": dict(pa.window_launches),
+           "pipeline_depth": depth, "ahead_windows": ahead_windows,
+           "depth1_tokens_equal": depth1.output_tokens == seq.output_tokens,
            "seconds": time.monotonic() - t0}
     out["ok"] = (bool(first) and first["rolled"] == [want]
+                 and depth == 2 and ahead_windows > 0
+                 and out["depth1_tokens_equal"]
                  and first["free_after"] - first["free_before"] == want
                  and len(seq.output_tokens) == ROLL_TOKENS
                  and all(out["launches"][n] > 0
@@ -3175,6 +3292,210 @@ def roll_phase(engine, path: str) -> dict:
         raise AssertionError(f"rolling KV did not free the blocks behind "
                              f"the window as expected: {out}")
     return {"prompt": prompt, "tokens": list(seq.output_tokens)}
+
+
+# the windows phase: continuous batching across decode windows at JAX's
+# defaults on the llama-3-8b path's serve geometry. 8 greedy requests of
+# random prompt ids (seed) in two waves of 4, the second added once the
+# first wave's second window has been read
+WINDOWS = dict(path="llama-3-8b",
+               prompt_lens=(40, 300, 128, 75, 210, 60, 280, 150),
+               max_tokens=(5, 9, 17, 33, 12, 24, 48, 64), seed=17,
+               wave2_after_windows=2)
+# the engines the phase compares, in the order they serve the mix: the
+# fixed geometry (the tokens' reference), then JAX's defaults (adaptive
+# windows, depth 2) and adaptive windows at depth 1, twice each (the
+# first serve of a batch bucket initialises its GEMM plans)
+WINDOW_MODES = (("fixed_depth1", False, 1), ("adapt_depth2", True, 2),
+                ("adapt_depth1", True, 1), ("adapt_depth2", True, 2),
+                ("adapt_depth1", True, 1))
+
+
+def windows_serve(eng, prompts) -> dict:
+    """Serve WINDOWS' mix through the engine loop, driven here, watching
+    its windows: per dispatch whether it went ahead and its batch; the
+    decode kernel's steps by batch (the wrapper's step_launches); a
+    CUDA event after each window's last launch; the rows a read window discarded; and the host time at which
+    step() handed each read window's tokens out. The delivery lag of a
+    window is that time less its end on the card (the event, placed on
+    the host clock by a reference event recorded on the idle card)."""
+    import torch
+    from production_stack_tpu_torch.engine.scheduler import (SamplingOptions,
+                                                             SeqStatus)
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    runner = eng.runner
+    decode0, dispatch0 = runner.decode, eng._dispatch_decode
+    process0 = eng._process_window
+    wins, read = [], []
+
+    def decode(*a, **kw):
+        out = decode0(*a, **kw)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        wins.append({"batch": int(runner._dec_tokens.shape[0]), "end": end,
+                     "ahead": False})
+        return out
+
+    def dispatch(decode_seqs, ahead=0):
+        ok = dispatch0(decode_seqs, ahead)
+        if ok and ahead:
+            wins[-1]["ahead"] = True
+        return ok
+
+    def process(synced):
+        if synced is not None:
+            w = wins[len(read)]
+            w["rows"] = len(synced[5])
+            w["discarded"] = sum(s.status is not SeqStatus.RUNNING
+                                 for s in synced[5])
+            read.append(w)
+        return process0(synced)
+
+    runner.decode, eng._dispatch_decode = decode, dispatch
+    eng._process_window = process
+    ring0 = len(eng.eff._windows)
+    n = len(prompts)
+    half = n // 2
+    ids, added, first = [None] * n, [0.0] * n, {}
+    torch.cuda.synchronize()
+    ref = torch.cuda.Event(enable_timing=True)
+    ref.record()
+    t_ref = time.perf_counter()
+    pa.reset_launch_counts()
+
+    def add(lo, hi):
+        for i in range(lo, hi):
+            added[i] = time.perf_counter()
+            ids[i] = eng.add_request(prompts[i], SamplingOptions(
+                temperature=0.0, max_tokens=WINDOWS["max_tokens"][i],
+                ignore_eos=True))
+    try:
+        add(0, half)
+        steps = 0
+        while eng.has_work or ids[-1] is None:
+            before = len(read)
+            outs = eng.step()
+            t = time.perf_counter()
+            steps += 1
+            for w in read[before:]:
+                w["handed"] = t
+            for o in outs:
+                if o.new_token is not None and o.seq_id not in first:
+                    first[o.seq_id] = t
+            if ids[-1] is None and len(read) >= WINDOWS["wave2_after_windows"]:
+                add(half, n)
+            if steps > 5000:
+                raise AssertionError("the windows mix did not finish")
+        wall = time.perf_counter() - added[0]
+        launches = dict(pa.launch_counts)
+        by_batch = {B: c["launches"] for B, c in sorted(
+            pa.launch_report()["step_launches"].items())}
+        torch.cuda.synchronize()
+        eng._drain_decode()
+    finally:
+        del runner.decode, eng._dispatch_decode, eng._process_window
+    lags = [1e3 * (w["handed"] - t_ref - ref.elapsed_time(w["end"]) / 1e3)
+            for w in read if "handed" in w]
+    ring = list(eng.eff._windows)[ring0:]
+    geometry = {}
+    for w in ring:
+        key = f"{w['batch']}x{w['steps']}x{w['kv_len']}"
+        geometry[key] = geometry.get(key, 0) + 1
+    ahead = [w for w in read if w["ahead"]]
+    return {
+        "tokens": [list(eng.seqs[i].output_tokens) for i in ids],
+        "wall_s": wall,
+        "ttft_s": [first[i] - a for i, a in zip(ids, added)],
+        "windows": len(ring), "geometry": geometry,
+        "batches": sorted({w["batch"] for w in ring}),
+        "ahead": {"windows": len(ahead),
+                  "rows": sum(w["rows"] for w in ahead),
+                  "discarded_rows": sum(w["discarded"] for w in ahead)},
+        "discarded_rows": sum(w["discarded"] for w in read),
+        "decode_launches_by_batch": by_batch,
+        "launches": launches,
+        "delivery_lag_ms": {
+            "windows": len(lags), "mean": sum(lags) / len(lags),
+            "p50": sorted(lags)[len(lags) // 2], "max": max(lags),
+            "min": min(lags)},
+        "dead_token_steps": sum(w["dead"] for w in ring),
+        "pad_token_steps": sum(w["pad"] for w in ring),
+        "real_token_steps": sum(w["real"] for w in ring)}
+
+
+def windows_phase(params, device="cuda") -> dict:
+    """Continuous batching across decode windows on the card: WINDOWS'
+    mix through engines on the served weights (`params`, shared, never
+    copied) in each of WINDOW_MODES. At JAX's defaults the windows reach
+    batch buckets 1, 2 and 4 (the decode kernel launched at each), some
+    are dispatched ahead, and every request's tokens equal the fixed
+    geometry's, or part at a near-tie (_tokens_check against the f32
+    teacher-forced logits). Prints the window geometries, the windows
+    dispatched ahead with their discarded rows, the decode kernel's
+    launches by batch, the mix's wall, each request's TTFT and the
+    delivery lag of each mode, and a decode step's wall, busy time and
+    launches at B = 1, 2 and 4."""
+    import random
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sampler import SamplingParams
+    t0 = time.monotonic()
+    path = WINDOWS["path"]
+    serve = dict(PATHS[path]["serve"])
+    engines, runs = {}, {}
+    rnd = random.Random(WINDOWS["seed"])
+    V = params.cfg.vocab_size
+    prompts = [[rnd.randrange(V) for _ in range(n)]
+               for n in WINDOWS["prompt_lens"]]
+    for name, adapt, depth in WINDOW_MODES:
+        if name not in engines:
+            engines[name] = LLMEngine(EngineConfig(
+                model=path_model(path), device=device, **serve,
+                window_adapt=adapt, pipeline_depth=depth), params=params)
+        runs.setdefault(name, []).append(windows_serve(engines[name],
+                                                       prompts))
+    fixed = runs["fixed_depth1"][0]
+    # every adaptive serve's tokens against the fixed geometry's
+    checks = {name: [[_tokens_check(got, engines["fixed_depth1"], p, w)
+                      for p, got, w in zip(prompts, r["tokens"],
+                                           fixed["tokens"])]
+                     for r in rs]
+              for name, rs in runs.items() if name != "fixed_depth1"}
+    first = runs["adapt_depth2"][0]
+    runner = engines["adapt_depth2"].runner
+    sp = SamplingParams.filled(serve["max_num_seqs"], temperature=0.0,
+                               device=runner.device)
+    steps = []
+    for B in (1, 2, 4):
+        step_ms, prof, _ = decode_step_timing(runner, path, B, sp)
+        steps.append({"batch": B, "step_ms": step_ms,
+                      **{k: prof.get(k) for k in (
+                          "device_busy_ms", "idle_share",
+                          "device_launches")}})
+    out = {"path": path, "modes": {
+        name: [{k: v for k, v in r.items() if k != "tokens"} for r in rs]
+        for name, rs in runs.items()},
+        "tokens_vs_fixed": checks, "step_by_batch": steps,
+        "seconds": time.monotonic() - t0}
+    log(json.dumps({"windows": out}))
+    W = serve["decode_window"]
+    ok = (first["batches"] == [1, 2, 4]
+          and all(first["decode_launches_by_batch"].get(b, 0) > 0
+                  for b in (1, 2, 4))
+          and first["launches"]["paged_attention"] > 0
+          and first["ahead"]["windows"] > 0
+          and all(c["ok"] for cs in checks.values() for run in cs
+                  for c in run)
+          and set(fixed["geometry"]) <= {f"{serve['max_num_seqs']}x{W}x{kv}"
+                                        for kv in (512, 1024)})
+    if not ok:
+        raise AssertionError(f"continuous batching across windows: {out}")
+    for eng in engines.values():
+        eng.runner = None
+    del engines
+    free_memory()
+    return out
 
 
 def model_phase(path: str):
@@ -3213,6 +3534,12 @@ def model_phase(path: str):
     surface.update(asyncio.run(feature_phase(engine, path)))
     if path in PLAIN_DECODE_LAUNCHES:
         lora_breakdown(engine, path, plain)
+    if path == WINDOWS["path"]:
+        # before the pool is dropped: its engines share these weights
+        surface["windows"] = windows_phase(runner.params)
+        # the decode steps by batch bucket at JAX's defaults
+        counts["windows_by_batch"] = surface["windows"]["modes"][
+            "adapt_depth2"][0]["decode_launches_by_batch"]
     # the speculative serving runs' launches by window length T
     counts["verify"] = surface["spec"].get("verify", {})
     counts["verify_window"] = surface["spec"].get("verify_window", {})
@@ -4331,6 +4658,12 @@ def parallel_counts(eng) -> dict:
     for key in ("launches", "window_launches", "int8_launches"):
         total[key] = {name: sum(r[key][name] for r in ranks)
                       for name in ranks[0][key]}
+    total["step_launches"] = {}
+    for r in ranks:
+        for B, c in r["step_launches"].items():
+            step = total["step_launches"].setdefault(B, dict.fromkeys(c, 0))
+            for key, n in c.items():
+                step[key] += n
     total["per_rank"] = [r["launches"] for r in ranks]
     return total
 
@@ -4486,9 +4819,16 @@ def parallel_model(model: str, device: str, p: dict) -> dict:
         if eng.cfg.world_size > 1:
             # read before the comparisons below launch anything
             out["counts"] = parallel_counts(eng)
-            ids = eng.runner.last_results("decode")
-            out["same_ranks"] = all(torch.equal(r[0], ids[0][0])
-                                    for r in ids[1:])
+            # each rank's last window of either kind (a mix whose every
+            # window had a speculating row ran decode_spec alone)
+            same = []
+            for call in ("decode", "decode_spec"):
+                ids = eng.runner.last_results(call)
+                if ids[0] is not None:
+                    same.append(all(r is not None
+                                    and torch.equal(r[0], ids[0][0])
+                                    for r in ids[1:]))
+            out["same_ranks"] = bool(same) and all(same)
             out["memory"] = parallel_memory(eng)
         out["logp"] = eng.runner.prompt_logprobs(logp_prompt).cpu()
         out["first"] = first_step_logprobs(eng, reqs[0][1]["prompt"])
@@ -5039,6 +5379,13 @@ def main() -> int:
         elif rec["path"] is None:
             # an int8 row at the shapes of a model served with a bf16 pool
             rec["launches"] = 0
+        elif "batch" in rec:
+            # a batch bucket below max_num_seqs: the windows phase's
+            # decode steps at it (the serving run's windows stay at
+            # max_num_seqs: its long prompt's kv probe and its seeded
+            # row pin the fixed geometry)
+            rec["launches"] = counts[rec["path"]]["windows_by_batch"].get(
+                rec["batch"], 0)
         elif "verify_T" in rec:
             # a verify window: launches at that T while speculating
             c, T = counts[rec["path"]], rec["verify_T"]
@@ -5050,11 +5397,17 @@ def main() -> int:
             c = counts[rec["path"]]
             key = ("int8_launches" if rec["kv_dtype"] == "int8"
                    else "launches")
-            windowed = c["window_launches"][name]
-            rec["launches"] = {"all": c[key][name],
-                               "sliding": windowed,
-                               "global": c[key][name] - windowed,
-                               }[rec["layers"]]
+            if name == "paged_decode_attention":
+                # a decode step: the serving run's steps at this row's
+                # batch (adaptive windows run at several batch buckets)
+                step = c["step_launches"].get(rec["shape"]["B"], {})
+                total, windowed = (step.get(key, 0),
+                                   step.get("window_launches", 0))
+            else:
+                total, windowed = (c[key][name],
+                                   c["window_launches"][name])
+            rec["launches"] = {"all": total, "sliding": windowed,
+                               "global": total - windowed}[rec["layers"]]
         del rec["shape"]
     log(json.dumps({"total_s": time.monotonic() - t_start}))
     log(json.dumps({"kernels": records}))

@@ -1,8 +1,8 @@
 """Engine configuration: a copy of ``production_stack_tpu/engine/config.py``
 plus ``device``.
 
-The fields keep their names and meaning, so a JAX-package config maps
-onto this one field by field. The MoE capacity factor
+The fields keep their names, meaning and defaults, so a JAX-package
+config maps onto this one field by field. The MoE capacity factor
 (``moe_capacity_factor``), weight-only int8 (``quantization="int8"``),
 the int8 KV pool (``kv_dtype="int8"``), n-gram speculation
 (``speculative_ngram_tokens`` in 0..16), multi-LoRA (``lora_adapters``
@@ -11,13 +11,12 @@ checkpoint directory (``checkpoint``), KV tiering and disaggregated
 prefill (``kv_transfer_config``, kvcache/connector.py), the kvplane's
 free-list defrag (``kvplane_defrag``), the BERT encoder of the pooling
 routes (``embedding_model``: a preset of models/encoder.py or an HF
-BertModel directory) and the efficiency ring's size
-(``perf_ring_entries``) are taken as the JAX config takes them. Options
-the port does not implement yet raise here instead of being ignored:
-adaptive decode windows and pipelined windows (both default to off here,
-where the JAX engine turns them on; speculation pins the adaptive
-windows off in the JAX engine too). They arrive with the slices that
-need them (ROADMAP.md, Queue A). ``tensor_parallel_size`` and
+BertModel directory), the efficiency ring's size
+(``perf_ring_entries``) and continuous batching across decode windows
+(``window_adapt`` with ``decode_batch_buckets`` and
+``decode_window_buckets``, and ``pipeline_depth``; on by default, as in
+JAX, and speculation pins the adaptive geometry off, as in JAX) are
+taken as the JAX config takes them. ``tensor_parallel_size`` and
 ``expert_parallel_size`` are served (parallel/); pipeline-parallel
 serving is refused with the JAX engine's message.
 """
@@ -43,11 +42,22 @@ class EngineConfig:
     prefill_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256, 512)
     # decode tokens generated per window: one host sync per window
     decode_window: int = 8
-    # adaptive window sizing and compaction (JAX engine, docs/engine.md
-    # "Continuous batching across windows"): not ported, must stay off
-    window_adapt: bool = False
-    # windows queued ahead of the host: not ported, must stay 1
-    pipeline_depth: int = 1
+    # continuous batching across windows (docs/engine.md "Continuous
+    # batching across windows"): every decode dispatch compacts the live
+    # rows into the low slots and runs the smallest batch bucket that
+    # covers them, sizes the window from the live rows' remaining
+    # budgets and an EOS-rate horizon, and takes one window bucket less
+    # while a request waits with a slot free (engine._choose_window)
+    window_adapt: bool = True
+    # batch buckets <= max_num_seqs the dispatch may shrink to (default
+    # 1, 2, 4, ..., max_num_seqs)
+    decode_batch_buckets: Tuple[int, ...] = ()
+    # window-length buckets <= decode_window (default 1, 2, 4, ...,
+    # decode_window)
+    decode_window_buckets: Tuple[int, ...] = ()
+    # decode windows dispatched ahead of the host at once: window N + 1
+    # is queued before window N is read (engine._top_up_pipeline)
+    pipeline_depth: int = 2
     # attention reads the first ceil(kv_len / Bs) blocks, kv_len the
     # smallest bucket covering every live position
     kv_len_buckets: Tuple[int, ...] = ()
@@ -139,14 +149,12 @@ class EngineConfig:
             raise ValueError("expert_parallel_size must be >= 1")
         if not 0 <= self.speculative_ngram_tokens <= 16:
             raise ValueError("speculative_ngram_tokens must be in 0..16")
-        not_ported = {
-            "window_adapt": self.window_adapt,
-            "pipeline_depth": self.pipeline_depth != 1,
-        }
-        bad = [k for k, v in not_ported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"{', '.join(bad)}: not implemented in the PyTorch port yet")
+        if self.speculative_ngram_tokens and self.window_adapt:
+            # as in JAX: speculation pins the full fixed geometry
+            self.window_adapt = False
+        if not 1 <= self.pipeline_depth <= 8:
+            raise ValueError("pipeline_depth must be in 1..8 (each queued "
+                             "window delays admission by one window)")
         if self.kv_block_size < 8 or self.kv_block_size % 8:
             raise ValueError(f"kv_block_size={self.kv_block_size} must be "
                              f"a multiple of 8")
@@ -173,6 +181,12 @@ class EngineConfig:
         self.prefill_buckets = tuple(buckets)
         self.decode_window = max(1, min(self.decode_window,
                                         self.max_model_len))
+        self.decode_batch_buckets = _bucket_set(
+            self.decode_batch_buckets, self.max_num_seqs,
+            "decode_batch_buckets")
+        self.decode_window_buckets = _bucket_set(
+            self.decode_window_buckets, self.decode_window,
+            "decode_window_buckets")
         if not self.kv_len_buckets:
             b, buckets = 512, []
             while b < self.max_model_len:
@@ -224,3 +238,31 @@ class EngineConfig:
             if length <= b:
                 return b
         return self.kv_len_buckets[-1]
+
+    def batch_bucket_for(self, rows: int) -> int:
+        """Smallest decode batch bucket covering `rows` slots (the window
+        axis has none on purpose: engine._choose_window picks the
+        largest window bucket under its dead budget)."""
+        for b in self.decode_batch_buckets:
+            if rows <= b:
+                return b
+        return self.decode_batch_buckets[-1]
+
+
+def _bucket_set(given, cap: int, what: str) -> Tuple[int, ...]:
+    """A user bucket set sorted, deduplicated and cut to [1, cap], or the
+    power-of-two default 1, 2, 4, ... below cap; cap is always a bucket
+    (JAX ``EngineConfig.__post_init__._bucket_set``)."""
+    if given:
+        buckets = sorted({int(b) for b in given if 0 < b <= cap})
+        if not buckets:
+            raise ValueError(
+                f"{what} has no usable entries in [1, {cap}]: {given}")
+    else:
+        buckets, b = [], 1
+        while b < cap:
+            buckets.append(b)
+            b *= 2
+    if not buckets or buckets[-1] < cap:
+        buckets.append(cap)
+    return tuple(buckets)

@@ -5,6 +5,13 @@ rows' tails, rows finished between dispatch and read), every prefill
 dispatch's bucket padding, and a modelled HBM traffic figure that gives
 the effective-bandwidth and MBU gauges of ``/load`` and ``/metrics``.
 
+Windows run at a variable geometry (continuous batching across
+windows, engine.py): each is recorded at the batch bucket it was
+dispatched at, so pad counts only the parked rows inside that bucket,
+and every ring entry carries the JAX entry's keys (batch, steps,
+positions, kv_len, live_rows, real, pad, dead, window_s, bytes,
+effective_bytes, at, at_unix).
+
 The byte model is the JAX package's: one decode step streams the whole
 weight set once plus, for every batch row, the KV prefix up to the
 window's kv bucket; effective bytes are those scaled by the window's

@@ -8,12 +8,27 @@ cadence while a long prompt prefills chunk by chunk. Host bookkeeping —
 admission, KV block accounting, stop detection, detokenization — is the
 JAX engine's, unchanged.
 
-One decode window is kept in flight between steps: it is dispatched at
-the end of a step and read at the next, so the card computes while the
-host hands tokens to the server. Rows whose sequence finished or was
-aborted in between are discarded when the window is read. The JAX
-engine's adaptive window sizing and deeper pipelining are not ported:
-EngineConfig pins ``window_adapt`` off and ``pipeline_depth`` at 1.
+Continuous batching across decode windows (JAX ``engine.py:529-903,
+1096-1405``, docs/engine.md "Continuous batching across windows"):
+decode windows are kept in flight between steps, a FIFO of up to
+``pipeline_depth``. A window is dispatched at the end of a step and read
+at the next; before reading the front window, ``_top_up_pipeline``
+dispatches the next one ahead, continuing the device carry, when the
+carry needs no upload from the host mirrors (which lag the card by the
+windows in flight). With ``window_adapt`` every dispatch with nothing in
+flight first compacts the running rows into the low slots
+(``_compact_slots``: two table rows and the host mirrors move, no KV),
+then runs the smallest batch bucket covering them, for the largest
+window bucket whose expected dead token-steps stay under
+``_WINDOW_DEAD_BUDGET`` (``_choose_window``: the rows' remaining
+budgets and an EWMA of EOS stops), one bucket shorter while a waiter
+has a free slot to land in. The decision rules are the JAX engine's
+verbatim (``_grid_hot``). Only a row whose sequence is still RUNNING
+takes a window's tokens: rows of sequences that finished, were aborted
+or preempted in between are discarded when the window is read. Every
+window runs on the one stream, and every host mirror reaches the card
+as a fresh copy, so a window in flight never reads what a later
+dispatch writes on the host.
 
 The load surface is the JAX engine's: bounded admission
 (``max_waiting_seqs`` -> ``AdmissionRejected``), deadlines and the
@@ -340,11 +355,19 @@ class LLMEngine:
         # the decode carry is re-uploaded from the host mirrors only
         # after a slot-composition change (admission, finish, abort)
         self._decode_dirty = True
-        # the decode window in flight between steps: (ids_dev, lps_dev,
+        # the speculation history is rebuilt on its own flag: only
+        # windows that speculate read it
+        self._hist_dirty = True
+        # decode windows in flight, oldest first: (ids_dev, lps_dev,
         # counts_dev or None, tops_dev, W, [seqs at dispatch], dispatch
-        # time, spec_ok or None, kv_len) or None
-        self._inflight: Optional[tuple] = None
+        # time, spec_ok or None, kv_len, batch)
+        self._inflight: List[tuple] = []
         self._last_sync_t = 0.0
+        # the device carry's batch bucket (a dispatch at another bucket
+        # uploads the host mirrors), and the EWMA of the per-row-step
+        # rate of EOS / stop-id stops, the horizon of _choose_window
+        self._carry_batch = engine_cfg.max_num_seqs
+        self._eos_rate = 0.0
         # the pooling routes' encoder (models/encoder.py), built here so
         # a bad preset or checkpoint fails at startup, never at the first
         # request
@@ -543,26 +566,34 @@ class LLMEngine:
     # ------------------------------------------------------------------
 
     def step(self) -> List[StepOutput]:
-        """One engine iteration: this step's prefill chunks, then the
-        decode window in flight is read and the next one dispatched."""
+        """One engine iteration (JAX ``step``): this step's prefill
+        chunks, then the windows in flight are topped up to
+        ``pipeline_depth``, the oldest is read, and a window is
+        dispatched when none is left in flight."""
         with self._lock:
             outputs = self._expire_waiting()
             works, decode_seqs = self.scheduler.schedule()
             if works:
-                # the window in flight was dispatched before this
-                # prefill: read it first, its tokens come first
-                outputs.extend(self._process_window())
+                # the windows in flight were dispatched before this
+                # prefill: read them first, their tokens come first
+                outputs.extend(self._drain_decode())
                 outputs.extend(self._do_prefill(works))
                 # sequences whose prefill just completed are RUNNING
                 # now and join this step's decode window
                 decode_seqs = list(self.scheduler.running.values())
-            if decode_seqs or self._inflight is not None:
-                if self._inflight is None:
+            if decode_seqs or self._inflight:
+                if not self._inflight:
                     self._dispatch_decode(decode_seqs)
-                outputs.extend(self._process_window())
-                decode_seqs = list(self.scheduler.running.values())
-                if decode_seqs:
-                    self._dispatch_decode(decode_seqs)
+                # queue the next window behind the front one before
+                # reading it: each continues its predecessor's device
+                # carry whatever the host decides, and rows whose
+                # sequence turns out to have stopped are discarded
+                self._top_up_pipeline()
+                outputs.extend(self._process_window(self._sync_inflight()))
+                if not self._inflight:
+                    decode_seqs = list(self.scheduler.running.values())
+                    if decode_seqs:
+                        self._dispatch_decode(decode_seqs)
             self._maybe_defrag()
             self._refresh_gauges()
             return outputs
@@ -639,6 +670,150 @@ class LLMEngine:
             return {"warmed": 0, "missed": len(hex_keys)}
         warmed, missed = self.connector.warm_keys(keys)
         return {"warmed": warmed, "missed": missed}
+
+    def _top_up_pipeline(self) -> None:
+        """Dispatch windows ahead behind the one(s) in flight, up to
+        ``pipeline_depth``, while the carry needs no upload from the
+        host mirrors and the window is unlikely to be discarded work."""
+        while (self._inflight
+               and len(self._inflight) < self.cfg.pipeline_depth
+               and not self._decode_dirty and not self._sampling_dirty
+               and not (self.cfg.speculative_ngram_tokens
+                        and self._hist_dirty)
+               # a waiter with a free slot waits for the next admission
+               # pass, which every queued window delays
+               and not (self.cfg.window_adapt
+                        and self._admission_imminent())
+               and self._worth_dispatch_ahead()):
+            ahead = sum(w[4] for w in self._inflight)
+            if not self._dispatch_decode(
+                    list(self.scheduler.running.values()), ahead=ahead):
+                break
+
+    def _worth_dispatch_ahead(self) -> bool:
+        """False when every live sequence could reach its max_tokens
+        within the windows already in flight: a window ahead would then
+        most likely be discarded whole."""
+        inflight_steps = sum(w[4] for w in self._inflight)
+        live = [s for s in self.scheduler.running.values()
+                if s.status is SeqStatus.RUNNING]
+        if not live:
+            return False
+        return any(
+            s.options.max_tokens is None
+            or s.options.max_tokens - len(s.output_tokens) > inflight_steps
+            for s in live)
+
+    # adaptive window sizing: the largest window bucket whose expected
+    # dead token-steps (finished rows' tails) stay under this share of
+    # live x W
+    _WINDOW_DEAD_BUDGET = 0.125
+
+    def _choose_window(self, ahead: int) -> int:
+        """The next dispatch's window length (JAX ``_choose_window``):
+        ``decode_window`` with ``window_adapt`` off; else the largest
+        bucket of ``decode_window_buckets`` whose expected dead steps —
+        each live row's tail past its remaining max_tokens budget, plus
+        ``_eos_rate x live x W^2 / 2`` for EOS and stop-id stops — stay
+        under ``_WINDOW_DEAD_BUDGET x live x W``, then one bucket
+        shorter when admission is imminent (a waiter joins sooner).
+        ``ahead`` steps already in flight count against the budgets."""
+        cfg = self.cfg
+        if not cfg.window_adapt:
+            return cfg.decode_window
+        buckets = cfg.decode_window_buckets
+        live = [s for s in self.scheduler.running.values()
+                if s.status is SeqStatus.RUNNING]
+        if not live:
+            return buckets[0]
+        budgets = [max(0, s.options.max_tokens - len(s.output_tokens)
+                       - ahead)
+                   for s in live if s.options.max_tokens is not None]
+        cap = buckets[0]
+        for w in buckets:
+            tail = sum(max(0, w - b) for b in budgets)
+            tail += self._eos_rate * len(live) * w * w / 2.0
+            if tail <= self._WINDOW_DEAD_BUDGET * len(live) * w:
+                cap = w
+        if self._admission_imminent():
+            i = buckets.index(cap)
+            cap = buckets[max(0, i - 1)]
+        return cap
+
+    def _admission_imminent(self) -> bool:
+        """A request waits and a slot is free, and the last scheduler
+        pass did not hold the head waiter back on the KV gate: the next
+        pass admits."""
+        return bool(self.scheduler.waiting
+                    and self.scheduler.free_slots
+                    and not self.scheduler.kv_deferred)
+
+    @staticmethod
+    def _grid_hot(seqs) -> bool:
+        """True when every row is greedy or plain-sampled, with no
+        seeded, guided, shaped or top_logprobs row: only such windows
+        take the adapted (batch, window) geometry, the others pin
+        (max_num_seqs, decode_window). In JAX these are the executables
+        its warmup compiles. Nothing compiles here, but the rule is kept
+        verbatim (with the kv probe of _dispatch_decode, the dead budget
+        and the EWMA), so the port's sequence of window geometries
+        equals JAX's, and the shapes it reaches are the grid that CUDA
+        graphs of the decode step would capture."""
+        return (all(s.options.seed is None and s.grammar is None
+                    and not s.options.shaped
+                    and not s.options.top_logprobs for s in seqs)
+                and (all(s.options.temperature <= 0.0 for s in seqs)
+                     or all(s.options.top_p >= 1.0
+                            and not s.options.top_k
+                            and not s.options.min_p for s in seqs)))
+
+    def _compact_slots(self) -> None:
+        """Move the RUNNING sequences into the lowest slots that no
+        prefilling sequence holds, so the batch bucket follows the live
+        batch. Only with nothing in flight: the move rewrites the host
+        mirrors, and the next dispatch uploads every carry from them."""
+        running = sorted(self.scheduler.running.values(),
+                         key=lambda s: s.slot)
+        if not running:
+            return
+        busy = {s.slot for s in self.scheduler._prefilling.values()}
+        target = 0
+        for seq in running:
+            while target in busy:
+                target += 1
+            if seq.slot != target:
+                # every lower running row already sits below target,
+                # so target is free
+                self._move_slot(seq, target)
+            target += 1
+
+    def _move_slot(self, seq: Sequence, new: int) -> None:
+        """Move a RUNNING sequence to slot `new`: the scheduler's maps,
+        every host mirror row (sampling, shaping, adapter, guided
+        state) and both block-table rows. The KV stays where it is."""
+        old = seq.slot
+        sched = self.scheduler
+        del sched.running[old]
+        sched.running[new] = seq
+        sched.free_slots.remove(new)
+        seq.slot = new
+        for arr in (self._slot_token, self._slot_pos, self._slot_temp,
+                    self._slot_top_p, self._slot_top_k,
+                    self._slot_adapter, self._slot_seed, self._slot_min_p,
+                    self._slot_presence, self._slot_frequency,
+                    self._slot_repetition, self._slot_min_tokens,
+                    self._slot_prompt_len, self._slot_bias_ids,
+                    self._slot_bias_vals, self._slot_stop_ids,
+                    self._slot_gstate):
+            arr[new] = arr[old]
+        self._set_table_row(new, seq.block_ids)
+        # park after the copy (the old row's mirrors reset, the carries
+        # marked stale); the moved row's sampling row differs from what
+        # park left at `new`, so the sampling upload is forced too
+        self._park_slot(old)
+        self._set_table_row(old, [])
+        sched._free_slot(old)
+        self._sampling_dirty = True
 
     def _expire_waiting(self) -> List[StepOutput]:
         """Drop expired-deadline and over-delayed sequences from the
@@ -754,6 +929,7 @@ class LLMEngine:
                 outputs.extend(self._accept_token(
                     seq, int(ids[seq.slot]), float(lps[seq.slot]), alts))
         self._decode_dirty = True
+        self._hist_dirty = True
         return outputs
 
     @staticmethod
@@ -853,27 +1029,70 @@ class LLMEngine:
             out["guide_states"] = gstates
         return out
 
-    def _dispatch_decode(self, decode_seqs) -> bool:
-        """Launch one decode window (no host sync). Every live slot's
-        block table must span the whole window first — W * (K + 1) + 1
-        positions under speculation of K tokens, the most a window can
-        emit: under pool pressure the youngest sequences are preempted
-        (recomputed later)."""
-        W = self.cfg.decode_window
-        horizon = W * (self.cfg.speculative_ngram_tokens + 1) + 1
+    def _dispatch_decode(self, decode_seqs, ahead: int = 0) -> bool:
+        """Launch one decode window (no host sync; JAX
+        ``_dispatch_decode``). With ``window_adapt`` and a hot batch
+        (_grid_hot) whose kv probe stays in the smallest kv bucket: the
+        running rows are compacted first (nothing in flight only), the
+        batch is the smallest bucket covering them, and the window comes
+        from _choose_window; otherwise (max_num_seqs, decode_window).
+        Every live slot's block table must span the window first —
+        (W + ahead) * (K + 1) + 1 positions under speculation of K
+        tokens, the most a window can emit: under pool pressure the
+        youngest sequences are preempted (recomputed later).
+
+        ahead > 0 dispatches while `ahead` steps of earlier windows are
+        still unread: the card's positions run that far past the host
+        mirrors, so coverage and the kv bucket count them. Such a
+        dispatch continues the device carry as it is, at its batch: it
+        returns False without launching where it would have to preempt,
+        upload the mirrors (which lag the card until the windows in
+        flight are read) or change the carry's batch."""
+        cfg = self.cfg
+        live0 = [s for s in self.scheduler.running.values()
+                 if s.status is SeqStatus.RUNNING]
+        adapt = cfg.window_adapt and self._grid_hot(live0)
+        if adapt and live0:
+            # adapted geometry only inside the smallest kv bucket (JAX's
+            # warmed grid), probed at the longest window so the kv pick
+            # made after W below never exceeds the probe
+            probe = (max(s.next_position for s in live0)
+                     + cfg.decode_window + ahead + 1)
+            adapt = (cfg.kv_bucket_for(min(probe, cfg.max_model_len))
+                     == cfg.kv_len_buckets[0])
+        if ahead == 0 and adapt and not self._inflight:
+            self._compact_slots()
+        W = self._choose_window(ahead) if adapt else cfg.decode_window
         if self._roll_window:
             # free behind-window blocks before growing coverage: the
             # reclaimed blocks feed this very window's growth
             self._roll_windows(decode_seqs)
+        horizon = (W + ahead) * (cfg.speculative_ngram_tokens + 1) + 1
         for s in list(decode_seqs):
             if s.status is not SeqStatus.RUNNING:
                 continue   # already preempted as a victim this pass
-            if not self._ensure_blocks(s, s.next_position + horizon):
+            if not self._ensure_blocks(s, s.next_position + horizon,
+                                       allow_preempt=ahead == 0):
+                if ahead:
+                    return False   # pool pressure: no window ahead
                 self._preempt(s)
         decode_seqs = list(self.scheduler.running.values())
         if not decode_seqs:
             return False
-        B, S = self.cfg.max_num_seqs, self.cfg.max_model_len
+        if ahead:
+            batch = self._carry_batch
+            if not adapt and batch != cfg.max_num_seqs:
+                # a pinned window would continue a bucketed carry: fall
+                # back to dispatching after the read, at the full batch
+                return False
+        else:
+            batch = (cfg.batch_bucket_for(
+                max(s.slot for s in decode_seqs) + 1)
+                if adapt else cfg.max_num_seqs)
+            if batch != self._carry_batch:
+                self._decode_dirty = True
+                self._hist_dirty = True
+        S = cfg.max_model_len
         self._ensure_dev_sampling()
         guide = self._guide_args(decode_seqs)
         # windows with a shaped row carry [B, V] counts and shape the
@@ -889,32 +1108,38 @@ class LLMEngine:
                      if s.options.temperature <= 0.0 and s.grammar is None
                      and not s.options.shaped
                      and not s.options.top_logprobs]
-        spec = self.cfg.speculative_ngram_tokens if spec_rows else 0
+        spec = cfg.speculative_ngram_tokens if spec_rows else 0
         spec_ok = None
         if spec:
-            spec_ok = np.zeros((B,), bool)
+            spec_ok = np.zeros((cfg.max_num_seqs,), bool)
             spec_ok[[s.slot for s in spec_rows]] = True
         max_pos = max(s.next_position for s in decode_seqs)
-        kv_len = self.cfg.kv_bucket_for(
-            min(max_pos + W * (spec + 1) + 1, S))
+        kv_len = cfg.kv_bucket_for(
+            min(max_pos + (W + ahead) * (spec + 1) + 1, S))
+        if ahead and (self._decode_dirty or self._sampling_dirty):
+            # the guided table's rebuild dirtied the carry: uploading
+            # the lagging mirrors would rewind the card
+            return False
         hist = None
-        if spec and self._decode_dirty:
-            # the set of rows, and so whether any speculates, changes
-            # only with the composition, which marks the carry stale:
-            # the device history is current whenever the carry is
-            hist = np.zeros((B, S), np.int32)
+        if spec and (self._hist_dirty or self._decode_dirty):
+            hist = np.zeros((batch, S), np.int32)
             for s in decode_seqs:
                 row = s.prompt_tokens + s.output_tokens
                 hist[s.slot, :len(row)] = row
+            self._hist_dirty = False
         if penalized and self._decode_dirty:
             # uploaded on the decode carry's trigger: any composition
             # change; within windows the device adds each step's ids
-            self.runner.set_penalty_state(*self._penalty_arrays())
-        if self._decode_dirty:
+            counts, seen = self._penalty_arrays()
+            self.runner.set_penalty_state(counts[:batch], seen[:batch])
+        if self._decode_dirty or hist is not None:
+            # the carry's batch is the window's: the mirrors go up cut
+            # to the bucket
             self.runner.set_decode_state(
-                self._slot_token, self._slot_pos,
-                self._slot_gstate if guide else None, hist)
+                self._slot_token[:batch], self._slot_pos[:batch],
+                self._slot_gstate[:batch] if guide else None, hist)
             self._decode_dirty = False
+        self._carry_batch = batch
         kw = dict(steps=W, kv_len=kv_len, penalized=penalized, topk=topk,
                   **guide, **self._sampling_mode(
                       [s.options for s in decode_seqs]))
@@ -925,23 +1150,27 @@ class LLMEngine:
             ids_dev, lps_dev, tops_dev = self.runner.decode(
                 self._dev_sampling, **kw)
             counts_dev = None
-        self._inflight = (ids_dev, lps_dev, counts_dev, tops_dev, W,
-                          list(decode_seqs), time.monotonic(), spec_ok,
-                          kv_len)
+        self._inflight.append((ids_dev, lps_dev, counts_dev, tops_dev, W,
+                               list(decode_seqs), time.monotonic(),
+                               spec_ok, kv_len, batch))
         return True
 
-    def _process_window(self) -> List[StepOutput]:
-        """Read the window in flight (its one host sync) and walk its
-        steps: each live row takes its tokens until it stops — under
-        speculation 1..K+1 per macro-step, the rest of a macro-step
-        dropped where the row stops."""
-        if self._inflight is None:
-            return []
+    def _drain_decode(self) -> List[StepOutput]:
+        """Read and process every window in flight, oldest first."""
+        outputs: List[StepOutput] = []
+        while self._inflight:
+            outputs.extend(self._process_window(self._sync_inflight()))
+        return outputs
+
+    def _sync_inflight(self):
+        """Read the oldest window in flight to the host (its one sync):
+        (ids, lps, counts, tops, W, seqs, t0, spec_ok, kv_len, batch),
+        or None. t0 is clamped to the previous read, so windows read
+        back to back each report their own wall time."""
+        if not self._inflight:
+            return None
         (ids_dev, lps_dev, counts_dev, tops_dev, W, seqs, t0, spec_ok,
-         kv_len) = self._inflight
-        self._inflight = None
-        # the window's wall time: from its dispatch, or from the last
-        # read if the host was still reading the previous one
+         kv_len, batch) = self._inflight.pop(0)
         t0 = max(t0, self._last_sync_t)
         ids = ids_dev.cpu().numpy()
         lps = lps_dev.cpu().numpy()
@@ -952,13 +1181,23 @@ class LLMEngine:
         self._last_sync_t = time.monotonic()
         self.metrics.engine_phases.observe("decode_window",
                                            self._last_sync_t - t0)
+        return ids, lps, counts, tops, W, seqs, t0, spec_ok, kv_len, batch
+
+    def _process_window(self, synced) -> List[StepOutput]:
+        """Walk a read window's steps: each live row takes its tokens
+        until it stops — under speculation 1..K+1 per macro-step, the
+        rest of a macro-step dropped where the row stops."""
+        if synced is None:
+            return []
+        ids, lps, counts, tops, W, seqs, t0, spec_ok, kv_len, B = synced
         outputs: List[StepOutput] = []
         # a row whose sequence finished, was aborted or was preempted
-        # (migrate_out preempts between steps, with this window in
-        # flight) is discarded: only a sequence still RUNNING holds the
-        # slot it was dispatched from
+        # (migrate_out preempts between steps, with windows in flight)
+        # is discarded: only a sequence still RUNNING holds the slot it
+        # was dispatched from
         alive = [s for s in seqs if s.status is SeqStatus.RUNNING]
-        accepted = steps_walked = 0
+        walkers = len(alive)
+        accepted = steps_walked = eos_stops = 0
         for j in range(W):
             steps_walked = j + 1
             still = []
@@ -985,6 +1224,7 @@ class LLMEngine:
                     outputs.extend(outs)
                     if outs[-1].finished:
                         finished = True
+                        eos_stops += outs[-1].finish_reason == "stop"
                         break
                 if not finished:
                     still.append(seq)
@@ -997,7 +1237,12 @@ class LLMEngine:
         per_tok = dt / (steps_walked if counts is None else max(accepted, 1))
         for _ in range(accepted):
             self.metrics.per_token.observe(per_tok)
-        B = self.cfg.max_num_seqs
+        # the EOS-rate horizon of _choose_window: stops per row-step of
+        # the rows that walked (a window nobody walked leaves it alone)
+        if walkers and steps_walked:
+            obs = eos_stops / (walkers * steps_walked)
+            self._eos_rate = 0.8 * self._eos_rate + 0.2 * obs
+        # every row of the dispatched batch bucket B computed W steps
         P = ids.shape[2] if counts is not None else 1
         pad = (B - len(seqs)) * W * P
         self.eff.note_window(steps=W, batch=B, live_rows=len(seqs),
@@ -1194,6 +1439,7 @@ class LLMEngine:
                 self._slot_stop_ids[slot, :] = -1
                 self._sampling_dirty = True
             self._decode_dirty = True
+            self._hist_dirty = True
 
     # ---------------------------------------------------- paged-KV host
 
@@ -1280,11 +1526,13 @@ class LLMEngine:
             s.rolled_blocks = keep_from
             self._set_table_row(s.slot, s.block_ids)
 
-    def _ensure_blocks(self, seq: Sequence, upto_tokens: int) -> bool:
+    def _ensure_blocks(self, seq: Sequence, upto_tokens: int,
+                       allow_preempt: bool = True) -> bool:
         """Grow a live sequence's blocks to cover positions
         < min(upto_tokens, max_model_len), preempting younger sequences
         under pool pressure. False = could not cover even then (the
-        caller preempts `seq` itself)."""
+        caller preempts `seq` itself). allow_preempt=False (a window
+        dispatched ahead) fails at once instead of preempting."""
         need = self.block_mgr.blocks_for(
             min(upto_tokens, self.cfg.max_model_len))
         while len(seq.block_ids) < need:
@@ -1293,6 +1541,8 @@ class LLMEngine:
                 seq.block_ids.extend(fresh)
                 self._set_table_row(seq.slot, seq.block_ids)
                 return True
+            if not allow_preempt:
+                return False
             if not self._preempt_youngest(requester=seq):
                 return False
         return True

@@ -5,8 +5,14 @@ decode state (``production_stack_tpu/engine/runner.py``).
   sampled ids and advanced positions stay on the device and feed the
   next step and the next window directly; the host syncs once per
   window, when the engine reads the window's ids. The batch is the
-  carried one (``set_decode_state``): free slots run as parked rows at
-  position ``max_model_len``, whose writes go to the trash block.
+  carried one (``set_decode_state``): the engine uploads its mirrors cut
+  to the window's batch bucket (continuous batching across windows,
+  engine.py), and every per-window input — sampling rows, table rows,
+  guided ids, penalty counts, adapter rows — is cut to that B, the cut
+  sampling rows and tables kept until their source or B changes (JAX
+  ``_cached_slice``). Free slots inside the bucket run as parked
+  rows at position ``max_model_len``, whose writes go to the trash
+  block.
 - ``prefill``: full batch — every admissible sequence's next chunk in
   one forward, idle rows parked at ``max_model_len`` and right padding
   masked by ``token_valid``. Logits are computed at each row's last
@@ -260,6 +266,9 @@ class ModelRunner:
         self._tables = torch.zeros(shape, dtype=torch.int32,
                                    device=self.device)
         self._tables_dirty = False
+        # the last window's inputs cut to its batch: (sampling, tables,
+        # B, sampling rows, table rows)
+        self._window_cut: tuple = (None, None, 0, None, None)
         self._generator = torch.Generator(device=self.device).manual_seed(
             engine_cfg.seed ^ 0x5EED)
         # device-carried decode inputs [B]: refreshed from host mirrors
@@ -358,6 +367,17 @@ class ModelRunner:
     def _shaping(self, B: int):
         return self._dec_counts[:B], self._dec_seen[:B], self.eos_id
 
+    def _window_inputs(self, sampling: SamplingParams, B: int):
+        """The sampling rows and table rows of a window over the carried
+        batch B, kept until either source is replaced or B changes, so
+        that steady windows do not cut again (JAX ``_cached_slice``)."""
+        tables = self._dev_tables()
+        src, tab, b, rows, cut = self._window_cut
+        if src is not sampling or tab is not tables or b != B:
+            rows, cut = sampling.rows(B), tables[:B]
+            self._window_cut = (sampling, tables, B, rows, cut)
+        return rows, cut
+
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         """A host int32 array as a device tensor (copied: the host
         mirror may change while the device still reads it)."""
@@ -404,10 +424,11 @@ class ModelRunner:
         B = toks.shape[0]
         # keyed on the uploaded tensor, so before rows() slices it
         lora = self._lora_rows(sampling, B)
-        sampling = sampling.rows(B)
-        tables = self._dev_tables()[:B]
+        sampling, tables = self._window_inputs(sampling, B)
         shaping = self._shaping(B) if penalized else None
-        guide = self._guide(guide_table, guide_ids, None)
+        guide = self._guide(guide_table,
+                            None if guide_ids is None else guide_ids[:B],
+                            None)
         ids, lps, tops = [], [], []
         for _ in range(steps):
             logits, _ = llama.forward(
@@ -475,10 +496,11 @@ class ModelRunner:
         B = toks.shape[0]
         # keyed on the uploaded tensor, so before rows() slices it
         lora = self._lora_rows(sampling, B)
-        sampling = sampling.rows(B)
-        tables = self._dev_tables()[:B]
+        sampling, tables = self._window_inputs(sampling, B)
         shaping = self._shaping(B) if penalized else None
-        guide = self._guide(guide_table, guide_ids, None)
+        guide = self._guide(guide_table,
+                            None if guide_ids is None else guide_ids[:B],
+                            None)
         ok = torch.from_numpy(np.array(spec_ok[:B], bool)).to(self.device)
         ar = torch.arange(K + 1, device=self.device, dtype=torch.int32)
         ids, lps, tops, cnts = [], [], [], []
@@ -706,20 +728,28 @@ class ModelRunner:
         c.v[:, blk, :, off, :] = v.permute(1, 0, 2, 3).to(c.v.dtype)
 
     def warmup(self) -> float:
-        """One parked decode step and one parked prefill chunk: loads
-        the kernels (building them if needed) and initialises the
-        libraries the forward uses, so the first request pays none of
-        it. On a MoE model the step takes the exact all-expert path and
-        the chunk (B x the largest bucket tokens) the capacity dispatch,
-        the two shapes serving runs. Returns seconds spent."""
+        """One parked decode step at every decode batch bucket (at
+        max_num_seqs alone without window_adapt, as in JAX), and one
+        parked prefill chunk: loads the kernels (building them if
+        needed) and initialises the libraries the forward uses at each
+        batch a window runs at (a GEMM's first call at a new shape
+        chooses its plan), so the first request pays none of it. The JAX
+        runner compiles its whole (batch bucket x window bucket) grid
+        here; eager PyTorch has nothing to build per window length, so
+        one step per batch bucket covers it. On a MoE model the step
+        takes the exact all-expert path and the chunk (B x the largest
+        bucket tokens) the capacity dispatch, the two shapes serving
+        runs. Returns seconds spent."""
         t0 = time.time()
         cfg = self.engine_cfg
         B, S = cfg.max_num_seqs, cfg.max_model_len
         sampling = SamplingParams.filled(B, device=self.device)
-        self.set_decode_state(np.zeros((B,), np.int32),
-                              np.full((B,), S, np.int32))
-        self.decode(sampling, steps=1, kv_len=cfg.kv_len_buckets[0],
-                    greedy=True)
+        batches = cfg.decode_batch_buckets if cfg.window_adapt else (B,)
+        for b in batches:
+            self.set_decode_state(np.zeros((b,), np.int32),
+                                  np.full((b,), S, np.int32))
+            self.decode(sampling, steps=1, kv_len=cfg.kv_len_buckets[0],
+                        greedy=True)
         Tb = cfg.prefill_buckets[-1]
         self.prefill(np.zeros((B, Tb), np.int32), np.full((B,), S, np.int32),
                      np.ones((B,), np.int32), sampling,
@@ -727,6 +757,6 @@ class ModelRunner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.time() - t0
-        logger.info("warmup: one decode step + one %d-token prefill in "
-                    "%.2fs", Tb, dt)
+        logger.info("warmup: one decode step at each batch of %s + one "
+                    "%d-token prefill in %.2fs", list(batches), Tb, dt)
         return dt

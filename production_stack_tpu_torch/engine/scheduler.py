@@ -179,6 +179,10 @@ class Scheduler:
         # kept sorted DESCENDING so pop() hands out the LOWEST free
         # slot: admissions fill the low slots first
         self.free_slots: List[int] = list(range(max_num_seqs - 1, -1, -1))
+        # the last schedule() pass held the head waiter back on the KV
+        # admission gate (can_admit): a waiter and a free slot then do
+        # not mean the next pass admits (engine._admission_imminent)
+        self.kv_deferred = False
         self._prefilling: Dict[int, Sequence] = {}    # slot -> seq
         # invoked right after a slot is assigned, before the first prefill
         # chunk is cut: may advance seq.num_prefilled past a cached prefix
@@ -281,10 +285,13 @@ class Scheduler:
         token cadence.
         """
         works = [self._chunk_of(seq) for seq in self._prefilling.values()]
+        self.kv_deferred = False
         while self.waiting and self.free_slots:
             seq = self.waiting[0]
             if self.can_admit is not None and not self.can_admit(seq):
-                break   # KV pool pressure: keep FIFO order, retry later
+                # KV pool pressure: keep FIFO order, retry later
+                self.kv_deferred = True
+                break
             self.waiting.popleft()
             seq.admit_time = time.monotonic()
             seq.queue_wait_s += seq.admit_time - seq.enqueued_time

@@ -1,7 +1,9 @@
 """OpenAI-compatible HTTP server for the PyTorch engine (aiohttp)
 (``production_stack_tpu/engine/server.py``): every route of the JAX
-engine's server, and its flags but those of adaptive decode windows and
-pipelined windows (engine/config.py), plus ``--device``.
+engine's server, and its flags (continuous batching across decode
+windows' ``--no-window-adapt``, ``--decode-batch-buckets``,
+``--decode-window-buckets`` and ``--pipeline-depth`` included, with
+JAX's defaults), plus ``--device``.
 ``--tensor-parallel-size`` and ``--expert-parallel-size`` start a
 ``tp x ep`` world (parallel/workers.py: this process is rank 0, the
 other ranks are worker processes; NCCL where every rank has a card of
@@ -1392,6 +1394,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="tokens per decode window (one host sync each)")
     p.add_argument("--kv-len-buckets", default=None,
                    help="comma-separated attention-length buckets")
+    p.add_argument("--no-window-adapt", action="store_true",
+                   help="disable continuous batching across decode "
+                        "windows: every window computes max-num-seqs x "
+                        "decode-window token-steps whatever the batch "
+                        "holds")
+    p.add_argument("--decode-batch-buckets", default=None,
+                   help="comma-separated decode batch buckets the "
+                        "adaptive dispatch may shrink to (default: "
+                        "powers of two up to max-num-seqs)")
+    p.add_argument("--decode-window-buckets", default=None,
+                   help="comma-separated decode window-length buckets "
+                        "(default: powers of two up to decode-window)")
+    p.add_argument("--pipeline-depth", type=int, default=2,
+                   help="decode windows dispatched ahead of the host at "
+                        "once (1..8); each queued window delays an "
+                        "admission by one window")
     p.add_argument("--kv-block-size", type=int, default=64)
     p.add_argument("--kv-pool-tokens", type=int, default=None)
     p.add_argument("--enable-prefix-caching", action="store_true")
@@ -1443,6 +1461,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def _int_list(arg: Optional[str]) -> tuple:
+    """A comma-separated flag as a tuple of ints (() when unset)."""
+    return tuple(int(x) for x in arg.split(",")) if arg else ()
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     engine = AsyncLLMEngine(EngineConfig(
@@ -1458,6 +1481,10 @@ def main(argv=None) -> None:
         max_waiting_seqs=args.max_waiting_seqs,
         max_queue_delay_ms=args.max_queue_delay_ms,
         prefill_chunk=args.prefill_chunk, decode_window=args.decode_window,
+        window_adapt=not args.no_window_adapt,
+        decode_batch_buckets=_int_list(args.decode_batch_buckets),
+        decode_window_buckets=_int_list(args.decode_window_buckets),
+        pipeline_depth=args.pipeline_depth,
         kv_len_buckets=tuple(int(x) for x in args.kv_len_buckets.split(","))
         if args.kv_len_buckets else (),
         kv_block_size=args.kv_block_size, kv_pool_tokens=args.kv_pool_tokens,

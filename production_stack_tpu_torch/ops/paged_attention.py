@@ -74,6 +74,10 @@ int8_launches = dict(launch_counts)
 VERIFY_T_MAX = 17
 verify_launches = {name: {} for name in launch_counts}
 verify_window_launches = {name: {} for name in launch_counts}
+# the decode kernel's T = 1 launches (decode steps) per batch B, the rows
+# of q (a decode window's batch bucket): {B: {"launches", "window_launches",
+# "int8_launches": n}}
+step_launches = {}
 
 
 def reset_launch_counts() -> None:
@@ -84,6 +88,7 @@ def reset_launch_counts() -> None:
     for counts in (verify_launches, verify_window_launches):
         for by_t in counts.values():
             by_t.clear()
+    step_launches.clear()
 
 
 def launch_report() -> dict:
@@ -92,7 +97,8 @@ def launch_report() -> dict:
     return {"launches": dict(launch_counts),
             "window_launches": dict(window_launches),
             "softcap_launches": dict(softcap_launches),
-            "int8_launches": dict(int8_launches)}
+            "int8_launches": dict(int8_launches),
+            "step_launches": {B: dict(c) for B, c in step_launches.items()}}
 
 
 # element types of q / out (0, 1) and of the pool (0, 1, or 2 = int8)
@@ -294,6 +300,12 @@ def _launch(name: str, q, k_pool, v_pool, tables, starts, nb, scale,
         for counts in ((verify_launches, verify_window_launches) if window
                        else (verify_launches,)):
             counts[name][T] = counts[name].get(T, 0) + 1
+    if T == 1:
+        step = step_launches.setdefault(B, dict.fromkeys(
+            ("launches", "window_launches", "int8_launches"), 0))
+        step["launches"] += 1
+        step["window_launches"] += bool(window)
+        step["int8_launches"] += quant
     return out
 
 

@@ -21,7 +21,11 @@ sampling parameters and guided table change only at composition
 changes, so those of ``decode``, ``decode_spec`` and ``prefill`` are
 sent once and then named by a handle (``_TensorCache``), and a worker
 keeps the same device tensor for a handle, which its runner's
-identity-keyed caches (the batch's adapter factors) rely on. Weights
+identity-keyed caches (the batch's adapter factors) rely on. A decode
+window runs at the batch of the carry that ``set_decode_state``
+uploaded, which the engine cuts to the window's batch bucket: the
+relayed call carries that cut, so every rank runs each window at rank
+0's bucket and the collectives match. Weights
 handed to the engine are cut per rank on rank 0 and sent to each
 worker once; random weights are drawn by every rank from the seed.
 

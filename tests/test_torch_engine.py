@@ -46,6 +46,8 @@ from production_stack_tpu_torch.models import llama as tllama
 from production_stack_tpu_torch.models import quant as tquant
 from production_stack_tpu_torch.weights import cache_from_jax, params_from_jax
 
+from tests.torch_geometry import FIXED
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -182,7 +184,8 @@ def test_engine_greedy_tokens_equal_jax_engine_mixed_batch(prefix_caching):
                   enable_prefix_caching=prefix_caching)
     je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
                            params=jparams)
-    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
+                                            **FIXED),
                            params=tparams)
     rng = np.random.default_rng(6)
     prompts = [rng.integers(0, 256, n).tolist() for n in (5, 40, 70, 12)]
@@ -216,7 +219,8 @@ def test_engine_greedy_tokens_equal_jax_engine_gemma2():
                   prefill_buckets=(32,), decode_window=4)
     je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
                            params=jparams)
-    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
+                                            **FIXED),
                            params=tparams)
     prompts = [list(range(3, 103)), list(range(7, 20))]
 
@@ -248,7 +252,8 @@ def test_out_of_vocab_prompt_ids_follow_jax_and_engine_serves_on(
                   quantization=quantization)
     je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
                            params=jparams)
-    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
+                                            **FIXED),
                            params=tparams)
     prompts = [[1, 600, 3], [1, 600, -600, -2000, 511, 3], [5, 6, 7]]
 
@@ -312,8 +317,21 @@ def test_engine_refuses_unported_options():
     dict(expert_parallel_size=2, tensor_parallel_size=2,
          window_adapt=True)])
 def test_engine_config_pins_unported_options(kw):
-    with pytest.raises(NotImplementedError):
-        tec.EngineConfig(model="debug-tiny", device="cpu", **kw)
+    """Pipeline-parallel serving is refused as in JAX; adaptive windows
+    and pipelined windows are ported (JAX's defaults), with JAX's
+    derived batch and window buckets."""
+    if "pipeline_parallel_size" in kw:
+        with pytest.raises(NotImplementedError):
+            tec.EngineConfig(model="debug-tiny", device="cpu", **kw)
+        with pytest.raises(NotImplementedError):
+            jec.EngineConfig(model="debug-tiny", **kw)
+        return
+    got = tec.EngineConfig(model="debug-tiny", device="cpu", **kw)
+    want = jec.EngineConfig(model="debug-tiny", **kw)
+    assert got.window_adapt and got.pipeline_depth == 2
+    assert got.decode_batch_buckets == want.decode_batch_buckets \
+        == (1, 2, 4, 8)
+    assert got.decode_window_buckets == want.decode_window_buckets
 
 
 def test_engine_config_takes_embedding_model():

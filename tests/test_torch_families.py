@@ -49,6 +49,9 @@ from production_stack_tpu_torch.weights import (adapter_from_jax,
                                                 cache_from_jax,
                                                 params_from_jax)
 
+from tests.torch_geometry import FIXED
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """These tiny models run thousands of small ops one after another;
@@ -400,7 +403,8 @@ def test_engine_moe_tokens_equal_jax_engine(kw):
     je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False,
                                             pipeline_depth=1),
                            params=jparams)
-    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
+                                            **FIXED),
                            params=tparams)
     rng = np.random.default_rng(6)
     # a repetitive prompt gives the n-gram drafts something to match
@@ -429,7 +433,8 @@ def _rolling_engine(pool_tokens, prefix_caching=False, jax_engine=False):
                                                   window_adapt=False,
                                                   pipeline_depth=1),
                                  params=jparams)
-    return tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+    return tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
+                                              **FIXED),
                              params=tparams)
 
 

@@ -45,6 +45,8 @@ from production_stack_tpu_torch.engine.tokenizer import load_tokenizer
 from production_stack_tpu_torch.models import config as tconfig
 from production_stack_tpu_torch.weights import params_from_jax
 
+from tests.torch_geometry import FIXED
+
 _SCHEMA = {"type": "object", "properties": {
     "ok": {"type": "boolean"}, "n": {"type": "integer"}}}
 # a two-key object whose every path ends: greedy decoding of an integer
@@ -74,7 +76,8 @@ def _engines(weights, **kw):
     return (jengine.LLMEngine(jec.EngineConfig(**cfg, window_adapt=False,
                                                pipeline_depth=1),
                               params=jparams),
-            tengine.LLMEngine(tec.EngineConfig(**cfg, device="cpu"),
+            tengine.LLMEngine(tec.EngineConfig(**cfg, device="cpu",
+                                               **FIXED),
                               params=tparams))
 
 
@@ -206,7 +209,8 @@ def servers(weights):
     return (jasync.AsyncLLMEngine(jec.EngineConfig(**cfg,
                                                    window_adapt=False),
                                   params=jparams),
-            AsyncLLMEngine(tec.EngineConfig(**cfg, device="cpu"),
+            AsyncLLMEngine(tec.EngineConfig(**cfg, device="cpu",
+                                            **FIXED),
                            params=tparams))
 
 

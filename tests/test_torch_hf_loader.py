@@ -40,6 +40,8 @@ from production_stack_tpu_torch.models import hf_loader as tloader
 from production_stack_tpu_torch.models import llama as tllama
 from production_stack_tpu_torch.models.kv import make_slot_cache
 
+from tests.torch_geometry import FIXED
+
 transformers = pytest.importorskip("transformers")
 st_torch = pytest.importorskip("safetensors.torch")
 
@@ -325,7 +327,8 @@ def test_checkpoint_engine_tokens_equal_jax(tmp_path):
                   dtype="float32", kv_dtype="float32", max_model_len=64,
                   max_num_seqs=2, prefill_chunk=16, prefill_buckets=(16,),
                   decode_window=4, kv_block_size=8)
-    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"))
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
+                                            **FIXED))
     je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False))
     assert torch.equal(te.runner.params.lm_head,
                        model.lm_head.weight.t().contiguous())

@@ -81,6 +81,8 @@ from production_stack_tpu_torch.kvcache.store import (DiskStore,
 from production_stack_tpu_torch.models import config as tconfig
 from production_stack_tpu_torch.weights import cache_from_jax, params_from_jax
 
+from tests.torch_geometry import FIXED
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK = 32
 # float32 weights and pool on both sides (greedy ties cannot flip between
@@ -89,7 +91,6 @@ ENG = dict(model="debug-tiny", dtype="float32", kv_dtype="float32",
            max_model_len=256, max_num_seqs=2, prefill_chunk=64,
            prefill_buckets=(16, 32, 64), kv_block_size=16,
            lora_rank=4, lora_alpha=8.0, lora_targets=("q", "v"))
-JAX_ONLY = dict(window_adapt=False, pipeline_depth=1)
 
 
 def _prompt(seed: int, n: int = 100):
@@ -148,7 +149,7 @@ def adapter(tmp_path_factory, weights):
 
 def _port(weights, adapter, kv=None, **kw):
     return tengine.LLMEngine(tec.EngineConfig(
-        **dict(ENG, **kw), device="cpu", lora_adapters=adapter,
+        **dict(ENG, **FIXED, **kw), device="cpu", lora_adapters=adapter,
         kv_transfer_config=kv), params=weights[3])
 
 
@@ -293,7 +294,7 @@ def test_extract_and_inject_chunk_equal_jax(weights, kv_dtype):
     jcfg, tcfg, jparams, tparams = weights
     common = dict(ENG, kv_dtype=kv_dtype, max_num_seqs=3)
     del common["lora_rank"], common["lora_alpha"], common["lora_targets"]
-    jr = jrunner.ModelRunner(jcfg, jec.EngineConfig(**common, **JAX_ONLY),
+    jr = jrunner.ModelRunner(jcfg, jec.EngineConfig(**common, **FIXED),
                              params=jparams)
     tr = trunner.ModelRunner(tcfg, tec.EngineConfig(**common, device="cpu"),
                              params=tparams)
@@ -436,7 +437,7 @@ def shared(tmp_path_factory, weights, adapter):
     tier = str(tmp_path_factory.mktemp("tier"))
     kv = {"chunk_size": CHUNK, "local_disk_path": tier}
     je = jengine.LLMEngine(jec.EngineConfig(
-        **ENG, **JAX_ONLY, lora_adapters=adapter, kv_transfer_config=kv),
+        **ENG, **FIXED, lora_adapters=adapter, kv_transfer_config=kv),
         params=weights[2])
     te = _port(weights, adapter, kv)
     yield je, te
@@ -570,10 +571,11 @@ def test_admin_kvplane_routes_answer_as_jax(tmp_path, weights):
 
     def engines(kv):
         return (jasync.AsyncLLMEngine(jec.EngineConfig(
-                    **common, **JAX_ONLY, kv_transfer_config=kv),
+                    **common, **FIXED, kv_transfer_config=kv),
                     params=weights[2]),
                 AsyncLLMEngine(tec.EngineConfig(
-                    **common, device="cpu", kv_transfer_config=kv),
+                    **common, **FIXED, device="cpu",
+                    kv_transfer_config=kv),
                     params=weights[3]))
 
     async def calls(client, key):
@@ -625,7 +627,7 @@ def test_migrated_victim_readmits_by_injection(tmp_path, weights, adapter,
         while not eng.seqs[sid].output_tokens:
             eng.step()
         h0 = eng.connector.hit_tokens
-        assert eng._inflight is not None   # a window of the victim's
+        assert eng._inflight   # a window of the victim's
         out = eng.migrate_out(max_seqs=1)
         assert out["migrated"] == [sid] and out["freed_blocks"] > 0
         assert len(out["keys"]) == 3
@@ -657,9 +659,9 @@ def test_connector_turns_rolling_off_as_in_jax(tmp_path):
                   prefill_chunk=64, kv_block_size=16)
     for conn in (None, kv):
         je = jengine.LLMEngine(jec.EngineConfig(
-            **common, **JAX_ONLY, kv_transfer_config=conn))
+            **common, **FIXED, kv_transfer_config=conn))
         te = tengine.LLMEngine(tec.EngineConfig(
-            **common, device="cpu", kv_transfer_config=conn))
+            **common, **FIXED, device="cpu", kv_transfer_config=conn))
         assert (te._roll_window is None) == (je._roll_window is None) \
             == (conn is not None)
         for e in (je, te):

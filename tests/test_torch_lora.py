@@ -41,6 +41,8 @@ from production_stack_tpu_torch.weights import (adapter_from_jax,
                                                 cache_from_jax,
                                                 params_from_jax)
 
+from tests.torch_geometry import FIXED
+
 ALL7 = ("q", "k", "v", "o", "gate", "up", "down")
 _DT = {"float32": (jnp.float32, torch.float32),
        "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -275,7 +277,8 @@ def adapters(tmp_path_factory):
 
 def _pair(jparams, adapters, names=("ad-one", "ad-two"), **kw):
     cfg = dict(_ENG, lora_adapters={n: adapters[n] for n in names}, **kw)
-    te = tengine.LLMEngine(tec.EngineConfig(**cfg, device="cpu"),
+    te = tengine.LLMEngine(tec.EngineConfig(**cfg, device="cpu",
+                                            **FIXED),
                            params=_tparams(jparams))
     if kw.get("quantization"):
         # the JAX engine quantizes donated params: give it its own copy

@@ -35,6 +35,8 @@ from production_stack_tpu_torch.engine.server import build_app, parse_args
 from production_stack_tpu_torch.models import config as tconfig
 from production_stack_tpu_torch.weights import params_from_jax
 
+from tests.torch_geometry import FIXED
+
 ADAPTER_SERIES = ("tpu:engine_adapter_loads_total",
                   "tpu:engine_adapter_evictions_total",
                   "tpu:engine_adapters_loaded")
@@ -82,7 +84,8 @@ def pair(adapters):
     je = jasync.AsyncLLMEngine(jec.EngineConfig(**common,
                                                 window_adapt=False),
                                params=jparams)
-    te = AsyncLLMEngine(tec.EngineConfig(**common, device="cpu"),
+    te = AsyncLLMEngine(tec.EngineConfig(**common, device="cpu",
+                                         **FIXED),
                         params=tparams)
     return je, te
 

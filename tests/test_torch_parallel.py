@@ -60,6 +60,8 @@ from production_stack_tpu_torch.parallel.mesh import (MeshConfig,
 from production_stack_tpu_torch.weights import (cache_from_jax,
                                                 params_from_jax)
 
+from tests.torch_geometry import FIXED
+
 # float32 logits of the sharded forward against JAX's single device
 LOGIT_ATOL = 1e-5
 
@@ -345,12 +347,14 @@ _TINY = dict(model="debug-tiny", max_model_len=128, max_num_seqs=2,
 
 
 def _jax_engine(params, **kw):
-    return jengine.LLMEngine(jec.EngineConfig(
-        window_adapt=False, pipeline_depth=1, **kw), params=params)
+    return jengine.LLMEngine(jec.EngineConfig(**FIXED, **kw),
+                             params=params)
 
 
 def _port_engine(np_params, **kw):
-    cfg = tec.EngineConfig(device="cpu", **kw)
+    # the JAX engines here are pinned to the fixed decode geometry: so
+    # is the port's side, unless a test asks for the windows
+    cfg = tec.EngineConfig(device="cpu", **dict(FIXED, **kw))
     tcfg = dataclasses.replace(tconfig.get_config(cfg.model),
                                dtype=torch.float32)
     return tengine.LLMEngine(cfg, params=params_from_jax(np_params, tcfg,
@@ -438,6 +442,35 @@ def test_tp2_engine_int8_kv_equals_jax():
     te = _port_engine(np_params, tensor_parallel_size=2, **cfg)
     try:
         assert run(te, SamplingOptions) == want
+    finally:
+        te.close()
+
+
+def test_tp2_engine_with_adaptive_windows_equals_tp1():
+    """Continuous batching across windows at tp = 2: staggered budgets
+    on 4 slots take the windows through batch buckets 4, 2 and 1 with
+    windows dispatched ahead; every rank runs rank 0's bucket (the
+    worker's last window has rank 0's shape and tokens), and the tokens
+    and the window sequence equal the tp = 1 engine's."""
+    _, _, _, np_params = _pair("debug-tiny", 5)
+    cfg = dict(_TINY, max_num_seqs=4, window_adapt=True, pipeline_depth=2)
+    prompts = [list(range(5 + i, 15 + i)) for i in range(5)]
+
+    def run(engine):
+        out = _drain(engine, [engine.add_request(p, SamplingOptions(
+            temperature=0.0, max_tokens=6 + 5 * i, ignore_eos=True))
+            for i, p in enumerate(prompts)])
+        return out, [(w["batch"], w["steps"], w["live_rows"])
+                     for w in engine.eff._windows]
+
+    want = run(_port_engine(np_params, **cfg))
+    assert {w[0] for w in want[1]} == {1, 2, 4}
+    te = _port_engine(np_params, tensor_parallel_size=2, **cfg)
+    try:
+        assert run(te) == want
+        ranks = te.runner.last_results("decode")
+        assert ranks[0][0].shape[0] == 1
+        assert torch.equal(ranks[0][0], ranks[1][0])
     finally:
         te.close()
 

@@ -34,6 +34,8 @@ from production_stack_tpu_torch.engine.server import build_app
 from production_stack_tpu_torch.models import config as tconfig
 from production_stack_tpu_torch.weights import params_from_jax
 
+from tests.torch_geometry import FIXED
+
 TOL = 1e-4
 
 
@@ -87,7 +89,8 @@ def servers():
     return (jasync.AsyncLLMEngine(jec.EngineConfig(**cfg,
                                                    window_adapt=False),
                                   params=jparams),
-            AsyncLLMEngine(tec.EngineConfig(**cfg, device="cpu"),
+            AsyncLLMEngine(tec.EngineConfig(**cfg, device="cpu",
+                                            **FIXED),
                            params=tparams))
 
 

@@ -55,6 +55,8 @@ from production_stack_tpu_torch.models import quant as tquant
 from production_stack_tpu_torch.ops import paged_attention as tpa
 from production_stack_tpu_torch.weights import cache_from_jax, params_from_jax
 
+from tests.torch_geometry import FIXED
+
 _BF16 = jnp.bfloat16
 
 
@@ -389,7 +391,8 @@ def test_engine_int8_greedy_tokens_equal_jax_engine_mixed_batch():
                   decode_window=4, kv_block_size=8)
     je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
                            params=params)
-    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
+                                            **FIXED),
                            params=tparams)
     assert te.runner.cache.quantized and tquant.is_quantized(
         te.runner.params.gate)

@@ -34,6 +34,8 @@ from production_stack_tpu_torch.engine.scheduler import SamplingOptions
 from production_stack_tpu_torch.models import config as tconfig
 from production_stack_tpu_torch.weights import params_from_jax
 
+from tests.torch_geometry import FIXED
+
 
 def _weights(seed=0, model="debug-tiny"):
     jcfg = dataclasses.replace(jconfig.get_config(model),
@@ -156,7 +158,8 @@ def test_engine_shaped_and_plain_rows_equal_jax(pool):
                   decode_window=8, kv_block_size=8, kv_pool_tokens=pool)
     je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
                            params=jparams)
-    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
+                                            **FIXED),
                            params=tparams)
     rng = np.random.default_rng(8)
     prompts = [rng.integers(0, 256, n).tolist()
@@ -185,7 +188,8 @@ def test_min_tokens_with_stop_ids_equals_jax():
                   prefill_buckets=(16,), decode_window=8, kv_block_size=8)
     je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
                            params=jparams)
-    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
+                                            **FIXED),
                            params=tparams)
     prompts = [[256, 5, 6, 7], [256, 9, 9]]
     rows = [dict(min_tokens=11, stop_token_ids=[42],
@@ -214,7 +218,8 @@ def test_min_tokens_out_of_vocab_stop_ids_equal_jax_and_serve_on():
                   prefill_buckets=(16,), decode_window=8, kv_block_size=8)
     je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
                            params=jparams)
-    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu"),
+    te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
+                                            **FIXED),
                            params=tparams)
     row = dict(min_tokens=6, stop_token_ids=[V + 5, 42, -3],
                logit_bias={42: 100.0})

@@ -37,6 +37,8 @@ from production_stack_tpu_torch.engine.scheduler import SamplingOptions
 from production_stack_tpu_torch.models import config as tconfig
 from production_stack_tpu_torch.weights import params_from_jax
 
+from tests.torch_geometry import FIXED
+
 # the engine geometry of the JAX package's speculation tests
 _SPEC = dict(model="debug-tiny", dtype="float32", kv_dtype="float32",
              max_model_len=512, max_num_seqs=2, prefill_chunk=64,
@@ -61,7 +63,8 @@ def _engines(weights, spec, **kw):
     return (jengine.LLMEngine(jec.EngineConfig(**cfg, pipeline_depth=1,
                                                window_adapt=False),
                               params=jparams),
-            tengine.LLMEngine(tec.EngineConfig(**cfg, device="cpu"),
+            tengine.LLMEngine(tec.EngineConfig(**cfg, device="cpu",
+                                               **FIXED),
                               params=tparams))
 
 

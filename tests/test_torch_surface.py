@@ -41,6 +41,8 @@ from production_stack_tpu_torch.engine.server import build_app
 from production_stack_tpu_torch.models import config as tconfig
 from production_stack_tpu_torch.weights import params_from_jax
 
+from tests.torch_geometry import FIXED
+
 ROUTER_GAUGES = ("vllm:num_requests_running", "vllm:num_requests_waiting",
                  "vllm:gpu_cache_usage_perc", "tpu:hbm_kv_usage_perc",
                  "vllm:gpu_prefix_cache_hit_rate",
@@ -255,7 +257,8 @@ def pair():
     je = jasync.AsyncLLMEngine(jec.EngineConfig(**common,
                                                 window_adapt=False),
                                params=jparams)
-    te = AsyncLLMEngine(tec.EngineConfig(**common, device="cpu"),
+    te = AsyncLLMEngine(tec.EngineConfig(**common, device="cpu",
+                                         **FIXED),
                         params=tparams)
     return je, te
 

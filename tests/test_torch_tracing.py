@@ -29,6 +29,8 @@ from production_stack_tpu_torch.engine import server as tserver
 from production_stack_tpu_torch.engine.async_engine import AsyncLLMEngine
 from production_stack_tpu_torch.engine.scheduler import SamplingOptions
 
+from tests.torch_geometry import FIXED
+
 MODULES = {"jax": jtracing, "port": ttracing}
 COMMON = dict(model="debug-tiny", max_model_len=128, max_num_seqs=2,
               prefill_chunk=32, prefill_buckets=(16, 32))
@@ -219,7 +221,8 @@ def test_terminal_timing_equal_jax():
     passed) carries one with no admission. Keys and counts as the JAX
     engine's."""
     je = jengine.LLMEngine(jec.EngineConfig(**COMMON, window_adapt=False))
-    te = tengine.LLMEngine(tec.EngineConfig(**COMMON, device="cpu"))
+    te = tengine.LLMEngine(tec.EngineConfig(**COMMON, device="cpu",
+                                            **FIXED))
     got = {}
     for name, eng, opts in (("jax", je, JSamplingOptions),
                             ("port", te, SamplingOptions)):
