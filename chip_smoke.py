@@ -29,9 +29,13 @@
    T = 9; the decode kernel at batch 1 and 2, the buckets of the
    adaptive windows; Qwen1.5-MoE's G = 1, Mistral's window on every layer, and
    Qwen2-7B's G = 7, which no path serves; one tensor-parallel rank's
-   heads: Llama-3-8B at tp 2 over bf16 and int8 pools, at tp 4 and 8,
+   heads: Llama-3-8B at tp 2 over bf16 and int8 pools (at T = 1 and at
+   the verify window T = 4 its engine launches), at tp 4 and 8,
    Gemma-2-9B at tp 2 and Qwen1.5-MoE at ep 2 and ep 2 x tp 2, checked
-   among the cases above too), holding
+   among the cases above too; the dp = 2 x tp = 2 engine's launches,
+   both kernels reading the copy of every row's first nb blocks that
+   its ranks assemble, held against the plain version over the pool),
+   holding
    each kernel against
    its plain version on the timed inputs too; Gemma-2's bf16 rows, which
    SDPA cannot compute (no softcap), take flex_attention with a tanh
@@ -195,7 +199,20 @@
    log-probabilities against the one-rank engine (max |diff|), a decode
    step's wall and its collectives beside the
    one-rank step, /load, the paged kernels' launches of every rank, and
-   that the workers sampled rank 0's tokens.
+   that the workers sampled rank 0's tokens. Then Llama-3-8B at
+   dp = 2 x tp = 2 (the `dp` line, dp_run; four ranks, each with a
+   tp = 2 slice of the weights and half the pool's blocks): the mesh
+   refused without dp_gather_attention_ok; with it, a request served
+   through its server, the same batch as the tp = 2 engine (added at
+   once under the engine lock) and the int8 pool's request, each bit
+   for bit equal to the tp = 2 engine's; rank 0's kernel launches by T
+   (both kernels, over the copy each layer assembles over dp) and no
+   call of the plain version; the pool per rank beside a tp = 2 rank's;
+   the assembly's ms per layer beside its bytes; a decode step's wall
+   and collectives by axis and kind beside the tp = 2 step. Then the
+   dry run's serving half at 4 ranks (`dryrun_serving`,
+   parallel/dryrun.py: debug-tiny and debug-moe at head dim 64, f32,
+   int8 and bf16 pools, each part against one rank).
 8. train (after parallel, before kvtier; every engine freed first): the
    training path (TRAIN). Llama-3-8B at full width and depth, bf16,
    random weights from seed 0, one batch of 1 x 512 tokens from a
@@ -946,7 +963,8 @@ REPLACES = {
 }
 
 
-def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None):
+def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None,
+                  assembled=False, kernels=None):
     """Both paged kernels at one served model's shapes: a decode step of
     the whole batch (T=1) and a 512-token prefill chunk of one row with
     the others parked, at the model's softcap and scale, bf16 q over a
@@ -971,7 +989,12 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None):
     launches are the windows phase's decode steps at that batch. Another
     decode row's launches are its serving run's decode steps (T = 1) at
     the row's batch (the wrapper's step_launches); a parallel serving
-    run's rows are at its engine's max_num_seqs."""
+    run's rows are at its engine's max_num_seqs; a parallel engine's
+    verify windows are its own speculation's (PARALLEL's serve).
+    assembled: the kernel reads, as a dp > 1 engine's ranks do, the copy
+    of every row's first nb blocks assembled from the pool (B * nb
+    blocks, pa.assembled_tables), and is held against the plain version
+    over the pool itself. kernels: the wrappers to time (default both)."""
     import torch
     from production_stack_tpu_torch.models.config import get_config
     from production_stack_tpu_torch.models.llama import attn_scale
@@ -996,9 +1019,14 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None):
     if batch:
         shapes = {"paged_decode_attention": (1, rows, 0, 64, 106 + batch)}
     if verify:
+        specs = ((serve["speculative_ngram_tokens"],)
+                 if str(path).startswith("parallel:")
+                 else SPEC.get(model, ()))
         shapes = {"paged_decode_attention": (4, rows, 0, 64, 104)}
-        if 8 in SPEC.get(model, ()):
+        if 8 in specs:
             shapes["paged_attention"] = (9, rows, 0, 64, 105)
+    if kernels:
+        shapes = {name: shapes[name] for name in kernels}
     records = []
     for name, (T, lens, parked, it, seed) in shapes.items():
         q, k, v, tables, starts, nb = paged_case(
@@ -1011,10 +1039,25 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None):
         MB = tables.shape[1]
         nb = min(p["kv_len"] // Bs, MB)
         fn = getattr(pa, name)
+        # what the kernel reads: the pool, or the copy a dp engine's
+        # ranks assemble of every row's first nb blocks
+        run_k, run_v, run_sc, run_tables = k, v, sc, tables
+        if assembled:
+            idx = tables[:, :nb].long()
+
+            def copy(t):
+                return t[:, idx].flatten(1, 2).contiguous()
+            run_k, run_v = copy(k), copy(v)
+            if kv == "int8":
+                cks, cvs = copy(ks), copy(vs)
+                run_sc = [dict(k_scales=cks[i], v_scales=cvs[i])
+                          for i in range(L)]
+            run_tables = pa.assembled_tables(B, nb, MB, "cuda")
         for layers, window in kinds:
             kw = dict(scale=attn_scale(cfg), window=window,
                       softcap=cfg.attn_logit_softcap or 0.0)
-            got = fn(q, k[0], v[0], tables, starts, nb=nb, **kw, **sc[0])
+            got = fn(q, run_k[0], run_v[0], run_tables, starts, nb=nb, **kw,
+                     **run_sc[0])
             want = pa.paged_attention_plain(
                 q.float() if sc[0] else q, k[0], v[0], tables, starts, nb,
                 kw["scale"], kw["window"], kw["softcap"], **sc[0])
@@ -1028,9 +1071,9 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None):
                                      f"version at {model}'s timed shape: "
                                      f"err {err}, {shape}")
             del got, want
-            ms = device_ms(lambda i=0: fn(q, k[i % L], v[i % L], tables,
-                                          starts, nb=nb, **kw, **sc[i % L]),
-                           it)
+            ms = device_ms(lambda i=0: fn(q, run_k[i % L], run_v[i % L],
+                                          run_tables, starts, nb=nb, **kw,
+                                          **run_sc[i % L]), it)
             plain_ms = device_ms(lambda i=0: pa.paged_attention_plain(
                 q, k[i % L], v[i % L], tables, starts, nb, kw["scale"],
                 kw["window"], kw["softcap"], **sc[i % L]), it)
@@ -1074,12 +1117,14 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None):
                 rec["verify_T"] = T
             if batch:
                 rec["batch"] = batch
+            if assembled:
+                rec["layout"] = "assembled"
             # the yardstick where library_ms is null: SDPA without the
             # softcap, over the bf16 pool or the dequantized bf16 view
             rec["sdpa_ms"] = sdpa_ms
             log(json.dumps({"timing": rec}))
             records.append(rec)
-        del q, k, v, sc
+        del q, k, v, sc, run_k, run_v, run_sc
         free_memory()
     return records
 
@@ -1174,6 +1219,20 @@ def kernel_phase():
             pa, "qwen1.5-moe-a2.7b", "bfloat16",
             parallel_label("qwen1.5-moe-a2.7b", dict(
                 expert_parallel_size=2, tensor_parallel_size=tp)), tp=tp)
+    # the tp = 2 Llama engine speculates (spec 3): its decode launches are
+    # T = 4 verify windows; and the dp = 2 x tp = 2 engine, whose ranks
+    # read the copy assembled over dp (its decode launches T = 4 too)
+    dp_mesh = PARALLEL["llama-3-8b"]["dp_mesh"]
+    for kv in ("bfloat16", "int8"):
+        records += paged_timings(pa, "llama-3-8b", kv,
+                                 parallel_label("llama-3-8b", llama2, kv),
+                                 tp=2, verify=True)
+        label = parallel_label("llama-3-8b", dp_mesh, kv)
+        records += paged_timings(pa, "llama-3-8b", kv, label, tp=2,
+                                 verify=True, assembled=True)
+        records += paged_timings(pa, "llama-3-8b", kv, label, tp=2,
+                                 assembled=True,
+                                 kernels=("paged_attention",))
     records += flash_timing(fa)
     free_memory()
     return records
@@ -4472,20 +4531,24 @@ def kvtier_phase(device="cuda", cfg=None):
 # geometry; greedy: the plain greedy prompts' lengths (token ids from a
 # seed); int8: the length of the one greedy request over the int8 pool
 # (None: no int8 run); features: a shaped, a guided and a repetitive
-# (speculating) request besides
+# (speculating) request besides; dp_mesh: a mesh with dp > 1 (its dp and
+# tensor_parallel_size) whose engine (dp_run) is held bit for bit to the
+# engine of its tp alone, the first of meshes (None: no dp run)
 PARALLEL = {
     "llama-3-8b": dict(
         meshes=(dict(tensor_parallel_size=2),),
         serve=dict(max_num_seqs=4, max_model_len=2048, prefill_chunk=512,
                    decode_window=8, kv_block_size=64, seed=0,
                    speculative_ngram_tokens=3),
-        greedy=(300, 1000), tokens=24, int8=300, features=True),
+        greedy=(300, 1000), tokens=24, int8=300, features=True,
+        dp_mesh=dict(dp=2, tensor_parallel_size=2)),
     "qwen1.5-moe-a2.7b": dict(
         meshes=(dict(expert_parallel_size=2),
                 dict(expert_parallel_size=2, tensor_parallel_size=2)),
         serve=dict(max_num_seqs=2, max_model_len=2048, prefill_chunk=512,
                    decode_window=8, kv_block_size=64, seed=0),
-        greedy=(1100,), tokens=24, int8=None, features=False),
+        greedy=(1100,), tokens=24, int8=None, features=False,
+        dp_mesh=None),
 }
 # the decode window parallel_step_timing times: rows at these positions
 PARALLEL_STARTS = [200, 431, 57, 400]
@@ -4495,8 +4558,9 @@ def parallel_label(model: str, mesh: dict, kv: str = "bfloat16") -> str:
     """The counts key of one parallel serving run (a kernel row's path)."""
     tp = mesh.get("tensor_parallel_size", 1)
     ep = mesh.get("expert_parallel_size", 1)
-    return f"parallel:{model}:tp{tp}ep{ep}" + (":int8kv" if kv == "int8"
-                                               else "")
+    dp = f"dp{mesh['dp']}" if mesh.get("dp", 1) > 1 else ""
+    return f"parallel:{model}:{dp}tp{tp}ep{ep}" + (":int8kv" if kv == "int8"
+                                                   else "")
 
 
 def parallel_requests(cfg, p: dict) -> list:
@@ -4595,6 +4659,30 @@ def parallel_step_timing(eng, steps: int = 8) -> dict:
                                      / steps for k in after}}
 
 
+def batch_tokens(eng, reqs) -> dict:
+    """{name: output ids} of the requests added to the engine at once,
+    under its lock, so that its first step admits them together and the
+    schedule depends on the engine's state alone: two parallel engines
+    serve the same batches and are compared bit for bit. An
+    AsyncLLMEngine's loop thread steps them."""
+    from production_stack_tpu_torch.engine.scheduler import (SamplingOptions,
+                                                             SeqStatus)
+    with eng._lock:
+        sids = {name: eng.add_request(list(body["prompt"]), SamplingOptions(
+            **{k: v for k, v in body.items() if k not in ("model",
+                                                          "prompt")}))
+                for name, body in reqs}
+    deadline = time.monotonic() + 600
+    while any(eng.seqs[s].status != SeqStatus.FINISHED
+              for s in sids.values()):
+        if time.monotonic() > deadline:
+            raise AssertionError("a batch of the dp comparison did not "
+                                 "finish in 600 s")
+        time.sleep(0.05)
+    return {name: list(eng.seqs[s].output_tokens)
+            for name, s in sids.items()}
+
+
 def first_step_logprobs(eng, prompt) -> "torch.Tensor":
     """The log-softmax of the first step's logits (f32 [V], on the host)
     after the first prefill_chunk tokens of `prompt`, prefilled in one
@@ -4658,6 +4746,15 @@ def parallel_counts(eng) -> dict:
     for key in ("launches", "window_launches", "int8_launches"):
         total[key] = {name: sum(r[key][name] for r in ranks)
                       for name in ranks[0][key]}
+    # the verify windows' launches by T (main() reads a verify row's)
+    for key, name in (("verify_launches", "verify"),
+                      ("verify_window_launches", "verify_window")):
+        total[name] = {}
+        for r in ranks:
+            for kernel, by_t in r[key].items():
+                mine = total[name].setdefault(kernel, {})
+                for T, n in by_t.items():
+                    mine[T] = mine.get(T, 0) + n
     total["step_launches"] = {}
     for r in ranks:
         for B, c in r["step_launches"].items():
@@ -4816,9 +4913,12 @@ def parallel_model(model: str, device: str, p: dict) -> dict:
         decode window, and for a parallel engine every rank's last
         decode ids, memory and launches."""
         out = {}
-        if eng.cfg.world_size > 1:
+        if eng.mesh is not None:
             # read before the comparisons below launch anything
             out["counts"] = parallel_counts(eng)
+            if p["dp_mesh"]:
+                # what dp_run serves on the dp engine, bit for bit
+                out["batch"] = batch_tokens(eng, reqs)
             # each rank's last window of either kind (a mix whose every
             # window had a speculating row ran decode_spec alone)
             same = []
@@ -4863,6 +4963,7 @@ def parallel_model(model: str, device: str, p: dict) -> dict:
     if cfg.num_experts:
         release(ref)
         ref = None
+    tp_run = None
     for mesh in p["meshes"]:
         t0 = time.monotonic()
         par = AsyncLLMEngine(EngineConfig(model=model, device=device,
@@ -4903,6 +5004,10 @@ def parallel_model(model: str, device: str, p: dict) -> dict:
         ok = same_ranks and all(c["ok"] for c in checks.values()) \
             and counts[label]["launches"]["paged_attention"] > 0 \
             and counts[label]["launches"]["paged_decode_attention"] > 0
+        if p["dp_mesh"] and mesh is p["meshes"][0]:
+            # what the dp engine is held to (dp_run)
+            tp_run = {"batch": inside["batch"], "step": inside["step"],
+                      "memory": inside["memory"]}
         if cfg.num_experts:
             routing = routing_check(moe_ref["routing"], moe_seen["routed"],
                                     cfg.num_experts_per_tok)
@@ -4932,6 +5037,8 @@ def parallel_model(model: str, device: str, p: dict) -> dict:
                 "launches": counts[label8]}
             ok = ok and rec["int8_pool"]["tokens"]["ok"] \
                 and counts[label8]["int8_launches"]["paged_attention"] > 0
+            if p["dp_mesh"] and mesh is p["meshes"][0]:
+                tp_run["int8"] = got8
             par.close()
             par = None
         else:
@@ -4946,16 +5053,237 @@ def parallel_model(model: str, device: str, p: dict) -> dict:
         release(ref)
     int8_ref = None
     free_memory()
+    if p["dp_mesh"]:
+        counts.update(dp_run(model, device, p, reqs,
+                             reqs[0][1]["prompt"][:p["int8"]], tp_run))
     return counts
 
 
+def assembly_timing(runner, B: int, nbs, iters: int = 10) -> dict:
+    """On one rank of a dp engine (ParallelRunner.map_ranks runs it on
+    every rank at once): the host wall of layer 0's assembly of B rows'
+    first nb blocks (tables over blocks 1.. of both dp ranks; the local
+    gather and the dp sum, kv.assemble_blocks) and of the local gather
+    alone, ms per layer, beside the assembled copy's bytes, for each nb
+    of nbs. Counts the collectives it issues (mesh.calls)."""
+    import torch
+    from production_stack_tpu_torch.models import kv
+    c, dev = runner.cache, runner.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    MB = runner.engine_cfg.max_blocks_per_seq
+    tables = (1 + torch.arange(B * MB, dtype=torch.int32,
+                               device=dev)).reshape(B, MB)
+    out = {}
+    for nb in sorted({min(nb, MB) for nb in nbs}):
+        def assemble():
+            return kv.assemble_blocks(c, 0, tables, nb, runner.mesh)
+
+        def gather():
+            return (kv.gather_owned(c.k[0], c, tables, nb),
+                    kv.gather_owned(c.v[0], c, tables, nb))
+        row = {"B": B, "nb": nb, "keys": nb * c.block_size,
+               "bytes": sum(t.nbytes for t in assemble() if t is not None)}
+        for name, fn in (("assemble", assemble), ("gather_owned", gather)):
+            fn()
+            sync()
+            t0 = time.monotonic()
+            for _ in range(iters):
+                fn()
+            sync()
+            row[name + "_ms"] = (time.monotonic() - t0) / iters * 1e3
+        out[f"nb{nb}"] = row
+    return out
+
+
+def launches_by_t(report: dict) -> dict:
+    """One rank's paged kernel launches (pa.launch_report) by the query
+    window's length T: decode at T = 1 (decode steps) and at the verify
+    lengths, prefill at the verify lengths and above them (chunks)."""
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    verify = report["verify_launches"]
+    decode = {"1": sum(c["launches"] for c in
+                       report["step_launches"].values())}
+    decode.update({str(T): n for T, n in
+                   sorted(verify["paged_decode_attention"].items())})
+    prefill = {str(T): n for T, n in
+               sorted(verify["paged_attention"].items())}
+    prefill[f">{pa.VERIFY_T_MAX}"] = \
+        report["launches"]["paged_attention"] - sum(prefill.values())
+    return {"paged_decode_attention": decode, "paged_attention": prefill}
+
+
+def dp_run(model: str, device: str, p: dict, reqs, int8_prompt,
+           tp_run: dict) -> dict:
+    """The dp line: p["dp_mesh"] (dp = 2 x tp = 2 for Llama-3-8B: four
+    ranks sharing the card over gloo, each with a tp = 2 slice of the
+    weights and half the pool's blocks) at PARALLEL's serve geometry.
+    The mesh refused on the card without dp_gather_attention_ok; with
+    it, the engine serves the first request through its server, then
+    the same batch that the tp engine served (batch_tokens) and the int8
+    pool's request, each bit for bit equal to the tp engine's; rank 0's
+    kernel launches by T (> 0 for both kernels) with no call of the
+    plain version, the pool per rank beside the tp engine's, the
+    assembly's ms per layer beside its bytes, a decode step's wall and
+    collectives beside the tp engine's. Returns the launch counts by
+    label."""
+    from production_stack_tpu_torch.engine.async_engine import \
+        AsyncLLMEngine
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+    t0 = time.monotonic()
+    dm = p["dp_mesh"]
+    mesh = MeshConfig(dp=dm["dp"], tp=dm["tensor_parallel_size"])
+    serve = dict(p["serve"], tensor_parallel_size=mesh.tp)
+    rec = {"model": model, "mesh": {"dp": mesh.dp, "tp": mesh.tp}}
+    try:
+        LLMEngine(EngineConfig(model=model, device=device, **serve),
+                  mesh=mesh)
+        rec["refusal"] = {"raised": None}
+    except ValueError as e:
+        rec["refusal"] = {"raised": type(e).__name__,
+                          "gathered_view": "gathered-view" in str(e),
+                          "message": str(e)[:240]}
+    label = parallel_label(model, dm)
+    counts = {}
+    t1 = time.monotonic()
+    par = AsyncLLMEngine(EngineConfig(model=model, device=device,
+                                      dp_gather_attention_ok=True, **serve),
+                         mesh=mesh)
+    rec["engine_ready_s"] = time.monotonic() - t1
+    par.engine.runner.warmup()
+    parallel_reset(par.engine)
+    plain = {"calls": 0}
+    saved = pa.paged_attention_plain
+
+    def counted_plain(*a, **kw):
+        plain["calls"] += 1
+        return saved(*a, **kw)
+
+    def measure(eng):
+        out = {"counts": parallel_counts(eng),
+               "rank0": launches_by_t(pa.launch_report())}
+        out["batch"] = batch_tokens(eng, reqs)
+        out["pools"] = eng.runner.map_ranks(
+            "production_stack_tpu_torch.parallel.workers:pool_report")
+        out["memory"] = parallel_memory(eng)
+        out["step"] = parallel_step_timing(eng)
+        out["assembly"] = eng.runner.map_ranks(
+            "chip_smoke:assembly_timing", eng.cfg.max_num_seqs,
+            (out["step"]["kv_len"] // eng.cfg.kv_block_size,
+             1024 // eng.cfg.kv_block_size))
+        return out
+    pa.paged_attention_plain = counted_plain
+    t1 = time.monotonic()
+    try:
+        # one request through the server; the batch (measure) holds all
+        served = asyncio.run(parallel_serve(par, reqs[:1], measure))
+    finally:
+        pa.paged_attention_plain = saved
+    rec["serve_s"] = time.monotonic() - t1
+    inside = served["inside"]
+    counts[label] = inside["counts"]
+    rec["world"] = par.engine.runner.mesh.describe()
+    release(par)
+    free_memory()
+    batch = {name: {"tokens": len(got),
+                    "equal_tp": got == tp_run["batch"][name]}
+             for name, got in inside["batch"].items()}
+    rec["batch_vs_tp"] = batch
+    rec["served_tokens"] = {name: len(ids) for name, (_, ids) in
+                            served["tokens"].items()}
+    rec["launches_rank0_by_T"] = inside["rank0"]
+    rec["plain_calls_rank0"] = plain["calls"]
+    rec["launches"] = counts[label]
+    tp_pool = tp_run["memory"][0]["pool"]
+    rec["pool_per_rank"] = inside["pools"]
+    rec["pool_bytes_share_of_tp_rank"] = \
+        inside["pools"][0]["bytes"] / tp_pool
+    rec["tp_rank_pool_bytes"] = tp_pool
+    rec["memory_per_rank"] = inside["memory"]
+    rec["assembly_per_layer"] = inside["assembly"][0]
+    rec["assembly_ms_other_ranks"] = [
+        {nb: r[nb]["assemble_ms"] for nb in r} for r in inside["assembly"][1:]]
+    rec["step"], rec["tp_step"] = inside["step"], tp_run["step"]
+    # the int8 pool: the tp engine's one direct request, bit for bit
+    par = LLMEngine(EngineConfig(model=model, device=device,
+                                 dp_gather_attention_ok=True,
+                                 **dict(serve, kv_dtype="int8")), mesh=mesh)
+    label8 = parallel_label(model, dm, "int8")
+    parallel_reset(par)
+    got8 = _serve_direct(par, int8_prompt, p["tokens"])[0]
+    counts[label8] = parallel_counts(par)
+    rank0_8 = launches_by_t(pa.launch_report())
+    par.close()
+    par = None
+    free_memory()
+    rec["int8_pool"] = {"tokens": len(got8),
+                        "equal_tp": got8 == tp_run["int8"],
+                        "launches": counts[label8],
+                        "launches_rank0_by_T": rank0_8}
+    pools = inside["pools"]
+    checks = {
+        "refused_without_flag": rec["refusal"].get("raised") == "ValueError"
+        and rec["refusal"]["gathered_view"],
+        "batch_equal_tp": all(b["equal_tp"] for b in batch.values()),
+        "int8_equal_tp": rec["int8_pool"]["equal_tp"],
+        "decode_launches": counts[label]["launches"][
+            "paged_decode_attention"] > 0
+        and sum(inside["rank0"]["paged_decode_attention"].values()) > 0,
+        "prefill_launches": counts[label]["launches"]["paged_attention"] > 0
+        and sum(inside["rank0"]["paged_attention"].values()) > 0,
+        "int8_launches": counts[label8]["int8_launches"][
+            "paged_attention"] > 0
+        and counts[label8]["int8_launches"]["paged_decode_attention"] > 0,
+        "no_plain_call": plain["calls"] == 0,
+        "blocks_split": all(r["owned_blocks"] * mesh.dp == r["pool_blocks"]
+                            for r in pools)
+        and [r["dp_rank"] for r in pools]
+        == [rk // mesh.tp for rk in range(mesh.size)],
+        "assembly_collectives": inside["step"]["collectives_per_step"].get(
+            "dp.assemble", 0) > 0,
+    }
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    rec["seconds"] = time.monotonic() - t0
+    log(json.dumps({"dp": rec}))
+    if not rec["ok"]:
+        raise AssertionError(f"the dp run failed: {checks}")
+    return counts
+
+
+def dryrun_phase(device="cuda") -> dict:
+    """parallel/dryrun.py's serving half at n = 4 (dp 2 x tp 2 over f32,
+    int8 and bf16 pools; debug-moe at ep 2 x tp 2; the tp feature pass;
+    the disk-tier handoff), every rank a process on the one card, the
+    tiny models at head dim 64."""
+    import shutil
+    from production_stack_tpu_torch.parallel import dryrun
+    t0 = time.monotonic()
+    where = os.path.join(REPO, "build", "dryrun_serving")
+    try:
+        report = dryrun.dryrun_serving(4, device, workdir=where)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    report["total_s"] = time.monotonic() - t0
+    log(json.dumps({"dryrun_serving": report}))
+    return report
+
+
 def parallel_phase(device="cuda") -> dict:
-    """Every model of PARALLEL (parallel_model); the launch counts of the
+    """Every model of PARALLEL (parallel_model, with its dp run), then
+    the serving dry run (dryrun_phase); the launch counts of the
     parallel serving runs by label."""
     counts = {}
     t0 = time.monotonic()
     for model, p in PARALLEL.items():
         counts.update(parallel_model(model, device, p))
+    dryrun_phase(device)
+    free_memory()
     log(json.dumps({"parallel_phase_s": time.monotonic() - t0}))
     return counts
 

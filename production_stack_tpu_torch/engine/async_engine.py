@@ -35,8 +35,8 @@ class EngineDeadError(RuntimeError):
 
 
 class AsyncLLMEngine:
-    def __init__(self, cfg: EngineConfig, params=None):
-        self.engine = LLMEngine(cfg, params=params)
+    def __init__(self, cfg: EngineConfig, params=None, mesh=None):
+        self.engine = LLMEngine(cfg, params=params, mesh=mesh)
         self._queues: Dict[str, asyncio.Queue] = {}
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._wake = threading.Condition()

@@ -18,7 +18,10 @@ BertModel directory), the efficiency ring's size
 JAX, and speculation pins the adaptive geometry off, as in JAX) are
 taken as the JAX config takes them. ``tensor_parallel_size`` and
 ``expert_parallel_size`` are served (parallel/); pipeline-parallel
-serving is refused with the JAX engine's message.
+serving is refused with the JAX engine's message. As in JAX, no field
+sizes dp: a mesh with dp > 1 is an argument of ``LLMEngine``, and
+``dp_gather_attention_ok`` acknowledges the gathered view it serves on
+(parallel/sharding.check_mesh).
 """
 
 import dataclasses
@@ -77,6 +80,13 @@ class EngineConfig:
     # no-alternatives rows speculate; other rows single-step inside the
     # same window (engine/runner.decode_spec)
     speculative_ngram_tokens: int = 0
+    # a serving mesh with dp > 1 splits the KV pool's blocks over dp, and
+    # every layer then attends over its blocks assembled from every dp
+    # rank (the gathered view), where the kernels would otherwise read
+    # the pool in place. That cost must be chosen: on the card such a
+    # mesh is refused unless this flag acknowledges it (then one
+    # warning); tp x ep meshes are unaffected
+    dp_gather_attention_ok: bool = False
     seed: int = 0
     # HF checkpoint directory (*.safetensors, else *.bin) loaded in
     # place of random weights (models/hf_loader.py)
@@ -207,7 +217,8 @@ class EngineConfig:
 
     @property
     def world_size(self) -> int:
-        """Ranks of the serving world: tensor x expert parallel."""
+        """Ranks of the serving world the sizes give: tensor x expert
+        parallel (a mesh passed to the engine may add dp)."""
         return self.tensor_parallel_size * self.expert_parallel_size
 
     @property

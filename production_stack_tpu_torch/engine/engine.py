@@ -88,15 +88,21 @@ its own work and not behind a decode window, and the loop never behind
 it; otherwise with the serving model's mean-pooled final hidden states
 (``runner.embed``, no cache).
 
-Tensor and expert parallelism (JAX ``engine.py:128-149``): with
-``world_size`` = ``tensor_parallel_size * expert_parallel_size`` > 1
-the runner is a ``parallel.workers.ParallelRunner``. This process is
-rank 0 — the scheduler, the block manager, the server and rank 0's
-shard — and the runner starts the other ranks, which run every runner
-call beside it on their shards (parallel/). The mesh is refused as the
-JAX engine refuses it (sharding.check_mesh: num_kv_heads % tp, ep on a
-dense model, num_experts % ep). Runtime adapter loads restack through
-``set_lora``, which reaches every rank; ``close`` joins the workers.
+Tensor, expert and data parallelism (JAX ``engine.py:78,128-163``):
+``LLMEngine(engine_cfg, params=None, mesh=None)`` takes a serving mesh
+(``parallel.mesh.MeshConfig(dp=, tp=, ep=)``), as the JAX engine takes
+a ``Mesh``; without one it builds ``tp x ep`` from
+``tensor_parallel_size * expert_parallel_size``. On a mesh of more than
+one rank the runner is a ``parallel.workers.ParallelRunner``. This
+process is rank 0 — the scheduler, the block manager, the server and
+rank 0's shard — and the runner starts the other ranks, which run every
+runner call beside it on their shards (parallel/). The mesh is refused
+as the JAX engine refuses it (sharding.check_mesh: dp > 1 on the card
+without ``dp_gather_attention_ok``, num_kv_heads % tp, ep on a dense
+model, num_experts % ep). The block manager is sized from the pool's
+padded block count, as JAX sizes it. Runtime adapter loads restack
+through ``set_lora``, which reaches every rank; ``close`` joins the
+workers.
 
 Every terminal ``StepOutput`` carries the sequence's phase timeline
 (``timing``: arrival, admission, first token, the cumulative queue wait,
@@ -155,6 +161,7 @@ from production_stack_tpu_torch.models import encoder as enc
 from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.config import get_config
 from production_stack_tpu_torch.models.hf_loader import load_checkpoint
+from production_stack_tpu_torch.parallel.mesh import MeshConfig
 from production_stack_tpu_torch.utils import init_logger
 
 logger = init_logger(__name__)
@@ -207,7 +214,7 @@ class DeadlineExceeded(Exception):
 
 
 class LLMEngine:
-    def __init__(self, engine_cfg: EngineConfig, params=None):
+    def __init__(self, engine_cfg: EngineConfig, params=None, mesh=None):
         self.cfg = engine_cfg
         self.model_cfg = dataclasses.replace(
             get_config(engine_cfg.model), dtype=_DTYPES[engine_cfg.dtype])
@@ -244,11 +251,16 @@ class LLMEngine:
                 device=engine_cfg.torch_device)
             lora_scaling = lcfg.scaling
         self.served_models = [engine_cfg.model] + list(self.lora_ids)
-        if engine_cfg.world_size > 1:
+        if mesh is None and engine_cfg.world_size > 1:
+            mesh = MeshConfig(tp=engine_cfg.tensor_parallel_size,
+                              ep=engine_cfg.expert_parallel_size)
+        # the serving mesh, None for one rank
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
             from production_stack_tpu_torch.parallel.workers import \
                 ParallelRunner
             self.runner = ParallelRunner(
-                self.model_cfg, engine_cfg, params=params,
+                self.model_cfg, engine_cfg, self.mesh, params=params,
                 lora_stacked=lora_stacked, lora_scaling=lora_scaling)
         else:
             self.runner = ModelRunner(self.model_cfg, engine_cfg,
@@ -1779,11 +1791,22 @@ class LLMEngine:
 
     def close(self) -> None:
         """Flush the KV writer and release the tiers' connections; stop
-        and join the worker ranks of a tp x ep engine."""
+        and join the worker ranks of a parallel engine."""
         if self.connector is not None:
             self.connector.close()
-        if self.cfg.world_size > 1:
+        if self.mesh is not None:
             self.runner.close()
+
+    def generate(self, prompt: str,
+                 options: Optional[SamplingOptions] = None) -> str:
+        """Blocking single-prompt convenience API (JAX ``generate``):
+        the prompt's text through the engine to its finished output
+        text."""
+        seq_id = self.add_request(self.tokenizer.encode(prompt), options)
+        while True:
+            for out in self.step():
+                if out.seq_id == seq_id and out.finished:
+                    return self.seqs[seq_id].output_text
 
     # ------------------------------------------------------------------
 

@@ -79,6 +79,16 @@ the same tokens and keeps the same decode carry without a broadcast.
 ``extract_chunk`` gathers the tp ranks' heads into the whole chunk, and
 ``inject_chunk`` writes the rank's heads of a whole chunk, so the tiers
 see the single-device wire layout.
+
+On a mesh with dp > 1 (JAX ``runner.py:89-91,161-177``) the pool's
+block count is padded up to a multiple of dp and each rank holds its
+N / dp blocks (models/kv.py; the engine sizes its block manager from
+the padded count, ``cache.num_blocks``); weights and adapters are
+replicated over dp, and every dp replica runs every row. The forward
+writes each token on its block's owner and attends over the assembled
+blocks (models/llama.py). ``extract_chunk`` assembles a chunk's
+positions over dp before the gather of heads over tp, and
+``inject_chunk`` writes a position on its block's owner only.
 """
 
 import time
@@ -94,7 +104,7 @@ from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.models.kv import (KVCache, make_cache,
-                                                  make_slot_cache,
+                                                  make_slot_cache, owned,
                                                   quantize_chunk)
 from production_stack_tpu_torch.models.quant import quantize_params
 from production_stack_tpu_torch.parallel import sharding
@@ -256,11 +266,16 @@ class ModelRunner:
             params.mesh = mesh
         self.params = params
         self.kv_heads = sharding.kv_heads(model_cfg, self.shard)
+        # under dp the pool's blocks split over the dp ranks, N padded
+        # up to a multiple of dp (sharding.padded_blocks)
+        dp, dp_rank = ((self.shard.dp, self.shard.dp_rank)
+                       if self.shard is not None else (1, 0))
         self.cache: KVCache = make_cache(
-            model_cfg.num_layers, engine_cfg.num_kv_blocks,
+            model_cfg.num_layers,
+            sharding.padded_blocks(engine_cfg.num_kv_blocks, dp),
             engine_cfg.kv_block_size, self.kv_heads,
             model_cfg.head_dim_, dtype=_KV_DTYPES[engine_cfg.kv_dtype],
-            device=self.device)
+            device=self.device, dp=dp, dp_rank=dp_rank)
         shape = (engine_cfg.max_num_seqs, engine_cfg.max_blocks_per_seq)
         self._tables_host = np.zeros(shape, np.int32)
         self._tables = torch.zeros(shape, dtype=torch.int32,
@@ -678,19 +693,29 @@ class ModelRunner:
         stream: ordered after the forwards that wrote them and before
         any later step reuses the blocks. An int8 pool is dequantized
         in f32 (int8 x scale), THEN rounded to bf16, the wire dtype
-        (JAX ``extract_chunk``). Under tp the ranks' heads are gathered
-        into the whole [L, size, Hkv, D] chunk on every tp rank."""
+        (JAX ``extract_chunk``). Under dp each position is read on its
+        block's owner and assembled over dp; under tp the ranks' heads
+        are gathered into the whole [L, size, Hkv, D] chunk on every tp
+        rank."""
         blk, off = self._slot_block_offsets(slot, start, size)
         c = self.cache
+        blk, own = owned(c, blk)
         # advanced indices on the block and offset axes come first:
-        # [size, L, Hkv, D] -> the chunk layout [L, size, Hkv, D]
-        k = c.k[:, blk, :, off, :].permute(1, 0, 2, 3)
-        v = c.v[:, blk, :, off, :].permute(1, 0, 2, 3)
+        # [size, L, Hkv, D]
+        k = c.k[:, blk, :, off, :]
+        v = c.v[:, blk, :, off, :]
         if c.quantized:
-            ks = c.ks[:, blk, :, off].permute(1, 0, 2)
-            vs = c.vs[:, blk, :, off].permute(1, 0, 2)
+            ks = c.ks[:, blk, :, off]
+            vs = c.vs[:, blk, :, off]
             k = (k.float() * ks[..., None]).to(torch.bfloat16)
             v = (v.float() * vs[..., None]).to(torch.bfloat16)
+        if c.dp > 1:
+            mine = own[:, None, None, None]
+            zero = torch.zeros((), dtype=k.dtype, device=k.device)
+            k = self.mesh.assemble(torch.where(mine, k, zero), "dp")
+            v = self.mesh.assemble(torch.where(mine, v, zero), "dp")
+        # the chunk layout [L, size, Hkv, D]
+        k, v = k.permute(1, 0, 2, 3), v.permute(1, 0, 2, 3)
         if self.mesh is not None:
             k = self.mesh.all_gather(k.contiguous(), dim=2)
             v = self.mesh.all_gather(v.contiguous(), dim=2)
@@ -707,13 +732,15 @@ class ModelRunner:
         injection). An int8 pool re-quantizes the chunk with
         models/kv.quantize_chunk, the recipe of serving writes (JAX
         ``inject_chunk``). A tp rank writes its heads of the whole
-        chunk."""
+        chunk; under dp a position is written on its block's owner (the
+        others write the scratch block)."""
         if self.shard is not None:
             hs = sharding.head_slice(self.shard, k_chunk.shape[2])
             k_chunk, v_chunk = k_chunk[:, :, hs], v_chunk[:, :, hs]
         size = k_chunk.shape[1]
         blk, off = self._slot_block_offsets(slot, start, size)
         c = self.cache
+        blk = owned(c, blk)[0]
         k = k_chunk.to(self.device, non_blocking=True)
         v = v_chunk.to(self.device, non_blocking=True)
         if c.quantized:

@@ -8,7 +8,9 @@ JAX's defaults), plus ``--device``.
 ``tp x ep`` world (parallel/workers.py: this process is rank 0, the
 other ranks are worker processes; NCCL where every rank has a card of
 its own, gloo where ranks share a card and on the CPU);
-``--pipeline-parallel-size`` above 1 is refused as in JAX.
+``--pipeline-parallel-size`` above 1 is refused as in JAX, and
+``--dp-gather-attention-ok`` is taken and inert, as in JAX (a dp mesh is
+an engine argument, parallel/sharding.check_mesh).
 
 Endpoints: ``/v1/completions`` and ``/v1/chat/completions`` (streamed
 as SSE or not; ``n`` choices, several prompts per completion request,
@@ -1381,6 +1383,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="shard a MoE model's experts over the mesh's ep "
                         "axis (must divide num_experts; composes with "
                         "--tensor-parallel-size)")
+    p.add_argument("--dp-gather-attention-ok", action="store_true",
+                   help="acknowledge serving on a dp>1 mesh on the "
+                        "gathered view (each layer's KV blocks assembled "
+                        "over dp before the paged kernels read them, ~3x "
+                        "decode KV traffic); without this flag such a "
+                        "mesh refuses to construct on the card. Inert "
+                        "here, as in JAX: the server builds no dp mesh")
     p.add_argument("--max-num-seqs", type=int, default=8)
     p.add_argument("--max-waiting-seqs", type=int, default=None,
                    help="bounded admission: shed (503 + Retry-After) "
@@ -1477,6 +1486,7 @@ def main(argv=None) -> None:
         tensor_parallel_size=args.tensor_parallel_size,
         pipeline_parallel_size=args.pipeline_parallel_size,
         expert_parallel_size=args.expert_parallel_size,
+        dp_gather_attention_ok=args.dp_gather_attention_ok,
         max_num_seqs=args.max_num_seqs,
         max_waiting_seqs=args.max_waiting_seqs,
         max_queue_delay_ms=args.max_queue_delay_ms,

@@ -18,6 +18,22 @@ weight recipe over the head dim). ``write_chunk_q`` / ``write_at_q``
 quantize and scatter payload and scales through the same addresses;
 ``gather_view_q`` dequantizes in f32 and casts the product, as the
 kernels dequantize in f32.
+
+Under a dp > 1 serving mesh (JAX ``cache_pspec``: blocks over dp) a
+rank's pool (``make_cache(dp=, dp_rank=)``) holds its N / dp blocks
+``[dp_rank * N/dp, (dp_rank + 1) * N/dp)`` of the N, as local blocks
+0..N/dp - 1, and one more, the scratch block (local N/dp) that no table
+names. Trash block 0 lives on dp rank 0, as in JAX. Every rank runs
+every row, so each computes every token's K/V; ``owned`` maps a
+token's block to its local index on the rank that owns it and to the
+scratch block on the others, so the pool's blocks hold what a single
+pool would, each on one rank. ``gather_owned`` takes the
+blocks a rank owns of the first nb entries of every table (zeros where
+it owns none; an unallocated entry, 0, reads block 0 on its owner, as
+``gather_view`` does), and one sum over the dp ranks
+(``ServingMesh.assemble``) gives every rank the whole [B, nb, Hkv, Bs,
+D] copy (``assemble_blocks``), which the paged kernels read
+(ops/paged_attention.py ``assembled_tables``).
 """
 
 from dataclasses import dataclass
@@ -36,10 +52,26 @@ class KVCache:
     # scale; None = full-precision pool
     ks: Optional[torch.Tensor] = None  # [L, N, Hkv, Bs] f32
     vs: Optional[torch.Tensor] = None
+    # a rank's part of a pool whose block axis dp > 1 ranks split: its
+    # N / dp blocks and the scratch block (the module doc)
+    dp: int = 1
+    dp_rank: int = 0
 
     @property
     def num_blocks(self) -> int:
-        return self.k.shape[1]
+        """Blocks of the whole pool (all dp ranks'), trash block 0
+        included."""
+        return self.local_blocks * self.dp
+
+    @property
+    def local_blocks(self) -> int:
+        """Blocks this rank owns (the scratch block not counted)."""
+        return self.k.shape[1] - (self.dp > 1)
+
+    @property
+    def first_block(self) -> int:
+        """The pool's id of this rank's local block 0."""
+        return self.dp_rank * self.local_blocks
 
     @property
     def block_size(self) -> int:
@@ -55,19 +87,27 @@ _KV_DTYPES = (torch.bfloat16, torch.float32, torch.int8)
 
 def make_cache(num_layers: int, num_blocks: int, block_size: int,
                num_kv_heads: int, head_dim: int,
-               dtype=torch.bfloat16, device="cuda") -> KVCache:
+               dtype=torch.bfloat16, device="cuda", dp: int = 1,
+               dp_rank: int = 0) -> KVCache:
     """Block pool. num_blocks INCLUDES the reserved trash block 0.
     dtype torch.int8 allocates the quantized pool: int8 payload plus
-    per-(token, head) f32 scales, zeros. Raises without CUDA unless
-    device="cpu" is asked for."""
+    per-(token, head) f32 scales, zeros. dp > 1: rank dp_rank's part of
+    a pool of num_blocks (a multiple of dp) whose blocks dp ranks split,
+    its num_blocks / dp blocks and the scratch block. Raises without
+    CUDA unless device="cpu" is asked for."""
     device = resolve_device(device)
     if dtype not in _KV_DTYPES:
         raise NotImplementedError(
             f"kv dtype {dtype} is not implemented in the port "
             f"(bfloat16, float32 or int8)")
-    shape = (num_layers, num_blocks, num_kv_heads, block_size, head_dim)
+    if num_blocks % dp or not 0 <= dp_rank < dp:
+        raise ValueError(f"{num_blocks} blocks do not split over dp={dp} "
+                         f"(rank {dp_rank})")
+    local = num_blocks // dp + (dp > 1)
+    shape = (num_layers, local, num_kv_heads, block_size, head_dim)
     cache = KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                    v=torch.zeros(shape, dtype=dtype, device=device))
+                    v=torch.zeros(shape, dtype=dtype, device=device),
+                    dp=dp, dp_rank=dp_rank)
     if dtype == torch.int8:
         cache.ks = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
         cache.vs = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
@@ -114,6 +154,20 @@ def chunk_addresses(tables: torch.Tensor, positions: torch.Tensor,
         oob = oob | ~valid
     blk = torch.where(oob, torch.zeros_like(blk), blk)
     return blk.reshape(-1).long(), off.reshape(-1).long()
+
+
+def owned(cache: KVCache, blk: torch.Tensor
+          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(local block ids, owned mask) of pool block ids on this rank: an
+    owned block's local index, any other block's the scratch block's. A
+    whole pool (dp = 1): the ids as they are and None, launching
+    nothing."""
+    if cache.dp == 1:
+        return blk, None
+    n = cache.local_blocks
+    local = blk - cache.first_block
+    own = (local >= 0) & (local < n)
+    return torch.where(own, local, torch.full_like(local, n)), own
 
 
 def write_at(cache_layer: torch.Tensor, new: torch.Tensor,
@@ -202,3 +256,40 @@ def gather_view_q(cache_layer: torch.Tensor, scale_layer: torch.Tensor,
     s = scale_layer[t].float()                          # [B,nb,Hkv,Bs]
     g = (g * s[..., None]).to(dtype).permute(0, 1, 3, 2, 4)
     return g.reshape(t.shape[0], nb * Bs, Hkv, cache_layer.shape[-1])
+
+
+def gather_owned(layer: torch.Tensor, cache: KVCache, tables: torch.Tensor,
+                 nb: int) -> torch.Tensor:
+    """The first nb blocks of every table row that this rank owns, in
+    pool layout [B, nb, ...] (layer: one layer of the pool [N, Hkv, Bs,
+    D] or of its scales [N, Hkv, Bs]), zeros where another rank owns the
+    block."""
+    local, own = owned(cache, tables[:, :nb].long())
+    g = layer[local]
+    if own is None:
+        return g
+    own = own.reshape(own.shape + (1,) * (g.dim() - 2))
+    return torch.where(own, g, torch.zeros((), dtype=g.dtype,
+                                           device=g.device))
+
+
+def assemble_blocks(cache: KVCache, l: int, tables: torch.Tensor, nb: int,
+                    mesh) -> Tuple[torch.Tensor, torch.Tensor,
+                                   Optional[torch.Tensor],
+                                   Optional[torch.Tensor]]:
+    """Layer l's first nb blocks of every table row, whole on every dp
+    rank: (k, v [B * nb, Hkv, Bs, D], and an int8 pool's ks, vs [B * nb,
+    Hkv, Bs] or None), block b * nb + j holding row b's j-th. Each rank
+    gathers its own blocks (gather_owned) and one sum over the mesh's dp
+    ranks per tensor kind, bit for bit, assembles them
+    (ServingMesh.assemble)."""
+    def whole(a, b):
+        t = mesh.assemble(torch.stack([gather_owned(a[l], cache, tables, nb),
+                                       gather_owned(b[l], cache, tables,
+                                                    nb)]), "dp")
+        return t.flatten(1, 2).unbind(0)
+    k, v = whole(cache.k, cache.v)
+    ks = vs = None
+    if cache.quantized:
+        ks, vs = whole(cache.ks, cache.vs)
+    return k, v, ks, vs

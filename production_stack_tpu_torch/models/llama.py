@@ -24,6 +24,13 @@ head applies the per-vocab scale to its f32 product. On an int8 pool
 (``KVCache.quantized``) K/V are quantized as they are written
 (``write_at_q``) and both kernels read the pool with its scales.
 
+Under a dp > 1 serving mesh (``cache.dp``, models/kv.py) a token's K/V
+are written by the dp rank that owns its block only (``kv.owned``),
+and each layer attends over its blocks
+assembled from every dp rank (``kv.assemble_blocks``: one sum over dp)
+through the same kernels (``pa.assembled_tables``), where JAX reads its
+jnp gathered view (``llama.py:193-226``).
+
 Gemma-2's deviations are those of the JAX forward: norm gains stored
 around an implicit 1 (``rms_norm_offset``, initialised to zeros),
 embeddings scaled by sqrt(hidden) in f32, the attention scale from
@@ -78,9 +85,10 @@ from torch import nn
 
 from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.config import ModelConfig
-from production_stack_tpu_torch.models.kv import (KVCache, chunk_addresses,
-                                                  linear_tables, write_at,
-                                                  write_at_q)
+from production_stack_tpu_torch.models.kv import (KVCache, assemble_blocks,
+                                                  chunk_addresses,
+                                                  linear_tables, owned,
+                                                  write_at, write_at_q)
 from production_stack_tpu_torch.models.quant import (Int8Weight,
                                                      QuantizedWeight,
                                                      dequant_matmul,
@@ -279,32 +287,42 @@ def _layer(cfg: ModelConfig, model: Llama, l: int, lp: "_Layer",
            x: torch.Tensor, rows: Tuple[torch.Tensor, torch.Tensor], starts,
            cache: KVCache, block_tables, nb: int,
            addresses: Tuple[torch.Tensor, torch.Tensor], lora=None,
-           valid: Optional[torch.Tensor] = None):
+           valid: Optional[torch.Tensor] = None, view_tables=None):
     """One transformer block (lp: layer l's weights, layer_params) over
     the paged pool; rows = this chunk's rope rows and addresses = its KV
-    write addresses, both shared by every layer. The chunk's K/V are written first, then the paged
-    kernels attend. lora: (gathered factors, scaling) or None; valid:
-    the chunk's token mask [B,T] (MoE routing), or None."""
+    write addresses (on this rank's part of the pool), both shared by
+    every layer. The chunk's K/V are written first, then the paged
+    kernels attend: over the pool through block_tables, or, on a pool
+    whose blocks dp splits, over the layer's blocks assembled from every
+    dp rank through view_tables (pa.assembled_tables). lora: (gathered
+    factors, scaling) or None; valid: the chunk's token mask [B,T] (MoE
+    routing), or None."""
     def paged(q, k, v):
         if cache.quantized:
             k_pool, k_scales = write_at_q(cache.k[l], cache.ks[l], k,
                                           *addresses)
             v_pool, v_scales = write_at_q(cache.v[l], cache.vs[l], v,
                                           *addresses)
-            scales = dict(k_scales=k_scales, v_scales=v_scales)
         else:
             k_pool = write_at(cache.k[l], k, *addresses)
             v_pool = write_at(cache.v[l], v, *addresses)
-            scales = {}
+            k_scales = v_scales = None
+        tables = block_tables
+        if cache.dp > 1:
+            k_pool, v_pool, k_scales, v_scales = assemble_blocks(
+                cache, l, block_tables, nb, model.mesh)
+            tables = view_tables
+        scales = ({} if k_scales is None
+                  else dict(k_scales=k_scales, v_scales=v_scales))
         kw = dict(nb=nb, scale=attn_scale(cfg), window=layer_window(cfg, l),
                   softcap=cfg.attn_logit_softcap or 0.0, **scales)
         if model.shard is not None:
             return pa.paged_attention_sharded(
-                q, k_pool, v_pool, block_tables, starts, model.shard,
+                q, k_pool, v_pool, tables, starts, model.shard,
                 num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, **kw)
         attn_fn = (pa.paged_decode_attention if q.shape[1] <= pa.DECODE_T_MAX
                    else pa.paged_attention)
-        return attn_fn(q, k_pool, v_pool, block_tables, starts, **kw)
+        return attn_fn(q, k_pool, v_pool, tables, starts, **kw)
     return _block(cfg, model, l, lp, x, rows, paged, lora, valid)
 
 
@@ -449,13 +467,18 @@ def hidden(model: Llama, cfg: ModelConfig, tokens: torch.Tensor,
     nb = MB if kv_len is None else min(-(-kv_len // Bs), MB)
     starts = positions[:, 0].to(torch.int32).contiguous()
     rows = rope_rows(positions, *rope)
-    addresses = chunk_addresses(block_tables, positions, Bs, token_valid)
+    blk, off = chunk_addresses(block_tables, positions, Bs, token_valid)
+    # on a pool that dp splits: this rank's local blocks, the scratch
+    # block for the blocks other dp ranks own (a whole pool: blk itself)
+    addresses = (owned(cache, blk)[0], off)
+    view_tables = (pa.assembled_tables(B, nb, MB, device) if cache.dp > 1
+                   else None)
     x = _embed(model, cfg, tokens, sampled_ids)
     lora = None if lora_rows is None else (lora_rows, lora_scaling)
     # cfg's layers: a reference may run the first layers of a model
     for l, lp in enumerate(layer_params(model)[:cfg.num_layers]):
         x = _layer(cfg, model, l, lp, x, rows, starts, cache, block_tables,
-                   nb, addresses, lora, token_valid)
+                   nb, addresses, lora, token_valid, view_tables)
     return x
 
 

@@ -39,6 +39,14 @@ kernel shard-local on tp-only meshes only (``mesh_tp_only``); here an
 ep slice is a full replica of the attention, so every ``tp x ep``
 serving mesh keeps the kernels.
 
+Where dp > 1 splits the pool's blocks (JAX falls back to its jnp
+gathered view there, ``mesh_tp_only``), each layer's first nb blocks of
+every row are assembled over dp into a copy of B * nb blocks
+(models/kv.assemble_blocks), and the same kernels read the copy through
+``assembled_tables`` with the same nb, starts, window, softcap and
+scales: the decode split plan depends on nb alone, so every rank's
+output is the tp-only engine's, bit for bit.
+
 A row parked at ``start >= MB*Bs`` (an idle slot of the full-batch
 forward, whose output the engine discards) comes back as zeros from both
 the kernels and the plain version, which do no work for it. The Pallas
@@ -98,6 +106,10 @@ def launch_report() -> dict:
             "window_launches": dict(window_launches),
             "softcap_launches": dict(softcap_launches),
             "int8_launches": dict(int8_launches),
+            "verify_launches": {n: dict(c)
+                                for n, c in verify_launches.items()},
+            "verify_window_launches": {
+                n: dict(c) for n, c in verify_window_launches.items()},
             "step_launches": {B: dict(c) for B, c in step_launches.items()}}
 
 
@@ -352,6 +364,18 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _check_scales(k_pool, v_pool, k_scales, v_scales)
     return _launch("paged_attention", q, k_pool, v_pool, tables, starts,
                    nb, scale, window, softcap, k_scales, v_scales)
+
+
+def assembled_tables(B: int, nb: int, MB: int,
+                     device) -> torch.Tensor:
+    """Tables [B, MB] int32 over an assembled copy of B * nb blocks
+    (models/kv.assemble_blocks): row b's j-th block is b * nb + j, and
+    the columns past nb repeat its last one, so the tables keep the
+    pool's width MB, from which the kernels and the plain version read
+    the parked-row rule (start >= MB * Bs)."""
+    j = torch.arange(MB, device=device).clamp(max=nb - 1)
+    rows = torch.arange(B, device=device)[:, None] * nb
+    return (rows + j[None]).to(torch.int32)
 
 
 def paged_attention_sharded(q: torch.Tensor, k_pool: torch.Tensor,

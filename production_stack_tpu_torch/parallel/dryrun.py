@@ -1,9 +1,10 @@
-"""The training and pipeline halves of the JAX package's multichip dry
-run (``__graft_entry__.dryrun_multichip``: the sharded step, lines
-57-112; GPipe's loss, lines 283-299) over the port's training worlds.
+"""The JAX package's multichip dry run
+(``__graft_entry__.dryrun_multichip``) over the port's worlds: the
+training and pipeline halves (the sharded step, lines 57-112; GPipe's
+loss, lines 283-299) and the serving half (lines 114-281).
 
     python -m production_stack_tpu_torch.parallel.dryrun --devices 8
-    python -m production_stack_tpu_torch.parallel.dryrun --devices 8 \\
+    python -m production_stack_tpu_torch.parallel.dryrun --devices 4 \\
         --device cpu
 
 ``dryrun_multichip(n)`` factors n ranks as JAX does
@@ -18,26 +19,51 @@ batch: the loss within 1e-4 of the plain loss (JAX asserts 1e-3), every
 gradient within JAX's tolerance of the plain one (atol 2e-4, rtol
 2e-3). Any miss raises.
 
-Ranks are processes (spawned, one TCPStore) on the card, rank r on
-``cuda:(r % device_count)``, and threads over one in-memory store on
-the CPU; the backend is the serving rule (parallel/mesh.py): NCCL where
-every rank has a card, gloo where ranks share one and on the CPU.
+``dryrun_serving(n)`` serves, at JAX's sizes (debug-tiny and debug-moe,
+f32, max_model_len 128, chunks of 32, windows of 4; on the card at head
+dim 64, the smallest the paged kernels take, from a config.json written
+for the run), with greedy requests of 8 tokens:
+- a dp x tp engine (tp = 2 where n >= 2, dp = n // tp, behind
+  ``dp_gather_attention_ok``) on the 2 dp prompts of JAX's, against the
+  single-rank engine, over an f32 and an int8 pool, and over a bf16
+  pool against the tp-only engine;
+- debug-moe at ep x tp (2 x 2 where n >= 4) on the first two prompts,
+  against the single-rank engine (JAX computes both and compares
+  neither; here they must agree);
+- the feature pass over tp (n-gram speculation at 3, a guided row, the
+  first prompt again as a prefix-cache hit, a shaped row) against the
+  single-rank engine, with a hit rate above 0 on both;
+- a disaggregated handoff over tp: a producer publishes a 64-token
+  prompt's KV to a disk tier, a consumer hits it and gives the
+  producer's tokens.
+Any miss raises, as JAX asserts. Its engines spawn their worker ranks.
+
+Training ranks are processes (spawned, one TCPStore) on the card, rank
+r on ``cuda:(r % device_count)``, and threads over one in-memory store
+on the CPU; the backend is the serving rule (parallel/mesh.py): NCCL
+where every rank has a card, gloo where ranks share one and on the CPU.
 """
 
 import argparse
+import dataclasses
 import datetime
 import json
 import multiprocessing
+import os
 import queue
+import tempfile
 import threading
 import time
 import traceback
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.engine import LLMEngine
+from production_stack_tpu_torch.engine.scheduler import SamplingOptions
 from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models.config import ModelConfig
 from production_stack_tpu_torch.parallel import pipeline, train
@@ -273,17 +299,224 @@ def dryrun_multichip(n_devices: int, device="cuda", steps: int = 3,
     }
 
 
+# ------------------------------------------------------------- serving
+
+# the JAX dry run's serving geometry (__graft_entry__.py:127-131)
+SERVE = dict(max_model_len=128, prefill_chunk=32, prefill_buckets=(32,),
+             decode_window=4, dtype="float32", kv_dtype="float32")
+GREEDY = dict(temperature=0.0, max_tokens=8, ignore_eos=True)
+# the feature pass's repetitive prompts (n-gram drafts accept runs; longer
+# than a block of 16, so the first run registers a block the second hits)
+SPEC_PROMPTS = ([7, 8, 9] * 13 + [7], [5, 6] * 20)
+HANDOFF_PROMPT = list(range(40, 104))    # two publishable chunks of 32
+# head dim of the tiny models on the card: the paged kernels take 64,
+# 128 and 256 (JAX's kernel is off at debug-tiny's 32 as well)
+CARD_HEAD_DIM = 64
+_HF_CONFIGS = {
+    "debug-tiny": {"model_type": "llama", "intermediate_size": 384},
+    "debug-moe": {"model_type": "mixtral", "intermediate_size": 256,
+                  "num_local_experts": 4, "num_experts_per_tok": 2},
+}
+
+
+def tiny_model(name: str, device: torch.device, where: str) -> dict:
+    """The engine's model and tokenizer for a tiny preset: the preset on
+    the CPU; on the card a directory under `where` holding the preset's
+    config.json at head dim CARD_HEAD_DIM, with the preset's byte
+    tokenizer (named by the preset: a directory's tokenizer would be
+    read from the directory)."""
+    if device.type == "cpu":
+        return {"model": name, "tokenizer": name}
+    path = os.path.join(where, f"{name}-d{CARD_HEAD_DIM}")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(_HF_CONFIGS[name], vocab_size=512, hidden_size=128,
+                       num_hidden_layers=2, num_attention_heads=4,
+                       num_key_value_heads=2, head_dim=CARD_HEAD_DIM,
+                       max_position_embeddings=512,
+                       tie_word_embeddings=False), f)
+    return {"model": path, "tokenizer": name}
+
+
+def _drain(eng: LLMEngine, sids: List[str]) -> List[List[int]]:
+    """Step until every sequence of sids finished; their tokens."""
+    pending = set(sids)
+    for _ in range(500):
+        if not pending:
+            return [eng.seqs[s].output_tokens for s in sids]
+        pending -= {o.seq_id for o in eng.step() if o.finished}
+    raise AssertionError("serving dryrun did not converge")
+
+
+def _serve(cfg: EngineConfig, mesh, prompts, report=None):
+    """Greedy tokens of `prompts` through a new engine on `mesh`
+    (None: one rank), closed after; report(engine) fills a dict."""
+    eng = LLMEngine(cfg, mesh=mesh)
+    try:
+        opts = SamplingOptions(**GREEDY)
+        toks = _drain(eng, [eng.add_request(list(p), opts)
+                            for p in prompts])
+        if report is not None:
+            report(eng)
+        return toks
+    finally:
+        eng.close()
+
+
+def _feature_pass(cfg: EngineConfig, mesh) -> dict:
+    """JAX's feature pass (__graft_entry__._feature_pass) on one engine:
+    speculating greedy rows, a guided row, the first prompt again (a
+    prefix-cache hit), a shaped row; then the hit rate."""
+    eng = LLMEngine(cfg, mesh=mesh)
+    try:
+        opts = SamplingOptions(**GREEDY)
+        out = {"plain": _drain(eng, [eng.add_request(list(p), opts)
+                                     for p in SPEC_PROMPTS])}
+        out["guided"] = _drain(eng, [eng.add_request(
+            eng.tokenizer.encode("pick"), SamplingOptions(
+                temperature=0.0, max_tokens=12,
+                guided_regex=r"(one|two|three)", ignore_eos=True))])
+        out["again"] = _drain(eng, [eng.add_request(list(SPEC_PROMPTS[0]),
+                                                    opts)])
+        out["shaped"] = _drain(eng, [eng.add_request(
+            list(SPEC_PROMPTS[1]), SamplingOptions(
+                temperature=0.0, max_tokens=8, ignore_eos=True,
+                presence_penalty=2.0, min_tokens=6))])
+        out["hit_rate"] = eng.block_mgr.hit_rate
+        return out
+    finally:
+        eng.close()
+
+
+def _handoff(model: dict, device: str, mesh, tier: str) -> dict:
+    """A producer on `mesh` publishes HANDOFF_PROMPT's KV to the disk
+    tier `tier`; a consumer on `mesh` serves it from the tier."""
+    def cfg(role):
+        return EngineConfig(**model, device=device, max_num_seqs=2,
+                            **SERVE, kv_transfer_config={
+                                "kv_role": role, "chunk_size": 32,
+                                "local_cpu_gb": 0, "local_disk_path": tier})
+    opts = SamplingOptions(**GREEDY)
+    out = {}
+    for role in ("kv_producer", "kv_consumer"):
+        eng = LLMEngine(cfg(role), mesh=mesh)
+        try:
+            out[role] = _drain(eng, [eng.add_request(list(HANDOFF_PROMPT),
+                                                     opts)])[0]
+            eng.connector.flush()
+            out[role + "_hit_tokens"] = eng.connector.hit_tokens
+        finally:
+            eng.close()
+    return out
+
+
+def dryrun_serving(n_devices: int, device="cuda",
+                   workdir: Optional[str] = None) -> dict:
+    """The serving half of the dry run (the module doc) on n_devices
+    ranks; a report of what it measured (tokens, the dp engine's pool
+    per rank and collectives, hit rates and tokens, seconds per part).
+    workdir: where the card's model configs and the disk tier go (None:
+    a temporary directory). Any miss raises."""
+    if workdir is None:
+        with tempfile.TemporaryDirectory() as where:
+            return dryrun_serving(n_devices, device, where)
+    device = resolve_device(device)
+    dev = str(device)
+    tp = 2 if n_devices >= 2 else 1    # debug-tiny has 2 kv heads
+    dp = max(1, n_devices // tp)
+    ep = moe_tp = 2 if n_devices >= 4 else 1    # debug-moe: 4 experts
+    prompts = [list(range(3 + i, 23 + i)) for i in range(2 * dp)]
+    report = {"mesh": {"dp": dp, "tp": tp}, "seconds": {}}
+    tiny = tiny_model("debug-tiny", device, workdir)
+    moe = tiny_model("debug-moe", device, workdir)
+    base = EngineConfig(**tiny, device=dev, max_num_seqs=2 * dp,
+                        dp_gather_attention_ok=True, **SERVE)
+    serve_mesh = MeshConfig(dp=dp, tp=tp)
+
+    def dp_report(eng):
+        if eng.mesh is None:
+            return
+        report["dp_engine"] = {
+            "world": eng.runner.mesh.describe(),
+            "pool": eng.runner.map_ranks(
+                "production_stack_tpu_torch.parallel.workers:"
+                "pool_report"),
+            "block_manager_blocks": eng.block_mgr.num_blocks,
+            "collectives": dict(eng.runner.mesh.calls)}
+    for kv, cfg, other in (
+            ("float32", base, None),
+            ("int8", dataclasses.replace(base, kv_dtype="int8"), None),
+            ("bfloat16", dataclasses.replace(
+                base, dtype="bfloat16", kv_dtype="bfloat16"),
+             MeshConfig(tp=tp))):
+        t0 = time.monotonic()
+        got = _serve(cfg, serve_mesh, prompts,
+                     dp_report if kv == "float32" else None)
+        want = _serve(cfg, other, prompts)
+        _check(got == want, f"tp{tp}xdp{dp} {kv}-KV serving tokens "
+               f"diverge from {other or 'single-device'}: {got} vs "
+               f"{want}")
+        report[kv] = {"tokens": got, "against": str(other or "one rank")}
+        report["seconds"][kv] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    moe_cfg = EngineConfig(**moe, device=dev, max_num_seqs=2,
+                           **SERVE)
+    got = _serve(moe_cfg, MeshConfig(ep=ep, tp=moe_tp), prompts[:2])
+    want = _serve(moe_cfg, None, prompts[:2])
+    _check(got == want, f"ep{ep}xtp{moe_tp} MoE serving tokens "
+           f"diverge from single-device: {got} vs {want}")
+    report["moe"] = {"mesh": {"ep": ep, "tp": moe_tp}, "tokens": got}
+    report["seconds"]["moe"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    feat_mesh = MeshConfig(tp=tp)
+    feat_cfg = EngineConfig(**tiny, device=dev, max_num_seqs=2,
+                            speculative_ngram_tokens=3, kv_block_size=16,
+                            enable_prefix_caching=True, **SERVE)
+    sharded = _feature_pass(feat_cfg, feat_mesh)
+    solo = _feature_pass(feat_cfg, None)
+    for case in ("plain", "guided", "shaped", "again"):
+        _check(sharded[case] == solo[case],
+               f"tp{tp} {case} decode diverges: {sharded[case]} vs "
+               f"{solo[case]}")
+    _check(sharded["again"][0] == sharded["plain"][0],
+           f"tp{tp} prefix-cache re-run diverges from the first run: "
+           f"{sharded['again']} vs {sharded['plain']}")
+    _check(sharded["hit_rate"] > 0 and solo["hit_rate"] > 0,
+           f"prefix cache never hit (sharded {sharded['hit_rate']}, "
+           f"solo {solo['hit_rate']})")
+    report["features"] = {"tp": tp, **sharded,
+                          "solo_hit_rate": solo["hit_rate"]}
+    report["seconds"]["features"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    tier = os.path.join(workdir, "tier")
+    handoff = _handoff(tiny, dev, feat_mesh, tier)
+    _check(handoff["kv_consumer_hit_tokens"] > 0,
+           "consumer never hit the produced KV tier")
+    _check(handoff["kv_consumer"] == handoff["kv_producer"],
+           f"disagg handoff diverges: consumer "
+           f"{handoff['kv_consumer']} vs producer "
+           f"{handoff['kv_producer']}")
+    report["handoff"] = handoff
+    report["seconds"]["handoff"] = time.monotonic() - t0
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--devices", type=int, default=8,
-                    help="ranks of the training world (8: dp 2 x sp 2 x "
-                         "tp 2)")
+                    help="ranks of the worlds (8: training at dp 2 x sp "
+                         "2 x tp 2, serving at dp 4 x tp 2)")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (ranks as processes) or cpu (threads)")
+                    help="cuda (ranks as processes) or cpu (training "
+                         "ranks as threads, serving ranks as processes)")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args(argv)
-    print(json.dumps(dryrun_multichip(args.devices, args.device,
-                                      args.steps)))
+    print(json.dumps({
+        "training": dryrun_multichip(args.devices, args.device, args.steps),
+        "serving": dryrun_serving(args.devices, args.device)}))
     return 0
 
 

@@ -1,6 +1,6 @@
-"""The meshes: their axes, the process groups of a ``tp x ep`` serving
-world and of a ``(pp, dp, sp, tp)`` training world, and the collectives
-the sharded forward and backward call
+"""The meshes: their axes, the process groups of a ``dp x ep x tp``
+serving world and of a ``(pp, dp, sp, tp)`` training world, and the
+collectives the sharded forward and backward call
 (``production_stack_tpu/parallel/mesh.py``).
 
 The JAX package lays the slice's chips out as a ``jax.sharding.Mesh``
@@ -9,18 +9,24 @@ every rank is a process (the engine is rank 0, parallel/workers.py
 starts the others) and the forward calls the collectives itself, over
 torch.distributed process groups built from one store:
 
-- a **tp group** within each ep slice (ranks ``ep_rank * tp .. + tp``):
-  the all-reduce after the row-parallel ``o`` and ``down`` products and
-  after the vocab-parallel embedding, and the gather of the vocab slices
-  of the logits;
-- the **world** group (every rank): the all-reduce that combines the
-  routed experts' partial outputs, each rank holding E / ep experts with
-  their inner dimension over tp;
+- a **tp group** for each line of tp ranks (one per dp replica and ep
+  slice): the all-reduce after the row-parallel ``o`` and ``down``
+  products and after the vocab-parallel embedding, and the gather of
+  the vocab slices of the logits;
+- the **world** group of each dp replica (its ep x tp ranks; every rank
+  when dp = 1): the all-reduce that combines the routed experts'
+  partial outputs, each rank holding E / ep experts with their inner
+  dimension over tp. It spans one replica only: a group over every
+  rank would add each replica's partials to the others';
+- a **dp group** for each (ep, tp) position (its dp ranks): the
+  assembly of the KV pool's blocks, which dp splits (models/kv.py),
+  summed bit for bit (``assemble``);
 - a **control** group on the CPU (gloo, every rank): the start-up
   barrier and small reports, off the device.
 
-Ranks are numbered ``ep_rank * tp + tp_rank``: tp innermost, as the JAX
-mesh reshapes its devices ``(pp, dp, sp, ep, tp)``.
+Ranks are numbered ``(dp_rank * ep + ep_rank) * tp + tp_rank``: tp
+innermost, as the JAX mesh reshapes its devices ``(pp, dp, sp, ep,
+tp)``.
 
 A training world (``TrainWorld``) numbers its ranks by the same reshape
 with ep = 1 and builds, from one store, a group for each line of ranks
@@ -99,38 +105,48 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Shard:
-    """A rank's coordinates on a serving mesh (dp = sp = pp = 1): its
-    index along tp and ep and the axes' sizes."""
+    """A rank's coordinates on a serving mesh (sp = pp = 1): its index
+    along tp, ep and dp and the axes' sizes."""
     tp: int = 1
     ep: int = 1
     tp_rank: int = 0
     ep_rank: int = 0
+    dp: int = 1
+    dp_rank: int = 0
 
     @staticmethod
     def of(cfg: MeshConfig, rank: int) -> "Shard":
-        if cfg.size != cfg.tp * cfg.ep:
-            raise ValueError(f"a serving mesh has tp and ep axes only "
+        if cfg.sp != 1 or cfg.pp != 1:
+            raise ValueError(f"a serving mesh has dp, ep and tp axes only "
                              f"(got {cfg})")
         if not 0 <= rank < cfg.size:
             raise ValueError(f"rank {rank} outside a world of {cfg.size}")
         return Shard(tp=cfg.tp, ep=cfg.ep, tp_rank=rank % cfg.tp,
-                     ep_rank=rank // cfg.tp)
+                     ep_rank=rank // cfg.tp % cfg.ep, dp=cfg.dp,
+                     dp_rank=rank // (cfg.tp * cfg.ep))
 
     @property
     def rank(self) -> int:
-        return self.ep_rank * self.tp + self.tp_rank
+        return (self.dp_rank * self.ep + self.ep_rank) * self.tp \
+            + self.tp_rank
 
     @property
     def world(self) -> int:
-        return self.tp * self.ep
+        """Every rank of the serving world: dp x ep x tp."""
+        return self.dp * self.ep * self.tp
 
     def axis(self, name: Optional[str]) -> Tuple[int, int]:
-        """(index, size) of this rank along a mesh axis; (0, 1) along
-        the axes a serving mesh does not split (and None)."""
+        """(index, size) of this rank along a mesh axis, or along
+        "world", one dp replica's ep x tp ranks; (0, 1) along the axes a
+        serving mesh does not split (and None)."""
         if name == "tp":
             return self.tp_rank, self.tp
         if name == "ep":
             return self.ep_rank, self.ep
+        if name == "dp":
+            return self.dp_rank, self.dp
+        if name == "world":
+            return self.ep_rank * self.tp + self.tp_rank, self.ep * self.tp
         return 0, 1
 
 
@@ -181,10 +197,10 @@ def _all_gather(group, backend: str, t: torch.Tensor, dim: int, n: int,
 
 
 class ServingMesh:
-    """One rank's view of a ``tp x ep`` serving world: its coordinates
-    (``shard``), its device, the backend, the tp / world / control
-    groups, and the collectives of the sharded forward. ``calls`` counts
-    the collectives issued, by axis and kind."""
+    """One rank's view of a ``dp x ep x tp`` serving world: its
+    coordinates (``shard``), its device, the backend, the tp / world /
+    dp / control groups, and the collectives of the sharded forward.
+    ``calls`` counts the collectives issued, by axis and kind."""
 
     def __init__(self, cfg: MeshConfig, rank: int, store,
                  device: torch.device, timeout_s: float):
@@ -199,25 +215,30 @@ class ServingMesh:
         self.groups = {}
         if s.tp > 1:
             self.groups["tp"] = _group(self.backend, store,
-                                       f"tp{s.ep_rank}", s.tp_rank, s.tp,
-                                       timeout)
-        if s.world > 1 and s.ep > 1:
-            self.groups["world"] = _group(self.backend, store, "world",
-                                          s.rank, s.world, timeout)
+                                       f"tp{s.dp_rank}.{s.ep_rank}",
+                                       s.tp_rank, s.tp, timeout)
+        if s.ep > 1:
+            self.groups["world"] = _group(self.backend, store,
+                                          f"world{s.dp_rank}",
+                                          *s.axis("world"), timeout)
         elif "tp" in self.groups:
-            # one ep slice: the world is the tp group
+            # one ep slice: a replica's world is its tp group
             self.groups["world"] = self.groups["tp"]
+        if s.dp > 1:
+            self.groups["dp"] = _group(self.backend, store,
+                                       f"dp{s.ep_rank}.{s.tp_rank}",
+                                       s.dp_rank, s.dp, timeout)
         self.control = dist.ProcessGroupGloo(
             dist.PrefixStore("control", store), s.rank, s.world, timeout)
         self.calls: Dict[str, int] = collections.Counter()
 
     def size(self, axis: str) -> int:
-        return self.shard.world if axis == "world" else \
-            self.shard.axis(axis)[1]
+        return self.shard.axis(axis)[1]
 
     def all_reduce(self, t: torch.Tensor, axis: str = "tp") -> torch.Tensor:
-        """Sum t over the ranks of `axis` ("tp": this rank's ep slice,
-        "world": every rank), in place; a size-1 axis is a no-op."""
+        """Sum t over the ranks of `axis` ("tp": this rank's tp line,
+        "world": its dp replica, "dp": its dp line), in place; a size-1
+        axis is a no-op."""
         group = self.groups.get(axis)
         if group is None:
             return t
@@ -225,6 +246,30 @@ class ServingMesh:
         group.allreduce([t]).wait()
         self.calls[axis + ".all_reduce"] += 1
         return t
+
+    def assemble(self, t: torch.Tensor, axis: str = "dp") -> torch.Tensor:
+        """The whole of a tensor of which each rank of `axis` holds some
+        elements and zeros elsewhere (every element held by one rank),
+        on every rank of the axis, bit for bit: the ranks' bit patterns
+        are summed as integers (int32 words for 2- and 4-byte floats,
+        int8 as it is), where a float sum would turn an owner's -0.0
+        into +0.0. A size-1 axis: t."""
+        group = self.groups.get(axis)
+        if group is None:
+            return t
+        t = t.contiguous()
+        if t.element_size() == 1:
+            bits = t
+        elif t.element_size() == 4 or (t.element_size() == 2
+                                       and t.shape[-1] % 2 == 0):
+            bits = t.view(torch.int32)
+        else:
+            raise ValueError(f"assemble takes 1- and 4-byte elements and "
+                             f"2-byte ones in pairs (got {t.dtype} "
+                             f"{tuple(t.shape)})")
+        group.allreduce([bits]).wait()
+        self.calls[axis + ".assemble"] += 1
+        return bits.view(t.dtype)
 
     def copy_to_tp(self, t: torch.Tensor) -> torch.Tensor:
         """The activation ahead of the column-parallel products: serving
@@ -238,9 +283,8 @@ class ServingMesh:
         group = self.groups.get(axis)
         if group is None:
             return t
-        index = self.shard.tp_rank if axis == "tp" else self.shard.rank
-        out = _all_gather(group, self.backend, t, dim, self.size(axis),
-                          index)
+        index, size = self.shard.axis(axis)
+        out = _all_gather(group, self.backend, t, dim, size, index)
         self.calls[axis + ".all_gather"] += 1
         return out
 
@@ -253,8 +297,8 @@ class ServingMesh:
                                f"{self.shard.world}")
 
     def describe(self) -> dict:
-        return {"backend": self.backend, "tp": self.shard.tp,
-                "ep": self.shard.ep,
+        return {"backend": self.backend, "dp": self.shard.dp,
+                "tp": self.shard.tp, "ep": self.shard.ep,
                 "ranks": device_map(self.device if self.device.type == "cpu"
                                     else torch.device("cuda"),
                                     self.shard.world)}

@@ -15,10 +15,12 @@ axis it is split over (None: whole on every rank).
   expert stacks split E over ``ep`` and their inner dimension over
   ``tp``, the shared expert is an ordinary tp-sharded MLP with a
   replicated scalar gate.
-- The KV pool ``[L, N, Hkv, Bs, D]`` splits its kv heads over tp
-  (``cache_pspec``); the int8 pool's scales ``[L, N, Hkv, Bs]`` follow
-  (``cache_scale_pspec``). A serving mesh has no dp axis: blocks stay
-  whole.
+- The KV pool ``[L, N, Hkv, Bs, D]`` splits its blocks over dp and its
+  kv heads over tp (``cache_pspec``); the int8 pool's scales ``[L, N,
+  Hkv, Bs]`` follow (``cache_scale_pspec``). N is padded up to a
+  multiple of dp (``padded_blocks``, JAX ``runner.py:89-91``). Weights
+  and adapters name no dp axis: every dp replica holds them whole (cut
+  over tp and ep only), and the tables are replicated.
 
 Where JAX places a full array with ``jax.device_put`` and a
 NamedSharding, ``slice_spec`` cuts the rank's block of each split axis:
@@ -44,7 +46,10 @@ from production_stack_tpu_torch.models.kv import KVCache
 from production_stack_tpu_torch.models.quant import (Int8Weight,
                                                      QuantizedWeight,
                                                      is_quantized)
-from production_stack_tpu_torch.parallel.mesh import Shard
+from production_stack_tpu_torch.parallel.mesh import AXES, Shard
+from production_stack_tpu_torch.utils import init_logger
+
+logger = init_logger(__name__)
 
 
 def P(*axes: Optional[str]) -> Tuple[Optional[str], ...]:
@@ -224,9 +229,35 @@ def _device_of(model) -> torch.device:
     return torch.device("cpu")
 
 
-def check_mesh(cfg: ModelConfig, tp: int, ep: int) -> None:
-    """The JAX engine's refusals of a serving mesh (runner.py:142-147,
-    engine.py:133-145), with its messages."""
+def check_mesh(cfg: ModelConfig, tp: int, ep: int, dp: int = 1,
+               device: Optional[torch.device] = None,
+               dp_gather_attention_ok: bool = False) -> None:
+    """The JAX engine's refusals of a serving mesh (runner.py:113-147,
+    engine.py:133-145), with its messages. A mesh whose dp > 1 splits
+    the pool's blocks serves on the gathered view (each layer's blocks
+    assembled over dp before the kernels read them, models/kv.py): on
+    the card, where the kernels would otherwise read the pool in place,
+    it is refused unless dp_gather_attention_ok acknowledges it (then
+    one warning); on the CPU, where the plain versions run, it is a
+    warning only, as JAX warns where its kernel is off. An ep slice is
+    a full replica of the attention, so ep alone keeps the kernels."""
+    if dp > 1:
+        shape = dict(zip(AXES, (1, dp, 1, ep, tp)))
+        cliff = (
+            f"serving mesh {shape} shards the KV pool's block axis: the "
+            f"paged-attention kernels read a rank's own blocks only, so "
+            f"this config serves on the gathered-view path (each layer's "
+            f"blocks assembled over dp, ~3x decode KV traffic). Prefer "
+            f"tp-only serving meshes with replicaCount for data "
+            f"parallelism.")
+        if device is None or device.type != "cuda":
+            logger.warning("paged-attention kernels do not run on the "
+                           "CPU: " + cliff)
+        elif dp_gather_attention_ok:
+            logger.warning("dp_gather_attention_ok=True: " + cliff)
+        else:
+            raise ValueError(cliff + " Set dp_gather_attention_ok=True to "
+                             "serve on the gather path anyway.")
     if cfg.num_kv_heads % tp:
         raise ValueError(
             f"tensor_parallel_size {tp} must divide num_kv_heads "
@@ -243,6 +274,13 @@ def check_mesh(cfg: ModelConfig, tp: int, ep: int) -> None:
                 f"num_experts={cfg.num_experts}")
 
 
+def padded_blocks(num_blocks: int, dp: int) -> int:
+    """The pool's block count padded up to a multiple of dp, as the JAX
+    runner pads it; the extra blocks are allocatable (the engine sizes
+    its block manager from the pool)."""
+    return -(-num_blocks // dp) * dp
+
+
 def cache_pspec() -> tuple:
     """KV pool [L, N, Hkv, Bs, D]: blocks over dp, kv heads over tp."""
     return P(None, "dp", "tp", None, None)
@@ -255,12 +293,19 @@ def cache_scale_pspec() -> tuple:
 
 
 def shard_cache(cache: KVCache, shard: Shard) -> KVCache:
-    """This rank's heads of a full pool (and of its scales)."""
-    cut = lambda t, spec: slice_spec(t, spec, shard, "kv pool").contiguous()
+    """This rank's part of a full pool (and of its scales): its Hkv / tp
+    heads and, with dp > 1, its N / dp blocks (N a multiple of dp) and
+    a zeroed scratch block after them (models/kv.py)."""
+    def cut(t, spec):
+        t = slice_spec(t, spec, shard, "kv pool")
+        if shard.dp > 1:
+            t = torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+        return t.contiguous()
     return KVCache(
         k=cut(cache.k, cache_pspec()), v=cut(cache.v, cache_pspec()),
         ks=None if cache.ks is None else cut(cache.ks, cache_scale_pspec()),
-        vs=None if cache.vs is None else cut(cache.vs, cache_scale_pspec()))
+        vs=None if cache.vs is None else cut(cache.vs, cache_scale_pspec()),
+        dp=shard.dp, dp_rank=shard.dp_rank)
 
 
 def kv_heads(cfg: ModelConfig, shard: Optional[Shard]) -> int:

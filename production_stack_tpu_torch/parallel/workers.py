@@ -1,9 +1,12 @@
-"""The worker ranks of a tensor- or expert-parallel engine, and rank 0's
-runner that drives them. The JAX package has no counterpart: one JAX
+"""The worker ranks of a parallel serving engine, and rank 0's runner
+that drives them. The JAX package has no counterpart: one JAX
 controller drives every chip of its mesh.
 
-``ParallelRunner`` is what ``LLMEngine`` holds when
-``tensor_parallel_size * expert_parallel_size > 1``. The engine process
+``ParallelRunner`` is what ``LLMEngine`` holds on a serving mesh of more
+than one rank: ``dp x ep x tp`` (``MeshConfig``; the engine builds
+``tp x ep`` from ``tensor_parallel_size * expert_parallel_size > 1``,
+and takes a mesh with dp > 1 only as an argument, as JAX does). The
+engine process
 is rank 0 — scheduler, block manager, server and rank 0's shard — and
 the runner starts the other ranks as worker processes (spawned), each
 of which builds its ``ServingMesh`` (parallel/mesh.py) from one
@@ -36,6 +39,9 @@ sockets; rank 0's collective then raises, and rank 0 raises a
 is found at the next send (a broken pipe). ``close`` stops every worker
 and joins it, killing one that does not stop; a runner that is
 collected without ``close`` stops its workers the same way.
+
+``map_ranks`` calls a module-level function with each rank's runner, on
+every rank (reports: a rank's pool, its memory).
 """
 
 import collections
@@ -165,6 +171,25 @@ def memory() -> dict:
             "peak": torch.cuda.max_memory_allocated()}
 
 
+def pool_report(runner) -> dict:
+    """A rank's KV pool: its dp coordinates, blocks (owned, and held
+    with the scratch block) and bytes (payload and scales)."""
+    c = runner.cache
+    return {"dp_rank": c.dp_rank, "owned_blocks": c.local_blocks,
+            "held_blocks": c.k.shape[1], "pool_blocks": c.num_blocks,
+            "bytes": sum(t.nbytes for t in (c.k, c.v, c.ks, c.vs)
+                         if t is not None)}
+
+
+def pool_tensors(runner) -> dict:
+    """Copies of a rank's KV pool tensors (and an int8 pool's scales), on
+    the host."""
+    c = runner.cache
+    return {name: getattr(c, name).to("cpu", copy=True)
+            for name in ("k", "v", "ks", "vs")
+            if getattr(c, name) is not None}
+
+
 def _send(conn, obj) -> None:
     conn.send_bytes(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
 
@@ -224,13 +249,19 @@ def _worker_main(rank: int, mesh_cfg: MeshConfig, model_cfg: ModelConfig,
                 _LAST[name] = getattr(runner, name)(*args, **kwargs)
             elif op == "setattr":
                 setattr(runner, name, args[0])
-            else:   # "run": a module-level function, answered on the pipe
-                mod, fn = name.split(":")
-                _send(conn, ("ok", getattr(importlib.import_module(mod),
-                                           fn)(*args, **kwargs)))
+            else:   # "run" / "map": a module-level function, answered
+                if op == "map":
+                    args = (runner,) + tuple(args)
+                _send(conn, ("ok", _target(name)(*args, **kwargs)))
         except Exception:   # noqa: BLE001 — reported, then the rank ends
             _report(conn, rank)
             return
+
+
+def _target(name: str):
+    """The module-level function "module:function"."""
+    mod, fn = name.split(":")
+    return getattr(importlib.import_module(mod), fn)
 
 
 def _report(conn, rank: int) -> None:
@@ -263,21 +294,24 @@ def _stop(procs, conns) -> None:
 
 
 class ParallelRunner:
-    """Rank 0's runner of a tp x ep engine: its own shard's ModelRunner
-    (``local``; attributes read through to it) and the worker ranks it
-    started, which run every call in ``CALLS`` beside it."""
+    """Rank 0's runner of a dp x ep x tp engine: its own shard's
+    ModelRunner (``local``; attributes read through to it) and the worker
+    ranks it started, which run every call in ``CALLS`` beside it.
+    mesh_cfg: the serving mesh (sp = pp = 1)."""
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                 params=None, lora_stacked=None, lora_scaling: float = 1.0,
+                 mesh_cfg: MeshConfig, params=None, lora_stacked=None,
+                 lora_scaling: float = 1.0,
                  timeout_s: Optional[float] = None):
         from production_stack_tpu_torch.engine.runner import ModelRunner
-        tp = engine_cfg.tensor_parallel_size
-        ep = engine_cfg.expert_parallel_size
-        sharding.check_mesh(model_cfg, tp, ep)
-        self.mesh_cfg = MeshConfig(tp=tp, ep=ep)
-        self.timeout_s = timeout_s = timeout_s or DEFAULT_TIMEOUT_S
-        world = engine_cfg.world_size
+        Shard.of(mesh_cfg, 0)       # refuses sp and pp
+        dp, tp, ep = mesh_cfg.dp, mesh_cfg.tp, mesh_cfg.ep
         device = engine_cfg.torch_device
+        sharding.check_mesh(model_cfg, tp, ep, dp, device,
+                            engine_cfg.dp_gather_attention_ok)
+        self.mesh_cfg = mesh_cfg
+        self.timeout_s = timeout_s = timeout_s or DEFAULT_TIMEOUT_S
+        world = mesh_cfg.size
         self._lock = threading.RLock()
         self._cache = _TensorCache()
         self._procs: List[multiprocessing.Process] = []
@@ -325,8 +359,8 @@ class ParallelRunner:
             if err:
                 raise WorkerError(err) from e
             raise
-        logger.info("tp=%d ep=%d serving world: backend %s, ranks %s",
-                    tp, ep, mesh.backend, device_map(device, world))
+        logger.info("dp=%d tp=%d ep=%d serving world: backend %s, ranks %s",
+                    dp, tp, ep, mesh.backend, device_map(device, world))
 
     def _wait_started(self) -> None:
         """Each worker's first message, or a WorkerError as soon as one
@@ -404,16 +438,28 @@ class ParallelRunner:
         by rank (1..world-1)."""
         with self._lock:
             self._send_all(("run", target, args, kwargs, {}, []))
-            out = []
-            for r, conn in enumerate(self._conns, start=1):
-                if not conn.poll(self.timeout_s):
-                    raise WorkerError(f"rank {r} did not answer {target} "
-                                      f"within {self.timeout_s}s")
-                status, value = _recv(conn)
-                if status != "ok":
-                    raise WorkerError(value)
-                out.append(value)
-            return out
+            return self._answers(target)
+
+    def _answers(self, target: str) -> List[Any]:
+        out = []
+        for r, conn in enumerate(self._conns, start=1):
+            if not conn.poll(self.timeout_s):
+                raise WorkerError(f"rank {r} did not answer {target} "
+                                  f"within {self.timeout_s}s")
+            status, value = _recv(conn)
+            if status != "ok":
+                raise WorkerError(value)
+            out.append(value)
+        return out
+
+    def map_ranks(self, target: str, *args, **kwargs) -> List[Any]:
+        """target(runner, *args) ("module:function") with each rank's
+        runner, on every rank in order after the calls before it; the
+        results by rank (0..world-1)."""
+        with self._lock:
+            self._send_all(("map", target, args, kwargs, {}, []))
+            mine = _target(target)(self.local, *args, **kwargs)
+            return [mine] + self._answers(target)
 
     def last_results(self, name: str) -> list:
         """Every rank's last result of call `name`, on the host, by rank

@@ -844,6 +844,123 @@ def test_tp_engine_on_the_card_equals_one_rank(cuda, tp):
         te.close()
 
 
+def _assembled_copy(k, v, ks, vs, tables, nb, dp=2):
+    """The copy of every row's first nb blocks that dp ranks assemble
+    (models/kv.assemble_blocks): each rank's gather_owned over its part
+    of the pool (sharding.shard_cache, N padded to a multiple of dp),
+    summed as ServingMesh.assemble sums them (int32 words of a float,
+    int8 as it is). Returns (k, v, ks, vs) of B * nb blocks."""
+    from production_stack_tpu_torch.models.kv import KVCache, gather_owned
+    from production_stack_tpu_torch.parallel import sharding
+    from production_stack_tpu_torch.parallel.mesh import Shard
+
+    def pad(t):
+        if t is None:
+            return None
+        n = sharding.padded_blocks(t.shape[0], dp)
+        return torch.cat([t, torch.zeros_like(t[:n - t.shape[0]])])[None]
+    full = KVCache(pad(k), pad(v), pad(ks), pad(vs))
+    parts = [sharding.shard_cache(full, Shard(dp=dp, dp_rank=d))
+             for d in range(dp)]
+
+    def whole(name):
+        if getattr(full, name) is None:
+            return None
+        got = [gather_owned(getattr(part, name)[0], part, tables, nb)
+               for part in parts]
+        bits = [g if g.element_size() == 1 else g.view(torch.int32)
+                for g in got]
+        return sum(bits[1:], bits[0]).view(got[0].dtype).flatten(0, 1)
+    return tuple(whole(name) for name in ("k", "v", "ks", "vs"))
+
+
+# dp > 1 serving: the kernels read a copy of each row's first nb blocks
+# assembled from the dp ranks' parts of the pool, through
+# pa.assembled_tables, at one tp rank's heads (Llama-3-8B at tp 2: Hkv 4,
+# G 4, D 128); decode at T = 1 and 4 (a verify window of spec 3),
+# prefill at T = 100 and 512, a long row beside short ones, a parked row
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,lens", [
+    (1, (70, 5, 300)), (4, (70, 5, 300)), (4, (1000, 10, 400)),
+    (100, (70, 5, 300)), (512, (70, 5, 300)),
+])
+def test_kernels_over_an_assembled_copy_match_plain_versions(cuda, T, lens,
+                                                             dtype, int8):
+    """The kernel over the assembled copy equals its plain version over
+    the copy and over the pool itself within TOL, and the kernel over the
+    pool bit for bit: the same values, nb and decode split plan."""
+    q, k, v, tables, starts, nb = _geometry_case(
+        cuda, T, 4, 4, 128, torch.float32, lens, seed=T + len(lens))
+    ks = vs = None
+    if int8:
+        (k, ks), (v, vs) = quantize_chunk(k), quantize_chunk(v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    q = q.to(dtype)
+    ck, cv, cks, cvs = _assembled_copy(k, v, ks, vs, tables, nb)
+    B, MB = tables.shape
+    ctables = pa.assembled_tables(B, nb, MB, cuda)
+    assert ctables.shape == tables.shape and ck.shape[0] == B * nb
+    fn = pa.paged_decode_attention if T <= pa.DECODE_T_MAX \
+        else pa.paged_attention
+    got = fn(q, ck, cv, ctables, starts, nb=nb, k_scales=cks, v_scales=cvs)
+    pool = fn(q, k, v, tables, starts, nb=nb, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pool)
+    qp = q.float() if int8 else q
+    for pk, pv, pt, pks, pvs in ((ck, cv, ctables, cks, cvs),
+                                 (k, v, tables, ks, vs)):
+        want = pa.paged_attention_plain(qp, pk, pv, pt, starts, nb,
+                                        k_scales=pks, v_scales=pvs)
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got[-1] == 0).all()
+
+
+def test_dp_engine_on_the_card_equals_tp(cuda):
+    """TinyLlama-1.1B in f32 at dp = 2 x tp = 2 (behind
+    dp_gather_attention_ok; every rank on the one card over gloo, or a
+    card each over NCCL): greedy tokens of mixed prompts equal the tp = 2
+    engine's on the same weights, both kernels launch on rank 0, and
+    without the flag the mesh is refused."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.scheduler import SamplingOptions
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig
+    cfg = dict(model="tinyllama-1.1b", device="cuda", dtype="float32",
+               kv_dtype="float32", max_model_len=256, max_num_seqs=3,
+               prefill_chunk=64, prefill_buckets=(16, 64), decode_window=4,
+               kv_block_size=16, tensor_parallel_size=2)
+    prompts = [list(range(5, 45)), list(range(100, 107)),
+               list(range(200, 300))]
+
+    def run(engine):
+        ids = [engine.add_request(p, SamplingOptions(
+            temperature=0.0, max_tokens=12, ignore_eos=True))
+            for p in prompts]
+        while engine.has_work:
+            engine.step()
+        return [engine.seqs[i].output_tokens for i in ids]
+    mesh = MeshConfig(dp=2, tp=2)
+    with pytest.raises(ValueError, match="gathered-view"):
+        LLMEngine(EngineConfig(**cfg), mesh=mesh)
+    tp = LLMEngine(EngineConfig(**cfg))
+    try:
+        want = run(tp)
+    finally:
+        tp.close()
+    te = LLMEngine(EngineConfig(dp_gather_attention_ok=True, **cfg),
+                   mesh=mesh)
+    try:
+        pa.reset_launch_counts()
+        assert run(te) == want
+        assert pa.launch_counts["paged_attention"] > 0
+        assert pa.launch_counts["paged_decode_attention"] > 0
+        assert te.runner.mesh.calls["dp.assemble"] > 0
+    finally:
+        te.close()
+
+
 # ------------------------------------------------------------- training
 
 def test_head_backward_on_the_card_matches_float_products(cuda):
