@@ -5,8 +5,9 @@
 
 1. build: compiles the CUDA kernels from csrc/ with nvcc (sm_90a), one
    nvcc per source, all started together, and reports each kernel's
-   registers, shared memory and spills (ptxas -v) and the HGMMA (wgmma)
-   instructions of the bf16 prefill kernel, which must not be 0;
+   registers, shared memory and spills (ptxas -v), the HGMMA (wgmma)
+   instructions of the bf16 prefill kernel and the HMMA (mma.sync)
+   instructions of the bf16-q decode kernel, none of which may be 0;
 2. kernels: holds each kernel against its plain PyTorch version on the
    card — for the paged kernels shuffled block tables, ragged rows, a
    row parked past the pool's virtual capacity, the chunk's own K/V
@@ -20,15 +21,20 @@
    every paged case once more over an int8 pool with its scales;
    rolled tables (the entries behind each row's window at trash block 0,
    filled with 1e4) against the intact ones; for the flash kernel T
-   and S that are not multiples of its tiles — and times kernel (a whole
-   wrapper call: the decode's split and merge launches), plain version
+   and S that are not multiples of its tiles; under torch.profiler, a
+   bf16-q decode call at Llama-3-8B's and Gemma-2-9B's shapes (T = 1
+   and 4; bf16 and int8 pools) launches exactly one device kernel, the
+   tensor-core decode kernel, which merges its own splits — and times
+   kernel (a whole wrapper call), plain version
    and one PyTorch library call at the shapes the serving phases give
    them (Gemma-2's at both layer kinds, sliding and global; the paged
    kernels over a bf16 and over an int8 pool; the speculative verify
    windows, the decode kernel at T = 4 and the prefill kernel at
    T = 9; the decode kernel at batch 1 and 2, the buckets of the
-   adaptive windows; Qwen1.5-MoE's G = 1, Mistral's window on every layer, and
-   Qwen2-7B's G = 7, which no path serves; one tensor-parallel rank's
+   adaptive windows; the decode kernel at Llama-3-8B's shape at T = 2
+   and 8, which no path serves; Qwen1.5-MoE's G = 1, Mistral's window on
+   every layer, and Qwen2-7B's G = 7 at T = 1 and 4, which no path
+   serves; one tensor-parallel rank's
    heads: Llama-3-8B at tp 2 over bf16 and int8 pools (at T = 1 and at
    the verify window T = 4 its engine launches), at tp 4 and 8,
    Gemma-2-9B at tp 2 and Qwen1.5-MoE at ep 2 and ep 2 x tp 2, checked
@@ -245,7 +251,7 @@ printed. Needs CUDA and this repository's sources beside the script.
 
 import asyncio
 import gc
-from contextlib import contextmanager, nullcontext
+from contextlib import asynccontextmanager, contextmanager, nullcontext
 import json
 import math
 import os
@@ -357,8 +363,9 @@ BF16_FLOPS = 989e12
 # device launches of one plain decode step of the breakdown (a window of
 # decode_window steps, divided), as this script counted them on an H100
 # before logit shaping existed: a batch with no shaped row and no top-K
-# must launch exactly these
-PLAIN_DECODE_LAUNCHES = {"llama-3-8b": 1836.5}
+# must launch exactly these. 1,836.5 until the decode kernel merged its
+# splits in its one launch: 32 launches fewer a step
+PLAIN_DECODE_LAUNCHES = {"llama-3-8b": 1804.5}
 # n-gram speculation each path serves beside its spec-free engine
 # (spec_phase): the draft lengths; the verify window spec + 1 takes the
 # paged decode kernel at 4 and the prefill kernel at 9
@@ -814,6 +821,66 @@ def bucket_checks(pa) -> list:
     return out
 
 
+# (T, Hkv, G, D, lens, window, softcap) of the one-launch check, at nb =
+# the longest row's blocks: Llama-3-8B's decode step and verify window
+# (B = 4, 7 splits) and Gemma-2-9B's verify window (32 splits at nb 126),
+# each over a bf16 and an int8 pool
+LAUNCH_CASES = (
+    (1, 8, 4, 128, [200, 431, 57, 400], 0, 0.0),
+    (4, 8, 4, 128, [200, 431, 57, 400], 0, 0.0),
+    (4, 8, 2, 256, [4600, 1000, 57, 8000], 4096, 50.0),
+)
+
+
+def decode_launch_checks(pa) -> list:
+    """Each of LAUNCH_CASES once under torch.profiler (device_profile):
+    a bf16-q decode call must be exactly one device kernel, the
+    tensor-core decode kernel (its splits merged by their last block), and
+    agree with the plain version at TOL."""
+    import torch
+    out = []
+    i = 700
+    for kv in ("native", "int8"):
+        for T, Hkv, G, D, lens, w, cap in LAUNCH_CASES:
+            i += 1
+            q, k, v, tables, starts, nb = paged_case(
+                4, T, Hkv, G, D, 64, lens, torch.bfloat16, seed=i)
+            sc = {}
+            if kv == "int8":
+                k, v, ks, vs = int8_pools(k, v, tables, starts, T, i)
+                sc = dict(k_scales=ks[0], v_scales=vs[0])
+
+            def call():
+                return pa.paged_decode_attention(
+                    q, k[0], v[0], tables, starts, nb=nb, window=w,
+                    softcap=cap, **sc)
+            prof = device_profile(call)
+            got = call()
+            torch.cuda.synchronize()
+            want = pa.paged_attention_plain(
+                q.float() if sc else q, k[0], v[0], tables, starts, nb,
+                D ** -0.5, w, cap, **sc)
+            err = (got.float() - want.float()).abs().max().item()
+            names = ({n: c for n, (_, c) in prof["by_name"].items()}
+                     if prof else None)
+            ok = (names is not None and sum(names.values()) == 1
+                  and "paged_decode_mma_kernel" in next(iter(names))
+                  and bool(torch.isfinite(got).all())
+                  and err <= TOL["bfloat16"])
+            rec = {"check": "decode_one_launch", "kv": kv, "T": T, "G": G,
+                   "D": D, "nb": nb, "splits": pa.decode_split_plan(nb)[1],
+                   "device_kernels": names, "max_abs_err": err,
+                   "tol": TOL["bfloat16"], "ok": ok}
+            log(json.dumps(rec))
+            out.append(rec)
+            if not ok:
+                raise AssertionError(f"a bf16 decode call is not one launch "
+                                     f"of the decode kernel, or disagrees "
+                                     f"with its plain version: {rec}")
+            del q, k, v, sc
+    return out
+
+
 # rolled-table cases (kernel, T, Hkv, G, D, Bs, rows, window): the
 # decode windows and verify chunks of a model with a window on every
 # layer, after the engine freed the blocks behind each row's window
@@ -964,7 +1031,7 @@ REPLACES = {
 
 
 def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None,
-                  assembled=False, kernels=None):
+                  assembled=False, kernels=None, decode_T=None):
     """Both paged kernels at one served model's shapes: a decode step of
     the whole batch (T=1) and a 512-token prefill chunk of one row with
     the others parked, at the model's softcap and scale, bf16 q over a
@@ -994,7 +1061,9 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None,
     assembled: the kernel reads, as a dp > 1 engine's ranks do, the copy
     of every row's first nb blocks assembled from the pool (B * nb
     blocks, pa.assembled_tables), and is held against the plain version
-    over the pool itself. kernels: the wrappers to time (default both)."""
+    over the pool itself. kernels: the wrappers to time (default both).
+    decode_T: the decode kernel alone at that query-window length over
+    the whole batch (rows at decode_starts), a shape no path serves."""
     import torch
     from production_stack_tpu_torch.models.config import get_config
     from production_stack_tpu_torch.models.llama import attn_scale
@@ -1025,6 +1094,9 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None,
         shapes = {"paged_decode_attention": (4, rows, 0, 64, 104)}
         if 8 in specs:
             shapes["paged_attention"] = (9, rows, 0, 64, 105)
+    if decode_T:
+        shapes = {"paged_decode_attention": (decode_T, rows, 0, 64,
+                                             110 + decode_T)}
     if kernels:
         shapes = {name: shapes[name] for name in kernels}
     records = []
@@ -1117,6 +1189,8 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None,
                 rec["verify_T"] = T
             if batch:
                 rec["batch"] = batch
+            if decode_T:
+                rec["decode_T"] = decode_T
             if assembled:
                 rec["layout"] = "assembled"
             # the yardstick where library_ms is null: SDPA without the
@@ -1182,13 +1256,20 @@ def kernel_phase():
     paged_checks(pa)
     rolled_checks(pa)
     flash_checks(fa)
+    decode_launch_checks(pa)
     free_memory()
     records = []
     for model in ("llama-3-8b", "gemma-2-9b", "qwen1.5-moe-a2.7b",
                   "mistral-7b-v0.1"):
         records += paged_timings(pa, model, "bfloat16", model)
-    # Qwen2-7B's G = 7, which no path serves (no launches)
+    # Qwen2-7B's G = 7, which no path serves (no launches), at T = 1 and
+    # at a verify window of 4 (28 query rows per kv head); Llama-3-8B's
+    # decode at T = 2 and 8 (8 and 32 rows), which no path serves either
     records += paged_timings(pa, "qwen2-7b", "bfloat16", None)
+    records += paged_timings(pa, "qwen2-7b", "bfloat16", None, decode_T=4)
+    for T in (2, 8):
+        records += paged_timings(pa, "llama-3-8b", "bfloat16", None,
+                                 decode_T=T)
     # the int8 branches at both models' shapes; only Llama-3-8B is served
     # with an int8 pool, so the Gemma-2 rows name no path (no launches)
     records += paged_timings(pa, "llama-3-8b", "int8", "llama-3-8b-int8")
@@ -1445,6 +1526,43 @@ def surface_prompt(seed: int):
     return [256] + [rnd.randrange(32, 256) for _ in range(SURFACE_PROMPT - 1)]
 
 
+@asynccontextmanager
+async def engine_parked(eng, when):
+    """Inside: the engine loop thread parks before the first step at which
+    when() holds (read under the engine lock), until the block ends. The
+    block starts its requests, then awaits park_wait on what it yields, so
+    it reads the engine at a chosen moment of a request that is still
+    running; a read that waits for the engine lock alone races the loop
+    thread, which takes the lock again at once after each step and can
+    keep it until the request has finished."""
+    import threading
+    step = eng.step
+    parked, resume = threading.Event(), threading.Event()
+
+    def parked_step():
+        if not resume.is_set() and not parked.is_set():
+            with eng._lock:
+                now = when()
+            if now:
+                parked.set()
+                resume.wait()
+        return step()
+    eng.step = parked_step
+    try:
+        yield parked
+    finally:
+        del eng.step
+        resume.set()
+
+
+async def park_wait(parked, timeout: float = 60.0) -> None:
+    """Until the loop thread has parked (engine_parked), the event loop
+    serving meanwhile."""
+    if not await asyncio.get_running_loop().run_in_executor(
+            None, parked.wait, timeout):
+        raise AssertionError("the engine loop did not park")
+
+
 async def surface_phase(http, base, engine, path: str) -> dict:
     """The engine surface the stack reads, on the served model, with the
     kernel counts zeroed before and read after (both paged kernels must
@@ -1495,12 +1613,22 @@ async def surface_phase(http, base, engine, path: str) -> dict:
     fa.reset_launch_counts()
     t0 = time.monotonic()
     if path == "llama-3-8b":
-        # /load and /metrics with a request in flight
-        async with http.post(base + "/v1/completions", json={
-                "model": model, "prompt": "hold", "max_tokens": 400,
-                "ignore_eos": True, "stream": True}) as hold:
-            assert hold.status == 200
-            await hold.content.readany()
+        # /load and /metrics with a request in flight: the engine parked
+        # once it has given the request a token (the stream's first bytes
+        # may wait for more tokens: a token can end inside a character)
+        def decoding():
+            return any(s.output_tokens
+                       for s in eng.scheduler.running.values())
+
+        async def hold_request():
+            async with http.post(base + "/v1/completions", json={
+                    "model": model, "prompt": "hold", "max_tokens": 400,
+                    "ignore_eos": True, "stream": True}) as r:
+                await r.read()
+                return r.status
+        async with engine_parked(eng, decoding) as parked:
+            hold = asyncio.ensure_future(hold_request())
+            await park_wait(parked)
             with eng._lock:
                 _, text = await call("GET", "/load")
                 load = json.loads(text)
@@ -1525,6 +1653,9 @@ async def surface_phase(http, base, engine, path: str) -> dict:
                 raise AssertionError(f"/metrics lacks {absent}")
             if samples["vllm:num_requests_running"] < 1:
                 raise AssertionError("/metrics shows no running request")
+        status = await hold   # the engine runs on and finishes it
+        if status != 200:
+            raise AssertionError(f"the held request -> {status}")
         out["load"] = {**got, "perf_mbu_perc": load["perf"]["mbu_perc"],
                        "metric_names": len(samples)}
         r, _ = await call("POST", "/v1/completions",
@@ -2952,22 +3083,33 @@ def shaped_check(engine, shaped: dict, logits32, logits16) -> dict:
             "ok": worst <= tol < least_term}
 
 
-def device_profile(fn):
+def device_profile(fn, margin_s: float = 0.1):
     """One call of fn (ending in a host sync) under torch.profiler: its
     host span, the device's busy time within it (the union of kernel,
     copy and set intervals), and the device time and count of each
-    kernel name. None where the profiler recorded no device event."""
+    kernel name. None where the profiler recorded no device event.
+    The traced call follows a warm-up cycle of the profiler (a call
+    traced and discarded) and starts and ends `margin_s` inside its
+    trace: a trace whose device work begins as it starts loses, in some
+    runs, its first device events (on an H100 a decode window's two
+    uploads and first few kernels)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
     label = "chip_smoke.span"
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function(label):
-            fn()
-            torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(margin_s)
+            with record_function(label):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(margin_s)
+            prof.step()
     events = prof.events()
     span = next(e.time_range for e in events
                 if e.name == label and e.device_type == DeviceType.CPU)
@@ -5615,9 +5757,12 @@ def build_phase(kernels) -> dict:
     HGMMA (wgmma) instructions of the bfloat16 prefill kernel (over a
     bf16 and over an int8 pool), and the HGMMA and UTMALDG (TMA load)
     instructions of each bfloat16 flash kernel in the built library, none
-    of which may be 0; `int8` lists the instantiations over an int8 pool
-    (paged decode and both prefill kernels, at D 64/128/256) with their
-    registers, spills and the bf16 prefill's HGMMA count."""
+    of which may be 0; `decode` the bf16-q decode kernel's six
+    instantiations (bf16 and int8 pools, D 64/128/256) with their
+    registers, spills and HMMA (mma.sync) count, which may not be 0;
+    `int8` lists the instantiations over an int8 pool (paged decode and
+    both prefill kernels, at D 64/128/256) with their registers, spills
+    and the bf16 prefill's HGMMA count."""
     report = kernels.build()
     out = {"sources": sorted(report) or "cached", "kernels": {}}
     for name in kernels.SOURCES:
@@ -5632,6 +5777,17 @@ def build_phase(kernels) -> dict:
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"the bf16 prefill kernel has no HGMMA "
                              f"instruction: {hgmma}")
+    # the bf16-q decode kernel (mma.sync: HMMA), over a bf16 and an int8
+    # pool at D 64 / 128 / 256: registers, spills and HMMA count
+    decode = {k: dict(out["kernels"].get(k, {}), HMMA=n)
+              for k, n in kernels.sass_count("paged_attention",
+                                             "HMMA").items()
+              if "paged_decode_mma_kernel" in k}
+    out["decode"] = decode
+    if len(decode) != 6 or min(r["HMMA"] for r in decode.values()) == 0:
+        raise AssertionError(f"the tensor-core decode kernel is not built "
+                             f"for both pools at every head dim, or has no "
+                             f"HMMA instruction: {decode}")
     int8 = {k: dict(r, **({"HGMMA": hgmma[k]} if k in hgmma else {}))
             for k, r in out["kernels"].items() if "signed char" in k}
     out["int8"] = int8

@@ -3,8 +3,8 @@
 // shared stores, mbarriers, tensor
 // copies by the TMA, named barriers and register-budget controls, the
 // 128-byte swizzled shared-memory layout that wgmma reads, its matrix
-// descriptor, and the bf16 wgmma forms the prefill and flash kernels
-// issue.
+// descriptor, the bf16 wgmma forms the prefill and flash kernels issue,
+// and the warp-level mma.sync form the decode kernel issues.
 //
 // Include inside an anonymous namespace's translation unit only: every
 // definition here is internal to the including source.
@@ -38,6 +38,11 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
+// bring the line holding `p` (global memory) into L1, not waiting for it
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
 // 16 bytes into shared memory by a plain store (generic proxy: fence it
 // with fence_proxy_async before wgmma reads it)
 __device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
@@ -48,6 +53,12 @@ __device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until every cp.async of this thread has landed, committed to a
+// group or not
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // wait until at most N committed groups of this thread are in flight
@@ -79,6 +90,13 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
                    bar)
                : "memory");
 }
+// make `bar`'s current phase wait, without an arrival of its own, for
+// every cp.async this thread issued so far (the pending count rises now
+// and falls when they land): call it before this thread's arrival
+__device__ __forceinline__ void cp_async_mbar_track(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   asm volatile(
       "{\n.reg .pred done;\n"
@@ -99,6 +117,17 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                    "r"(bar),
                "r"(bytes)
                : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, by the bulk copy engine; they complete_tx on `bar`
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
+                                              uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // TMA: the box of a 4-D tensor map at coordinates (c0, c1, c2, c3),
@@ -274,6 +303,22 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
 #undef PSTPU_D64
 #undef PSTPU_D64_SLOTS
 
+// d[16 x 8] += A[16 x 16] . B[16 x 8], bf16 in, f32 accumulate, one warp
+// (mma.sync m16n8k16; the PTX ISA's fragment layouts). With g = lane / 4
+// and c = lane % 4: a[0] holds A[g][2c, 2c+1], a[1] A[g+8][2c, 2c+1],
+// a[2] A[g][2c+8, 2c+9], a[3] A[g+8][2c+8, 2c+9]; b0 holds B[2c, 2c+1][g],
+// b1 B[2c+8, 2c+9][g]; d[0..1] is D[g][2c, 2c+1], d[2..3] D[g+8][2c, 2c+1]
+// (the lower half of a bf16x2 register is the first element).
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -287,6 +332,20 @@ __device__ __forceinline__ float int8_byte_to_f32(uint32_t w, int k) {
   return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
                                      0x7650 + k)) -
          8388736.f;
+}
+
+// what rounding (lo, hi) to the bf16x2 `rounded` left, as a bf16x2
+__device__ __forceinline__ uint32_t bf16x2_residual(uint32_t rounded,
+                                                    float lo, float hi) {
+  return pack_bf16x2(lo - __uint_as_float(rounded << 16),
+                     hi - __uint_as_float(rounded & 0xffff0000u));
+}
+
+// bytes k0 of w0 and k1 of w1, int8 values, as one bf16x2 (exact; w0's
+// in the lower half)
+__device__ __forceinline__ uint32_t int8_pair_to_bf16x2(uint32_t w0, int k0,
+                                                        uint32_t w1, int k1) {
+  return pack_bf16x2(int8_byte_to_f32(w0, k0), int8_byte_to_f32(w1, k1));
 }
 
 // 16 int8 values as 16 bf16 (exact: |v| <= 127 needs 7 bits), in order:

@@ -11,10 +11,14 @@ Replaces ``production_stack_tpu/ops/pallas_paged.py``:
 Both kernels live in ``csrc/paged_attention.cu``, whose header says what
 bounds them on an H100 (decode: device-memory bytes; prefill:
 arithmetic) and what their designs do about it: decode splits the KV
-axis over thread blocks (``decode_split_plan``) and merges the splits'
-partials in a second launch, so one wrapper call is two launches;
-bfloat16 prefill runs 64-row wgmma tiles (``prefill_tile``), float32
-prefill the f32 tile of ``csrc/attention_tile.cuh`` (``tile_block_q``).
+axis over thread blocks (``decode_split_plan``); at bfloat16 q it packs
+a block's T*G query rows into the M of tensor-core products
+(``decode_tile``) and the last block of a row's splits to finish merges
+them, so one wrapper call is one launch (the arrival counters are
+allocated and zeroed once per device, ``_decode_counters``); a float32 q
+keeps the f32 split kernel and a second merge launch. bfloat16 prefill
+runs 64-row wgmma tiles (``prefill_tile``), float32 prefill the f32 tile
+of ``csrc/attention_tile.cuh`` (``tile_block_q``).
 Both take the Pallas kernels' ``window`` (sliding window, 0 = off),
 ``softcap`` (tanh cap on the raw scores, 0 = off) and ``scale``
 (default D**-0.5), at D in {64, 128, 256}. A wrapper given CPU tensors
@@ -124,7 +128,7 @@ def _lib():
         lib = kernels.load("paged_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_decode_attention.argtypes = \
-            [p] * 10 + [i] * 13 + [f, i, f, p]
+            [p] * 11 + [i] * 14 + [f, i, f, p]
         lib.paged_prefill_attention.argtypes = \
             [p] * 8 + [i] * 12 + [f, i, f, p]
         for fn in (lib.paged_decode_attention, lib.paged_prefill_attention):
@@ -242,6 +246,63 @@ def decode_split_plan(nb: int) -> tuple:
     return bps, -(-nb // bps)
 
 
+def decode_tile(D: int, R: int, int8: bool = False, bps: int = 4,
+                Bs: int = 64) -> dict:
+    """Geometry of the bfloat16-q decode kernel (as csrc/paged_attention.cu
+    MmaDecodeGeometry) for R = T*G query rows per kv head at head dim D,
+    splits of bps blocks of Bs keys: a block takes a row group of at most
+    64 rows (row_groups of them, one grid slice each), m_tiles m16 tiles
+    of it, warps_per_tile = 4, 2 or 1 warps sharing a tile's keys (every
+    warps_per_tile-th 16-key chunk); K/V panels of `keys` keys (32 at D =
+    256, else 64) in a ring of `stages` stages, as many as a split has
+    panels up to 3 (one for a 512-token bucket's splits of one 64-key
+    block, whose blocks then take a third of the shared memory), its rows
+    padded by 16 bytes, with the int8 pool's scales, and after the loop
+    the same bytes for the warps' (m, l, O) and the merge's weights; then
+    Q, bf16, m_tiles * 16 padded rows, and the ring's mbarriers (64
+    bytes). smem_bytes is the dynamic shared memory of a block."""
+    keys, warps, group = (32 if D == 256 else 64), 4, 64
+    stages = min(3, -(-bps * Bs // keys))
+    row_groups = -(-R // group)
+    m_tiles = -(-min(R, group) // 16)
+    item = 1 if int8 else 2
+    ring = stages * (2 * keys * (D * item + 16) + (2 * keys * 4 if int8
+                                                   else 0))
+    combine = warps * 16 * (D + 6) * 4
+    merge = group * MAX_SPLITS * 4
+    return {"keys": keys, "stages": stages, "row_groups": row_groups,
+            "m_tiles": m_tiles,
+            "warps_per_tile": {1: 4, 2: 2}.get(m_tiles, 1),
+            "smem_bytes": max(ring, combine, merge)
+            + m_tiles * 16 * (2 * D + 16) + 64}
+
+
+# arrival counters of the decode kernel's merge, per device: int32 zeros,
+# allocated once outside any graph capture; each call leaves them 0
+_counters = {}
+_COUNTERS_MIN = 1 << 16
+
+
+def _decode_counters(device, n: int) -> torch.Tensor:
+    """The device's arrival counters, at least n of them (one per
+    (row, kv head, row group) of a bfloat16-q decode call). The last
+    block of each group's splits resets its counter, so no memset is
+    launched per call and a captured call replays; calls sharing the
+    counters run one after another (one stream), as the engine's do."""
+    index = torch.device(device).index
+    buf = _counters.get(index)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged_decode_attention: the arrival "
+                               "counters must be allocated before a CUDA "
+                               "graph captures the call (call it once "
+                               "outside the capture)")
+        buf = _counters[index] = torch.zeros(max(n, _COUNTERS_MIN),
+                                             dtype=torch.int32,
+                                             device=device)
+    return buf
+
+
 def prefill_tile(D: int, int8: bool = False) -> dict:
     """Geometry of the bfloat16 prefill kernel's tile at head dim D (as
     csrc/paged_attention.cu PrefillGeometry): 64 query rows (one wgmma M),
@@ -288,13 +349,21 @@ def _launch(name: str, q, k_pool, v_pool, tables, starts, nb, scale,
     tail = (float(scale), int(window), float(softcap), stream)
     if name == "paged_decode_attention":
         bps, splits = decode_split_plan(nb)
-        # the splits' partials, f32: (m, l) then acc of every split row
+        # the splits' partials, f32: (m, l) then acc of every split row,
+        # acc at a 16-byte boundary (the kernel moves it as float4)
         n_rows = B * Hkv * splits * T * G
-        part = torch.empty(n_rows * (2 + D), dtype=torch.float32,
+        ml = -(-n_rows * 2 // 4) * 4
+        part = torch.empty(ml + n_rows * D, dtype=torch.float32,
                            device=q.device)
+        # the merge's arrival counters (bf16 q; a float32 q has none),
+        # one per (row, kv head, group of up to 64 query rows)
+        counters = (_decode_counters(q.device, B * Hkv * -(-T * G // 64))
+                    if q.dtype == torch.bfloat16 else None)
         rc = _lib().paged_decode_attention(
-            *head, part.data_ptr(), part.data_ptr() + n_rows * 2 * 4,
-            *dtypes, *shape, bps, splits, *tail)
+            *head, part.data_ptr(), part.data_ptr() + ml * 4,
+            None if counters is None else counters.data_ptr(),
+            *dtypes, *shape, bps, splits,
+            0 if counters is None else counters.numel(), *tail)
     else:
         block_q = (prefill_tile(D)["rows"] // G if q.dtype == torch.bfloat16
                    else tile_block_q(T, G, D))

@@ -218,6 +218,200 @@ def test_int8_kernel_matches_plain_version(cuda, fn, T, G, D, Bs, lens,
     assert (got[-1] == 0).all()   # the parked row
 
 
+# ------------------------------------- the tensor-core decode kernel (bf16 q)
+
+# (nb, rows' starts) over blocks of 16: one split (nb 1, so every row
+# ends mid-panel) and 32 splits (nb 64, two blocks a split). Each set has
+# a row whose window lies wholly past the nb blocks read (fully masked:
+# the kernel's finite 0, where the plain version averages the masked
+# keys), with window 20, and a parked row last.
+_SPLIT_ROWS = {1: (1, (0, 5, 40)), 32: (64, (1000, 3, 400, 1050))}
+
+
+def _decode_case(dev, T, G, D, nb, lens, kv, seed, Bs=16):
+    """q [B, T, 2G, D] bf16 (2 kv heads) over a pool of Bs-token blocks
+    (bf16, or int8 with scales), MB = nb + 3 so rows may start past the nb
+    blocks read; the last row parked. Returns q, k, v, scales (dict),
+    tables, starts."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Hkv, B = 2, len(lens) + 1
+    MB = nb + 3
+    N = B * MB + 2
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    k, v = rnd(N, Hkv, Bs, D), rnd(N, Hkv, Bs, D)
+    tables = (torch.randperm(N - 1, generator=g, device=dev)[:B * MB]
+              + 1).reshape(B, MB).to(torch.int32)
+    starts = torch.tensor(list(lens) + [MB * Bs + 2], dtype=torch.int32,
+                          device=dev)
+    q = rnd(B, T, Hkv * G, D).to(torch.bfloat16)
+    if kv == "int8":
+        (k8, ks), (v8, vs) = quantize_chunk(k), quantize_chunk(v)
+        return q, k8, v8, dict(k_scales=ks, v_scales=vs), tables, starts
+    return q, k.to(torch.bfloat16), v.to(torch.bfloat16), {}, tables, starts
+
+
+def _fully_masked(starts, T, nb, Bs, MB, window):
+    """[B, T] bool: live (not parked) queries with no key among the nb
+    blocks read inside their window."""
+    p = starts.long()[:, None] + torch.arange(T, device=starts.device)
+    lo = (p - window + 1).clamp(min=0) if window else torch.zeros_like(p)
+    return (starts[:, None] < MB * Bs) & (lo > torch.clamp(p, max=nb * Bs - 1))
+
+
+def _check_decode(dev, T, G, D, nb, lens, kv, window, cap, seed, Bs=16):
+    """One bf16-q decode call of _decode_case, plain or with `window` and
+    a softcap `cap` (q x 30, V x 0.5), against the plain version (over an
+    int8 pool in f32): finite, the parked row and every fully masked row
+    exactly 0 (the plain version averages the masked keys there), a
+    fully masked row present exactly where there is a window, the rest
+    within the bf16 tolerance."""
+    q, k, v, sc, tables, starts = _decode_case(dev, T, G, D, nb, lens, kv,
+                                               seed, Bs)
+    if cap:
+        q = (q.float() * 30).to(torch.bfloat16)
+        if sc:
+            sc["v_scales"] = sc["v_scales"] * 0.5
+        else:
+            v = (v.float() * 0.5).to(torch.bfloat16)
+    got = pa.paged_decode_attention(q, k, v, tables, starts, nb=nb,
+                                    window=window, softcap=cap, **sc)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(q.float() if sc else q, k, v, tables,
+                                    starts, nb, D ** -0.5, window, cap, **sc)
+    dead = _fully_masked(starts, T, nb, Bs, tables.shape[1], window)
+    case = (T, kv, window, cap)
+    assert torch.isfinite(got).all(), case
+    assert (got[-1] == 0).all(), case   # the parked row
+    assert (got[dead] == 0).all(), case
+    assert bool(dead.any()) == bool(window), case
+    err = (got.float() - want.float())[~dead].abs().max().item()
+    assert err <= TOL[torch.bfloat16], (case, err)
+
+
+@pytest.mark.parametrize("splits", [1, 32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 7, 8])
+def test_decode_kernel_grid_matches_plain_version(cuda, G, D, splits):
+    """T = 1..8 over a bf16 and an int8 pool, each plain and with a
+    window of 20 and a softcap of 50: one split or 32, rows ending
+    mid-panel, a fully masked row and a parked row (_check_decode)."""
+    nb, lens = _SPLIT_ROWS[splits]
+    assert pa.decode_split_plan(nb)[1] == splits
+    seed = 0
+    for T in range(1, 9):
+        for kv in ("bfloat16", "int8"):
+            for window, cap in ((0, 0.0), (20, 50.0)):
+                seed += 1
+                _check_decode(cuda, T, G, D, nb, lens, kv, window, cap, seed)
+
+
+@pytest.mark.parametrize("G", [2, 8])
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("nb", [8, 64, 96, 128])
+def test_decode_kernel_multi_panel_splits_match_plain_version(cuda, nb, D,
+                                                              G):
+    """Blocks of 64 keys, as the engine's pools: a split of bps = nb / 32
+    blocks (1 at nb 8, 2, 3, 4) runs bps panels at D = 128 (64 keys a
+    panel) and 2 * bps at D = 256 (32 keys), so the ring runs 1..3
+    stages and reuses its stages past 3 panels; at D = 256 with one m16
+    tile (G = 2) warps 2 and 3 own no chunk of the first panel, and at
+    T*G = 32 (G = 8, T = 4) two tiles' warps own chunks of different
+    panels. T = 1 and 4, bf16 and int8 pools, plain and with a window of
+    100 and a softcap of 50; rows of a whole bucket less 10 keys, 1,000
+    (300 at nb 8), 3, and past the nb blocks read (fully masked with the
+    window), and a parked row (_check_decode)."""
+    Bs = 64
+    bps, splits = pa.decode_split_plan(nb)
+    assert bps == -(-nb // 32) and splits * bps >= nb
+    lens = (nb * Bs - 10, 300 if nb == 8 else 1000, 3, nb * Bs + 120)
+    seed = 100
+    for T in (1, 4):
+        for kv in ("bfloat16", "int8"):
+            for window, cap in ((0, 0.0), (100, 50.0)):
+                seed += 1
+                _check_decode(cuda, T, G, D, nb, lens, kv, window, cap, seed,
+                              Bs)
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_decode_kernel_past_one_row_group_matches_plain_version(cuda, kv):
+    """G = 16 at T = 8: 128 query rows per kv head, two row groups of 64
+    (two grid slices, each merged on its own), one launch."""
+    nb, lens = _SPLIT_ROWS[32]
+    q, k, v, sc, tables, starts = _decode_case(cuda, 8, 16, 128, nb, lens,
+                                               kv, 7)
+    got = pa.paged_decode_attention(q, k, v, tables, starts, nb=nb, **sc)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(q.float() if sc else q, k, v, tables,
+                                    starts, nb, 128 ** -0.5, 0, 0.0, **sc)
+    assert pa.decode_tile(128, 8 * 16)["row_groups"] == 2
+    assert (got.float() - want.float()).abs().max().item() <= \
+        TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("splits", [1, 32])
+def test_decode_row_at_t1_is_bit_equal_inside_a_t4_window(cuda, splits, kv):
+    """At G = 4 a T = 1 call's rows and a T = 4 window's (16 rows) share
+    one m16 tile and one warp plan, and a row's arithmetic does not
+    depend on the others: at the same nb, query 0 of the window equals
+    the single query bit for bit."""
+    nb, lens = _SPLIT_ROWS[splits]
+    # row 14 ends its T = 4 window in the next block (the same split)
+    lens = (lens[0], 14) + lens[2:]
+    q4, k, v, sc, tables, starts = _decode_case(cuda, 4, 4, 128, nb, lens,
+                                                kv, 11)
+    q1 = q4[:, :1].contiguous()
+    one = pa.paged_decode_attention(q1, k, v, tables, starts, nb=nb, **sc)
+    four = pa.paged_decode_attention(q4, k, v, tables, starts, nb=nb, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(one[:, 0], four[:, 0])
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_decode_kernel_calls_are_bit_equal(cuda, kv):
+    """Whichever split arrives last merges the splits in split order: two
+    calls give the same bits (32 splits, T = 4, a window)."""
+    nb, lens = _SPLIT_ROWS[32]
+    q, k, v, sc, tables, starts = _decode_case(cuda, 4, 4, 128, nb, lens,
+                                               kv, 13)
+    a = pa.paged_decode_attention(q, k, v, tables, starts, nb=nb,
+                                  window=300, **sc)
+    b = pa.paged_decode_attention(q, k, v, tables, starts, nb=nb,
+                                  window=300, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T,G,splits,kv", [
+    (1, 4, 1, "bfloat16"), (1, 4, 32, "bfloat16"), (4, 4, 32, "int8"),
+    (8, 8, 32, "bfloat16"), (8, 16, 32, "int8")])
+def test_decode_call_launches_one_kernel(cuda, T, G, splits, kv):
+    """Under torch.profiler a bf16-q call is one device kernel, the
+    decode kernel itself: no merge launch, no memset of the counters.
+    The traced call follows a traced and discarded one (the profiler's
+    warm-up cycle), as a trace may lose its first device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    nb, lens = _SPLIT_ROWS[splits]
+    q, k, v, sc, tables, starts = _decode_case(cuda, T, G, 128, nb, lens,
+                                               kv, 17)
+    pa.paged_decode_attention(q, k, v, tables, starts, nb=nb, **sc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            pa.paged_decode_attention(q, k, v, tables, starts, nb=nb, **sc)
+            torch.cuda.synchronize()
+            prof.step()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "paged_decode_mma_kernel" in names[0], names
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, tables, starts, nb = _case(cuda, 1, 4, 128, torch.float32)
     scales = torch.ones(k.shape[:3], device=cuda)

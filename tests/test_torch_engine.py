@@ -182,7 +182,7 @@ def test_engine_greedy_tokens_equal_jax_engine_mixed_batch(prefix_caching):
                   prefill_chunk=32, prefill_buckets=(16, 32),
                   decode_window=4, kv_block_size=8,
                   enable_prefix_caching=prefix_caching)
-    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
+    je = jengine.LLMEngine(jec.EngineConfig(**common, **FIXED),
                            params=jparams)
     te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
                                             **FIXED),
@@ -217,7 +217,7 @@ def test_engine_greedy_tokens_equal_jax_engine_gemma2():
     common = dict(model="debug-gemma2", dtype="float32", kv_dtype="float32",
                   max_model_len=256, max_num_seqs=2, prefill_chunk=32,
                   prefill_buckets=(32,), decode_window=4)
-    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
+    je = jengine.LLMEngine(jec.EngineConfig(**common, **FIXED),
                            params=jparams)
     te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
                                             **FIXED),
@@ -250,7 +250,7 @@ def test_out_of_vocab_prompt_ids_follow_jax_and_engine_serves_on(
     common = dict(_F32, max_model_len=64, max_num_seqs=2, prefill_chunk=16,
                   prefill_buckets=(16,), decode_window=4, kv_block_size=8,
                   quantization=quantization)
-    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
+    je = jengine.LLMEngine(jec.EngineConfig(**common, **FIXED),
                            params=jparams)
     te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
                                             **FIXED),

@@ -207,7 +207,7 @@ def servers(weights):
     jparams, tparams = weights
     cfg = dict(_F32, max_num_seqs=2)
     return (jasync.AsyncLLMEngine(jec.EngineConfig(**cfg,
-                                                   window_adapt=False),
+                                                   **FIXED),
                                   params=jparams),
             AsyncLLMEngine(tec.EngineConfig(**cfg, device="cpu",
                                             **FIXED),

@@ -329,7 +329,7 @@ def test_checkpoint_engine_tokens_equal_jax(tmp_path):
                   decode_window=4, kv_block_size=8)
     te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
                                             **FIXED))
-    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False))
+    je = jengine.LLMEngine(jec.EngineConfig(**common, **FIXED))
     assert torch.equal(te.runner.params.lm_head,
                        model.lm_head.weight.t().contiguous())
     rng = np.random.default_rng(3)

@@ -82,7 +82,7 @@ def pair(adapters):
                   lora_adapters={n: adapters[n]
                                  for n in ("ad-one", "ad-two")})
     je = jasync.AsyncLLMEngine(jec.EngineConfig(**common,
-                                                window_adapt=False),
+                                                **FIXED),
                                params=jparams)
     te = AsyncLLMEngine(tec.EngineConfig(**common, device="cpu",
                                          **FIXED),

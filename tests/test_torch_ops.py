@@ -399,6 +399,148 @@ def test_split_merge_equals_unsplit_plain_and_pallas_decode(
     _assert_matches_pallas(got, want, starts, tables, 16)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_decode_tile_geometry_fits_and_covers_every_row(D, int8):
+    """The bfloat16-q decode kernel's plan for every R = T*G up to 8 x 16
+    and every ring depth: row groups of at most 64 rows cover R, m16
+    tiles cover a group, the tile's warps split its keys in 16-key chunks
+    (4 warps over one tile, 2 over each of two, 1 over each of three or
+    four); its shared memory fits a block; up to 16 rows (G <= 4 at T =
+    4) two blocks fit an SM's 228 KB (1 KB reserved a block), and three
+    with a one-stage ring at D <= 128."""
+    for bps, stages in ((1, 1), (2, 2), (4, 3)):
+        for R in range(1, 129):
+            tile = tpa.decode_tile(D, R, int8, bps, 32 if D == 256 else 64)
+            assert tile["stages"] == stages
+            group = min(R, 64)
+            assert tile["row_groups"] * 64 >= R \
+                > (tile["row_groups"] - 1) * 64
+            assert tile["m_tiles"] * 16 >= group > (tile["m_tiles"] - 1) * 16
+            assert tile["warps_per_tile"] * min(tile["m_tiles"], 4) <= 4
+            assert tile["keys"] % (16 * tile["warps_per_tile"]) == 0 \
+                or tile["warps_per_tile"] == 4
+            assert tile["smem_bytes"] <= 232448
+            blocks = 3 if stages == 1 and D <= 128 else 2
+            if R <= 16:
+                assert blocks * (tile["smem_bytes"] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("nb,Bs,D,want", [
+    (8, 64, 128, 1),     # a 512-token bucket: one 64-key block a split
+    (8, 64, 256, 2),     # the same at Gemma-2's 32-key panels
+    (128, 64, 256, 3),   # an 8192-token bucket: 4 blocks a split
+    (72, 16, 128, 1),    # 3 blocks of 16 keys: 48 keys, one panel
+    (200, 16, 128, 2),   # 7 blocks of 16: 112 keys, two panels
+])
+def test_decode_ring_holds_no_more_stages_than_a_split_has_panels(
+        nb, Bs, D, want):
+    bps, _ = tpa.decode_split_plan(nb)
+    assert tpa.decode_tile(D, 4, bps=bps, Bs=Bs)["stages"] == want
+
+
+def _mma_decode_plain(q, k_pool, v_pool, tables, starts, nb, scale, window,
+                      softcap):
+    """The bfloat16-q decode kernel's decomposition in plain PyTorch
+    (float32): per split (decode_split_plan), the split's keys in panels of decode_tile's `keys`, each panel's
+    16-key chunks dealt to the tile's warps in turn ((panel * chunks +
+    chunk) % warps_per_tile), every warp an online softmax over its
+    chunks (a masked key p = 0); the warps combined by exp(m_w - m), the
+    splits merged by exp(m_s - m); a group with nothing to attend gives
+    the empty partial."""
+    B, T, H, D = q.shape
+    Hkv, Bs = k_pool.shape[1], k_pool.shape[2]
+    G, MB = H // Hkv, tables.shape[1]
+    k_att = tkv.gather_view(k_pool, tables, nb).float()
+    v_att = tkv.gather_view(v_pool, tables, nb).float()
+    bps, splits = tpa.decode_split_plan(nb)
+    R = T * G
+    tile = tpa.decode_tile(D, R)
+    keys, kw = tile["keys"], tile["warps_per_tile"]
+    neg = -1e30
+    out = torch.zeros(B, Hkv, R, D)
+    for b in range(B):
+        start = int(starts[b])
+        jend = min((start + T - 1) // Bs, nb - 1)
+        jmin = max(start - (window - 1), 0) // Bs if window else 0
+        # rows r = t * G + g of kv head h
+        qb = q[b].float().reshape(T, Hkv, G, D).permute(1, 0, 2, 3) \
+            .reshape(Hkv, R, D)
+        qpos = start + torch.arange(R) // G
+        parts = []
+        for s in range(splits):
+            jlo, jhi = max(s * bps, jmin), min((s + 1) * bps - 1, jend)
+            if start >= MB * Bs or jlo > jhi:
+                parts.append((torch.full((Hkv, R), neg),
+                              torch.zeros(Hkv, R), torch.zeros(Hkv, R, D)))
+                continue
+            k_lo, k_hi = jlo * Bs, (jhi + 1) * Bs
+            warps = [[torch.full((Hkv, R), neg), torch.zeros(Hkv, R),
+                      torch.zeros(Hkv, R, D)] for _ in range(kw)]
+            for i in range(-(-(k_hi - k_lo) // keys)):
+                for c in range(keys // 16):
+                    w = warps[(i * (keys // 16) + c) % kw]
+                    kpos = k_lo + i * keys + c * 16 + torch.arange(16)
+                    inside = kpos < k_hi
+                    kk = kpos.clamp(max=k_att.shape[1] - 1)
+                    sc = torch.einsum("krd,skd->krs", qb,
+                                      k_att[b, kk]) * scale
+                    if softcap:
+                        sc = softcap * torch.tanh(sc / softcap)
+                    live = (inside & (kpos < nb * Bs))[None, :] \
+                        & (kpos[None, :] <= qpos[:, None])
+                    if window:
+                        live = live & (kpos[None, :] > qpos[:, None] - window)
+                    sc = torch.where(live, sc, torch.full((), neg))
+                    m_new = torch.maximum(w[0], sc.amax(-1))
+                    corr = torch.exp(w[0] - m_new)
+                    p = torch.where(live, torch.exp(sc - m_new[..., None]),
+                                    torch.zeros(()))
+                    vv = torch.where(inside[:, None, None], v_att[b, kk],
+                                     torch.zeros(()))
+                    w[2] = w[2] * corr[..., None] + torch.einsum(
+                        "krs,skd->krd", p, vv)
+                    w[1] = w[1] * corr + p.sum(-1)
+                    w[0] = m_new
+            m_w = torch.stack([w[0] for w in warps])
+            mx = m_w.amax(0)
+            wt = torch.where(m_w == neg, torch.zeros(()), torch.exp(m_w - mx))
+            parts.append((mx, (wt * torch.stack([w[1] for w in warps])).sum(0),
+                          (wt[..., None] * torch.stack([w[2] for w in warps])
+                           ).sum(0)))
+        m_s = torch.stack([p[0] for p in parts])
+        M = m_s.amax(0)
+        wt = torch.where(m_s == neg, torch.zeros(()), torch.exp(m_s - M))
+        L = (wt * torch.stack([p[1] for p in parts])).sum(0)
+        out[b] = (wt[..., None] * torch.stack([p[2] for p in parts])
+                  ).sum(0) / L.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Hkv, T, G, D).permute(0, 2, 1, 3, 4) \
+        .reshape(B, T, H, D)
+
+
+# T * G of 4 (one tile, 4 warps), 20 (two tiles, 2 warps each) and 56
+# (four tiles, a warp each) at D = 64 and 256 (panels of 64 and 32
+# keys); 17 splits of a 33-block row over blocks of 16 with a window
+# starting mid-split; a parked row
+@pytest.mark.parametrize("T,G,D,window,softcap", [
+    (1, 4, 64, 0, 0.0),
+    (5, 4, 256, 40, 5.0),
+    (8, 7, 64, 24, 0.0),
+])
+def test_mma_decode_decomposition_equals_unsplit_plain(T, G, D, window,
+                                                       softcap):
+    q, k, v, tables, starts, nb = _paged_case(T * 7 + G, T, G, D, 16,
+                                              [520, 5, 130], True)
+    scale = 0.31
+    plain = tpa.paged_attention_plain(_t(q), _t(k), _t(v), _t(tables),
+                                      _t(starts), nb, scale, window,
+                                      softcap).numpy()
+    got = _mma_decode_plain(_t(q), _t(k), _t(v), _t(tables), _t(starts),
+                            nb, scale, window, softcap).numpy()
+    assert tpa.decode_split_plan(nb)[1] > 16   # many splits
+    np.testing.assert_allclose(got, plain, rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_prefill_tile_geometry_fits_a_block(D):
     """The bfloat16 prefill tile: 64 query rows (one wgmma M), 64-key

@@ -87,7 +87,7 @@ def servers():
                max_model_len=128, max_num_seqs=2, prefill_chunk=32,
                prefill_buckets=(16, 32), decode_window=4)
     return (jasync.AsyncLLMEngine(jec.EngineConfig(**cfg,
-                                                   window_adapt=False),
+                                                   **FIXED),
                                   params=jparams),
             AsyncLLMEngine(tec.EngineConfig(**cfg, device="cpu",
                                             **FIXED),

@@ -389,7 +389,7 @@ def test_engine_int8_greedy_tokens_equal_jax_engine_mixed_batch():
                   quantization="int8", max_model_len=128, max_num_seqs=3,
                   prefill_chunk=32, prefill_buckets=(16, 32),
                   decode_window=4, kv_block_size=8)
-    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
+    je = jengine.LLMEngine(jec.EngineConfig(**common, **FIXED),
                            params=params)
     te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
                                             **FIXED),

@@ -156,7 +156,7 @@ def test_engine_shaped_and_plain_rows_equal_jax(pool):
     common = dict(_F32, max_model_len=128, max_num_seqs=3,
                   prefill_chunk=32, prefill_buckets=(16, 32),
                   decode_window=8, kv_block_size=8, kv_pool_tokens=pool)
-    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
+    je = jengine.LLMEngine(jec.EngineConfig(**common, **FIXED),
                            params=jparams)
     te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
                                             **FIXED),
@@ -186,7 +186,7 @@ def test_min_tokens_with_stop_ids_equals_jax():
     _, _, jparams, tparams = _weights(4)
     common = dict(_F32, max_model_len=64, max_num_seqs=2, prefill_chunk=16,
                   prefill_buckets=(16,), decode_window=8, kv_block_size=8)
-    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
+    je = jengine.LLMEngine(jec.EngineConfig(**common, **FIXED),
                            params=jparams)
     te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
                                             **FIXED),
@@ -216,7 +216,7 @@ def test_min_tokens_out_of_vocab_stop_ids_equal_jax_and_serve_on():
     V = tcfg.vocab_size
     common = dict(_F32, max_model_len=64, max_num_seqs=2, prefill_chunk=16,
                   prefill_buckets=(16,), decode_window=8, kv_block_size=8)
-    je = jengine.LLMEngine(jec.EngineConfig(**common, window_adapt=False),
+    je = jengine.LLMEngine(jec.EngineConfig(**common, **FIXED),
                            params=jparams)
     te = tengine.LLMEngine(tec.EngineConfig(**common, device="cpu",
                                             **FIXED),

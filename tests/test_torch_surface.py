@@ -255,7 +255,7 @@ def pair():
                   prefill_buckets=(16, 32), decode_window=4,
                   kv_block_size=8)
     je = jasync.AsyncLLMEngine(jec.EngineConfig(**common,
-                                                window_adapt=False),
+                                                **FIXED),
                                params=jparams)
     te = AsyncLLMEngine(tec.EngineConfig(**common, device="cpu",
                                          **FIXED),

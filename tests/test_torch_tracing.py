@@ -220,7 +220,7 @@ def test_terminal_timing_equal_jax():
     other outputs none; a sequence dropped while waiting (its deadline
     passed) carries one with no admission. Keys and counts as the JAX
     engine's."""
-    je = jengine.LLMEngine(jec.EngineConfig(**COMMON, window_adapt=False))
+    je = jengine.LLMEngine(jec.EngineConfig(**COMMON, **FIXED))
     te = tengine.LLMEngine(tec.EngineConfig(**COMMON, device="cpu",
                                             **FIXED))
     got = {}
