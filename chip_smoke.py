@@ -50,7 +50,13 @@
    layers (config.json, two .safetensors shards of the seed-0 draw)
    loads through the port's reader (bytes, seconds, GB/s), and an
    engine started on it serves and matches, bit for bit, an engine
-   given the same weights in memory; the directory is deleted;
+   given the same weights in memory; loaded with int8 weights (each
+   tensor read from its byte range, each layer quantized as it lands)
+   it equals quantize_params of the bf16 load bit for bit; a second
+   directory of Mixtral-8x7B's widths at 1 layer (3.4 GB of bf16
+   experts, attention, embedding and head) loads int8 likewise (bytes,
+   seconds, peak device memory, bit-equal to the quantized draw); both
+   directories are deleted;
 4. encoder: the BERT encoder of --embedding-model at full width,
    bert-base and minilm-l6 (random f32 weights from the engine's seed):
    pooled vectors on the card against the same weights on the CPU (rows
@@ -62,10 +68,16 @@
    kernel launched;
 5. then for each served path — llama-3-8b, gemma-2-9b, llama-3-8b
    with int8 weights and an int8 KV pool (llama-3-8b-int8),
-   qwen1.5-moe-a2.7b (60 experts, top-4, a shared expert, q/k/v biases)
-   and mistral-7b-v0.1 (a 4096 window on every layer, rolling KV) — at
-   full width and depth with random weights from a seed, one after the
-   other (each engine is freed before the next is built):
+   qwen1.5-moe-a2.7b (60 experts, top-4, a shared expert, q/k/v biases),
+   mistral-7b-v0.1 (a 4096 window on every layer, rolling KV) and
+   Mixtral-8x7B with int8 weights over a bf16 pool (mixtral-8x7b-int8:
+   8 experts of 14336, top-2; 93.4 GB in bf16, 46.7 GB int8, drawn,
+   rounded and quantized one layer at a time on the card) — at full
+   width and depth with random weights from a seed, one after the
+   other (each engine is freed before the next is built; the engine's
+   build time, its peak device memory beside the weights' and the
+   pool's bytes, the peak past what stays held to three f32 copies of
+   the largest layer on the int8 paths):
    - serve: starts the port's OpenAI server in-process, sends completion
      and chat requests (some concurrent, one streamed, one prompt long
      enough for several prefill chunks — past Gemma-2's 4096-token
@@ -73,9 +85,9 @@
      that both paged kernels were launched (on Gemma-2 with the window
      and the softcap on, on the int8 path with the int8 pool) and the
      flash kernel, which serves no path as in the JAX package, was not;
-     on Mistral every launch carries the window, on Qwen1.5-MoE the
-     prefill chunks took the MoE's capacity dispatch and decode its
-     exact path;
+     on Mistral every launch carries the window, on Qwen1.5-MoE and
+     Mixtral the prefill chunks took the MoE's capacity dispatch and
+     decode its exact path;
    - roll (mistral-7b-v0.1): a 4,600-token prompt through the engine;
      at the first decode window 7 blocks behind the window are freed
      and the pool's free blocks rise by 7; served at pipeline_depth 2
@@ -104,9 +116,11 @@
      device's idle share and each kernel class's share; on llama-3-8b
      the decode step with one shaped row and top-5 beside it, and with
      one guided row, and the plain step's launches held to their count
-     before shaping existed; on Qwen1.5-MoE the MoE block's share of the
-     step and of the chunk (its device time per layer, times the
-     layers);
+     before shaping existed; on Qwen1.5-MoE and Mixtral the MoE block's
+     share of the step and of the chunk (its device time per layer,
+     times the layers); with int8 weights the converts' share (every
+     layer's int8 weights and the head converted to bf16, as each
+     forward converts them, the expert stacks apart);
    - then through the server again (after the breakdown, whose plain
      step's count of device events large uploads disturb):
    - guided (llama-3-8b, its own kernel counts): guided_regex,
@@ -153,7 +167,8 @@
      with a float32 forward through the plain attention (on the int8
      path over the same int8 weights and an int8 pool; the f32 weights
      upcast a layer at a time, so Qwen1.5-MoE's fit beside its bf16
-     ones); on Qwen1.5-MoE the first layer's expert ids of the bf16
+     ones; Mixtral's int8 weights dequantized in f32 by the forward);
+     on the MoE paths the first layer's expert ids of the bf16
      path against the f32 ones (a difference only within the bf16
      router error); on Mistral the greedy tokens past the roll against
      the f32 teacher-forced argmax (near_tie_check); on the
@@ -185,10 +200,12 @@
    int8 pools), pinned D2H / H2D, each tier's put and get rates and
    each codec's times and ratio on one chunk, and TTFT with the hit
    and without it;
-7. parallel: tensor- and expert-parallel serving at full width and
-   depth (PARALLEL), every rank on the one card, where gloo stages each
+7. parallel: tensor- and expert-parallel serving at full width
+   (PARALLEL), every rank on the one card, where gloo stages each
    collective through the host (its step times measure that rig, not a
-   multi-GPU speed). Llama-3-8B: a one-rank engine serves greedy
+   multi-GPU speed). Llama-3-8B at 16 of its 32 layers (its worlds cut
+   in depth to make room for Mixtral; MoE models at full depth): a
+   one-rank engine serves greedy
    prompts of 300 and 1,000 tokens, a shaped, a guided and a
    repetitive (n-gram speculating) request through its server, then an
    engine at tensor_parallel_size = 2 on the same weights (random, from
@@ -200,6 +217,11 @@
    a 1,100-token prompt whose prefill takes the capacity dispatch and
    decode the exact path, its tokens against the one-rank engine's
    (near_tie_check), layer 0's routing against f32 (routing_check).
+   Mixtral-8x7B with int8 weights at expert_parallel_size = 2, both
+   ranks on the card (each builds its slice a layer at a time: all the
+   attention, the embedding and the head, and 4 of each layer's 8
+   experts, ~24 GB a rank): a 600-token prompt against the one-rank
+   int8 engine's tokens likewise.
    Each world prints its backend and rank->device map, every rank's
    memory, the first step's log-softmax and the prompt's
    log-probabilities against the one-rank engine (max |diff|), a decode
@@ -317,6 +339,21 @@ PATHS = {
                    decode_window=8, kv_block_size=64, seed=0),
         decode_starts=[4600, 1000, 57, 400], chunk_start=4096,
         kv_len=8192, long_tokens=4600, timing_layers=4, ref_prompt=4600),
+    # Mixtral-8x7B: 8 experts of 14336, top-2, 32 q heads over 8 kv
+    # heads (G = 4, Llama-3-8B's attention shape); 93.4 GB in bf16, so
+    # weight-only int8 (46.7 GB, built a layer at a time on the card)
+    # over a bf16 pool. Its prefill chunks take the capacity dispatch
+    # (capacity N/2 at 8 experts, top-2), its decode the exact
+    # all-expert path; the 600-token reference prompt runs both
+    # (chunks of 512 and 88 tokens). Served last, when every earlier
+    # path's engine is freed
+    "mixtral-8x7b-int8": dict(
+        model="mixtral-8x7b",
+        serve=dict(max_num_seqs=4, max_model_len=4096, prefill_chunk=512,
+                   decode_window=8, kv_block_size=64, seed=0,
+                   quantization="int8"),
+        decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
+        long_tokens=1100, timing_layers=32, ref_prompt=600),
 }
 # models timed in the kernel phase at their shapes without a serving
 # path (no launches): Qwen2-7B's 28 q heads over 4 kv heads (G = 7)
@@ -331,7 +368,8 @@ ROLL_TOKENS = 24
 
 
 def path_model(path: str) -> str:
-    return PATHS[path].get("model", path)
+    """A path's preset (a name outside PATHS is its own)."""
+    return PATHS.get(path, {}).get("model", path)
 
 
 def path_kv(path: str) -> str:
@@ -1067,10 +1105,11 @@ def paged_timings(pa, model, kv, path, verify=False, tp=1, batch=None,
     import torch
     from production_stack_tpu_torch.models.config import get_config
     from production_stack_tpu_torch.models.llama import attn_scale
-    cfg, p = get_config(model), PATHS.get(model) or KERNEL_ONLY[model]
+    cfg, p = (get_config(path_model(model)),
+              PATHS.get(model) or KERNEL_ONLY[model])
     # a parallel serving run's rows at its engine's batch
-    serve = (PARALLEL[model]["serve"] if str(path).startswith("parallel:")
-             else p["serve"])
+    serve = (PARALLEL[path_model(model)]["serve"]
+             if str(path).startswith("parallel:") else p["serve"])
     B, Bs = batch or serve["max_num_seqs"], serve["kv_block_size"]
     rows = p["decode_starts"][:B]
     Hkv, G, D = cfg.num_kv_heads // tp, cfg.num_heads // cfg.num_kv_heads, \
@@ -1260,7 +1299,7 @@ def kernel_phase():
     free_memory()
     records = []
     for model in ("llama-3-8b", "gemma-2-9b", "qwen1.5-moe-a2.7b",
-                  "mistral-7b-v0.1"):
+                  "mistral-7b-v0.1", "mixtral-8x7b-int8"):
         records += paged_timings(pa, model, "bfloat16", model)
     # Qwen2-7B's G = 7, which no path serves (no launches), at T = 1 and
     # at a verify window of 4 (28 query rows per kv head); Llama-3-8B's
@@ -1300,6 +1339,10 @@ def kernel_phase():
             pa, "qwen1.5-moe-a2.7b", "bfloat16",
             parallel_label("qwen1.5-moe-a2.7b", dict(
                 expert_parallel_size=2, tensor_parallel_size=tp)), tp=tp)
+    # Mixtral at ep 2: each rank keeps every head, at its engine's batch
+    records += paged_timings(
+        pa, "mixtral-8x7b-int8", "bfloat16",
+        parallel_label("mixtral-8x7b", dict(expert_parallel_size=2)))
     # the tp = 2 Llama engine speculates (spec 3): its decode launches are
     # T = 4 verify windows; and the dp = 2 x tp = 2 engine, whose ranks
     # read the copy assembled over dp (its decode launches T = 4 too)
@@ -2506,11 +2549,23 @@ def reference_phase(engine, path: str, surface: dict):
       is held instead against the plain attention on the same inputs
       (the model's own activations and pool), at TOL of the larger of 1
       and its largest output; the logits' distance and the count of
-      int8 values that differ from the reference's pool are logged;
+      int8 values that differ from the reference's pool are logged. On
+      a MoE model every f32 kernel call is held so too, and where the
+      two f32 runs route a token to other experts (top-k routing is
+      discontinuous as int8 rounding is), the first such MoE call must
+      be a near-tie of the router logits (first_routing_flip) and the
+      calls' bound replaces the logits' (Mixtral-8x7B on an H100 80GB
+      HBM3: 0.0118 of a largest logit of 5.88 after such a flip);
     - the served bf16 path through the kernels may be at most
       BF16_FLOOR_FACTOR times further from it than the bf16 path through
       the plain attention is (bf16 rounding through every layer is the
-      floor both share).
+      floor both share). On a MoE model that floor is weak once bf16
+      routing parts from f32 (Mixtral-8x7B on an H100 80GB HBM3: 5.4 of
+      a largest logit of 5.88), so each MoE call of the served bf16 run
+      is also held against the same call in f32 on its own inputs
+      (moe_call_f32): both route alike, so they differ by the bf16
+      products' rounding alone, at most TOL["bfloat16"] of the f32
+      call's largest output.
 
     Then the surface phase's outputs (surface_phase) against float32
     forwards of the same weights through the plain attention:
@@ -2632,16 +2687,40 @@ def reference_phase(engine, path: str, surface: dict):
                                for n, (a, b) in rows.items()},
                     lora_scaling=runner._lora_scaling)
 
+    # per MoE call of the served bf16 run: (max |bf16 - f32|, its bound)
+    moe_errs = []
+
+    @contextmanager
+    def moe_held():
+        """Each MoE call inside held against moe_call_f32."""
+        call = moe.moe_mlp
+
+        def held(x, router_w, *ws, **kw):
+            out = call(x, router_w, *ws, **kw)
+            want = moe_call_f32(call, x, router_w, ws, kw)
+            moe_errs.append(((out.float() - want).abs().max().item(),
+                             TOL["bfloat16"] * want.abs().max().item()))
+            return out
+        moe.moe_mlp = held
+        try:
+            yield
+        finally:
+            moe.moe_mlp = call
+
     routed = {}
 
     @contextmanager
-    def first_routing(key):
-        """routed[key] = (hidden, router) of the first MoE call inside:
-        layer 0 of the first prefill chunk."""
+    def routing_log(key):
+        """routed[key]: (hidden, router) in f32 of the MoE calls inside,
+        in order: every call in an f32 run, the first (layer 0 of the
+        first prefill chunk) in another."""
         call = moe.moe_mlp
+        every = key[0] == str(torch.float32)
+        calls = routed.setdefault(key, [])
 
         def capture(x, router_w, *a, **kw):
-            routed.setdefault(key, (x.float(), router_w.float()))
+            if every or not calls:
+                calls.append((x.float().clone(), router_w.float()))
             return call(x, router_w, *a, **kw)
         moe.moe_mlp = capture
         try:
@@ -2649,18 +2728,20 @@ def reference_phase(engine, path: str, surface: dict):
         finally:
             moe.moe_mlp = call
 
-    def run(params, mcfg, mode, lora=None):
+    def run(params, mcfg, mode, lora=None, hold_moe=False):
         """Logits at the compared positions, the verify segments' logits
         {T: [T, V]} as one forward and (not in "plain") as T
         single-token forwards over the same positions, and the pool's
         int8 K/V (None over a float pool); mode "plain", "kernels" or
         "checked"; lora: an adapter id whose factors join every
-        forward. On a MoE model the first layer's routing input of the
-        run is kept in routed[(dtype, mode)]."""
+        forward; hold_moe: each MoE call held (moe_held). On a MoE
+        model the run's routing inputs are kept in routed[(dtype,
+        mode)] (routing_log)."""
         cache, tables = pool(mcfg, max_len)
         out, ver, single = [], {}, {}
         ad = adapter(lora, mcfg.dtype)
-        with attention(mode), first_routing((str(mcfg.dtype), mode)):
+        with (moe_held() if hold_moe else nullcontext()), attention(mode), \
+                routing_log((str(mcfg.dtype), mode)):
             for lo in range(0, P, chunk):
                 hi = min(lo + chunk, P)
                 logits, _ = llama.forward(
@@ -2742,8 +2823,11 @@ def reference_phase(engine, path: str, surface: dict):
     t0 = time.monotonic()
     ref, ref_ver, _, ref_pool = run(p32, cfg32, "plain")
     int8 = ref_pool is not None
-    got32, ver32, _, pool32 = run(p32, cfg32,
-                                  "checked" if int8 else "kernels")
+    # each f32 kernel call is held against the plain attention on its
+    # own inputs where the logits' distance may be no bound: over an
+    # int8 pool, and on a MoE model (its routing may flip at a tie)
+    f32_mode = "checked" if int8 or cfg.num_experts else "kernels"
+    got32, ver32, _, pool32 = run(p32, cfg32, f32_mode)
     err32 = (got32 - ref).abs().max().item()
     shaped32 = echo32 = None
     # the spec phase's rows that left the spec-free tokens, and its
@@ -2790,26 +2874,48 @@ def reference_phase(engine, path: str, surface: dict):
                                   len(roll["tokens"]))
     del p32
     free_memory()
-    got16, ver16, single16, _ = run(runner.params, cfg, "kernels")
+    got16, ver16, single16, _ = run(runner.params, cfg, "kernels",
+                                    hold_moe=bool(cfg.num_experts))
     plain16, pver16, _, _ = run(runner.params, cfg, "plain")
     err16 = (got16 - ref).abs().max().item()
     floor16 = (plain16 - ref).abs().max().item()
     scale = ref.abs().max().item()
     extra = {}
+    calls_ok = bool(call_errs) and all(e <= t for e, t in call_errs)
+    if call_errs:
+        extra = {"f32_kernel_calls": len(call_errs),
+                 "f32_call_err_max": max(e for e, _ in call_errs),
+                 "f32_call_tol_min": min(t for _, t in call_errs)}
     if int8:
         # the pools [2, L, N, Hkv, Bs, D] outside trash block 0
         step = (pool32[:, :, 1:].int() - ref_pool[:, :, 1:].int()).abs()
-        extra = {"f32_kernel_calls": len(call_errs),
-                 "f32_call_err_max": max(e for e, _ in call_errs),
-                 "f32_call_tol_min": min(t for _, t in call_errs),
-                 "int8_values_differing": int((step != 0).sum().item()),
-                 "int8_values_in_pool": step.numel(),
-                 "int8_max_step": int(step.max().item())}
-        f32_ok = bool(call_errs) and all(e <= t for e, t in call_errs)
+        extra.update({"int8_values_differing": int((step != 0).sum().item()),
+                      "int8_values_in_pool": step.numel(),
+                      "int8_max_step": int(step.max().item())})
+        f32_ok = calls_ok
     else:
         f32_ok = err32 <= F32_LOGIT_TOL * scale
+    if cfg.num_experts:
+        # top-k routing is discontinuous: where the two f32 runs route a
+        # token to other experts (first_routing_flip: a tie of the router
+        # logits broken the other way by the kernels' summation order)
+        # the logits' distance is no bound, and the kernel calls are
+        # held to the plain attention instead, as over an int8 pool
+        flip = first_routing_flip(routed[(str(torch.float32), "plain")],
+                                  routed[(str(torch.float32), f32_mode)],
+                                  cfg.num_experts_per_tok)
+        extra["f32_routing_flip"] = flip
+        if flip is not None:
+            f32_ok = flip["ok"] and calls_ok
     ok = (bool(torch.isfinite(ref).all()) and f32_ok
           and err16 <= BF16_FLOOR_FACTOR * floor16)
+    if moe_errs:
+        extra.update({"bf16_moe_calls": len(moe_errs),
+                      "bf16_moe_call_err_max": max(e for e, _ in moe_errs),
+                      "bf16_moe_call_share_of_tol_max": max(
+                          e / t for e, t in moe_errs),
+                      "bf16_moe_call_tol_min": min(t for _, t in moe_errs)})
+        ok = ok and all(e <= t for e, t in moe_errs)
     if shaped32 is not None:
         sh = surface["shaped"]
         shaped16 = all_logits(runner.params, cfg,
@@ -2885,8 +2991,8 @@ def reference_phase(engine, path: str, surface: dict):
             ok = ok and chk["ok"]
     if cfg.num_experts:
         extra["routing"] = routing_check(
-            routed[(str(torch.float32), "plain")],
-            routed[(str(cfg.dtype), "kernels")], cfg.num_experts_per_tok)
+            routed[(str(torch.float32), "plain")][0],
+            routed[(str(cfg.dtype), "kernels")][0], cfg.num_experts_per_tok)
         ok = ok and extra["routing"]["ok"]
     if roll:
         l16 = tail_logits(runner.params, cfg, roll["prompt"] + roll["tokens"],
@@ -2951,6 +3057,17 @@ class _UpcastLayers:
         return self._stacked[layer].float()
 
 
+def moe_call_f32(call, x, router_w, ws, kw):
+    """The MoE call call(x, router_w, *ws, **kw) in float32: the
+    activations and a float router and expert stacks upcast (exact),
+    int8 stacks as they are (dequantized in f32 by the product). The
+    router logits come out the same bytes (route() takes them in f32
+    from the same values), so the two calls route alike."""
+    from production_stack_tpu_torch.models.quant import is_quantized
+    return call(x.float(), router_w.float(),
+                *(w if is_quantized(w) else w.float() for w in ws), **kw)
+
+
 def routing_check(ref, got, k: int) -> dict:
     """The experts the served bf16 path routes each token of the first
     prefill chunk to at the first layer, against the f32 reference's:
@@ -2975,6 +3092,28 @@ def routing_check(ref, got, k: int) -> dict:
             "router_logit_err_max": err.max().item(),
             "differing_gap_max": (gap[differ].max().item() if n else None),
             "ok": bool((allowed | ~differ).all().item())}
+
+
+def first_routing_flip(ref_calls, got_calls, k: int):
+    """The first MoE call, in forward order, at which two f32 runs of the
+    same forward (the plain attention and the kernels) route some token
+    to another set of k experts, with routing_check's verdict on that
+    call (ref_calls, got_calls: each call's (routing input, router) in
+    f32): a flip is allowed only at a near-tie of the router logits.
+    None when every call routes alike. Past the first flip the runs'
+    activations differ by the flipped token's expert outputs, so later
+    calls are not compared."""
+    import torch
+    if len(ref_calls) != len(got_calls):
+        raise AssertionError(f"the f32 runs made {len(ref_calls)} and "
+                             f"{len(got_calls)} MoE calls")
+    for i, (ref, got) in enumerate(zip(ref_calls, got_calls)):
+        a = (ref[0] @ ref[1]).topk(k, dim=-1).indices.sort(dim=-1).values
+        b = (got[0] @ got[1]).topk(k, dim=-1).indices.sort(dim=-1).values
+        if not torch.equal(a, b):
+            return {"call": i, "calls": len(ref_calls),
+                    **routing_check(ref, got, k)}
+    return None
 
 
 def near_tie_check(want, got, logits32, logits16) -> dict:
@@ -3213,6 +3352,7 @@ def breakdown_phase(engine, path: str):
     import numpy as np
     import torch
     from production_stack_tpu_torch.engine.sampler import SamplingParams
+    from production_stack_tpu_torch.models.quant import is_quantized
 
     runner = engine.engine.runner
     dev = next(runner.params.parameters()).device
@@ -3242,6 +3382,8 @@ def breakdown_phase(engine, path: str):
                device_profile(chunk), 1, chunk_ms)}
     if runner.model_cfg.num_experts:
         out.update(moe_breakdown(runner, p, out))
+    if is_quantized(runner.params.q):
+        out.update(int8_convert_breakdown(runner, out))
     if path in PLAIN_DECODE_LAUNCHES:
         out.update(shaped_breakdown(runner, sp, window, W, kv_len, starts))
         out.update(guided_breakdown(engine, sp, W, kv_len, starts))
@@ -3294,6 +3436,52 @@ def moe_breakdown(runner, p: dict, plain: dict) -> dict:
         out[f"moe_{name}_ms"] = ms * L
         out[f"moe_share_of_{name}_busy"] = ms * L / busy if busy else None
         out[f"moe_share_of_{name}_event_ms"] = ms * L / plain[ms_key]
+    return out
+
+
+def int8_convert_breakdown(runner, plain: dict) -> dict:
+    """The int8 weights' converts that one decode step and one prefill
+    chunk make: each product converts its whole int8 weight to the model
+    dtype before the matmul (quant.dequant_matmul; the head in _lm_head),
+    once per forward, at any batch. Device time (CUDA graph replay,
+    device_ms) of every layer's int8 leaves converted, the layers taken
+    in turn, times the layers, plus the head's; over the step's and the
+    chunk's device busy time; the expert stacks' converts apart (a MoE
+    decode step's exact path and a chunk's dispatch convert every
+    expert)."""
+    from production_stack_tpu_torch.models.llama import LAYER_KEYS
+    from production_stack_tpu_torch.models.quant import is_quantized
+    cfg, params = runner.model_cfg, runner.params
+    L = cfg.num_layers
+    names = [n for n in LAYER_KEYS if is_quantized(getattr(params, n, None))]
+    experts = [n for n in ("gate", "up", "down") if cfg.num_experts]
+    head = params.embed if cfg.tie_word_embeddings else params.lm_head
+
+    def converts(leaves):
+        def fn(i=0):
+            for n in leaves:
+                getattr(params, n).w8[i % L].to(cfg.dtype)
+        return fn
+    layers_ms = device_ms(converts(names), L) * L
+    experts_ms = device_ms(converts(experts), L) * L if experts else 0.0
+    head_ms = device_ms(lambda i=0: head.w8.to(cfg.dtype), 2)
+    total = layers_ms + head_ms
+    out = {"int8_convert_ms": total, "int8_convert_layers_ms": layers_ms,
+           "int8_convert_head_ms": head_ms,
+           "int8_convert_experts_ms": experts_ms,
+           "int8_weight_bytes": sum(t.nbytes for t in params.buffers())}
+    # a step's floor: every int8 weight (and its scales) read once
+    out["int8_weights_read_bound_ms"] = (out["int8_weight_bytes"] / HBM_BPS
+                                         * 1e3)
+    for name, key in (("decode", "decode_profile_per_step"),
+                      ("prefill", "prefill_profile_per_chunk")):
+        busy = plain[key].get("device_busy_ms")
+        out[f"int8_convert_share_of_{name}_busy"] = (total / busy if busy
+                                                     else None)
+        if experts:
+            moe_ms = plain.get(f"moe_{name}_ms")
+            out[f"int8_convert_experts_share_of_moe_{name}"] = (
+                experts_ms / moe_ms if moe_ms else None)
     return out
 
 
@@ -3707,26 +3895,29 @@ def model_phase(path: str):
     from production_stack_tpu_torch.engine.async_engine import \
         AsyncLLMEngine
     from production_stack_tpu_torch.engine.config import EngineConfig
+    free_memory()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     engine = AsyncLLMEngine(EngineConfig(model=path_model(path),
                                          device="cuda",
                                          **PATHS[path]["serve"]))
+    torch.cuda.synchronize()
+    build = build_check(engine.engine, mem0, time.monotonic() - t0)
     engine.engine.runner.warmup()
     runner = engine.engine.runner
     cfg = engine.engine.model_cfg
-    pool = runner.cache
     log(json.dumps({"engine_ready_s": time.monotonic() - t0,
                     "path": path, "model": cfg.name,
                     "layers": cfg.num_layers, "hidden": cfg.hidden_size,
                     "params": cfg.num_params,
                     "quantization": engine.engine.cfg.quantization,
-                    "kv_dtype": engine.engine.cfg.kv_dtype,
-                    "weight_bytes": sum(
-                        t.nbytes for t in (*runner.params.parameters(),
-                                           *runner.params.buffers())),
-                    "pool_bytes": sum(t.nbytes for t in (
-                        pool.k, pool.v, pool.ks, pool.vs) if t is not None),
+                    "kv_dtype": engine.engine.cfg.kv_dtype, **build,
                     "mem_gib": torch.cuda.memory_allocated() / 2**30}))
+    if not build["ok"]:
+        raise AssertionError(f"{path}: the build's peak memory passed "
+                             f"what it keeps by more than its bound: "
+                             f"{build}")
     t0 = time.monotonic()
     counts, surface = asyncio.run(serve_phase(engine, path))
     if cfg.sliding_window and not cfg.alternating_sliding:
@@ -3746,13 +3937,59 @@ def model_phase(path: str):
     counts["verify_window"] = surface["spec"].get("verify_window", {})
     # serving is over: the pool goes before the float32 copy arrives
     engine.engine.runner.cache = None
-    del runner, pool
+    del runner
     free_memory()
     reference_phase(engine, path, surface)
     release(engine)
     log(json.dumps({"model_phase_s": time.monotonic() - t0,
                     "path": path}))
     return counts
+
+
+# an int8 build's device memory past what it keeps, in f32 copies of the
+# largest layer (or the whole embedding or head): the layer's f32 draw,
+# its rounding to the model dtype and one slice's quantize temporaries
+INT8_BUILD_TRANSIENT = 3
+
+
+def build_check(eng, mem0: int, build_s: float) -> dict:
+    """An engine's build on the card (weights and pool), read right after
+    its constructor: seconds, the weights' and the pool's bytes, the
+    device's peak while it ran (max_memory_allocated after
+    reset_peak_memory_stats) and the peak past what the build left
+    allocated. With int8 weights, built a layer at a time, that excess
+    must stay within INT8_BUILD_TRANSIENT f32 copies of the largest
+    layer; a model drawn whole in the model dtype and then quantized
+    would pass it by the model's size."""
+    runner = eng.runner
+    pool = runner.cache
+    out = {"build_s": build_s,
+           "weight_bytes": sum(t.nbytes for t in (
+               *runner.params.parameters(), *runner.params.buffers())),
+           "pool_bytes": sum(t.nbytes for t in (pool.k, pool.v, pool.ks,
+                                                pool.vs) if t is not None),
+           **build_memory(eng.model_cfg, mem0)}
+    out["ok"] = (eng.cfg.quantization != "int8"
+                 or out["transient_gb"] <= out["transient_bound_gb"])
+    return out
+
+
+def build_memory(cfg, mem0: int) -> dict:
+    """The device's peak since reset_peak_memory_stats past mem0 (what
+    was allocated before) and past what is allocated now, and the bound
+    on the latter for an int8 build of cfg: INT8_BUILD_TRANSIENT f32
+    copies of its largest layer."""
+    import torch
+    from production_stack_tpu_torch.models.llama import (LAYER_KEYS,
+                                                         leaf_shapes)
+    peak, held = torch.cuda.max_memory_allocated(), \
+        torch.cuda.memory_allocated()
+    largest = max(math.prod(shape[1:] if name in LAYER_KEYS else shape)
+                  for name, shape in leaf_shapes(cfg).items())
+    return {"peak_gb": (peak - mem0) / 1e9,
+            "transient_gb": (peak - held) / 1e9,
+            "mem_before_gb": mem0 / 1e9,
+            "transient_bound_gb": INT8_BUILD_TRANSIENT * 4 * largest / 1e9}
 
 
 # checkpoint_phase's directory: Llama-3-8B's widths at 2 layers, HF
@@ -3770,19 +4007,67 @@ CHECKPOINT_CONFIG = {
 
 def hf_shards(model, cfg) -> list:
     """The Llama module's weights under HF names and layouts ([out, in]
-    projections), on the CPU, as two shards: the embedding and layer 0,
-    then the rest."""
-    from production_stack_tpu_torch.models.hf_loader import _LAYER_MAP
+    projections, an expert stack's experts apart; the names
+    hf_loader reads), on the CPU, as two shards: the embedding and
+    layer 0, then the rest."""
+    from production_stack_tpu_torch.models.hf_loader import _hf_names
+    from production_stack_tpu_torch.models.llama import LAYER_KEYS
     first, second = {}, {}
-    first["model.embed_tokens.weight"] = model.embed.detach().cpu()
-    for ours, (suffix, transpose) in _LAYER_MAP.items():
+
+    def put(shard, name, w, transpose):
+        shard[name] = (w.t() if transpose else w).detach().contiguous().cpu()
+    for ours, (hf, transpose) in _hf_names(cfg).items():
+        leaf = getattr(model, ours, None)
+        if leaf is None:
+            continue
+        if ours not in LAYER_KEYS:
+            put(first if ours == "embed" else second,
+                hf if ours == "lm_head" else f"model.{hf}", leaf, transpose)
+            continue
         for i in range(cfg.num_layers):
-            w = getattr(model, ours)[i].detach()
-            (first if i == 0 else second)[f"model.layers.{i}.{suffix}"] = (
-                w.t() if transpose else w).contiguous().cpu()
-    second["model.norm.weight"] = model.final_norm.detach().cpu()
-    second["lm_head.weight"] = model.lm_head.detach().t().contiguous().cpu()
+            shard, name = first if i == 0 else second, f"model.layers.{i}.{hf}"
+            if "{e}" in name:
+                for e in range(cfg.num_experts):
+                    put(shard, name.format(e=e), leaf[i, e], transpose)
+            else:
+                put(shard, name, leaf[i], transpose)
     return [first, second]
+
+
+def write_checkpoint(where: str, hf_config: dict, device: str):
+    """A fresh directory `where` holding hf_config as config.json and the
+    seed-0 draw of its model (llama.init_params, bf16) as two
+    .safetensors shards (hf_shards); (its config, the drawn module, the
+    shards' bytes, seconds to write them)."""
+    import shutil
+
+    import torch
+    from production_stack_tpu_torch.models import hf_loader, llama
+    from production_stack_tpu_torch.models.config import get_config
+    shutil.rmtree(where, ignore_errors=True)
+    os.makedirs(where)
+    with open(os.path.join(where, "config.json"), "w") as f:
+        json.dump(hf_config, f)
+    cfg = get_config(where)
+    drawn = llama.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    t0 = time.monotonic()
+    nbytes = 0
+    for i, shard in enumerate(hf_shards(drawn, cfg)):
+        path = os.path.join(where, f"model-{i + 1:05d}-of-00002.safetensors")
+        hf_loader.save_safetensors(shard, path)
+        nbytes += os.path.getsize(path)
+        del shard
+    return cfg, drawn, nbytes, time.monotonic() - t0
+
+
+def same_weights(a, b) -> bool:
+    """Two Llama modules hold the same leaves, bit for bit (an int8
+    leaf's w8 and scale)."""
+    import torch
+    x, y = a.state_dict(), b.state_dict()
+    return sorted(x) == sorted(y) and all(
+        x[k].dtype == y[k].dtype and torch.equal(x[k], y[k]) for k in x)
 
 
 def checkpoint_phase(device="cuda"):
@@ -3794,7 +4079,10 @@ def checkpoint_phase(device="cuda"):
     serves two greedy requests, and its weights and its logits on one
     prompt (through the kernels) are bit for bit those of an engine
     given the drawn weights in memory, as are both requests' tokens.
-    Both engines are freed and the directory deleted before returning."""
+    Loaded with quantization="int8" (a tensor at a time, each layer
+    quantized as it lands) it equals quant.quantize_params of the bf16
+    load bit for bit. Both engines are freed and the directory deleted
+    before returning; then int8_checkpoint_phase."""
     import shutil
 
     import torch
@@ -3802,25 +4090,11 @@ def checkpoint_phase(device="cuda"):
     from production_stack_tpu_torch.engine.engine import LLMEngine
     from production_stack_tpu_torch.engine.scheduler import SamplingOptions
     from production_stack_tpu_torch.models import hf_loader, llama
-    from production_stack_tpu_torch.models.config import get_config
     from production_stack_tpu_torch.models.kv import make_slot_cache
+    from production_stack_tpu_torch.models.quant import quantize_params
     t_phase = time.monotonic()
-    shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
-    os.makedirs(CHECKPOINT_DIR)
-    with open(os.path.join(CHECKPOINT_DIR, "config.json"), "w") as f:
-        json.dump(CHECKPOINT_CONFIG, f)
-    cfg = get_config(CHECKPOINT_DIR)
-    drawn = llama.init_params(
-        cfg, torch.Generator(device=device).manual_seed(0), device=device)
-    t0 = time.monotonic()
-    nbytes = 0
-    for i, shard in enumerate(hf_shards(drawn, cfg)):
-        path = os.path.join(CHECKPOINT_DIR,
-                            f"model-{i + 1:05d}-of-00002.safetensors")
-        hf_loader.save_safetensors(shard, path)
-        nbytes += os.path.getsize(path)
-        del shard
-    write_s = time.monotonic() - t0
+    cfg, drawn, nbytes, write_s = write_checkpoint(
+        CHECKPOINT_DIR, CHECKPOINT_CONFIG, device)
     torch.cuda.synchronize()
     t0 = time.monotonic()
     loaded = hf_loader.load_checkpoint(cfg, CHECKPOINT_DIR, device=device)
@@ -3828,7 +4102,15 @@ def checkpoint_phase(device="cuda"):
     load_s = time.monotonic() - t0
     same = all(torch.equal(p, getattr(drawn, n))
                for n, p in loaded.named_parameters())
-    del loaded
+    # int8: a tensor at a time, each layer quantized as it lands, against
+    # the bf16 load quantized whole
+    t0 = time.monotonic()
+    loaded8 = hf_loader.load_checkpoint(cfg, CHECKPOINT_DIR, device=device,
+                                        quantization="int8")
+    torch.cuda.synchronize()
+    load8_s = time.monotonic() - t0
+    int8_equal = same_weights(loaded8, quantize_params(loaded))
+    del loaded, loaded8
     free_memory()
     # the directory holds no tokenizer files: the byte tokenizer, named
     # outright so no tokenizer library is tried on the directory
@@ -3879,14 +4161,74 @@ def checkpoint_phase(device="cuda"):
            "write_s": write_s, "load_s": load_s,
            "load_gb_per_s": nbytes / load_s / 1e9,
            "engine_start_s": engine_s, "weights_equal": same,
+           "int8_load_s": load8_s,
+           "int8_equal_quantized_bf16_load": int8_equal,
            "tokens": tokens, "tokens_equal_in_memory": tokens == tokens_mem,
            "logits_bitwise_equal": bitwise,
            "seconds": time.monotonic() - t_phase}
     log(json.dumps({"checkpoint": out}))
-    if not (same and bitwise and tokens == tokens_mem
+    if not (same and bitwise and tokens == tokens_mem and int8_equal
             and all(len(t) == 8 for t in tokens)):
         raise AssertionError(f"the checkpoint engine differs from the "
                              f"in-memory one: {out}")
+    int8_checkpoint_phase(device)
+
+
+# int8_checkpoint_phase's directory: Mixtral-8x7B's widths at 1 layer, HF
+# names, bf16, two safetensors shards (the embedding and the layer, then
+# the final norm and the head), written from a seed-0 draw
+MIXTRAL_CHECKPOINT_DIR = os.path.join(REPO, "build", "checkpoint_mixtral")
+MIXTRAL_CHECKPOINT_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+    "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 1, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "max_position_embeddings": 32768,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-5, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "tie_word_embeddings": False,
+    "hidden_act": "silu", "torch_dtype": "bfloat16"}
+
+
+def int8_checkpoint_phase(device="cuda"):
+    """A quantizing checkpoint load at Mixtral's widths: a directory of
+    Mixtral-8x7B at 1 layer (3.4 GB bf16: a layer's 8 x 3 experts of
+    14336, its attention, the embedding and the head), loaded with
+    quantization="int8" (each tensor read from its byte range, each
+    layer quantized as it lands): the shards' bytes, seconds, GB/s, the
+    peak device memory over the load beside the int8 bytes it keeps
+    (the transient held to build_check's bound), and the result bit for
+    bit quant.quantize_params of the drawn weights. The directory is
+    deleted before returning."""
+    import shutil
+
+    import torch
+    from production_stack_tpu_torch.models import hf_loader
+    from production_stack_tpu_torch.models.quant import quantize_params
+    t_phase = time.monotonic()
+    cfg, drawn, nbytes, write_s = write_checkpoint(
+        MIXTRAL_CHECKPOINT_DIR, MIXTRAL_CHECKPOINT_CONFIG, device)
+    want = quantize_params(drawn)
+    free_memory()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    loaded = hf_loader.load_checkpoint(cfg, MIXTRAL_CHECKPOINT_DIR,
+                                       device=device, quantization="int8")
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    out = {"layers": cfg.num_layers, "experts": cfg.num_experts,
+           "bytes": nbytes, "write_s": write_s, "int8_load_s": load_s,
+           "load_gb_per_s": nbytes / load_s / 1e9,
+           "int8_weight_bytes": sum(t.nbytes for t in loaded.buffers()),
+           **build_memory(cfg, mem0),
+           "equal_quantized_draw": same_weights(loaded, want)}
+    del drawn, want, loaded
+    free_memory()
+    shutil.rmtree(MIXTRAL_CHECKPOINT_DIR)
+    out["seconds"] = time.monotonic() - t_phase
+    log(json.dumps({"int8_checkpoint": out}))
+    if not (out["equal_quantized_draw"]
+            and out["transient_gb"] <= out["transient_bound_gb"]):
+        raise AssertionError(f"the int8 checkpoint load: {out}")
 
 
 # ------------------------------------------------------------ encoder
@@ -4663,10 +5005,10 @@ def kvtier_phase(device="cuda", cfg=None):
 
 # ------------------------------------------------------------ parallel
 
-# the parallel phase: Llama-3-8B at tp = 2 and Qwen1.5-MoE-A2.7B at
-# ep = 2 and ep = 2 x tp = 2, at full width and depth, every rank on the
-# one card, so gloo stages each collective through the host. It holds
-# the per-rank shapes, shards and kernels on the card against the
+# the parallel phase: Llama-3-8B at tp = 2 (16 layers), Qwen1.5-MoE-A2.7B
+# at ep = 2 and ep = 2 x tp = 2 and Mixtral-8x7B int8 at ep = 2, at full
+# width, every rank on the one card, so gloo stages each collective
+# through the host. It holds the per-rank shapes, shards and kernels on the card against the
 # single-rank engine on the same weights (random, from the seed); its
 # step times measure this rig, not a multi-GPU speed. meshes: the
 # worlds served after the single-rank engine; serve: both engines'
@@ -4675,7 +5017,9 @@ def kvtier_phase(device="cuda", cfg=None):
 # (None: no int8 run); features: a shaped, a guided and a repetitive
 # (speculating) request besides; dp_mesh: a mesh with dp > 1 (its dp and
 # tensor_parallel_size) whose engine (dp_run) is held bit for bit to the
-# engine of its tp alone, the first of meshes (None: no dp run)
+# engine of its tp alone, the first of meshes (None: no dp run);
+# layers: the depth every engine of the entry serves at (parallel_served;
+# absent: the preset's)
 PARALLEL = {
     "llama-3-8b": dict(
         meshes=(dict(tensor_parallel_size=2),),
@@ -4683,13 +5027,24 @@ PARALLEL = {
                    decode_window=8, kv_block_size=64, seed=0,
                    speculative_ngram_tokens=3),
         greedy=(300, 1000), tokens=24, int8=300, features=True,
-        dp_mesh=dict(dp=2, tensor_parallel_size=2)),
+        dp_mesh=dict(dp=2, tensor_parallel_size=2),
+        # served at 16 layers: Llama-3-8B's widths in a config.json
+        hf_config=dict(CHECKPOINT_CONFIG, num_hidden_layers=16)),
     "qwen1.5-moe-a2.7b": dict(
         meshes=(dict(expert_parallel_size=2),
                 dict(expert_parallel_size=2, tensor_parallel_size=2)),
         serve=dict(max_num_seqs=2, max_model_len=2048, prefill_chunk=512,
                    decode_window=8, kv_block_size=64, seed=0),
         greedy=(1100,), tokens=24, int8=None, features=False,
+        dp_mesh=None),
+    # int8 weights: each rank builds its slice a layer at a time (the
+    # attention, embedding and head whole, 4 of each layer's 8 experts)
+    "mixtral-8x7b": dict(
+        meshes=(dict(expert_parallel_size=2),),
+        serve=dict(max_num_seqs=2, max_model_len=2048, prefill_chunk=512,
+                   decode_window=8, kv_block_size=64, seed=0,
+                   quantization="int8"),
+        greedy=(600,), tokens=16, int8=None, features=False,
         dp_mesh=None),
 }
 # the decode window parallel_step_timing times: rows at these positions
@@ -4703,6 +5058,22 @@ def parallel_label(model: str, mesh: dict, kv: str = "bfloat16") -> str:
     dp = f"dp{mesh['dp']}" if mesh.get("dp", 1) > 1 else ""
     return f"parallel:{model}:{dp}tp{tp}ep{ep}" + (":int8kv" if kv == "int8"
                                                    else "")
+
+
+def parallel_served(model: str, p: dict) -> dict:
+    """EngineConfig's model for one PARALLEL entry: the preset, or where
+    the entry gives an "hf_config" (the preset's widths at a cut depth)
+    a directory under build/parallel holding it as config.json, served
+    with the byte tokenizer the preset has (named outright, so no
+    tokenizer library is tried on the directory)."""
+    if "hf_config" not in p:
+        return {"model": model}
+    layers = p["hf_config"]["num_hidden_layers"]
+    where = os.path.join(REPO, "build", "parallel", f"{model}-{layers}layers")
+    os.makedirs(where, exist_ok=True)
+    with open(os.path.join(where, "config.json"), "w") as f:
+        json.dump(p["hf_config"], f)
+    return {"model": where, "tokenizer": "byte"}
 
 
 def parallel_requests(cfg, p: dict) -> list:
@@ -4941,17 +5312,30 @@ def parallel_check(ref_async, name, prompt, want, got) -> dict:
 
 @contextmanager
 def moe_capture():
-    """{"exact", "dispatch"}: the MoE calls of this process by path, and
+    """{"exact", "dispatch"}: the MoE calls of this process by path;
     "routed": (routing input of the real tokens, router) in f32 of the
-    first prefill call (N > 64) inside."""
+    first prefill call (N > 64) inside; "block": (input, token mask,
+    output) of that call's MoE block (layer 0 of the first chunk; the
+    output summed over the ranks), and "block_layer": (config, module,
+    layer weights) it ran with, for moe_block_f32_check (drop it before
+    the engine is released: it holds the weights)."""
+    from production_stack_tpu_torch.models import llama
     from production_stack_tpu_torch.ops import moe
     seen = {"exact": 0, "dispatch": 0}
-    saved = (moe.moe_mlp, moe._moe_exact, moe._moe_dispatch)
+    saved = (moe.moe_mlp, moe._moe_exact, moe._moe_dispatch,
+             llama._moe_block)
 
     def mlp(x, router_w, *a, valid=None, **kw):
         if "routed" not in seen and valid is not None and x.shape[0] > 64:
             seen["routed"] = (x[valid].float(), router_w.float())
         return saved[0](x, router_w, *a, valid=valid, **kw)
+
+    def block(cfg, model, lp, hidden, valid):
+        y = saved[3](cfg, model, lp, hidden, valid)
+        if "block" not in seen and valid is not None and valid.numel() > 64:
+            seen["block"] = (hidden.clone(), valid.clone(), y.clone())
+            seen["block_layer"] = (cfg, model, lp)
+        return y
 
     def counted(kind, fn):
         def call(*a, **kw):
@@ -4961,10 +5345,57 @@ def moe_capture():
     moe.moe_mlp = mlp
     moe._moe_exact = counted("exact", saved[1])
     moe._moe_dispatch = counted("dispatch", saved[2])
+    llama._moe_block = block
     try:
         yield seen
     finally:
-        moe.moe_mlp, moe._moe_exact, moe._moe_dispatch = saved
+        (moe.moe_mlp, moe._moe_exact, moe._moe_dispatch,
+         llama._moe_block) = saved
+
+
+def moe_block_f32_check(seen) -> dict:
+    """The single-rank engine's first prefill MoE block (moe_capture's
+    "block", which it pops "block_layer" of) against the same block in
+    float32 on the same input (moe_call_f32's upcast, so the two route
+    alike) over the real tokens: at most TOL["bfloat16"] of the f32
+    block's largest output."""
+    import torch
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.models.quant import is_quantized
+    cfg, model, lp = seen.pop("block_layer")
+    hidden, valid, y = seen["block"]
+    lp32 = {name: (w if is_quantized(w) else w.float())
+            for name, w in ((n, lp[n]) for n in lp._cols)}
+    with torch.no_grad():
+        want = llama._moe_block(cfg, model, lp32, hidden.float(), valid)
+    err = (y.float() - want)[valid].abs().max().item()
+    tol = TOL["bfloat16"] * want[valid].abs().max().item()
+    return {"tokens": int(valid.sum().item()), "bf16_err": err,
+            "tol": tol, "ok": err <= tol}
+
+
+def moe_block_check(ref, got, ep: int) -> dict:
+    """A world of `ep` expert ranks' first prefill MoE block
+    (moe_capture's "block", summed over its ranks) against the
+    single-rank engine's: the same input bit for bit (layer 0, before
+    any exchange; so only where tp leaves the attention whole), and
+    outputs over the real tokens at most ep bf16 spacings at the single
+    rank's largest output apart (bf16 keeps 8 significant bits): the
+    same products, each rank's partial rounded once more than the
+    single rank's sum (at most half a spacing each), and the sum
+    (half a spacing). A lost or wrong exchange moves a share of the
+    output."""
+    h1, v1, y1 = ref
+    h2, v2, y2 = got
+    same_input = (h1.shape == h2.shape and bool((h1 == h2).all())
+                  and bool((v1 == v2).all()))
+    top = y1.float()[v1].abs().max().item()
+    tol = ep * 2.0 ** (math.floor(math.log2(top)) - 7)
+    diff = ((y2.float() - y1.float())[v1].abs().max().item()
+            if same_input else None)
+    return {"same_input": same_input, "max_abs_diff": diff,
+            "single_rank_max_abs": top, "tol": tol,
+            "ok": same_input and diff <= tol}
 
 
 def first_routing_f32(runner, ids) -> tuple:
@@ -5040,9 +5471,10 @@ def parallel_model(model: str, device: str, p: dict) -> dict:
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.engine import LLMEngine
     counts = {}
+    served_model = parallel_served(model, p)
     t0 = time.monotonic()
     mem0 = torch.cuda.memory_allocated() if device == "cuda" else 0
-    ref = AsyncLLMEngine(EngineConfig(model=model, device=device,
+    ref = AsyncLLMEngine(EngineConfig(**served_model, device=device,
                                       **p["serve"]))
     ref.engine.runner.warmup()
     cfg = ref.engine.model_cfg
@@ -5088,10 +5520,11 @@ def parallel_model(model: str, device: str, p: dict) -> dict:
         moe_ref = moe_reference(ref.engine.runner,
                                 *ref_out["tokens"][reqs[0][0]])
         moe_ref["served_routing"] = ref_moe.get("routed")
+        moe_ref["block_f32"] = moe_block_f32_check(ref_moe)
     int8_ref = None
     if p["int8"]:
         # the single-rank engine's weights over an int8 pool
-        int8_ref = LLMEngine(EngineConfig(model=model, device=device,
+        int8_ref = LLMEngine(EngineConfig(**served_model, device=device,
                                           **dict(p["serve"],
                                                  kv_dtype="int8")),
                              params=ref.engine.runner.params)
@@ -5101,14 +5534,18 @@ def parallel_model(model: str, device: str, p: dict) -> dict:
         "model": model, "seconds": time.monotonic() - t0,
         "mem_gib_before": mem0 / 2**30,
         "step": ref_timing, "moe_paths": {k: ref_moe[k] for k in
-                                          ("exact", "dispatch")}}}))
+                                          ("exact", "dispatch")},
+        "moe_block_f32": moe_ref.get("block_f32")}}))
+    if not moe_ref.get("block_f32", {"ok": True})["ok"]:
+        raise AssertionError(f"parallel {model}: the single rank's MoE "
+                             f"block against f32: {moe_ref['block_f32']}")
     if cfg.num_experts:
         release(ref)
         ref = None
     tp_run = None
     for mesh in p["meshes"]:
         t0 = time.monotonic()
-        par = AsyncLLMEngine(EngineConfig(model=model, device=device,
+        par = AsyncLLMEngine(EngineConfig(**served_model, device=device,
                                           **p["serve"], **mesh))
         ready_s = time.monotonic() - t0
         par.engine.runner.warmup()
@@ -5118,6 +5555,7 @@ def parallel_model(model: str, device: str, p: dict) -> dict:
         out = asyncio.run(parallel_serve(par, reqs, measure))
         serve_s = time.monotonic() - t1
         inside, moe_seen = out["inside"], out["moe"]
+        moe_seen.pop("block_layer", None)
         counts[label] = inside["counts"]
         checks = {}
         for name, body in reqs:
@@ -5163,10 +5601,16 @@ def parallel_model(model: str, device: str, p: dict) -> dict:
                 and torch.equal(served[0], moe_seen["routed"][0]))
             ok = ok and routing["ok"] and moe_seen["dispatch"] > 0 \
                 and moe_seen["exact"] > 0
+            if mesh.get("tensor_parallel_size", 1) == 1:
+                # the block's input is layer 0's attention, which tp cuts
+                rec["moe_block"] = moe_block_check(
+                    ref_moe["block"], moe_seen["block"],
+                    mesh["expert_parallel_size"])
+                ok = ok and rec["moe_block"]["ok"]
         if p["int8"]:
             release(par)
             free_memory()
-            par = LLMEngine(EngineConfig(model=model, device=device,
+            par = LLMEngine(EngineConfig(**served_model, device=device,
                                          **dict(p["serve"],
                                                 kv_dtype="int8"), **mesh))
             label8 = parallel_label(model, mesh, "int8")
@@ -5278,12 +5722,13 @@ def dp_run(model: str, device: str, p: dict, reqs, int8_prompt,
     from production_stack_tpu_torch.ops import paged_attention as pa
     from production_stack_tpu_torch.parallel.mesh import MeshConfig
     t0 = time.monotonic()
+    served_model = parallel_served(model, p)
     dm = p["dp_mesh"]
     mesh = MeshConfig(dp=dm["dp"], tp=dm["tensor_parallel_size"])
     serve = dict(p["serve"], tensor_parallel_size=mesh.tp)
     rec = {"model": model, "mesh": {"dp": mesh.dp, "tp": mesh.tp}}
     try:
-        LLMEngine(EngineConfig(model=model, device=device, **serve),
+        LLMEngine(EngineConfig(**served_model, device=device, **serve),
                   mesh=mesh)
         rec["refusal"] = {"raised": None}
     except ValueError as e:
@@ -5293,7 +5738,7 @@ def dp_run(model: str, device: str, p: dict, reqs, int8_prompt,
     label = parallel_label(model, dm)
     counts = {}
     t1 = time.monotonic()
-    par = AsyncLLMEngine(EngineConfig(model=model, device=device,
+    par = AsyncLLMEngine(EngineConfig(**served_model, device=device,
                                       dp_gather_attention_ok=True, **serve),
                          mesh=mesh)
     rec["engine_ready_s"] = time.monotonic() - t1
@@ -5352,7 +5797,7 @@ def dp_run(model: str, device: str, p: dict, reqs, int8_prompt,
         {nb: r[nb]["assemble_ms"] for nb in r} for r in inside["assembly"][1:]]
     rec["step"], rec["tp_step"] = inside["step"], tp_run["step"]
     # the int8 pool: the tp engine's one direct request, bit for bit
-    par = LLMEngine(EngineConfig(model=model, device=device,
+    par = LLMEngine(EngineConfig(**served_model, device=device,
                                  dp_gather_attention_ok=True,
                                  **dict(serve, kv_dtype="int8")), mesh=mesh)
     label8 = parallel_label(model, dm, "int8")

@@ -49,7 +49,8 @@ adapter id rides the sampling upload (``_slot_adapter``), and prefix
 keys are salted with the adapter's name (``_adapter_salt``), so an
 adapter request never attaches a base block. ``checkpoint`` loads an
 HF checkpoint directory (models/hf_loader.py) in place of random
-weights; int8 quantization then applies to the loaded weights.
+weights: the runner reads it a layer at a time, each rank its own
+slice, int8 layers quantized as they land.
 
 Guided decoding (engine/guided.py): a guided request's pattern is
 compiled at ``add_request`` (LRU-cached; the server compiles it first
@@ -160,7 +161,6 @@ from production_stack_tpu_torch.kvcache.connector import (KVConnector,
 from production_stack_tpu_torch.models import encoder as enc
 from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.config import get_config
-from production_stack_tpu_torch.models.hf_loader import load_checkpoint
 from production_stack_tpu_torch.parallel.mesh import MeshConfig
 from production_stack_tpu_torch.utils import init_logger
 
@@ -226,12 +226,6 @@ class LLMEngine:
         self.tokenizer = load_tokenizer(engine_cfg.model,
                                         engine_cfg.tokenizer,
                                         engine_cfg.chat_template)
-        if params is None and engine_cfg.checkpoint:
-            t0 = time.time()
-            params = load_checkpoint(self.model_cfg, engine_cfg.checkpoint,
-                                     device=engine_cfg.torch_device)
-            logger.info("loaded %s from %s (%.2fs)", self.model_cfg.name,
-                        engine_cfg.checkpoint, time.time() - t0)
         # multi-LoRA: adapter name -> id (= its row in the stack; 0 is
         # the base model). Rows are append-only and share the rank,
         # alpha and targets pinned at the first use

@@ -60,15 +60,19 @@ nothing more. ``embed`` and ``prompt_logprobs`` are the base model's, as
 in JAX, so an adapter request's echoed prompt logprobs are the base
 model's in both packages.
 
-``quantization="int8"`` quantizes the weights on their device right
-after they are made or handed in (the given module is quantized in
-place, as JAX consumes its donated params); ``kv_dtype="int8"``
-allocates the int8 pool with its scales.
+``quantization="int8"`` builds the weights int8 a layer at a time:
+random ones drawn, rounded to the model dtype and quantized layer by
+layer (``llama.init_params(int8=True)``), a checkpoint read and
+quantized layer by layer (``hf_loader.load_checkpoint``), so the model
+never exists whole in the model dtype (Mixtral-8x7B: 46.7 GB int8, 93.4
+GB bf16); a module handed in is quantized in place, as JAX consumes its
+donated params. ``kv_dtype="int8"`` allocates the int8 pool with its
+scales.
 
 Under tensor and expert parallelism (``mesh``, a parallel/mesh.py
 ``ServingMesh``; JAX ``runner.py:105-185``) the runner is one rank's:
-it holds the rank's slice of every weight (parallel/sharding.py; random
-weights are drawn whole a layer at a time and cut, int8 weights are
+it holds the rank's slice of every weight (parallel/sharding.py;
+weights are drawn or read a whole layer at a time and cut, int8 layers
 quantized whole and then cut), a pool of Hkv / tp kv heads, and its
 slice of the adapter stack, and the forward calls the mesh's
 collectives (models/llama.py). Every rank runs the same calls with the
@@ -103,6 +107,7 @@ from production_stack_tpu_torch.engine.sampler import (SamplingParams,
 from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models import lora as lora_mod
 from production_stack_tpu_torch.models.config import ModelConfig
+from production_stack_tpu_torch.models.hf_loader import load_checkpoint
 from production_stack_tpu_torch.models.kv import (KVCache, make_cache,
                                                   make_slot_cache, owned,
                                                   quantize_chunk)
@@ -241,18 +246,26 @@ class ModelRunner:
         self.rope = llama.rope_tensors(model_cfg, engine_cfg.max_model_len,
                                        self.device)
         int8 = engine_cfg.quantization == "int8"
-        if params is None:
+        if params is None and engine_cfg.checkpoint:
+            # read a layer at a time, each rank its own slice
+            t0 = time.time()
+            params = load_checkpoint(model_cfg, engine_cfg.checkpoint,
+                                     device=self.device,
+                                     quantization=engine_cfg.quantization,
+                                     shard=self.shard)
+            logger.info("loaded %s from %s (%.2fs)", model_cfg.name,
+                        engine_cfg.checkpoint, time.time() - t0)
+        elif params is None:
             t0 = time.time()
             gen = torch.Generator(device=self.device).manual_seed(
                 engine_cfg.seed)
-            # int8 weights are quantized whole (a row-parallel scale
-            # reduces over the axis tp cuts), so they are drawn whole
-            params = llama.init_params(
-                model_cfg, gen, device=self.device,
-                shard=None if int8 else self.shard)
+            # int8 weights are built int8 a layer at a time
+            params = llama.init_params(model_cfg, gen, device=self.device,
+                                       shard=self.shard, int8=int8)
             logger.info("random-initialized %s on %s (%.2fs)",
                         model_cfg.name, self.device, time.time() - t0)
-        if int8 and params.shard is None:
+        elif int8 and params.shard is None:
+            # given weights are quantized in place
             t0 = time.time()
             params = quantize_params(params)
             logger.info("quantized %s to int8 weights (%.2fs)",

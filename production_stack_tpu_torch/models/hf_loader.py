@@ -2,18 +2,22 @@
 module (``production_stack_tpu/models/hf_loader.py``).
 
 Takes a state-dict-like mapping (name -> torch tensor or numpy array)
-or a checkpoint directory: ``*.safetensors`` shards, read by this
-module's own reader (the header length, the JSON header, then each
-tensor straight from the file's bytes with ``torch.frombuffer``; no
+or a checkpoint directory: ``*.safetensors`` shards, read a tensor at a
+time by this module's own reader (the header length, the JSON header,
+then each tensor from its byte range with ``torch.frombuffer``; no
 ``safetensors`` package), else ``*.bin`` through ``torch.load(...,
 weights_only=True)``.
 
 HF stores projections ``[out, in]``; the port, like the JAX package,
 ``[in, out]`` (``x @ W``), so every projection is transposed on load,
 and per-layer tensors fill the leading layer axis of the stacked
-parameters one layer at a time. Values are cast straight to the model
-dtype, which rounds as the JAX loader's cast through float32 does
-(bf16 -> bf16 is exact). The families are the JAX loader's
+parameters one layer at a time. With ``quantization="int8"``
+(``load_checkpoint``) each layer is quantized as it lands, so neither
+the host nor the device holds the checkpoint whole in its own dtype
+(Mixtral-8x7B: 93.4 GB in bf16, 46.7 GB int8); under a shard a rank
+keeps its slice.
+Values are cast straight to the model dtype, which rounds as the JAX
+loader's cast through float32 does (bf16 -> bf16 is exact). The families are the JAX loader's
 (``hf_loader.py:69-118``): dense Llama, Mistral (its ``sliding_window``
 comes with the config), Gemma-1, Gemma-2 (sandwich-norm names), Qwen2's
 q/k/v biases, Mixtral's ``block_sparse_moe.{gate, experts.N.w1/w3/w2}``
@@ -26,14 +30,15 @@ import glob
 import json
 import os
 import struct
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from production_stack_tpu_torch.models.config import ModelConfig
-from production_stack_tpu_torch.models.llama import Llama
-from production_stack_tpu_torch.utils import init_logger
+from production_stack_tpu_torch.models.llama import (LAYER_KEYS, Llama,
+                                                     leaf_shapes, put_leaf)
+from production_stack_tpu_torch.utils import init_logger, resolve_device
 
 logger = init_logger(__name__)
 
@@ -71,25 +76,11 @@ def _to_tensor(t: Any) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr))
 
 
-@torch.no_grad()
-def params_from_state_dict(cfg: ModelConfig, sd: Mapping[str, Any],
-                           device="cuda") -> Llama:
-    """The Llama module of an HF LlamaForCausalLM / MistralForCausalLM /
-    Qwen2ForCausalLM / GemmaForCausalLM / Gemma2ForCausalLM /
-    MixtralForCausalLM / Qwen2MoeForCausalLM state dict, in cfg.dtype on
-    `device`."""
-    model = Llama(cfg, device=device)
-
-    def put(dst: torch.Tensor, name: str, transpose: bool,
-            bare: bool = False) -> None:
-        src = _to_tensor(_lookup(sd, name, bare=bare)).to(dst.device)
-        if transpose:
-            src = src.t()
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"weight {name!r}: shape {tuple(src.shape)} "
-                             f"!= {tuple(dst.shape)} of the config")
-        dst.copy_(src)
-
+def _hf_names(cfg: ModelConfig) -> Dict[str, Tuple[str, bool]]:
+    """Each leaf's HF name and whether it is transposed on load: a
+    per-layer leaf's suffix after ``layers.{i}.`` (an expert stack's
+    with ``{e}`` for the expert), the others' whole names (lm_head's
+    looked up bare first)."""
     layer_map = dict(_LAYER_MAP)
     if cfg.sandwich_norms:
         # Gemma-2: post_attention_layernorm is the sandwich post-attn
@@ -108,11 +99,15 @@ def params_from_state_dict(cfg: ModelConfig, sd: Mapping[str, Any],
             "v_bias": ("self_attn.v_proj.bias", False),
         })
     if cfg.num_experts:
-        # the routed experts replace the dense MLP
-        for name in ("gate", "up", "down"):
-            del layer_map[name]
+        # the routed experts replace the dense MLP: expert e fills row e
+        # of the stacked [L, E, in, out] leaf
         qwen_moe = cfg.moe_naming == "qwen2"
         prefix = "mlp" if qwen_moe else "block_sparse_moe"
+        moe_map = ({"gate": "gate_proj", "up": "up_proj",
+                    "down": "down_proj"} if qwen_moe
+                   else {"gate": "w1", "up": "w3", "down": "w2"})
+        for ours, hf in moe_map.items():
+            layer_map[ours] = (f"{prefix}.experts.{{e}}.{hf}.weight", True)
         layer_map["router"] = (f"{prefix}.gate.weight", True)
         if qwen_moe and cfg.shared_expert_size:
             layer_map.update({
@@ -121,24 +116,61 @@ def params_from_state_dict(cfg: ModelConfig, sd: Mapping[str, Any],
                 "s_down": ("mlp.shared_expert.down_proj.weight", True),
                 "s_gate_w": ("mlp.shared_expert_gate.weight", True),
             })
-        moe_map = ({"gate": "gate_proj", "up": "up_proj",
-                    "down": "down_proj"} if qwen_moe
-                   else {"gate": "w1", "up": "w3", "down": "w2"})
-        for ours, hf in moe_map.items():
-            stacked = getattr(model, ours)          # [L, E, in, out]
-            for i in range(cfg.num_layers):
+    layer_map.update({"embed": ("embed_tokens.weight", False),
+                      "final_norm": ("norm.weight", False),
+                      "lm_head": ("lm_head.weight", True)})
+    return layer_map
+
+
+@torch.no_grad()
+def _build(cfg: ModelConfig, read: Callable[..., Any], device="cuda",
+           shard=None, int8: bool = False) -> Llama:
+    """The Llama module of the tensors `read(name, bare=False)` gives by
+    HF name, built a layer at a time: each layer of each leaf (the
+    embedding, the final norm and the head whole) is assembled in
+    cfg.dtype from its tensors (transposed where HF stores [out, in];
+    an expert stack expert by expert), then stored by llama.put_leaf —
+    quantized where int8, cut to the rank's slice under `shard` — and
+    dropped before the next is read."""
+    model = Llama(cfg, device=device, shard=shard, int8=int8)
+    dev = resolve_device(device)
+    names = _hf_names(cfg)
+
+    def put(dst: torch.Tensor, name: str, transpose: bool,
+            bare: bool = False) -> None:
+        src = _to_tensor(read(name, bare=bare)).to(dst.device)
+        if transpose:
+            src = src.t()
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"weight {name!r}: shape {tuple(src.shape)} "
+                             f"!= {tuple(dst.shape)} of the config")
+        dst.copy_(src)
+
+    for ours, shape in leaf_shapes(cfg).items():
+        hf, transpose = names[ours]
+        layered = ours in LAYER_KEYS
+        for i in (range(cfg.num_layers) if layered else (None,)):
+            w = torch.empty(shape[1:] if layered else shape,
+                            dtype=cfg.dtype, device=dev)
+            name = f"layers.{i}.{hf}" if layered else hf
+            if "{e}" in name:
                 for e in range(cfg.num_experts):
-                    put(stacked[i, e],
-                        f"layers.{i}.{prefix}.experts.{e}.{hf}.weight", True)
-    for ours, (suffix, transpose) in layer_map.items():
-        stacked = getattr(model, ours)
-        for i in range(cfg.num_layers):
-            put(stacked[i], f"layers.{i}.{suffix}", transpose)
-    put(model.embed, "embed_tokens.weight", False)
-    put(model.final_norm, "norm.weight", False)
-    if not cfg.tie_word_embeddings:
-        put(model.lm_head, "lm_head.weight", True, bare=True)
+                    put(w[e], name.format(e=e), transpose)
+            else:
+                put(w, name, transpose, bare=ours == "lm_head")
+            put_leaf(model, ours, i, w)
+            del w
     return model
+
+
+def params_from_state_dict(cfg: ModelConfig, sd: Mapping[str, Any],
+                           device="cuda") -> Llama:
+    """The Llama module of an HF LlamaForCausalLM / MistralForCausalLM /
+    Qwen2ForCausalLM / GemmaForCausalLM / Gemma2ForCausalLM /
+    MixtralForCausalLM / Qwen2MoeForCausalLM state dict, in cfg.dtype on
+    `device`."""
+    return _build(cfg, lambda name, bare=False: _lookup(sd, name, bare),
+                  device=device)
 
 
 def _lookup(sd: Mapping[str, Any], name: str, bare: bool = False) -> Any:
@@ -151,37 +183,10 @@ def _lookup(sd: Mapping[str, Any], name: str, bare: bool = False) -> Any:
 
 
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """Every tensor of one .safetensors file, on the CPU: an 8-byte
-    little-endian header length, the JSON header ({name: {dtype, shape,
-    data_offsets}}, plus an optional __metadata__), then the data. The
-    file is read once into one buffer the tensors view."""
-    with open(path, "rb") as f:
-        (n,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(n))
-        data = bytearray(os.path.getsize(path) - 8 - n)
-        got = f.readinto(data)
-    if got != len(data):
-        raise ValueError(f"{path}: read {got} of {len(data)} data bytes")
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        if info["dtype"] not in _ST_DTYPES:
-            raise ValueError(f"{path}: tensor {name!r} has dtype "
-                             f"{info['dtype']}, which the reader does not "
-                             f"take ({sorted(_ST_DTYPES)})")
-        dtype = _ST_DTYPES[info["dtype"]]
-        shape = list(info["shape"])
-        lo, hi = info["data_offsets"]
-        count = int(np.prod(shape, dtype=np.int64))
-        if hi - lo != count * dtype.itemsize or hi > len(data):
-            raise ValueError(f"{path}: tensor {name!r} spans bytes "
-                             f"[{lo}, {hi}), not {count} x "
-                             f"{info['dtype']}")
-        t = (torch.frombuffer(data, dtype=dtype, count=count, offset=lo)
-             if count else torch.empty(0, dtype=dtype))
-        out[name] = t.reshape(shape)
-    return out
+    """Every tensor of one .safetensors file, on the CPU
+    (_SafetensorsIndex's reader)."""
+    index = _SafetensorsIndex([path])
+    return {name: index[name] for name in index}
 
 
 def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str
@@ -208,8 +213,8 @@ def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str
 
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """Raw tensors of an HF checkpoint dir: every *.safetensors shard,
-    else every *.bin (torch.load, weights only)."""
+    """Raw tensors of an HF checkpoint dir, whole on the host: every
+    *.safetensors shard, else every *.bin (torch.load, weights only)."""
     st_files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
     sd: Dict[str, torch.Tensor] = {}
     if st_files:
@@ -224,6 +229,73 @@ def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_checkpoint(cfg: ModelConfig, path: str, device="cuda") -> Llama:
-    """The Llama module of an HF checkpoint directory on disk."""
-    return params_from_state_dict(cfg, read_state_dict(path), device=device)
+class _SafetensorsIndex:
+    """The tensors of .safetensors files, read one at a time. A file is
+    an 8-byte little-endian header length, the JSON header ({name:
+    {dtype, shape, data_offsets}}, plus an optional __metadata__), then
+    the data; each file's header is read once, and a tensor's bytes are
+    read from its byte range when it is asked for, so the host holds one
+    tensor at a time, never a file or the checkpoint."""
+
+    def __init__(self, files):
+        self._where: Dict[str, tuple] = {}
+        for path in files:
+            with open(path, "rb") as f:
+                (n,) = struct.unpack("<Q", f.read(8))
+                header = json.loads(f.read(n))
+            size = os.path.getsize(path) - 8 - n
+            for name, info in header.items():
+                if name == "__metadata__":
+                    continue
+                self._where[name] = (path, 8 + n, size, info)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._where
+
+    def __iter__(self):
+        return iter(self._where)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        path, base, size, info = self._where[name]
+        if info["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has dtype "
+                             f"{info['dtype']}, which the reader does not "
+                             f"take ({sorted(_ST_DTYPES)})")
+        dtype = _ST_DTYPES[info["dtype"]]
+        shape = list(info["shape"])
+        lo, hi = info["data_offsets"]
+        count = int(np.prod(shape, dtype=np.int64))
+        if hi - lo != count * dtype.itemsize or hi > size:
+            raise ValueError(f"{path}: tensor {name!r} spans bytes "
+                             f"[{lo}, {hi}), not {count} x "
+                             f"{info['dtype']}")
+        if not count:
+            return torch.empty(shape, dtype=dtype)
+        data = bytearray(hi - lo)
+        with open(path, "rb") as f:
+            f.seek(base + lo)
+            got = f.readinto(data)
+        if got != len(data):
+            raise ValueError(f"{path}: read {got} of {len(data)} bytes of "
+                             f"tensor {name!r}")
+        return torch.frombuffer(data, dtype=dtype).reshape(shape)
+
+
+def load_checkpoint(cfg: ModelConfig, path: str, device="cuda",
+                    quantization: Optional[str] = None,
+                    shard=None) -> Llama:
+    """The Llama module of an HF checkpoint directory on disk, built a
+    layer at a time (_build): from *.safetensors shards each tensor is
+    read on its own (_SafetensorsIndex), so the host holds one tensor;
+    a directory of *.bin files is read whole first. quantization
+    "int8": the weight-only int8 model (models/quant.py), each layer
+    quantized as it lands, so the device holds the int8 model plus one
+    layer in cfg.dtype; bit for bit quant.quantize_params of the load
+    in cfg.dtype. shard: a rank's coordinates; its slice of every leaf
+    (an int8 layer quantized whole, then cut), bit for bit
+    sharding.shard_params of the whole."""
+    st_files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    tensors = (_SafetensorsIndex(st_files) if st_files
+               else read_state_dict(path))
+    return _build(cfg, lambda name, bare=False: _lookup(tensors, name, bare),
+                  device=device, shard=shard, int8=quantization == "int8")

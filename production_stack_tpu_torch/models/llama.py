@@ -18,7 +18,8 @@ routes) runs the same blocks over a whole sequence with the plain causal
 attention of ops/attention.py, as the JAX encode does.
 
 Weight-only int8 (models/quant.py, JAX ``llama.py:130-140,419-450``):
-after ``quant.quantize_params`` the projections run through
+a model built int8 (``init_params(int8=True)``, a layer at a time) or
+quantized in place (``quant.quantize_params``) runs its projections through
 ``dequant_matmul``, the embedding through ``dequant_rows`` and the LM
 head applies the per-vocab scale to its f32 product. On an int8 pool
 (``KVCache.quantized``) K/V are quantized as they are written
@@ -93,7 +94,10 @@ from production_stack_tpu_torch.models.quant import (Int8Weight,
                                                      QuantizedWeight,
                                                      dequant_matmul,
                                                      dequant_rows,
-                                                     is_quantized)
+                                                     is_quantized,
+                                                     is_quantized_name,
+                                                     quantize_into,
+                                                     scale_shape)
 from production_stack_tpu_torch.ops import moe
 from production_stack_tpu_torch.ops import paged_attention as pa
 from production_stack_tpu_torch.ops.attention import causal_attention
@@ -152,7 +156,8 @@ class Llama(nn.Module):
     attention biases q_bias [L, NH*D], k_bias/v_bias [L, NKV*D];
     final_norm [H]; lm_head [H, V] unless the embeddings are tied."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda", shard=None):
+    def __init__(self, cfg: ModelConfig, device="cuda", shard=None,
+                 int8: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -162,9 +167,23 @@ class Llama(nn.Module):
         self.shard = shard
         self.mesh = None
         for name, shape in leaf_shapes(cfg).items():
+            spec = sharding.leaf_spec(cfg, name)
+            if int8 and is_quantized_name(name):
+                # int8 from the start: the rank's w8 and scale buffers
+                # only, never the leaf in cfg.dtype
+                sshape = scale_shape(name, shape)
+                if shard is not None:
+                    sshape = sharding.local_shape(
+                        sshape, sharding.scale_spec(spec, name == "embed"),
+                        shard)
+                    shape = sharding.local_shape(shape, spec, shard)
+                setattr(self, name, QuantizedWeight(
+                    torch.empty(shape, dtype=torch.int8, device=device),
+                    torch.empty(sshape, dtype=torch.float32,
+                                device=device)))
+                continue
             if shard is not None:
-                shape = sharding.local_shape(
-                    shape, sharding.leaf_spec(cfg, name), shard)
+                shape = sharding.local_shape(shape, spec, shard)
             self.register_parameter(name, nn.Parameter(
                 torch.empty(shape, dtype=cfg.dtype, device=device),
                 requires_grad=False))
@@ -207,7 +226,7 @@ def leaf_shapes(cfg: ModelConfig) -> dict:
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda", shard=None) -> Llama:
+                device="cuda", shard=None, int8: bool = False) -> Llama:
     """Random init (normal 0.02) in cfg.dtype, drawn from `generator`
     (which must live on `device`) one layer at a time so the f32 draw
     never holds more than one layer's matrix. Norm gains are ones, or
@@ -216,25 +235,60 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     (the JAX init zeroes them), so a random model exercises them.
     shard: a rank's coordinates; every layer is drawn whole, as the
     unsharded init draws it, and only the rank's slice is kept, so each
-    rank holds its block of the very weights a single device would."""
-    model = Llama(cfg, device=device, shard=shard)
-    full = leaf_shapes(cfg)
-    for name, p in model.named_parameters():
+    rank holds its block of the very weights a single device would.
+    int8: the weight-only int8 model (models/quant.py), built a layer at
+    a time: each layer (the embedding and the head whole) is drawn and
+    rounded to cfg.dtype as above, then quantized whole (put_leaf)
+    before the next is drawn, and a rank keeps its slice of w8 and
+    scale; no leaf exists whole in cfg.dtype. The
+    generator is consumed in the same order, so the weights are bit for
+    bit quantize_params(init_params(...)) and, under a shard,
+    sharding.shard_params of that (a row-parallel scale reduces over
+    the axis tp cuts, hence the whole-layer quantization)."""
+    model = Llama(cfg, device=device, shard=shard, int8=int8)
+    for name, shape in leaf_shapes(cfg).items():
         if name in NORM_KEYS:
-            p.fill_(0.0 if cfg.rms_norm_offset else 1.0)
+            getattr(model, name).fill_(0.0 if cfg.rms_norm_offset else 1.0)
             continue
         layered = name in LAYER_KEYS
-        rows = p if layered else p.unsqueeze(0)
-        shape = full[name][1:] if layered else full[name]
-        spec = sharding.leaf_spec(cfg, name)[1 if layered else 0:]
-        for row in rows:
-            draw = torch.randn(shape, generator=generator, device=device,
-                               dtype=torch.float32) * 0.02
-            if shard is not None:
-                draw = sharding.slice_spec(draw.to(cfg.dtype), spec, shard,
-                                           name)
-            row.copy_(draw)
+        for l in (range(shape[0]) if layered else (None,)):
+            # the f32 draw is freed once rounded
+            w = torch.randn(shape[1:] if layered else shape,
+                            generator=generator, device=device,
+                            dtype=torch.float32).mul_(0.02).to(cfg.dtype)
+            put_leaf(model, name, l, w)
     return model
+
+
+@torch.no_grad()
+def put_leaf(model: Llama, name: str, l: Optional[int],
+             w: torch.Tensor) -> None:
+    """Store `w`, the whole value in cfg.dtype of layer l of leaf `name`
+    (l None: the whole leaf, as the embedding or the head), into
+    `model`: quantized where the leaf is int8 (quant.quantize_into) and
+    cut to the rank's slice under a shard — an int8 leaf quantized
+    whole first, so a row-parallel scale reduces over the axis tp cuts
+    and the rank keeps its slice of w8 and scale."""
+    leaf, shard = getattr(model, name), model.shard
+    spec = sharding.leaf_spec(model.cfg, name)[0 if l is None else 1:]
+    if not isinstance(leaf, QuantizedWeight):
+        if shard is not None:
+            w = sharding.slice_spec(w, spec, shard, name)
+        (leaf if l is None else leaf[l]).copy_(w)
+        return
+    dst = Int8Weight(leaf.w8, leaf.scale) if l is None else leaf[l]
+    if shard is None:
+        quantize_into(name, w, dst.w8, dst.scale)
+        return
+    whole = Int8Weight(
+        torch.empty(w.shape, dtype=torch.int8, device=w.device),
+        torch.empty(scale_shape(name, w.shape), dtype=torch.float32,
+                    device=w.device))
+    quantize_into(name, w, whole.w8, whole.scale)
+    part = sharding.shard_leaf(whole, spec, shard, per_row=name == "embed",
+                               what=name)
+    dst.w8.copy_(part.w8)
+    dst.scale.copy_(part.scale)
 
 
 def _tp(model: Llama) -> int:

@@ -104,36 +104,69 @@ def dequant_rows(w: Weight, rows: torch.Tensor, dtype) -> torch.Tensor:
 _VOCAB_SLICE = 16384
 
 
+def is_quantized_name(name: str) -> bool:
+    """Whether the ``Llama`` leaf `name` is stored int8 under
+    quantization="int8": every weight outside _SKIP_LAYER and the final
+    norm."""
+    return name not in _SKIP_LAYER and name != "final_norm"
+
+
+def scale_shape(name: str, shape) -> tuple:
+    """The f32 scale's shape of an int8 leaf (or of one layer of it) of
+    `shape`: [V] per row for the embedding, else the shape without the
+    reduced `in` axis."""
+    shape = tuple(shape)
+    return shape[:1] if name == "embed" else shape[:-2] + shape[-1:]
+
+
+@torch.no_grad()
+def quantize_into(name: str, w: torch.Tensor, w8: torch.Tensor,
+                  scale: torch.Tensor) -> None:
+    """Quantize the full-precision weight `w` of leaf `name` — the whole
+    embedding or lm_head, or one layer of another leaf — into the
+    buffers w8 and scale (quantize_params' recipe), a slice at a time:
+    _VOCAB_SLICE vocabulary entries of the embedding (per row) or the
+    head, one matrix of a stack (a MoE layer's experts). Every reduction
+    runs within a slice, so the result is that of the whole weight at
+    once, and the f32 temporaries are one slice's."""
+    if name == "embed":
+        for lo in range(0, w.shape[0], _VOCAB_SLICE):
+            sl = slice(lo, lo + _VOCAB_SLICE)
+            w8[sl], scale[sl] = quantize_embed(w[sl])
+    elif name == "lm_head":
+        for lo in range(0, w.shape[1], _VOCAB_SLICE):
+            sl = slice(lo, lo + _VOCAB_SLICE)
+            w8[:, sl], scale[sl] = quantize_tensor(w[:, sl])
+    elif w.dim() > 2:
+        for e in range(w.shape[0]):
+            quantize_into(name, w[e], w8[e], scale[e])
+    else:
+        w8[...], scale[...] = quantize_tensor(w)
+
+
 @torch.no_grad()
 def quantize_params(model: nn.Module) -> nn.Module:
     """Quantize a ``Llama`` module in place with the JAX package's recipe
     and return it: the embedding per row, lm_head and every layer weight
     outside _SKIP_LAYER per output channel; norms unchanged. Each weight
-    is quantized a slice at a time (a layer of a stack, _VOCAB_SLICE
-    vocabulary entries of the embedding or lm_head) on its own device,
-    and its full-precision parameter is dropped as soon as its int8 copy
-    is done, so the transient memory is one slice's f32 copy (JAX
-    donates the buffers to the same end). The reductions run within a
-    slice, so the result is that of the whole weight at once."""
-    names = [n for n, _ in model.named_parameters()
-             if n not in _SKIP_LAYER and n != "final_norm"]
+    is quantized a slice at a time (quantize_into, each layer of a
+    stack) on its own device, and its full-precision parameter is
+    dropped as soon as its int8 copy is done, so the transient memory is
+    one slice's f32 copy (JAX donates the buffers to the same end). A
+    module built int8 (llama.init_params(int8=True), a quantizing
+    checkpoint load) has no such parameter left and is returned as it
+    is."""
+    names = [n for n, _ in model.named_parameters() if is_quantized_name(n)]
     for name in names:
         p = getattr(model, name)
         w8 = torch.empty(p.shape, dtype=torch.int8, device=p.device)
-        scale = torch.empty(p.shape[:-2] + p.shape[-1:] if name != "embed"
-                            else p.shape[:1], dtype=torch.float32,
+        scale = torch.empty(scale_shape(name, p.shape), dtype=torch.float32,
                             device=p.device)
-        if name == "embed":
-            for lo in range(0, p.shape[0], _VOCAB_SLICE):
-                sl = slice(lo, lo + _VOCAB_SLICE)
-                w8[sl], scale[sl] = quantize_embed(p[sl])
-        elif name == "lm_head":
-            for lo in range(0, p.shape[1], _VOCAB_SLICE):
-                sl = slice(lo, lo + _VOCAB_SLICE)
-                w8[:, sl], scale[sl] = quantize_tensor(p[:, sl])
+        if name in ("embed", "lm_head"):
+            quantize_into(name, p, w8, scale)
         else:
             for l in range(p.shape[0]):
-                w8[l], scale[l] = quantize_tensor(p[l])
+                quantize_into(name, p[l], w8[l], scale[l])
         delattr(model, name)
         del p
         setattr(model, name, QuantizedWeight(w8, scale))

@@ -107,15 +107,19 @@ _LORA_SPECS: Dict[str, Dict[str, tuple]] = {
 }
 
 
+def scale_spec(spec: tuple, per_row: bool = False) -> tuple:
+    """The spec of an int8 leaf's scale, given its weight's: the reduced
+    axis dropped — the in axis (-2) for per-output-channel weights, the
+    last axis for the per-row embed table."""
+    return P(*spec[:-1]) if per_row else P(*spec[:-2], spec[-1])
+
+
 def _qspec(leaf: Any, spec: tuple, per_row: bool = False) -> Any:
     """Expand a weight's spec for int8-quantized leaves (models/quant.py
-    {w8, scale}): w8 keeps the weight's spec; scale drops the reduced
-    axis — the in axis (-2) for per-output-channel weights, the last
-    axis for the per-row embed table."""
+    {w8, scale}): w8 keeps the weight's spec, scale takes scale_spec."""
     if not is_quantized(leaf):
         return spec
-    scale_spec = P(*spec[:-1]) if per_row else P(*spec[:-2], spec[-1])
-    return {"w8": spec, "scale": scale_spec}
+    return {"w8": spec, "scale": scale_spec(spec, per_row)}
 
 
 def layer_specs(cfg: ModelConfig) -> Dict[str, tuple]:

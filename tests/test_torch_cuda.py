@@ -1223,3 +1223,78 @@ def test_training_worlds_on_the_card(cuda):
     report = dryrun.dryrun_multichip(8, "cuda")
     assert report["max_loss_diff"] < dryrun.LOSS_TOL
     assert report["pp"]["loss_diff"] < dryrun.LOSS_TOL
+
+
+# ------------------------------------------- int8 built a layer at a time
+
+@pytest.mark.parametrize("preset", ["debug-tiny", "debug-moe"])
+def test_int8_build_on_the_card_bit_equal_draw_then_quantize(cuda, preset):
+    """llama.init_params(int8=True) on the card (each layer drawn,
+    rounded to bf16 and quantized before the next) equals
+    quantize_params of the whole bf16 draw from the same card
+    generator, bit for bit, and at ep = 2 x tp = 2 each rank's slice
+    equals shard_params of it."""
+    import dataclasses
+    from production_stack_tpu_torch.models import llama, quant
+    from production_stack_tpu_torch.models.config import get_config
+    from production_stack_tpu_torch.parallel import sharding
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig, Shard
+    cfg = dataclasses.replace(get_config(preset), dtype=torch.bfloat16)
+
+    def gen():
+        return torch.Generator(device=cuda).manual_seed(4)
+    whole = quant.quantize_params(llama.init_params(cfg, gen(), device=cuda))
+    shards = [None]
+    if cfg.num_experts:
+        mesh = MeshConfig(ep=2, tp=2)
+        shards += [Shard.of(mesh, r) for r in range(mesh.size)]
+    for shard in shards:
+        built = llama.init_params(cfg, gen(), device=cuda, shard=shard,
+                                  int8=True)
+        want = whole if shard is None else sharding.shard_params(whole,
+                                                                 shard)
+        a, b = built.state_dict(), want.state_dict()
+        assert sorted(a) == sorted(b)
+        for name in a:
+            assert a[name].device.type == cuda.type, name
+            assert torch.equal(a[name], b[name]), name
+
+
+def test_int8_moe_engine_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """debug-moe at head dim 64 (the kernels' smallest; the dry run's
+    config.json) with int8 weights in f32, capacity factor 0.5: the CPU
+    engine builds its
+    weights a layer at a time, the card engine is given them; greedy
+    tokens of mixed prompts (the prefill's capacity dispatch and the
+    decode's exact path over the int8 expert stacks, both paged kernels
+    launched) equal the CPU's."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.scheduler import SamplingOptions
+    from production_stack_tpu_torch.models import quant
+    from production_stack_tpu_torch.parallel import dryrun
+    model = dryrun.tiny_model("debug-moe", cuda, str(tmp_path))
+    cfg = dict(model, dtype="float32", kv_dtype="float32",
+               quantization="int8", moe_capacity_factor=0.5,
+               max_model_len=256, max_num_seqs=3,
+               prefill_chunk=64, prefill_buckets=(16, 64), decode_window=4,
+               kv_block_size=16)
+    prompts = [list(range(5, 45)), list(range(100, 107)),
+               list(range(200, 300))]
+
+    def run(engine):
+        ids = [engine.add_request(p, SamplingOptions(
+            temperature=0.0, max_tokens=12, ignore_eos=True))
+            for p in prompts]
+        while engine.has_work:
+            engine.step()
+        return [engine.seqs[i].output_tokens for i in ids]
+    cpu = LLMEngine(EngineConfig(device="cpu", **cfg))
+    assert quant.is_quantized(cpu.runner.params.gate)
+    want = run(cpu)
+    card = LLMEngine(EngineConfig(device=str(cuda), **cfg),
+                     params=cpu.runner.params.to(cuda))
+    pa.reset_launch_counts()
+    assert run(card) == want
+    assert pa.launch_counts["paged_attention"] > 0
+    assert pa.launch_counts["paged_decode_attention"] > 0

@@ -347,3 +347,112 @@ def test_checkpoint_engine_tokens_equal_jax(tmp_path):
     got = run(te, SamplingOptions)
     assert got == run(je, JSamplingOptions)
     assert [len(t) for t in got] == [8, 8, 8]
+
+
+# ------------------------------------------------------- int8, a layer a time
+
+def _debug_moe_mixtral_dir(path):
+    """transformers' Mixtral at debug-moe's widths (vocab 512, hidden
+    128, 2 layers, 4 q over 2 kv heads, 4 experts of 256, top-2), saved
+    in bf16 as safetensors shards of at most 200 KB with their index."""
+    hf_cfg = transformers.MixtralConfig(
+        vocab_size=512, hidden_size=128, intermediate_size=256,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=512, rms_norm_eps=1e-5, rope_theta=1e6,
+        num_local_experts=4, num_experts_per_tok=2,
+        tie_word_embeddings=False, torch_dtype="bfloat16")
+    torch.manual_seed(8)
+    model = transformers.MixtralForCausalLM(hf_cfg).to(torch.bfloat16)
+    model.save_pretrained(str(path), max_shard_size="200KB")
+
+
+def test_int8_checkpoint_load_bit_equal_load_then_quantize(tmp_path,
+                                                           monkeypatch):
+    """A Mixtral-named directory at debug-moe's widths in several bf16
+    safetensors shards, loaded with quantization="int8": each tensor is
+    read from its byte range (read_state_dict is never called) and each
+    layer quantized as it lands; w8, scale and the bf16 leaves equal
+    quantize_params of the whole bf16 read bit for bit; each rank's
+    slice at tp = 2, ep = 2 and ep = 2 x tp = 2 equals shard_params of
+    it; an int8 engine on the directory holds the same weights."""
+    from production_stack_tpu_torch.models import quant as tquant
+    from production_stack_tpu_torch.parallel import sharding
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig, Shard
+    _debug_moe_mixtral_dir(tmp_path)
+    assert len(list(tmp_path.glob("*.safetensors"))) >= 2
+    cfg = tconfig.get_config(str(tmp_path))
+    assert (cfg.dtype, cfg.num_experts, cfg.moe_naming) == (
+        torch.bfloat16, 4, "mixtral")
+    want = tquant.quantize_params(tloader.params_from_state_dict(
+        cfg, tloader.read_state_dict(str(tmp_path)), device="cpu"))
+
+    def same(got, ref):
+        a, b = got.state_dict(), ref.state_dict()
+        assert sorted(a) == sorted(b)
+        for name in a:
+            assert a[name].dtype == b[name].dtype, name
+            assert torch.equal(a[name], b[name]), name
+
+    def refused(path):
+        raise AssertionError("the int8 load read the checkpoint whole")
+    with monkeypatch.context() as m:
+        m.setattr(tloader, "read_state_dict", refused)
+        got = tloader.load_checkpoint(cfg, str(tmp_path), device="cpu",
+                                      quantization="int8")
+        same(got, want)
+        assert tquant.is_quantized(got.gate) and got.gate.w8.shape == (
+            2, 4, 128, 256)
+        for mesh in (MeshConfig(tp=2), MeshConfig(ep=2),
+                     MeshConfig(ep=2, tp=2)):
+            for rank in range(mesh.size):
+                shard = Shard.of(mesh, rank)
+                same(tloader.load_checkpoint(cfg, str(tmp_path),
+                                             device="cpu",
+                                             quantization="int8",
+                                             shard=shard),
+                     sharding.shard_params(want, shard))
+        eng = tengine.LLMEngine(tec.EngineConfig(
+            model=str(tmp_path), checkpoint=str(tmp_path), device="cpu",
+            dtype="bfloat16", quantization="int8", max_model_len=64,
+            max_num_seqs=2, tokenizer="byte"))
+        same(eng.runner.params, want)
+
+
+def test_checkpoint_load_reads_a_tensor_at_a_time(tmp_path, monkeypatch):
+    """Every safetensors directory is read a tensor at a time, in the
+    model dtype too: the bf16 load of debug-moe's Mixtral shards equals
+    the whole read bit for bit, each rank's slice at tp = 2, ep = 2 and
+    ep = 2 x tp = 2 equals shard_params of it, and a bf16 engine on the
+    directory holds it."""
+    from production_stack_tpu_torch.parallel import sharding
+    from production_stack_tpu_torch.parallel.mesh import MeshConfig, Shard
+    _debug_moe_mixtral_dir(tmp_path)
+    cfg = tconfig.get_config(str(tmp_path))
+    want = tloader.params_from_state_dict(
+        cfg, tloader.read_state_dict(str(tmp_path)), device="cpu")
+
+    def same(got, ref):
+        a, b = got.state_dict(), ref.state_dict()
+        assert sorted(a) == sorted(b)
+        for name in a:
+            assert a[name].dtype == b[name].dtype == torch.bfloat16, name
+            assert torch.equal(a[name], b[name]), name
+
+    def refused(path):
+        raise AssertionError("the load read the checkpoint whole")
+    with monkeypatch.context() as m:
+        m.setattr(tloader, "read_state_dict", refused)
+        same(tloader.load_checkpoint(cfg, str(tmp_path), device="cpu"),
+             want)
+        for mesh in (MeshConfig(tp=2), MeshConfig(ep=2),
+                     MeshConfig(ep=2, tp=2)):
+            for rank in range(mesh.size):
+                shard = Shard.of(mesh, rank)
+                same(tloader.load_checkpoint(cfg, str(tmp_path),
+                                             device="cpu", shard=shard),
+                     sharding.shard_params(want, shard))
+        eng = tengine.LLMEngine(tec.EngineConfig(
+            model=str(tmp_path), checkpoint=str(tmp_path), device="cpu",
+            dtype="bfloat16", max_model_len=64, max_num_seqs=2,
+            tokenizer="byte"))
+        same(eng.runner.params, want)

@@ -126,12 +126,14 @@ def _jax_params(model, dtype, seed, tie=None):
 
 @pytest.mark.parametrize("model,tie", [("debug-tiny", False),
                                        ("debug-tiny", True),
-                                       ("debug-gemma2", None)])
+                                       ("debug-gemma2", None),
+                                       ("debug-moe", None)])
 def test_quantize_params_of_carried_weights_bit_equal_jax(model, tie):
     """bf16 weights drawn by JAX and carried across: the port's
-    quantize_params gives JAX's quantize_params leaves bit for bit, norms
-    untouched; the JAX-quantized leaves carried across by params_from_jax
-    give the same module."""
+    quantize_params gives JAX's quantize_params leaves bit for bit (the
+    MoE's expert stacks too), norms and the router untouched; the
+    JAX-quantized leaves carried across by params_from_jax give the same
+    module."""
     _, tcfg, params = _jax_params(model, "bfloat16", 3, tie)
     jq = jax.tree_util.tree_map(np.asarray, jquant.quantize_params(params))
     carried = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
@@ -151,7 +153,10 @@ def test_quantize_params_of_carried_weights_bit_equal_jax(model, tie):
             np.testing.assert_array_equal(w.w8.numpy(), src["w8"])
             np.testing.assert_array_equal(w.scale.numpy(), src["scale"])
     norms = [n for n, _ in ours.named_parameters()]
-    assert norms and all(n in tllama.NORM_KEYS for n in norms)
+    # a MoE model's router stays in the model dtype too (JAX _SKIP_LAYER)
+    assert ("router" in norms) == bool(tcfg.num_experts)
+    assert norms and all(n in tllama.NORM_KEYS for n in norms
+                         if n != "router")
 
 
 # --------------------------------------------------------------- int8 pool
@@ -311,7 +316,8 @@ def test_int8_prefill_tile_fits_a_block(D):
 
 # ----------------------------------------------------------------- forward
 
-@pytest.mark.parametrize("model", ["debug-tiny", "debug-gemma2"])
+@pytest.mark.parametrize("model", ["debug-tiny", "debug-gemma2",
+                                   "debug-moe"])
 def test_forward_int8_weights_and_pool_matches_jax(model):
     """JAX-quantized weights carried across bit for bit (params_from_jax
     of the {"w8", "scale"} leaves) and an int8 pool carried across with
@@ -377,15 +383,15 @@ def test_forward_int8_weights_and_pool_matches_jax(model):
 
 # ------------------------------------------------------- engine and server
 
-def test_engine_int8_greedy_tokens_equal_jax_engine_mixed_batch():
-    """Weights and KV both int8 (f32 activations): five prompts of mixed
-    lengths through three slots, chunked prefill interleaved with decode
-    windows. Each engine quantizes the same f32 weights itself; greedy
-    tokens equal the JAX engine's, sequence by sequence."""
-    _, tcfg, params = _jax_params("debug-tiny", "float32", 2)
+def _int8_engines_tokens(model):
+    """Greedy tokens of five prompts of mixed lengths through three slots
+    (chunked prefill interleaved with decode windows) from a JAX and a
+    port engine on the same f32 weights, each quantizing them itself,
+    weights and KV both int8: (port's, JAX's)."""
+    _, tcfg, params = _jax_params(model, "float32", 2)
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
                               tcfg, device="cpu")
-    common = dict(model="debug-tiny", dtype="float32", kv_dtype="int8",
+    common = dict(model=model, dtype="float32", kv_dtype="int8",
                   quantization="int8", max_model_len=128, max_num_seqs=3,
                   prefill_chunk=32, prefill_buckets=(16, 32),
                   decode_window=4, kv_block_size=8)
@@ -410,9 +416,23 @@ def test_engine_int8_greedy_tokens_equal_jax_engine_mixed_batch():
             engine.step()
         return [engine.seqs[i].output_tokens for i in ids]
 
-    want = run(je, JSamplingOptions)
     got = run(te, SamplingOptions)
     assert [len(t) for t in got] == list(budgets)
+    return got, run(je, JSamplingOptions)
+
+
+def test_engine_int8_greedy_tokens_equal_jax_engine_mixed_batch():
+    """Weights and KV both int8 (f32 activations), debug-tiny: greedy
+    tokens equal the JAX engine's, sequence by sequence."""
+    got, want = _int8_engines_tokens("debug-tiny")
+    assert got == want
+
+
+def test_engine_int8_moe_greedy_tokens_equal_jax_engine_mixed_batch():
+    """The same at debug-moe: the int8 expert stacks through the capacity
+    dispatch (prefill) and the exact path (decode) in both engines;
+    greedy tokens equal the JAX engine's, sequence by sequence."""
+    got, want = _int8_engines_tokens("debug-moe")
     assert got == want
 
 
