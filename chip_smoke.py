@@ -73,7 +73,8 @@
    Mixtral-8x7B with int8 weights over a bf16 pool (mixtral-8x7b-int8:
    8 experts of 14336, top-2; 93.4 GB in bf16, 46.7 GB int8, drawn,
    rounded and quantized one layer at a time on the card) — at full
-   width and depth with random weights from a seed, one after the
+   width and depth (Gemma-2-9B and Mistral-7B at 8 layers, to keep the
+   script within its time) with random weights from a seed, one after the
    other (each engine is freed before the next is built; the engine's
    build time, its peak device memory beside the weights' and the
    pool's bytes, the peak past what stays held to three f32 copies of
@@ -102,6 +103,18 @@
      newest windows and the pool's census; then an application with an
      API key answers 401 without it on /v1/completions and /debug/traces
      and 200 on the probe routes, and 200 with it;
+   - router (llama-3-8b, after the trace; kernel counts over its routed
+     requests): `python -m production_stack_tpu_torch.router.app` in
+     front of the engine; completions and a streamed chat through it
+     give the direct tokens bit for bit, and streamed completions in
+     turn the client's TTFT and wall each way (the router's overhead);
+     a BERT token-classification checkpoint at bert-base-NER's widths
+     (random seed-0 weights) behind two routers with PIIDetection and
+     `--pii-analyzer ner:<dir> --pii-device cuda`: the card's logits
+     against the CPU's within ENCODER_REL_TOL, 400 pii_detected under
+     block, the redacted text reaching the engine under redact, the PII
+     counters, and analyze() at the 16-, 128- and 512-token buckets
+     beside their f32 bound;
    - surface (its own kernel counts): on llama-3-8b, /load against the
      engine while a request is in flight, /metrics with the router's
      gauges, the x-engine-* headers on every reply, a 504 for an elapsed
@@ -153,7 +166,8 @@
      rows and two base rows beside the plain step;
    - windows (llama-3-8b, after lora_breakdown): continuous batching
      across decode windows at JAX's defaults — WINDOWS' mix of 8 greedy
-     requests in two waves through engines on the served weights, with
+     requests in two waves through engines on one weight set of the
+     path's widths at 8 of its 32 layers (WINDOWS["layers"]), with
      the fixed geometry at depth 1, then adaptive windows at depth 2
      and at depth 1 (twice each): the windows reach batch buckets 4, 2
      and 1 and the decode kernel launches at each, some windows are
@@ -182,7 +196,8 @@
      same adapter, and each adapter row of the mixed batch against the
      same request served alone (equal, or parting at a near-tie);
 6. kvtier: KV tiering and disaggregated prefill at Llama-3-8B's full
-   width and depth (KVTIER; one weight set shared by five engines):
+   width and 8 of its layers (KVTIER; one weight set shared by five
+   engines):
    the port's cache server as a subprocess; a producer with a host and
    the remote tier serves a 3,000-token and a 2,048-token prompt through
    its HTTP server with max_tokens = 1 (the router's prefill stage);
@@ -203,9 +218,9 @@
 7. parallel: tensor- and expert-parallel serving at full width
    (PARALLEL), every rank on the one card, where gloo stages each
    collective through the host (its step times measure that rig, not a
-   multi-GPU speed). Llama-3-8B at 16 of its 32 layers (its worlds cut
-   in depth to make room for Mixtral; MoE models at full depth): a
-   one-rank engine serves greedy
+   multi-GPU speed). Every world at full width; Llama-3-8B's at 4 of
+   its 32 layers, to keep the script within its time, the MoE models'
+   at full depth. Llama: a one-rank engine serves greedy
    prompts of 300 and 1,000 tokens, a shaped, a guided and a
    repetitive (n-gram speculating) request through its server, then an
    engine at tensor_parallel_size = 2 on the same weights (random, from
@@ -278,6 +293,7 @@ import json
 import math
 import os
 import socket
+import statistics
 import subprocess
 import sys
 import time
@@ -290,7 +306,10 @@ LORA_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
 LORA = dict(lora_rank=16, lora_alpha=16.0, lora_targets=LORA_TARGETS)
 
 # the served paths, in the order they are served. model: the preset (the
-# path's name where not given); serve: the engine's
+# path's name where not given); layers: the depth it is served at where
+# cut (path_model: a config.json of the preset at that depth; the
+# preset's own depth where not given), to keep the script within its
+# time; serve: the engine's
 # geometry; decode_starts: the rows of the timed decode step; chunk_start:
 # the start of the one live row of the timed prefill chunk; kv_len: the
 # kv bucket both run at; long_tokens: the length of the long prompt;
@@ -304,10 +323,12 @@ PATHS = {
                    decode_window=8, kv_block_size=64, seed=0, **LORA),
         decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
         long_tokens=697, timing_layers=32, ref_prompt=40),
-    # Gemma-2-9B: KV 344 KB per token, 11.3 GB for the pool; the long
-    # prompt runs past the 4096-token window of the even layers, so
-    # they skip blocks in its last prefill chunks and its decode
+    # Gemma-2-9B at 8 of its 42 layers (4 sliding, 4 global): KV 65.5
+    # KB per token; the long prompt runs past the 4096-token window of
+    # the even layers, so they skip blocks in its last prefill chunks and
+    # its decode
     "gemma-2-9b": dict(
+        layers=8,
         serve=dict(max_num_seqs=4, max_model_len=8192, prefill_chunk=512,
                    decode_window=8, kv_block_size=64, seed=0),
         decode_starts=[4600, 1000, 57, 400], chunk_start=4096,
@@ -332,9 +353,10 @@ PATHS = {
                    decode_window=8, kv_block_size=64, seed=0),
         decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
         long_tokens=1100, timing_layers=24, ref_prompt=600),
-    # Mistral-7B-v0.1: the 4096-token window on every layer, so the
-    # engine rolls the blocks behind it (roll_phase)
+    # Mistral-7B-v0.1 at 8 of its 32 layers: the 4096-token window on
+    # every layer, so the engine rolls the blocks behind it (roll_phase)
     "mistral-7b-v0.1": dict(
+        layers=8,
         serve=dict(max_num_seqs=4, max_model_len=8192, prefill_chunk=512,
                    decode_window=8, kv_block_size=64, seed=0),
         decode_starts=[4600, 1000, 57, 400], chunk_start=4096,
@@ -368,8 +390,55 @@ ROLL_TOKENS = 24
 
 
 def path_model(path: str) -> str:
-    """A path's preset (a name outside PATHS is its own)."""
-    return PATHS.get(path, {}).get("model", path)
+    """A path's model: its preset (a name outside PATHS is its own), or,
+    where the path gives `layers`, a directory holding the preset's
+    config.json at that depth (hf_config_of), which the path serves and
+    names in its requests."""
+    p = PATHS.get(path, {})
+    preset = p.get("model", path)
+    if "layers" not in p:
+        return preset
+    where = os.path.join(REPO, "build", "paths",
+                         f"{preset}-{p['layers']}layers")
+    if not os.path.exists(os.path.join(where, "config.json")):
+        os.makedirs(where, exist_ok=True)
+        with open(os.path.join(where, "config.json"), "w") as f:
+            json.dump(hf_config_of(preset, p["layers"]), f)
+    return where
+
+
+def hf_config_of(preset: str, layers: int) -> dict:
+    """The HF config.json of a dense Llama, Mistral or Gemma-2 preset at
+    `layers` layers: ModelConfig.from_hf_config reads it back as the
+    preset but for its depth."""
+    from production_stack_tpu_torch.models.config import get_config
+    c = get_config(preset)
+    family = ("gemma2" if c.sandwich_norms
+              else "mistral" if c.sliding_window else "llama")
+    out = {"architectures": [{"gemma2": "Gemma2ForCausalLM",
+                              "mistral": "MistralForCausalLM",
+                              "llama": "LlamaForCausalLM"}[family]],
+           "model_type": family, "vocab_size": c.vocab_size,
+           "hidden_size": c.hidden_size,
+           "intermediate_size": c.intermediate_size,
+           "num_hidden_layers": layers, "num_attention_heads": c.num_heads,
+           "num_key_value_heads": c.num_kv_heads,
+           "rope_theta": c.rope_theta, "rms_norm_eps": c.rms_norm_eps,
+           "max_position_embeddings": c.max_position_embeddings,
+           "tie_word_embeddings": c.tie_word_embeddings,
+           "attention_bias": c.attention_bias,
+           "hidden_act": ("gelu_pytorch_tanh"
+                          if c.activation == "gelu_tanh" else "silu"),
+           "torch_dtype": "bfloat16"}
+    if c.head_dim:
+        out["head_dim"] = c.head_dim
+    if c.sliding_window:
+        out["sliding_window"] = c.sliding_window
+    if family == "gemma2":
+        out.update(attn_logit_softcapping=c.attn_logit_softcap,
+                   final_logit_softcapping=c.final_logit_softcap,
+                   query_pre_attn_scalar=c.query_pre_attn_scalar)
+    return out
 
 
 def path_kv(path: str) -> str:
@@ -1460,6 +1529,8 @@ async def serve_phase(engine, path: str):
             if path == "llama-3-8b":
                 surface["trace"] = await trace_phase(http, base, engine,
                                                      path)
+                surface["router"] = await router_phase(http, base, engine,
+                                                       path)
             # last: a wrong index rule is a device-side assert that ends
             # the process
             await fault_probe(http, base, engine, path)
@@ -1930,6 +2001,469 @@ async def auth_phase(engine, path: str) -> dict:
     return got
 
 
+# ------------------------------------------------------------ router
+
+# the router phase (llama-3-8b, inside serve_phase): the port's router in
+# front of the served engine. ROUTER_PAIRS streamed completions of
+# ROUTER_TOKENS tokens go to the engine directly and through the router in
+# turn (the overhead's medians); the equality requests' prompts stay
+# under one 64-token KV block, so no request finds a cached prefix and
+# the direct and routed runs compute the same shapes
+ROUTER_PAIRS = 8
+ROUTER_TOKENS = 8
+ROUTER_PROMPTS = ("Name three rivers.", "The capital of France is",
+                  "Write a haiku about tea.")
+# a BERT token-classification checkpoint at dslim/bert-base-NER's
+# published widths (its config.json: cased vocabulary of 28,996, hidden
+# 768, 12 layers of 12 heads, intermediate 3,072, 512 positions, nine
+# BIO labels), random weights from seed 0 (no download), with the
+# encoder phase's WordPiece tokenizer; NER_DIR holds it while the phase
+# runs
+NER_DIR = os.path.join(REPO, "build", "ner")
+NER_LABELS = ("O", "B-MISC", "I-MISC", "B-PER", "I-PER", "B-ORG", "I-ORG",
+              "B-LOC", "I-LOC")
+NER_CONFIG = {"model_type": "bert",
+              "architectures": ["BertForTokenClassification"],
+              "vocab_size": 28996, "hidden_size": 768,
+              "intermediate_size": 3072, "num_hidden_layers": 12,
+              "num_attention_heads": 12, "max_position_embeddings": 512,
+              "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+              "id2label": {str(i): x for i, x in enumerate(NER_LABELS)},
+              "label2id": {x: i for i, x in enumerate(NER_LABELS)}}
+# the analyzer's length buckets timed, and the word tokens of each text
+NER_BUCKETS = {16: 12, 128: 100, 512: 600}
+NER_WORDS = ("rivers run to the sea and the sea is never full in the "
+             "beginning the engine read every block of the pool once").split()
+NER_TEXTS = ("rivers run to the sea", "tea", "the pool was paged",
+             "in the beginning the engine read every block of the pool once",
+             "sea 42, rivers & tea!")
+NER_TIMING_CALLS = 10
+
+
+def ner_text(words: int) -> str:
+    """A text of `words` tokens of the NER tokenizer (each a word of its
+    vocabulary)."""
+    return " ".join(NER_WORDS[i % len(NER_WORDS)] for i in range(words))
+
+
+def write_ner_checkpoint(path: str, device: str) -> dict:
+    """NER_CONFIG's checkpoint in `path`: the encoder drawn by
+    encoder.init_params from a generator seeded 0 (matrices N(0, 0.02)),
+    a classifier head N(0, 0.02) with zero bias from the same generator,
+    under HF BertForTokenClassification names (bert.* and classifier.*)
+    in one .safetensors file, the config.json and the tokenizer files."""
+    import shutil
+
+    import torch
+    from production_stack_tpu_torch.models import encoder as enc
+    from production_stack_tpu_torch.models.hf_loader import save_safetensors
+    t0 = time.monotonic()
+    cfg = enc.config_from_hf_json(NER_CONFIG, name="bert-base-ner")
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = enc.init_params(cfg, gen, device=device)
+    tensors = encoder_hf_tensors(params, cfg)
+    tensors["classifier.weight"] = torch.randn(
+        (len(NER_LABELS), cfg.hidden_size), generator=gen,
+        device=device) * 0.02
+    tensors["classifier.bias"] = torch.zeros(len(NER_LABELS),
+                                             device=device)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(NER_CONFIG, f)
+    save_safetensors(tensors, os.path.join(path, "model.safetensors"))
+    vocab = write_encoder_tokenizer(path)
+    nbytes = sum(t.nbytes for t in tensors.values())
+    del params, tensors
+    return {"bytes": nbytes, "tokenizer_vocab": vocab,
+            "seconds": time.monotonic() - t0}
+
+
+def ner_work(cfg, T: int, param_bytes: int, labels: int):
+    """(operations, bytes) of one analyzer forward of one row of T
+    tokens: the encoder's products (encoder_work) and the head's; the
+    weights and the head read once, the token ids in, the f32 logits
+    out."""
+    ops, _ = encoder_work(cfg, 1, T, param_bytes)
+    ops += 2 * T * cfg.hidden_size * labels
+    return ops, param_bytes + T * 8 + T * labels * 4
+
+
+def ner_compare(card, cpu, texts) -> dict:
+    """The card analyzer's logits of each text against the CPU
+    analyzer's on the same weights: max |delta| within ENCODER_REL_TOL
+    of the largest |logit|; the labels equal wherever the CPU's top-2
+    margin exceeds twice that, and the spans equal where every token's
+    does."""
+    import numpy as np
+    rows, ok = [], True
+    for text in texts:
+        got, offsets = card.logits(text)
+        want, offsets_cpu = cpu.logits(text)
+        scale = float(np.abs(want).max())
+        rel = float(np.abs(got - want).max()) / scale
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 2 * ENCODER_REL_TOL * scale
+        labels_equal = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
+        spans = [(m.pii_type.value, m.start, m.end)
+                 for m in card.decode(text, got, offsets).matches]
+        spans_cpu = [(m.pii_type.value, m.start, m.end)
+                     for m in cpu.decode(text, want, offsets_cpu).matches]
+        row = {"tokens": len(offsets), "rel": rel,
+               "near_ties": int((~clear).sum()),
+               "labels_equal": labels_equal, "spans": len(spans),
+               "spans_equal": spans == spans_cpu}
+        rows.append(row)
+        ok = ok and (rel <= ENCODER_REL_TOL and labels_equal
+                     and offsets == offsets_cpu
+                     and (row["spans_equal"] or row["near_ties"] > 0))
+    return {"texts": rows, "ok": ok}
+
+
+def ner_timing(card) -> dict:
+    """Per bucket of NER_BUCKETS: analyze() wall on the host clock (the
+    tokenizer, the upload, the forward, the download and the BIO decode;
+    median of NER_TIMING_CALLS after a warm-up), the forward alone
+    (CUDA events over NER_TIMING_CALLS eager calls back to back, the
+    host's dispatch included where it outlasts the device) and the f32
+    bound of ner_work."""
+    import torch
+    cfg = card._cfg
+    param_bytes = (sum(p.nbytes for p in card._params.parameters())
+                   + card._head_w.nbytes + card._head_b.nbytes)
+    labels = card._head_w.shape[0]
+    out = {}
+    for bucket, words in NER_BUCKETS.items():
+        text = ner_text(words)
+        logits, offsets = card.logits(text)
+        walls = []
+        for _ in range(NER_TIMING_CALLS):
+            t0 = time.monotonic()
+            card.analyze(text)
+            walls.append((time.monotonic() - t0) * 1e3)
+        n = len(offsets)
+        toks = torch.zeros((1, bucket), dtype=torch.long, device=card.device)
+        toks[0, :n] = torch.as_tensor(
+            card._tok(text, truncation=True, max_length=512)["input_ids"])
+        lens = torch.tensor([n], device=card.device)
+        fwd = time_ms(lambda i=0: card._logits(toks, lens),
+                      NER_TIMING_CALLS)
+        ops, nbytes = ner_work(cfg, bucket, param_bytes, labels)
+        t_ops, t_bytes = ops / F32_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+        out[str(bucket)] = {
+            "tokens": n, "analyze_ms": statistics.median(walls),
+            "forward_ms": fwd, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": ops, "bytes": nbytes}
+        if not (n <= bucket and (bucket == 16 or n > bucket // 2)
+                and logits.shape == (n, labels)):
+            raise AssertionError(f"the {bucket}-token text gave {n} "
+                                 f"tokens")
+    return out
+
+
+async def _streamed(http, url, body):
+    """(ttft_s, wall_s, tokens) of one streamed request: the first SSE
+    data line's time, the [DONE]'s, and the tokens its logprobs name."""
+    t0 = time.monotonic()
+    ttft, tokens = None, []
+    async with http.post(url, json=body) as r:
+        if r.status != 200:
+            raise AssertionError(f"{url} -> {r.status}: {await r.text()}")
+        async for line in r.content:
+            if not line.startswith(b"data: "):
+                continue
+            if ttft is None:
+                ttft = time.monotonic() - t0
+            payload = line[6:].strip()
+            if payload == b"[DONE]":
+                continue
+            for c in json.loads(payload)["choices"]:
+                lp = c.get("logprobs") or {}
+                tokens += lp.get("tokens") or [
+                    e["token"] for e in lp.get("content") or []]
+    return ttft, time.monotonic() - t0, tokens
+
+
+def _start_router(args, log_path):
+    """The port's router as a process of its own (its CLI, as a
+    deployment starts it)."""
+    f = open(log_path, "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "production_stack_tpu_torch.router.app",
+             *args], cwd=REPO, stdout=f, stderr=subprocess.STDOUT)
+    finally:
+        f.close()
+
+
+async def _wait_ready(http, url, proc, log_path, timeout=120.0):
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if proc.poll() is not None:
+            with open(log_path) as f:
+                raise AssertionError(f"the router exited {proc.returncode}:"
+                                     f" {f.read()[-3000:]}")
+        try:
+            async with http.get(url + "/health") as r:
+                if r.status == 200:
+                    return time.monotonic() - t0
+        except OSError:
+            pass
+        await asyncio.sleep(0.2)
+    raise AssertionError(f"the router at {url} did not come up")
+
+
+async def _serve_app(app):
+    from aiohttp import web
+    port = free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    return runner, f"http://127.0.0.1:{port}"
+
+
+async def router_phase(http, base, engine, path: str,
+                       device="cuda") -> dict:
+    """The port's router in front of the served engine:
+    - NER_CONFIG's checkpoint written (write_ner_checkpoint) and served
+      by two routers in-process with PIIDetection and `--pii-analyzer
+      ner:<dir> --pii-device cuda`, one under block, one under redact:
+      the card's logits of NER_TEXTS and the bucket texts against the
+      port's analyzer on the CPU (ner_compare); a text the model tags is
+      answered 400 pii_detected and never reaches the engine, and under
+      redact reaches it as redact() of the analyzer's spans (the text
+      the engine's chat template is given); the routers' PII counters on
+      /metrics;
+    - meanwhile `python -m production_stack_tpu_torch.router.app
+      --service-discovery static` starts as a process of its own; then
+      each of ROUTER_PROMPTS as a greedy completion (logprobs) and one
+      streamed greedy chat go to the engine directly, then through the
+      router, one at a time: the tokens through the router equal the
+      direct ones bit for bit (and the logprobs); ROUTER_PAIRS streamed
+      completions, direct and routed in turn (the first side
+      alternating), give the client's TTFT and wall each way (medians;
+      the router's overhead is their difference) and the router's own
+      spans of the routed ones (its /debug/traces: admission and
+      routing, the backend's time to first byte, the relay). Both paged
+      kernels launch during the routed requests (counted over those
+      alone);
+    - last, with the router process idle: analyze() at the 16-, 128- and
+      512-token buckets beside their f32 bound (ner_timing).
+    The router process is stopped, the analyzers freed and the directory
+    deleted before returning."""
+    import shutil
+
+    from production_stack_tpu_torch.ops import flash_attention as fa
+    from production_stack_tpu_torch.ops import paged_attention as pa
+    from production_stack_tpu_torch.router import app as router_app
+    from production_stack_tpu_torch.router.pii import NERPIIAnalyzer, redact
+    t_phase = time.monotonic()
+    model = path_model(path)
+    rport = free_port()
+    rbase = f"http://127.0.0.1:{rport}"
+    log_path = os.path.join(REPO, "build", "router_phase.log")
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    proc = _start_router(
+        ["--host", "127.0.0.1", "--port", str(rport),
+         "--service-discovery", "static", "--static-backends", base,
+         "--static-models", model, "--drain-timeout", "5"], log_path)
+    runners, apps = [], {}
+    tok = engine.tokenizer
+    template = tok.apply_chat_template
+    rendered = []
+
+    def recording(messages):
+        rendered.append([m["content"] for m in messages])
+        return template(messages)
+    try:
+        # the PII routers with the NER analyzer on the card
+        ckpt = write_ner_checkpoint(NER_DIR, device)
+        t0 = time.monotonic()
+        cpu = NERPIIAnalyzer(NER_DIR, device="cpu")
+        cpu_load_s = time.monotonic() - t0
+        tok.apply_chat_template = recording
+        for action in ("block", "redact"):
+            t0 = time.monotonic()
+            app = router_app.build_app(router_app.parse_args([
+                "--service-discovery", "static", "--static-backends", base,
+                "--static-models", model, "--feature-gates",
+                "PIIDetection=true", "--pii-analyzer", f"ner:{NER_DIR}",
+                "--pii-device", device, "--pii-action", action]))
+            build_s = time.monotonic() - t0
+            runner, url = await _serve_app(app)
+            runners.append(runner)
+            apps[action] = (app, url, build_s)
+        card = apps["block"][0]["state"]["pii_middleware"].analyzer
+        texts = list(NER_TEXTS) + [ner_text(w) for w in NER_BUCKETS.values()]
+        compare = ner_compare(card, cpu, texts)
+        tagged = next((t for t in NER_TEXTS if cpu.analyze(t).detected),
+                      None)
+        if tagged is None:
+            raise AssertionError("the NER model tagged none of NER_TEXTS")
+        body = {"model": model, "max_tokens": 4, "temperature": 0.0,
+                "messages": [{"role": "user", "content": tagged}]}
+        n_rendered = len(rendered)
+        async with http.post(apps["block"][1] + "/v1/chat/completions",
+                             json=body) as r:
+            block = {"status": r.status,
+                     "code": (await r.json())["error"].get("code")
+                     if r.status != 200 else None,
+                     "reached_engine": len(rendered) > n_rendered}
+        redacted = redact(tagged, card.analyze(tagged).matches)
+        async with http.post(apps["redact"][1] + "/v1/chat/completions",
+                             json=body) as r:
+            status = r.status
+            await r.read()
+        seen = rendered[-1] if len(rendered) > n_rendered else None
+        tok.apply_chat_template = template
+        redact_rec = {"status": status, "engine_saw": seen,
+                      "want": redacted,
+                      "equal_cpu": redacted == redact(
+                          tagged, cpu.analyze(tagged).matches)}
+        counters = {}
+        for action, (app, url, _) in apps.items():
+            async with http.get(url + "/metrics") as r:
+                text = await r.text()
+            counters[action] = {
+                ln.split()[0]: float(ln.split()[1])
+                for ln in text.splitlines()
+                if ln.startswith("vllm:pii_requests_")}
+        del cpu
+
+        # the router process: tokens through it against the direct ones
+        ready_s = await _wait_ready(http, rbase, proc, log_path)
+        async with http.get(rbase + "/v1/models") as r:
+            listed = [c["id"] for c in (await r.json())["data"]]
+        routed = dict.fromkeys(pa.launch_counts, 0)
+        routed.update(dict.fromkeys(fa.launch_counts, 0))
+
+        async def via(url_base, kind, body):
+            counts0 = {**pa.launch_counts, **fa.launch_counts}
+            if body.get("stream"):
+                out = await _streamed(http, url_base + kind, body)
+            else:
+                out = await _post_json(http, url_base + kind, body)
+            if url_base == rbase:
+                for name, n in {**pa.launch_counts,
+                                **fa.launch_counts}.items():
+                    routed[name] += n - counts0[name]
+            return out
+        equal = []
+        for prompt in ROUTER_PROMPTS:
+            body = {"model": model, "prompt": prompt, "max_tokens": 16,
+                    "temperature": 0.0, "ignore_eos": True, "logprobs": 0}
+            want = await via(base, "/v1/completions", body)
+            got = await via(rbase, "/v1/completions", body)
+            w, g = want["choices"][0], got["choices"][0]
+            equal.append({
+                "kind": "completion",
+                "tokens_equal": g["logprobs"]["tokens"]
+                == w["logprobs"]["tokens"] and g["text"] == w["text"],
+                "logprobs_equal": g["logprobs"]["token_logprobs"]
+                == w["logprobs"]["token_logprobs"],
+                "tokens": len(w["logprobs"]["tokens"])})
+        chat = {"model": model, "max_tokens": 16, "temperature": 0.0,
+                "ignore_eos": True, "stream": True, "logprobs": True,
+                "messages": [{"role": "user", "content": "Hello!"}]}
+        _, _, want = await via(base, "/v1/chat/completions", chat)
+        _, _, got = await via(rbase, "/v1/chat/completions", chat)
+        equal.append({"kind": "streamed_chat", "tokens_equal": got == want,
+                      "tokens": len(want)})
+
+        # the overhead: streamed completions, direct and routed in turn
+        timing = {"direct": {"ttft_s": [], "wall_s": []},
+                  "router": {"ttft_s": [], "wall_s": []}}
+        sides = (("direct", base), ("router", rbase))
+        for i in range(ROUTER_PAIRS):
+            body = {"model": model, "prompt": f"Request {i}: count to ten.",
+                    "max_tokens": ROUTER_TOKENS, "temperature": 0.0,
+                    "ignore_eos": True, "logprobs": 0, "stream": True}
+            for side, url_base in sides[::1 - 2 * (i % 2)]:
+                ttft, wall, toks = await via(url_base, "/v1/completions",
+                                             body)
+                if len(toks) != ROUTER_TOKENS:
+                    raise AssertionError(f"{side}: {len(toks)} tokens")
+                timing[side]["ttft_s"].append(ttft)
+                timing[side]["wall_s"].append(wall)
+        overhead = {side: {k: statistics.median(v) for k, v in t.items()}
+                    for side, t in timing.items()}
+        overhead["added_ttft_ms"] = 1e3 * (overhead["router"]["ttft_s"]
+                                           - overhead["direct"]["ttft_s"])
+        overhead["added_wall_ms"] = 1e3 * (overhead["router"]["wall_s"]
+                                           - overhead["direct"]["wall_s"])
+        overhead["pairs"] = ROUTER_PAIRS
+        overhead["samples"] = timing
+        # the router's own spans of the routed overhead requests (the
+        # newest ROUTER_PAIRS of its ring): medians per phase, and the
+        # time outside the backend's first byte and the relay
+        async with http.get(rbase + "/debug/traces",
+                            params={"limit": str(ROUTER_PAIRS)}) as r:
+            traces = (await r.json())["traces"]
+        spans = {}
+        for t in traces:
+            phases = {x["name"]: x["duration_ms"] for x in t["spans"]
+                      if x["kind"] == "phase"}
+            phases["router_own"] = (t["duration_ms"]
+                                    - phases.get("backend_ttfb", 0.0)
+                                    - phases.get("relay", 0.0))
+            for name, ms in phases.items():
+                spans.setdefault(name, []).append(ms)
+        overhead["router_spans_ms"] = {
+            name: statistics.median(v) for name, v in spans.items()}
+        overhead["router_traces"] = len(traces)
+
+        timings = ner_timing(card)
+    finally:
+        tok.apply_chat_template = template
+        for runner in runners:
+            await runner.cleanup()
+        # aiohttp keeps each application, and so its analyzer, for the
+        # process's life: drop the analyzers' device tensors
+        for app, _, _ in apps.values():
+            app["state"]["pii_middleware"].analyzer = None
+        card = None
+        free_memory()
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(NER_DIR, ignore_errors=True)
+    rec = {"path": path, "router_ready_s": ready_s, "models": listed,
+           "equal": equal, "launches_routed": routed,
+           "overhead": overhead,
+           "ner": {"checkpoint": ckpt, "cpu_load_s": cpu_load_s,
+                   "router_build_s": {a: v[2] for a, v in apps.items()},
+                   "compare": compare, "tagged_text": tagged,
+                   "block": block, "redact": redact_rec,
+                   "counters": counters, "buckets": timings},
+           "router_exit": proc.returncode,
+           "seconds": time.monotonic() - t_phase}
+    log(json.dumps({"router": rec}))
+    checks = {
+        "models": listed == [model],
+        "tokens_equal": all(e["tokens_equal"] for e in equal),
+        "routed_launches": all(routed[name] > 0
+                               for name in pa.launch_counts)
+        and all(routed[name] == 0 for name in fa.launch_counts),
+        "router_traces": len(traces) == ROUTER_PAIRS
+        and "backend_ttfb" in spans,
+        "ner_card_vs_cpu": compare["ok"],
+        "block": block == {"status": 400, "code": "pii_detected",
+                           "reached_engine": False},
+        "redact": status == 200 and seen == [redacted]
+        and "[REDACTED:" in redacted and redact_rec["equal_cpu"],
+        "counters": counters["block"].get("vllm:pii_requests_blocked", 0)
+        >= 1 and counters["block"].get("vllm:pii_requests_scanned", 0) >= 1
+        and counters["redact"].get("vllm:pii_requests_redacted", 0) >= 1,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"the router phase failed {checks}: {rec}")
+    return rec
+
+
 async def feature_phase(engine, path: str) -> dict:
     """The OpenAI server in-process on `engine` again, after the
     breakdown: guided_phase, spec_phase, embed_phase and lora_phase,
@@ -2174,6 +2708,7 @@ async def spec_phase(http, base, engine, path) -> dict:
     for K in SPEC[path]:
         spec_engine = AsyncLLMEngine(
             EngineConfig(model=model, device=engine.engine.cfg.device,
+                         tokenizer=engine.engine.cfg.tokenizer,
                          speculative_ngram_tokens=K,
                          **PATHS[path]["serve"]),
             params=engine.engine.runner.params)
@@ -3684,10 +4219,12 @@ def roll_phase(engine, path: str) -> dict:
 
 
 # the windows phase: continuous batching across decode windows at JAX's
-# defaults on the llama-3-8b path's serve geometry. 8 greedy requests of
-# random prompt ids (seed) in two waves of 4, the second added once the
-# first wave's second window has been read
-WINDOWS = dict(path="llama-3-8b",
+# defaults on the llama-3-8b path's serve geometry, on weights of its
+# widths at `layers` of its 32 (CHECKPOINT_CONFIG at that depth, through
+# parallel_served; cut to keep the script within its time). 8
+# greedy requests of random prompt ids (seed) in two waves of 4, the
+# second added once the first wave's second window has been read
+WINDOWS = dict(path="llama-3-8b", layers=8,
                prompt_lens=(40, 300, 128, 75, 210, 60, 280, 150),
                max_tokens=(5, 9, 17, 33, 12, 24, 48, 64), seed=17,
                wave2_after_windows=2)
@@ -3812,10 +4349,11 @@ def windows_serve(eng, prompts) -> dict:
         "real_token_steps": sum(w["real"] for w in ring)}
 
 
-def windows_phase(params, device="cuda") -> dict:
+def windows_phase(device="cuda") -> dict:
     """Continuous batching across decode windows on the card: WINDOWS'
-    mix through engines on the served weights (`params`, shared, never
-    copied) in each of WINDOW_MODES. At JAX's defaults the windows reach
+    mix through engines on one weight set (Llama-3-8B's widths at
+    WINDOWS' depth, drawn from the seed by the first engine and shared,
+    never copied) in each of WINDOW_MODES. At JAX's defaults the windows reach
     batch buckets 1, 2 and 4 (the decode kernel launched at each), some
     are dispatched ahead, and every request's tokens equal the fixed
     geometry's, or part at a near-tie (_tokens_check against the f32
@@ -3832,16 +4370,19 @@ def windows_phase(params, device="cuda") -> dict:
     t0 = time.monotonic()
     path = WINDOWS["path"]
     serve = dict(PATHS[path]["serve"])
-    engines, runs = {}, {}
+    served = parallel_served(path_model(path), {"hf_config": dict(
+        CHECKPOINT_CONFIG, num_hidden_layers=WINDOWS["layers"])})
+    engines, runs, params = {}, {}, None
     rnd = random.Random(WINDOWS["seed"])
-    V = params.cfg.vocab_size
+    V = CHECKPOINT_CONFIG["vocab_size"]
     prompts = [[rnd.randrange(V) for _ in range(n)]
                for n in WINDOWS["prompt_lens"]]
     for name, adapt, depth in WINDOW_MODES:
         if name not in engines:
             engines[name] = LLMEngine(EngineConfig(
-                model=path_model(path), device=device, **serve,
+                **served, device=device, **serve,
                 window_adapt=adapt, pipeline_depth=depth), params=params)
+            params = engines[name].runner.params
         runs.setdefault(name, []).append(windows_serve(engines[name],
                                                        prompts))
     fixed = runs["fixed_depth1"][0]
@@ -3882,13 +4423,13 @@ def windows_phase(params, device="cuda") -> dict:
         raise AssertionError(f"continuous batching across windows: {out}")
     for eng in engines.values():
         eng.runner = None
-    del engines
+    del engines, runner, params
     free_memory()
     return out
 
 
 def model_phase(path: str):
-    """Serve one path's model at full width and depth, then its breakdown
+    """Serve one path's model at full width and its depth, then its breakdown
     and its reference; returns the kernels' launch counts of the serving
     run (serve_phase). The engine is freed before returning."""
     import torch
@@ -3899,9 +4440,11 @@ def model_phase(path: str):
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    engine = AsyncLLMEngine(EngineConfig(model=path_model(path),
-                                         device="cuda",
-                                         **PATHS[path]["serve"]))
+    engine = AsyncLLMEngine(EngineConfig(
+        model=path_model(path), device="cuda",
+        # a cut-depth directory holds no tokenizer: the presets' byte one
+        **({"tokenizer": "byte"} if "layers" in PATHS[path] else {}),
+        **PATHS[path]["serve"]))
     torch.cuda.synchronize()
     build = build_check(engine.engine, mem0, time.monotonic() - t0)
     engine.engine.runner.warmup()
@@ -3927,8 +4470,7 @@ def model_phase(path: str):
     if path in PLAIN_DECODE_LAUNCHES:
         lora_breakdown(engine, path, plain)
     if path == WINDOWS["path"]:
-        # before the pool is dropped: its engines share these weights
-        surface["windows"] = windows_phase(runner.params)
+        surface["windows"] = windows_phase()
         # the decode steps by batch bucket at JAX's defaults
         counts["windows_by_batch"] = surface["windows"]["modes"][
             "adapt_depth2"][0]["decode_launches_by_batch"]
@@ -4486,15 +5028,19 @@ def encoder_phase(device="cuda"):
 
 # ------------------------------------------------------------ kvtier
 
-# the KV-tier phase: Llama-3-8B at full width and depth, one weight set
-# shared by every engine of the phase. The prompts: long_tokens = 3,000
-# (11 chunks of 256: 2,816 cached tokens, 352 MiB of bf16 chunks on the
-# wire, a 184-token suffix through the prefill kernel) and whole_tokens
+# the KV-tier phase: Llama-3-8B at full width and 8 of its 32 layers, one
+# weight set shared by every engine of the phase. The prompts:
+# long_tokens = 3,000 (11 chunks of 256: 2,816 cached tokens, 88 MiB of
+# bf16 chunks on the wire at 8 layers, a 184-token suffix through the
+# prefill kernel) and whole_tokens
 # = 2,048 (8 whole chunks, hits capped at 2,047: a 1-token suffix,
 # padded to the 16-token prefill bucket, then decode at T = 1 over the
 # injected blocks); migrate_tokens = 1,100 for the kvplane migration
 KVTIER = dict(
     model="llama-3-8b",
+    # served at 8 layers: Llama-3-8B's widths in a config.json
+    # (parallel_served)
+    hf_config=dict(CHECKPOINT_CONFIG, num_hidden_layers=8),
     serve=dict(max_num_seqs=4, max_model_len=4096, prefill_chunk=512,
                decode_window=8, kv_block_size=64, seed=0),
     chunk_size=256, long_tokens=3000, whole_tokens=2048,
@@ -4750,7 +5296,8 @@ def kvtier_phase(device="cuda", cfg=None):
     re-admit from the tiers, since prefetch is a consumer's), a consumer
     (the remote tier), a second consumer over an int8 pool, and two
     recompute engines without tiers (bf16 and int8 pools), all on one
-    Llama-3-8B weight set.
+    weight set (Llama-3-8B's widths; at KVTIER's hf_config depth where it
+    gives one).
 
     - kvplane first, on the producer driven here: migrate_out of a
       decoding sequence publishes and preempts it; the consumer warms
@@ -4792,7 +5339,7 @@ def kvtier_phase(device="cuda", cfg=None):
     try:
         def engine(kv=None, params=None, **kw):
             e = AsyncLLMEngine(EngineConfig(
-                model=cfg["model"], device=device,
+                **parallel_served(cfg["model"], cfg), device=device,
                 **dict(cfg["serve"], **kw), kv_transfer_config=kv),
                 params=params)
             e.engine.runner.warmup()
@@ -4850,8 +5397,8 @@ def kvtier_phase(device="cuda", cfg=None):
                         t = time.monotonic()
                         async with http.post(
                                 f"http://127.0.0.1:{port}/v1/completions",
-                                json={"model": cfg["model"], "prompt": p,
-                                      "max_tokens": 1,
+                                json={"model": peng.cfg.model,
+                                      "prompt": p, "max_tokens": 1,
                                       "temperature": 0.0}) as r:
                             body = await r.json()
                             assert r.status == 200, body
@@ -5005,9 +5552,9 @@ def kvtier_phase(device="cuda", cfg=None):
 
 # ------------------------------------------------------------ parallel
 
-# the parallel phase: Llama-3-8B at tp = 2 (16 layers), Qwen1.5-MoE-A2.7B
-# at ep = 2 and ep = 2 x tp = 2 and Mixtral-8x7B int8 at ep = 2, at full
-# width, every rank on the one card, so gloo stages each collective
+# the parallel phase: Llama-3-8B at tp = 2 and dp = 2 x tp = 2 (4
+# layers), Qwen1.5-MoE-A2.7B at ep = 2 and ep = 2 x tp = 2 and
+# Mixtral-8x7B int8 at ep = 2, at full width, every rank on the one card, so gloo stages each collective
 # through the host. It holds the per-rank shapes, shards and kernels on the card against the
 # single-rank engine on the same weights (random, from the seed); its
 # step times measure this rig, not a multi-GPU speed. meshes: the
@@ -5018,8 +5565,11 @@ def kvtier_phase(device="cuda", cfg=None):
 # (speculating) request besides; dp_mesh: a mesh with dp > 1 (its dp and
 # tensor_parallel_size) whose engine (dp_run) is held bit for bit to the
 # engine of its tp alone, the first of meshes (None: no dp run);
-# layers: the depth every engine of the entry serves at (parallel_served;
-# absent: the preset's)
+# hf_config: the preset's widths at the depth every engine of the entry
+# serves at (parallel_served; absent: the preset at its own depth). The
+# MoE worlds stay at full depth: at 6 of Qwen1.5-MoE's 24 layers a bf16
+# routing flip of the ep = 2 x tp = 2 world parted its tokens from the
+# one-rank engine's past the near-tie bound, which shrinks with depth
 PARALLEL = {
     "llama-3-8b": dict(
         meshes=(dict(tensor_parallel_size=2),),
@@ -5028,8 +5578,8 @@ PARALLEL = {
                    speculative_ngram_tokens=3),
         greedy=(300, 1000), tokens=24, int8=300, features=True,
         dp_mesh=dict(dp=2, tensor_parallel_size=2),
-        # served at 16 layers: Llama-3-8B's widths in a config.json
-        hf_config=dict(CHECKPOINT_CONFIG, num_hidden_layers=16)),
+        # served at 4 layers: Llama-3-8B's widths in a config.json
+        hf_config=dict(CHECKPOINT_CONFIG, num_hidden_layers=4)),
     "qwen1.5-moe-a2.7b": dict(
         meshes=(dict(expert_parallel_size=2),
                 dict(expert_parallel_size=2, tensor_parallel_size=2)),

@@ -1,6 +1,9 @@
-"""ctypes loader for the native KV store (``native/pskv.cpp``), the
-port's own copy of ``production_stack_tpu/kvcache/_native.py`` (the
-store functions only).
+"""ctypes loader for the native KV store (``native/pskv.cpp``) and the
+flat vector index of the router's semantic cache
+(``native/vecindex.cpp``), the port's own copy of
+``production_stack_tpu/kvcache/_native.py`` (the store and index
+functions; the in-process server entry points are left out, the cache
+server runs as ``pskv-server``).
 
 Looks for ``native/build/libpskv.so`` at the repository root and builds
 it with ``native/Makefile`` on first use where a toolchain is present
@@ -51,6 +54,28 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"pskv_store_{name}")
         fn.restype = u64
         fn.argtypes = [p]
+    # psvi_*: flat inner-product vector index (native/vecindex.cpp),
+    # consumed by router/semantic_cache.py
+    fp = ctypes.POINTER(ctypes.c_float)
+    ip = ctypes.POINTER(ctypes.c_int64)
+    lib.psvi_new.restype = p
+    lib.psvi_new.argtypes = [i32]
+    lib.psvi_free.restype = None
+    lib.psvi_free.argtypes = [p]
+    lib.psvi_dim.restype = i32
+    lib.psvi_dim.argtypes = [p]
+    lib.psvi_size.restype = u64
+    lib.psvi_size.argtypes = [p]
+    lib.psvi_add.restype = i32
+    lib.psvi_add.argtypes = [p, fp, ctypes.c_int64]
+    lib.psvi_remove.restype = i32
+    lib.psvi_remove.argtypes = [p, ctypes.c_int64]
+    lib.psvi_search.restype = i32
+    lib.psvi_search.argtypes = [p, fp, i32, fp, ip]
+    lib.psvi_save.restype = i32
+    lib.psvi_save.argtypes = [p, cp]
+    lib.psvi_load.restype = p
+    lib.psvi_load.argtypes = [cp]
     return lib
 
 

@@ -1,6 +1,5 @@
 """In-process request tracing: spans, W3C traceparent, phase histograms
-(``production_stack_tpu/tracing.py``; the router's per-endpoint series
-eviction is left out, since the port has no router).
+(``production_stack_tpu/tracing.py``), for the engine and the router.
 
 - **Context.** ``parse_traceparent`` / ``format_traceparent`` read and
   write ``traceparent: 00-<32 hex trace-id>-<16 hex parent-id>-<2 hex
@@ -33,7 +32,7 @@ import random
 import threading
 import time
 from bisect import bisect_right
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 # phase-duration histogram bucket bounds (seconds), the JAX package's
 PHASE_BUCKETS: Tuple[float, ...] = (
@@ -189,7 +188,9 @@ class RequestTrace:
 
 class PhaseHistograms:
     """Plain-int duration histograms, one series per label tuple.
-    ``labelnames`` is usually ``("phase",)``."""
+    ``labelnames`` is usually ``("phase",)`` (engine) or ``("phase",
+    "server")`` (router: per-endpoint series, dropped by
+    ``evict_except`` when the endpoint leaves the fleet)."""
 
     def __init__(self, labelnames: Sequence[str] = ("phase",),
                  buckets: Sequence[float] = PHASE_BUCKETS):
@@ -224,6 +225,24 @@ class PhaseHistograms:
                 cum.append(acc)
             out[labels] = (tuple(cum), total, n)
         return out
+
+    def evict_except(self, live: Iterable[str],
+                     label_index: int = 1) -> int:
+        """Drop series whose ``label_index`` label (the ``server``
+        label) is not in ``live`` — per-endpoint phase series must not
+        outlive the endpoint across dynamic-config swaps (the r8
+        ``refresh_resilience`` precedent). Series with an empty label
+        (router-local phases) are never evicted. Returns how many
+        series were dropped."""
+        live = set(live)
+        with self._lock:
+            dead = [labels for labels in self._series
+                    if len(labels) > label_index
+                    and labels[label_index]
+                    and labels[label_index] not in live]
+            for labels in dead:
+                del self._series[labels]
+        return len(dead)
 
 
 class PhaseHistogramCollector:

@@ -1,8 +1,9 @@
-"""Disaggregated prefill through the JAX router with port engines: the
-setup of tests/test_disagg.py::test_disagg_prefill_stack_end_to_end, the
-router's prefill stage (``--prefill-backends``) on a port kv_producer
-server and its decode stage on a port kv_consumer server, joined by a
-shared disk tier. The consumer serves the chat from the producer's
+"""Disaggregated prefill through the JAX router and through the port's
+with port engines: the setup of
+tests/test_disagg.py::test_disagg_prefill_stack_end_to_end, the router's
+prefill stage (``--prefill-backends``) on a port kv_producer server and
+its decode stage on a port kv_consumer server, joined by a shared disk
+tier. The consumer serves the chat from the producer's
 chunks (hit tokens > 0) and its text equals a fresh port engine's.
 
 float32 weights and pool: the consumer prefills only the suffix past the
@@ -13,10 +14,11 @@ different greedy token at a near-tie.
 
 import asyncio
 
+import pytest
 from aiohttp.test_utils import TestClient, TestServer
 
-from production_stack_tpu.router.app import build_app as build_router_app
-from production_stack_tpu.router.app import parse_args
+from production_stack_tpu.router import app as jax_router
+from production_stack_tpu_torch.router import app as port_router
 from production_stack_tpu_torch.engine.async_engine import AsyncLLMEngine
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.server import build_app
@@ -32,7 +34,9 @@ def _config(kv=None):
         kv_transfer_config=kv)
 
 
-def test_jax_router_disagg_stage_serves_port_engines(tmp_path):
+@pytest.mark.parametrize("router", [jax_router, port_router],
+                         ids=["jax", "port"])
+def test_jax_router_disagg_stage_serves_port_engines(tmp_path, router):
     tier = {"chunk_size": 32, "local_disk_path": str(tmp_path / "tier")}
     producer = AsyncLLMEngine(_config(dict(tier, kv_role="kv_producer")))
     consumer = AsyncLLMEngine(_config(dict(tier, kv_role="kv_consumer")))
@@ -46,19 +50,19 @@ def test_jax_router_disagg_stage_serves_port_engines(tmp_path):
                    for e in (producer, consumer)]
         for srv in servers:
             await srv.start_server()
-        args = parse_args([
+        args = router.parse_args([
             "--service-discovery", "static",
             "--static-backends", f"http://127.0.0.1:{servers[1].port}",
             "--static-models", "debug-tiny",
             "--prefill-backends", f"http://127.0.0.1:{servers[0].port}",
             "--prefill-models", "debug-tiny"])
-        router = build_router_app(args)
+        app = router.build_app(args)
         try:
-            async with TestClient(TestServer(router)) as client:
+            async with TestClient(TestServer(app)) as client:
                 r = await client.post("/v1/chat/completions", json=req)
                 assert r.status == 200, await r.text()
                 out = await r.json()
-                orch = router["state"]["disagg"]
+                orch = app["state"]["disagg"]
                 assert (orch.prefills, orch.prefill_errors) == (1, 0)
                 p_load = await (await client.session.get(
                     f"http://127.0.0.1:{servers[0].port}/load")).json()

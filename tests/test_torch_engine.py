@@ -567,7 +567,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     checkpoint loader (models/hf_loader.py, whose own reader then reads
     back a file its writer wrote) included; and with ml_dtypes blocked
     too, the KV-tier modules (kvcache/), whose codecs then encode and
-    decode bf16-free f32 bodies through every codec, fp8 included."""
+    decode bf16-free f32 bodies through every codec, fp8 included; and
+    the router (router/, signals.py, slo.py), whose app is built with
+    every feature gate on (the PII middleware, the semantic cache over
+    the native index, KV-aware routing) and the files and batch APIs."""
     code = textwrap.dedent("""
         import sys
         import tempfile
@@ -635,6 +638,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             c = codec.make_codec(name, dtype="float32", head_dim=4)
             assert codec.decode_payload(
                 c, codec.encode_payload(c, body * 8), len(body) * 8)
+        # the router with every feature gate on
+        import production_stack_tpu_torch.signals
+        import production_stack_tpu_torch.slo
+        import production_stack_tpu_torch.router.pii
+        from production_stack_tpu_torch.router import app as router_app
+        from production_stack_tpu_torch.router import feature_gates
+        gates = ",".join(f"{name}=true"
+                         for name in feature_gates.KNOWN_FEATURES)
+        with tempfile.TemporaryDirectory() as d:
+            app = router_app.build_app(router_app.parse_args([
+                "--static-backends", "http://127.0.0.1:9",
+                "--static-models", "m", "--feature-gates", gates,
+                "--prefill-backends", "http://127.0.0.1:10",
+                "--prefill-models", "m", "--routing-logic", "prefix",
+                "--enable-batch-api", "--file-storage-path", d + "/f",
+                "--batch-db-path", d + "/b.db"]))
+            state = app["state"]
+            assert state["pii_middleware"] is not None
+            assert state["semantic_cache"] is not None
+            assert state["disagg"] is not None
         assert not any(blocked(m) for m in sys.modules)
         print("ok")
     """)
