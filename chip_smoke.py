@@ -73,8 +73,8 @@
    Mixtral-8x7B with int8 weights over a bf16 pool (mixtral-8x7b-int8:
    8 experts of 14336, top-2; 93.4 GB in bf16, 46.7 GB int8, drawn,
    rounded and quantized one layer at a time on the card) — at full
-   width and depth (Gemma-2-9B, Mistral-7B, Llama-3-8B int8 and
-   Qwen1.5-MoE at 8 layers, to keep the script within its time) with
+   width and depth (Gemma-2-9B and Mistral-7B at 4 layers, Llama-3-8B
+   int8 and Qwen1.5-MoE at 8, to keep the script within its time) with
    random weights from a seed, one after the
    other (each engine is freed before the next is built; the engine's
    build time, its peak device memory beside the weights' and the
@@ -219,7 +219,7 @@
 7. parallel: tensor- and expert-parallel serving at full width
    (PARALLEL), every rank on the one card, where gloo stages each
    collective through the host (its step times measure that rig, not a
-   multi-GPU speed). Every world at full width; Llama-3-8B's at 4 of
+   multi-GPU speed). Every world at full width; Llama-3-8B's at 2 of
    its 32 layers, to keep the script within its time, the MoE models'
    at full depth. Llama: a one-rank engine serves greedy
    prompts of 300 and 1,000 tokens, a shaped, a guided and a
@@ -258,28 +258,28 @@
    parallel/dryrun.py: debug-tiny and debug-moe at head dim 64, f32,
    int8 and bf16 pools, each part against one rank).
 8. train (after parallel, before kvtier; every engine freed first): the
-   training path (TRAIN). Llama-3-8B at full width and depth, bf16,
-   random weights from seed 0, one batch of 1 x 512 tokens from a
-   numpy seed: before any optimizer state, forward_train's f32 logits
-   against llama.forward through the paged prefill kernel (a 512-token
-   pool; max |diff|, and the argmax of each against an f32 forward of
-   the same weights, parting only at near-ties), then a forward and a
-   backward with every stacked leaf split once (layer_params) and read
-   per layer by select (select_layers), each timed with its peak memory;
-   then 3 train_steps, whose losses are finite and fall and which launch
-   no serving kernel, with the step's wall, one step timed part by part
-   (forward, backward, the clip's norm, AdamW), its FLOPs over the bf16
-   peak and AdamW's and the norm's bytes over HBM's, tokens/s, launches
-   and the idle share from a profiled step, and the peak memory beside
-   the state's bytes. At 2 layers of full width every leaf's bf16
-   gradient against f32's of the same weights (relative Frobenius
-   error, TRAIN_GRAD_TOL) and one bf16 AdamW step against the same
-   step in f32. Then parallel/dryrun.py's worlds, every rank a process
-   on the one card over gloo: dp 2 x sp 2 x tp 2 for 3 steps (losses
-   equal one rank's within 1e-4 and falling) and GPipe at pp = 2 over
-   4 microbatches (loss within 1e-4 of plain, gradients within atol
-   2e-4 / rtol 2e-3), with the backend, the rank -> device map and the
-   collectives a step.
+   training path (TRAIN). Llama-3-8B at full width and 8 of its 32
+   layers, bf16, random weights from seed 0, one batch of 1 x 512 tokens
+   from a numpy seed: before any optimizer state, forward_train's f32
+   logits against llama.forward through the paged prefill kernel (a
+   512-token pool; max |diff|, and the argmax of each against an f32
+   forward of the same weights, parting only at near-ties), then a
+   forward and a backward with every stacked leaf split once
+   (layer_params) and read per layer by select (select_layers), each
+   timed with its peak memory; then 3 train_steps, whose losses are
+   finite and fall and which launch no serving kernel, with the step's
+   wall, one step timed part by part (forward, backward, the clip's
+   norm, AdamW), its FLOPs over the bf16 peak and AdamW's and the norm's
+   bytes over HBM's, tokens/s, launches and the idle share from a
+   profiled step, and the peak memory beside the state's bytes. At 2
+   layers of full width every leaf's bf16 gradient against f32's of the
+   same weights (relative Frobenius error, TRAIN_GRAD_TOL) and one bf16
+   AdamW step against the same step in f32. Then parallel/dryrun.py's
+   worlds, every rank a process on the one card over gloo: dp 2 x sp 2 x
+   tp 2 for 3 steps (losses equal one rank's within 1e-4 and falling)
+   and GPipe at pp = 2 over 4 microbatches (loss within 1e-4 of plain,
+   gradients within atol 2e-4 / rtol 2e-3), with the backend, the rank
+   -> device map and the collectives a step.
 9. fleet (after train, before kvtier; FLEET): the control plane over
    port engine processes serving Llama-3-8B's widths at 8 of its 32
    layers, every process started by the port's loadgen orchestrator:
@@ -298,6 +298,17 @@
    the card at 0.3, 2 and 0.3 x r1, starts its first engine while the
    two loops run: replicas 1 -> 2 -> 1, no 5xx, no drain timeout, with
    each launch's seconds to /health.
+10. loadgen (after fleet, before kvtier; LOADGEN): the port's loadgen
+   CLI as a subprocess, `python -m production_stack_tpu_torch.loadgen
+   disagg` over engines serving Llama-3-8B at full width and depth
+   (the preset, random seed-0 weights, the byte tokenizer): the split
+   phase (cache server, two kv_producer engines and a kv_consumer
+   engine, the router with --prefill-backends, the first producer
+   SIGKILLed at 0.4 of the storm and restarted), then the aggregated
+   baseline of three plain engines. The CLI must exit 0 (every data-path gate of
+   disagg_violations; the ITL gate off, as for real engines), its
+   record name the platform cuda, and the card's memory in use come
+   back within 2 GB of what it was before the CLI.
 
 Progress goes to stdout; the line before the last two is the kernels'
 JSON record, then the card's name and power limit, then the result.
@@ -342,12 +353,12 @@ PATHS = {
                    decode_window=8, kv_block_size=64, seed=0, **LORA),
         decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
         long_tokens=697, timing_layers=32, ref_prompt=40),
-    # Gemma-2-9B at 8 of its 42 layers (4 sliding, 4 global): KV 65.5
+    # Gemma-2-9B at 4 of its 42 layers (2 sliding, 2 global): KV 16.4
     # KB per token; the long prompt runs past the 4096-token window of
     # the even layers, so they skip blocks in its last prefill chunks and
     # its decode
     "gemma-2-9b": dict(
-        layers=8,
+        layers=4,
         serve=dict(max_num_seqs=4, max_model_len=8192, prefill_chunk=512,
                    decode_window=8, kv_block_size=64, seed=0),
         decode_starts=[4600, 1000, 57, 400], chunk_start=4096,
@@ -374,10 +385,10 @@ PATHS = {
                    decode_window=8, kv_block_size=64, seed=0),
         decode_starts=[200, 431, 57, 400], chunk_start=0, kv_len=512,
         long_tokens=1100, timing_layers=24, ref_prompt=600),
-    # Mistral-7B-v0.1 at 8 of its 32 layers: the 4096-token window on
+    # Mistral-7B-v0.1 at 4 of its 32 layers: the 4096-token window on
     # every layer, so the engine rolls the blocks behind it (roll_phase)
     "mistral-7b-v0.1": dict(
-        layers=8,
+        layers=4,
         serve=dict(max_num_seqs=4, max_model_len=8192, prefill_chunk=512,
                    decode_window=8, kv_block_size=64, seed=0),
         decode_starts=[4600, 1000, 57, 400], chunk_start=4096,
@@ -5619,8 +5630,8 @@ PARALLEL = {
                    speculative_ngram_tokens=3),
         greedy=(300, 1000), tokens=24, int8=300, features=True,
         dp_mesh=dict(dp=2, tensor_parallel_size=2),
-        # served at 4 layers: Llama-3-8B's widths in a config.json
-        hf_config=dict(CHECKPOINT_CONFIG, num_hidden_layers=4)),
+        # served at 2 layers: Llama-3-8B's widths in a config.json
+        hf_config=dict(CHECKPOINT_CONFIG, num_hidden_layers=2)),
     "qwen1.5-moe-a2.7b": dict(
         meshes=(dict(expert_parallel_size=2),
                 dict(expert_parallel_size=2, tensor_parallel_size=2)),
@@ -6468,12 +6479,13 @@ def parallel_phase(device="cuda") -> dict:
 
 # ------------------------------------------------------------- training
 
-# the train phase: Llama-3-8B at full width and depth, one batch of
-# B x T tokens drawn from a seed, `steps` train_steps; the gradient check
-# at full width and `grad_layers` layers; the training worlds at the JAX
-# dry run's size over `dryrun_ranks` ranks on the one card
-TRAIN = dict(model="llama-3-8b", batch=1, seq=512, steps=3, seed=0,
-             token_seed=13, grad_layers=2, dryrun_ranks=8)
+# the train phase: Llama-3-8B at full width and `layers` of its 32 layers,
+# one batch of B x T tokens drawn from a seed, `steps` train_steps; the
+# gradient check at full width and `grad_layers` layers; the training
+# worlds at the JAX dry run's size over `dryrun_ranks` ranks on the one
+# card
+TRAIN = dict(model="llama-3-8b", layers=8, batch=1, seq=512, steps=3,
+             seed=0, token_seed=13, grad_layers=2, dryrun_ranks=8)
 # bf16 gradients (and one bf16 AdamW step's moments) against float32's
 # on the same weights: relative Frobenius error per leaf
 TRAIN_GRAD_TOL = 3e-2
@@ -6571,12 +6583,15 @@ def train_forward_check(model, cfg, tokens) -> dict:
 
 
 def train_full(device="cuda") -> dict:
-    """TRAIN's model at full width and depth: the forward check, the
-    backward with each leaf split once (unbind) and read per layer
-    (select), then `steps` train_steps (their losses finite and
-    falling, their wall), one step timed part by part (forward,
-    backward, the norm of the clip, AdamW), one profiled (launches,
-    idle share), and the peak memory beside the state's bytes."""
+    """TRAIN's model at full width and TRAIN["layers"] layers: the
+    forward check, the backward with each leaf split once (unbind) and
+    read per layer (select), then `steps` train_steps (their losses
+    finite and falling, their wall), one step timed part by part
+    (forward, backward, the norm of the clip, AdamW), one profiled
+    (launches, idle share), and the peak memory beside the state's
+    bytes."""
+    import dataclasses
+
     import numpy as np
     import torch
     from production_stack_tpu_torch.models import config as tconfig
@@ -6584,7 +6599,8 @@ def train_full(device="cuda") -> dict:
     from production_stack_tpu_torch.ops import flash_attention as fa
     from production_stack_tpu_torch.ops import paged_attention as pa
     from production_stack_tpu_torch.parallel import train
-    cfg = tconfig.get_config(TRAIN["model"])
+    cfg = dataclasses.replace(tconfig.get_config(TRAIN["model"]),
+                              num_layers=TRAIN["layers"])
     B, T = TRAIN["batch"], TRAIN["seq"]
     t0 = time.monotonic()
     model = llama.init_params(
@@ -7288,6 +7304,162 @@ async def _fleet() -> dict:
     return out
 
 
+# the loadgen phase (loadgen_phase): `loadgen disagg` over port engines
+# serving the llama-3-8b preset at full depth. The settings are the JAX
+# package's real-engine recipe (its test_loadgen_disagg.py) with the
+# prefill-pod SIGKILL on and two producers beside one consumer: the
+# record scrapes the prefill pool's counters after the storm, from the
+# restarted process in the killed producer's place, so the producer
+# that lives carries the publish evidence and the storm need not
+# outlast a restart (with one producer it must: 32 s, against 10 s
+# here). need_gb: what three engines take at once (16.1 GB of weights,
+# a 1.1 GB pool and ~5 GB of the rest each), checked free before the
+# CLI starts.
+LOADGEN = dict(engine="llama-3-8b", prefill_engines=2, decode_engines=1,
+               chat_users=3, rag_users=2, duration=10, chat_prompt_chars=64,
+               chat_tokens=24, rag_prompt_chars=700, rag_tokens=4,
+               min_prompt_chars=256, kill_downtime=2,
+               min_itl_improvement=-1, need_gb=68.0, timeout_s=600.0,
+               memory_slack_gb=2.0)
+LOADGEN_DIR = os.path.join(REPO, "build", "loadgen")
+
+
+def loadgen_argv(cfg: dict, output: str, log_dir: str) -> list:
+    """The CLI's argv for one LOADGEN config (no --platform: engines go
+    to the card by default)."""
+    argv = [sys.executable, "-m", "production_stack_tpu_torch.loadgen",
+            "disagg"]
+    for key in ("engine", "prefill_engines", "decode_engines",
+                "chat_users", "rag_users", "duration", "chat_prompt_chars",
+                "chat_tokens", "rag_prompt_chars", "rag_tokens",
+                "min_prompt_chars", "kill_downtime", "min_itl_improvement"):
+        argv += ["--" + key.replace("_", "-"), str(cfg[key])]
+    return argv + ["--output", output, "--log-dir", log_dir]
+
+
+def _loadgen_class(c: dict) -> dict:
+    return {"launched": c["launched"], "finished": c["finished"],
+            "errors": c["errors"], "raw_5xx": c["raw_5xx"],
+            "ttft_ms": c["ttft_ms"],
+            "itl_ms": {"p50": c["itl_ms"]["p50"], "p99": c["itl_ms"]["p99"]}}
+
+
+def loadgen_summary(record: dict) -> dict:
+    """The `loadgen` line's numbers from a DISAGG record."""
+    d = record["detail"]
+    out = {"platform": record["platform"]}
+    for name, key in (("split", "split_phase"),
+                      ("aggregated", "aggregated_baseline")):
+        phase = d[key]
+        out[name] = {cls: _loadgen_class(phase[cls])
+                     for cls in ("chat", "rag")}
+        out[name]["seconds"] = phase["duration_s"]
+    split = d["split_phase"]
+    kv = split["engine_kv"].values()
+    out["chat_itl_p99_ms"] = d["chat_itl_p99_ms"]
+    out["decode_hit_tokens"] = sum(e["hit_tokens"] for e in kv
+                                   if e["pool"] == "decode")
+    out["decode_query_tokens"] = sum(e["query_tokens"] for e in kv
+                                     if e["pool"] == "decode")
+    out["producer"] = {
+        "published_chunks": sum(e["published_chunks"] for e in kv
+                                if e["pool"] == "prefill"),
+        "progress_published_chunks": sum(
+            e["progress_published_chunks"] for e in kv
+            if e["pool"] == "prefill")}
+    out["roles"] = {e["pool"]: e["role"] for e in kv}
+    pool = split.get("prefill_pool") or {}
+    out["prefill_pool"] = {k: pool.get(k) for k in
+                           ("prefills", "prefill_errors", "fallbacks")}
+    out["chaos"] = split["chaos"]
+    return out
+
+
+def loadgen_phase(cfg=None) -> dict:
+    """The P/D-split closed loop through the port's CLI (LOADGEN), run
+    as a user runs it, from the repo with no --platform. The card must
+    have cfg["need_gb"] free; the CLI and every process it starts share
+    one process group, killed if the CLI outlives its time limit. A
+    non-zero exit prints the tails of the CLI's log and of each
+    process's log under build/loadgen and raises; so does a record that
+    does not name the platform cuda, a gate's evidence missing from it,
+    or card memory left more than cfg["memory_slack_gb"] above what it
+    was before the CLI once it exited."""
+    import glob
+    import shutil
+    import signal
+
+    import torch
+    cfg = cfg or LOADGEN
+    free_memory()
+    free, _ = torch.cuda.mem_get_info()
+    if free < cfg["need_gb"] * 1e9:
+        raise AssertionError(f"loadgen: {free / 1e9:.1f} GB free on the "
+                             f"card, {cfg['need_gb']} GB needed")
+    shutil.rmtree(LOADGEN_DIR, ignore_errors=True)
+    os.makedirs(LOADGEN_DIR)
+    output = os.path.join(LOADGEN_DIR, "disagg.json")
+    cli_log = os.path.join(LOADGEN_DIR, "cli.log")
+    argv = loadgen_argv(cfg, output, LOADGEN_DIR)
+    used0 = gpu_used()
+    t0 = time.monotonic()
+    with open(cli_log, "wb") as f:
+        proc = subprocess.Popen(argv, cwd=REPO, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    # the card's memory in use, read every second while the CLI runs
+    peak = used0
+    rc = None
+    while rc is None and time.monotonic() - t0 < cfg["timeout_s"]:
+        try:
+            rc = proc.wait(timeout=1.0)
+        except subprocess.TimeoutExpired:
+            peak = max(peak, gpu_used())
+    seconds = time.monotonic() - t0
+    try:
+        # what the CLI had not stopped itself is gone before the memory
+        # is read: a process it left would show there
+        if rc is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+        used1 = gpu_used()
+        t1 = time.monotonic()
+        while used1 - used0 > cfg["memory_slack_gb"] * 1e9 and \
+                time.monotonic() - t1 < 20:
+            time.sleep(1)
+            used1 = gpu_used()
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    if rc != 0:
+        log(f"--- loadgen CLI (rc {rc}, {seconds:.1f} s): "
+            f"{' '.join(argv[1:])}\n{_log_tail(cli_log, 6000)}")
+        for path in sorted(glob.glob(os.path.join(LOADGEN_DIR, "*.log"))):
+            if path != cli_log:
+                log(f"--- {os.path.basename(path)}:\n{_log_tail(path)}")
+        raise AssertionError(f"loadgen disagg exited {rc}")
+    with open(output) as f:
+        record = json.load(f)
+    out = {"cli_s": seconds, "argv": argv[3:], **loadgen_summary(record),
+           "card_used_gb": {"before": used0 / 1e9, "peak": peak / 1e9,
+                            "after": used1 / 1e9}}
+    log(json.dumps({"loadgen": out}))
+    if out["platform"] != "cuda":
+        raise AssertionError(f"loadgen: platform {out['platform']!r}")
+    if not (out["decode_hit_tokens"] > 0
+            and out["producer"]["progress_published_chunks"] > 0
+            and out["chaos"]["kills"] >= 1):
+        raise AssertionError("loadgen: the record lacks a gate's "
+                             "evidence (hits, progress publish, kill)")
+    if used1 - used0 > cfg["memory_slack_gb"] * 1e9:
+        raise AssertionError(
+            f"loadgen: the card holds {(used1 - used0) / 1e9:.2f} GB more "
+            f"after the CLI than before it")
+    return out
+
+
 def build_phase(kernels) -> dict:
     """Build every source (in parallel) and report, per kernel, what
     ptxas gave it: registers, static shared memory, spill bytes; the
@@ -7369,28 +7541,37 @@ def main() -> int:
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, os.path.join(REPO, "build", sub))
 
-    t0 = time.monotonic()
-    log(json.dumps({"build": build_phase(kernels),
-                    "seconds": time.monotonic() - t0}))
+    # each phase's seconds, printed beside total_s
+    phase_s = {}
 
-    t0 = time.monotonic()
-    records = kernel_phase()
-    log(json.dumps({"kernel_phase_s": time.monotonic() - t0}))
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        phase_s[name] = time.monotonic() - t0
+        return out
 
-    checkpoint_phase()
+    log(json.dumps({"build": timed("build", build_phase, kernels),
+                    "seconds": phase_s["build"]}))
 
-    encoder_phase()
+    records = timed("kernels", kernel_phase)
+    log(json.dumps({"kernel_phase_s": phase_s["kernels"]}))
 
-    counts = {path: model_phase(path) for path in PATHS}
+    timed("checkpoint", checkpoint_phase)
+
+    timed("encoder", encoder_phase)
+
+    counts = {path: timed(path, model_phase, path) for path in PATHS}
 
     # before kvtier, which leaves device memory allocated behind it
-    counts.update(parallel_phase())
+    counts.update(timed("parallel", parallel_phase))
 
-    train_phase()
+    timed("train", train_phase)
 
-    fleet_phase()
+    timed("fleet", fleet_phase)
 
-    kvtier_phase()
+    timed("loadgen", loadgen_phase)
+
+    timed("kvtier", kvtier_phase)
 
     for rec in records:
         name = rec["name"]
@@ -7432,6 +7613,7 @@ def main() -> int:
             rec["launches"] = {"all": total, "sliding": windowed,
                                "global": total - windowed}[rec["layers"]]
         del rec["shape"]
+    log(json.dumps({"phase_s": phase_s}))
     log(json.dumps({"total_s": time.monotonic() - t_start}))
     log(json.dumps({"kernels": records}))
     log(gpu)

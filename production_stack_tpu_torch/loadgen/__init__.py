@@ -21,16 +21,34 @@ Pieces (each importable on its own):
 - ``report``   — aggregation into BENCH-schema JSON and SCALEOUT_*.json
 - ``orchestrator`` — launches N engine processes + the router and
                  measures the aggregate-tokens/s-vs-replicas curve
+- ``overhead`` — router-vs-direct A/B storm (data-plane overhead ratio)
+- ``chaos``    — engine kill/restart churn under storm (availability)
 - ``overload`` — open-loop offered-QPS sweep past saturation (goodput
                  plateau, deadline compliance, structured sheds)
 - ``autoscale`` — offered-QPS ramp against the closed-loop autoscaler
                  (replicas track the ramp, drain-safe scale-down,
                  fixed-N comparison)
+- ``kvshare`` / ``kvmigrate`` / ``disagg`` / ``trace`` / ``firedrill``
+  / ``incident`` / ``fleetdrill`` / ``effwatch`` — the closed loops
+                 (cross-replica KV sharing, KV migration, P/D split
+                 A/B, span-chain joins, SLO fire drill, incident
+                 bundles, fleet remediation drill, efficiency-accounting
+                 audit)
+- ``multirouter`` — N peered router replicas behind an in-process L4
+                 splitter (affinity vs single-router control, breaker
+                 convergence, router-SIGKILL blip containment, QoS
+                 tier degradation)
+- ``multitenant`` — pooled multi-tenant fleet behind routers
+- ``distributed`` — sharded load from several worker processes,
+                 trace files, replay and the distload capstone
 
-These are the pieces the control plane launches through (the
-autoscaler's ``LocalProcessActuator`` starts engines with
-``orchestrator.launch_engine``); the other modes and the CLI are not
-in this package yet.
+CLI: ``python -m production_stack_tpu_torch.loadgen
+{run,soak,distload,scaleout,overhead,chaos,overload,effwatch,autoscale,
+kvshare,kvmigrate,disagg,firedrill,incident,fleetdrill,multirouter,
+multitenant,trace} ...``. Engine processes are the port's
+``engine.server`` on the GPU (``--platform cuda``, the default) or on
+the CPU (``--platform cpu``), or the test fake engine
+(``--engine fake``).
 
 Talks to the stack only through its public HTTP surfaces; no imports
 from engine/ or router/ internals.

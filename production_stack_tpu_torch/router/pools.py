@@ -45,7 +45,7 @@ the stats scraper, /health endpoint counts, /metrics eviction sweeps,
 the proxy's live-set re-read — sees the union of all pools without
 learning a second membership API.
 
-Closed loop: ``python -m production_stack_tpu.loadgen multitenant``
+Closed loop: ``python -m production_stack_tpu_torch.loadgen multitenant``
 (TENANT_r21.json; docs/multitenancy.md).
 """
 

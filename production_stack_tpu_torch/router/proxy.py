@@ -22,7 +22,7 @@ ClientSession around a zero-rework fast path:
   prepare/chunk/eof sequence.
 
 The committed A/B for all of this is
-``python -m production_stack_tpu.loadgen overhead``
+``python -m production_stack_tpu_torch.loadgen overhead``
 (BASELINE.md Round 7; docs/benchmarks.md "Router performance").
 
 Resilience (resilience.py, BASELINE.md Round 8): candidates are
@@ -32,7 +32,7 @@ error, refusal, timeout, backend 5xx) mark the endpoint in the health
 tracker and fail over to the remaining candidates — bounded by
 ``--failover-attempts``, a global retry budget, and jittered backoff.
 Mid-stream failures still truncate: relayed bytes cannot be replayed.
-The closed loop is ``python -m production_stack_tpu.loadgen chaos``.
+The closed loop is ``python -m production_stack_tpu_torch.loadgen chaos``.
 """
 
 import asyncio
@@ -258,7 +258,7 @@ def _preempted_response(tier) -> web.Response:
 # response, sheds and errors included) so a client-side harness can
 # join client-observed latency to the server-side span chain
 # (docs/observability.md "Tracing"; the closed loop is
-# ``python -m production_stack_tpu.loadgen trace``)
+# ``python -m production_stack_tpu_torch.loadgen trace``)
 TRACE_ID_HEADER = "x-trace-id"
 
 

@@ -51,7 +51,7 @@ degrades *by tier* instead:
   that must never shed starts shedding.
 
 Closed loop: the saturation sweep in ``python -m
-production_stack_tpu.loadgen multirouter`` holds tier-0 goodput flat
+production_stack_tpu_torch.loadgen multirouter`` holds tier-0 goodput flat
 (≥95% of pre-saturation) while tier-2 sheds ≥50%
 (``MULTIROUTER_r16.json``).
 """

@@ -33,7 +33,7 @@ the control plane that makes N routers behave like one:
   ``/health``, ``tpu:router_peers{state}``, and as a signal SLO
   (``router_peer_lost`` — docs/runbooks.md#router_peer_lost_page).
 
-The closed loop is ``python -m production_stack_tpu.loadgen
+The closed loop is ``python -m production_stack_tpu_torch.loadgen
 multirouter`` (docs/benchmarks.md "Multi-router"): ≥2 real router
 processes behind an L4 splitter must match a single-router control's
 affinity hit rate, converge breaker state across replicas, survive a

@@ -39,7 +39,7 @@ over the exported ``tpu:slo_burn_rate{slo,window}`` series — the
 cluster alert and the in-process alert read the same accounting, so
 they cannot drift (``tools/check_alert_rules.py`` enforces sync).
 
-Closed loop: ``python -m production_stack_tpu.loadgen firedrill``
+Closed loop: ``python -m production_stack_tpu_torch.loadgen firedrill``
 (docs/observability.md "SLOs and alerting"; per-alert diagnosis steps
 in docs/runbooks.md).
 """

@@ -572,7 +572,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     every feature gate on (the PII middleware, the semantic cache over
     the native index, KV-aware routing) and the files and batch APIs;
     and the control plane (kvplane/, obsplane/, autoscaler/, and the
-    loadgen core: orchestrator, overload, autoscale)."""
+    loadgen core: orchestrator, overload, autoscale); and the rest of
+    loadgen, its CLI's parser built, with every module the copies
+    import inside a function (router.service_discovery, kvcache.store,
+    loadgen.overhead, .multirouter, .kvshare)."""
     code = textwrap.dedent("""
         import sys
         import tempfile
@@ -669,6 +672,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import production_stack_tpu_torch.loadgen.orchestrator
         import production_stack_tpu_torch.loadgen.autoscale
         import production_stack_tpu_torch.loadgen.overload
+        # the rest of loadgen and its CLI, and what its modules import
+        # inside their functions
+        import importlib
+        for name in ("__main__", "kvshare", "kvmigrate", "disagg",
+                     "trace", "chaos", "overhead", "effwatch", "firedrill",
+                     "incident", "fleetdrill", "multirouter",
+                     "multitenant", "distributed", "distributed.shard",
+                     "distributed.tracefile", "distributed.worker",
+                     "distributed.coordinator", "distributed.distload"):
+            importlib.import_module(
+                "production_stack_tpu_torch.loadgen." + name)
+        import production_stack_tpu_torch.router.service_discovery
+        from production_stack_tpu_torch.loadgen.__main__ import (
+            build_parser)
+        args = build_parser().parse_args(["disagg"])
+        assert args.platform == "cuda" and args.fn.__name__ == "cmd_disagg"
         assert not any(blocked(m) for m in sys.modules)
         print("ok")
     """)
